@@ -1,0 +1,127 @@
+"""The generated policy ViT, DINOv2 path (counterpart of
+hypervla_tpu/models/base_vit.py).
+
+Flow: ImageNet-normalise the frame -> shared DINOv2 trunk -> drop the CLS
+token -> project to hidden_dim -> append zero action tokens -> learned
+positions -> tiny transformer under the segment mask -> the last
+`action_token_num` embeddings. Params live under the JAX package's names
+(encoder/image_encoder, encoder/image_embedding_projection,
+encoder/pos_embedding, encoder/Transformer_0).
+
+Other encoder types, language tokens, the class token, positions on the
+action tokens only, and differential attention are not ported yet and
+raise (ROADMAP.md, queue A3).
+"""
+from typing import Dict, Tuple
+
+import torch
+
+from hypervla_tpu_torch.configs import dinov2_config
+from hypervla_tpu_torch.models import layers
+from hypervla_tpu_torch.models.encoders.dinov2 import (
+    dinov2_forward,
+    dinov2_serving_forward,
+    dinov2_specs,
+)
+from hypervla_tpu_torch.models.transformer import transformer, transformer_specs
+from hypervla_tpu_torch.utils.convert import subtree
+
+DINO_IMAGE_MEAN = (0.485, 0.456, 0.406)
+DINO_IMAGE_STD = (0.229, 0.224, 0.225)
+RESOLUTION = 224
+
+
+def segment_attention_mask(batch, n_patch, n_action, device=None):
+    """Boolean (B, 1, L, L) mask over [patches | action] segments: full
+    attention, except that no patch row may look at the trailing action
+    tokens (hypervla_tpu/models/base_vit.py::_segment_attention_mask
+    without language tokens)."""
+    total = n_patch + n_action
+    mask = torch.ones((batch, 1, total, total), dtype=torch.bool,
+                      device=device)
+    mask[:, :, :n_patch, n_patch:] = False
+    return mask
+
+
+class ViT:
+    """Config holder + forward of the DINOv2 policy ViT."""
+
+    def __init__(self, vit_kwargs: dict, action_token_num: int):
+        kw = vit_kwargs
+        unsupported = {
+            "encoder_type": kw.get("encoder_type") != "DINOv2",
+            "use_language_token": kw.get("use_language_token", False),
+            "use_differential_transformer": kw.get(
+                "use_differential_transformer", False),
+            "include_class_token": kw.get("include_class_token", False),
+            "add_positional_embedding": not kw.get(
+                "add_positional_embedding", True),
+        }
+        for name, bad in unsupported.items():
+            if bad:
+                raise NotImplementedError(
+                    f"vit_kwargs {name}={kw.get(name)!r} is not ported yet "
+                    "(ROADMAP.md, queue A3)"
+                )
+        self.dino = dinov2_config(kw.get("pretrained_encoder_name",
+                                         "dinov2-base"))
+        self.encoder_dtype = str(kw.get("encoder_dtype", "float32"))
+        self.hidden_dim = kw["hidden_dim"]
+        self.num_layers = kw["num_layers"]
+        self.num_heads = kw["num_heads"]
+        self.mlp_dim = kw["mlp_dim"]
+        self.action_token_num = action_token_num
+        self.n_patch = (RESOLUTION // self.dino.patch_size) ** 2
+
+    @property
+    def bf16_trunk(self) -> bool:
+        return self.encoder_dtype in ("bfloat16", "bf16")
+
+    def image_embeddings(self, params: Dict[str, torch.Tensor], images,
+                         trunk_impl: str = "kernel"):
+        """uint8 (B, 224, 224, 3) -> DINOv2 patch embeddings (fp32). A bf16
+        trunk runs over prepared params (ops/serving.py)."""
+        mean = torch.tensor(DINO_IMAGE_MEAN, device=images.device)
+        std = torch.tensor(DINO_IMAGE_STD, device=images.device)
+        pixels = (images.float() / 255.0 - mean) / std
+        enc = subtree(params, "encoder/image_encoder/")
+        if self.bf16_trunk:
+            emb = dinov2_serving_forward(self.dino, enc, pixels, trunk_impl)
+        else:
+            emb = dinov2_forward(self.dino, enc, pixels)
+        return emb[:, 1:]  # drop the CLS token
+
+    def __call__(self, params: Dict[str, torch.Tensor], images,
+                 trunk_impl: str = "kernel"):
+        batch, height, width, _ = images.shape
+        if (height, width) != (RESOLUTION, RESOLUTION):
+            raise ValueError(f"DINOv2 input must be {RESOLUTION}x{RESOLUTION}")
+        emb = self.image_embeddings(params, images, trunk_impl)
+        patches = layers.dense(emb,
+                               params["encoder/image_embedding_projection/kernel"],
+                               params["encoder/image_embedding_projection/bias"])
+        x = torch.cat([patches, patches.new_zeros(
+            batch, self.action_token_num, self.hidden_dim)], dim=1)
+        x = x + params["encoder/pos_embedding"]
+        mask = segment_attention_mask(batch, patches.shape[1],
+                                      self.action_token_num, images.device)
+        x = transformer(params, "encoder/Transformer_0", x, mask,
+                        self.num_layers, self.num_heads)
+        return x[:, -self.action_token_num:]
+
+    def specs(self) -> Dict[str, Tuple[tuple, layers.Init]]:
+        """Param shapes and initializers under encoder/."""
+        n_pos = self.n_patch + self.action_token_num
+        specs = {
+            "encoder/image_embedding_projection/bias": (
+                (self.hidden_dim,), layers.zeros),
+            "encoder/image_embedding_projection/kernel": (
+                (self.dino.hidden_size, self.hidden_dim), layers.lecun_normal),
+            "encoder/pos_embedding": (
+                (1, n_pos, self.hidden_dim), layers.normal(0.02)),
+        }
+        specs.update(dinov2_specs(self.dino, "encoder/image_encoder"))
+        specs.update(transformer_specs(
+            "encoder/Transformer_0", self.hidden_dim, self.num_layers,
+            self.mlp_dim, self.num_heads))
+        return specs

@@ -1,0 +1,106 @@
+"""Numerics and initializers shared by the port's modules.
+
+The functions reproduce flax's: `layer_norm` is nn.LayerNorm (fp32 fast
+variance, `(x - mu) * (rsqrt(var + eps) * scale) + bias`, never
+F.layer_norm's two-pass variance), `dense` is nn.Dense with an (in, out)
+kernel applied as `x @ W`. The initializers draw from an explicit
+torch.Generator with the distributions flax uses for each param family
+(the values differ from JAX's PRNG streams; the families match).
+"""
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+
+# an initializer: (shape, generator) -> fp32 tensor on the CPU
+Init = Callable[[Sequence[int], torch.Generator], torch.Tensor]
+
+
+def layer_norm(x, scale=None, bias=None, eps: float = 1e-6):
+    """flax nn.LayerNorm over the last axis; statistics and result in fp32
+    (the caller rounds to its compute dtype)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    mul = torch.rsqrt(var + eps)
+    if scale is not None:
+        mul = mul * scale.float()
+    y = (xf - mu) * mul
+    if bias is not None:
+        y = y + bias.float()
+    return y
+
+
+def dense(x, kernel, bias=None):
+    """flax Dense: x @ kernel (+ bias), kernel (in, out)."""
+    y = x @ kernel
+    return y if bias is None else y + bias
+
+
+def gelu_tanh(x):
+    """flax nn.gelu's default (tanh) approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_exact(x):
+    """jax.nn.gelu(approximate=False): 0.5 * x * erfc(-x / sqrt(2))."""
+    return 0.5 * x * torch.erfc(-x * math.sqrt(0.5))
+
+
+# ------------------------------ initializers ------------------------------
+
+
+def _fans(shape):
+    """jax.nn.initializers' fans: in axis -2, out axis -1, the rest the
+    receptive field."""
+    if len(shape) < 2:
+        return shape[0] if shape else 1, shape[0] if shape else 1
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def _truncated(shape, std, gen):
+    """Normal(0, std) truncated to +-2 std."""
+    t = torch.empty(tuple(shape))
+    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                       generator=gen) * std
+
+
+def zeros(shape, gen=None):
+    return torch.zeros(tuple(shape))
+
+
+def ones(shape, gen=None):
+    return torch.ones(tuple(shape))
+
+
+def normal(std: float) -> Init:
+    return lambda shape, gen: torch.randn(tuple(shape), generator=gen) * std
+
+
+def truncated_normal(std: float) -> Init:
+    return lambda shape, gen: _truncated(shape, std, gen)
+
+
+def variance_scaling(scale: float) -> Init:
+    """variance_scaling(scale, "fan_in", "truncated_normal")."""
+    def init(shape, gen):
+        # 0.879... is the std of a unit normal truncated to +-2
+        std = math.sqrt(scale / _fans(shape)[0]) / 0.87962566103423978
+        return _truncated(shape, std, gen)
+    return init
+
+
+lecun_normal = variance_scaling(1.0)
+
+
+def xavier_uniform(flat_shape=None) -> Init:
+    """xavier_uniform over `flat_shape` (DenseGeneral flattens its kernel
+    to 2-D for the fans), reshaped to the param's shape."""
+    def init(shape, gen):
+        fan_in, fan_out = _fans(flat_shape or shape)
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        u = torch.rand(tuple(shape), generator=gen)
+        return (2.0 * u - 1.0) * limit
+    return init

@@ -1,0 +1,112 @@
+"""WeightPlan: the base-net metadata (counterpart of
+hypervla_tpu/models/weight_plan.py::init_base_net).
+
+The JAX package derives the plan from a flax init of the base network; the
+port derives the same plan from the config, in the same order: blocks are
+listed in the order jax flattens the param dict (keys sorted at every
+level, so "encoderblock_10" precedes "encoderblock_2"). For every block the
+plan gives its shape, whether the hypernetwork generates it or shares it
+across tasks (`shared_modules` substring match), its context-token index
+and its output-head info; `layer_token_mask` says which context tokens
+generate weights.
+"""
+import dataclasses
+import math
+from typing import Dict, List, Tuple
+
+import torch
+
+from hypervla_tpu_torch.models.base_network import BaseNetwork
+
+BIAS_INIT = 0  # InitOptions.BIAS_INIT
+
+
+@dataclasses.dataclass
+class WeightPlan:
+    names: List[str]                      # block paths, in jax order
+    param_shape: Dict[str, Tuple[int, ...]]
+    generation_flag: Dict[str, bool]
+    token_index: Dict[str, int]
+    layer_token_mask: Tuple[bool, ...]
+    block_num: int
+    output_head_info: Dict[str, dict]     # keyed by flat name
+
+    @property
+    def total_param_num(self) -> int:
+        return sum(math.prod(s) for s in self.param_shape.values())
+
+    @staticmethod
+    def flat_name(path: str) -> str:
+        return path.replace("/", "_")
+
+
+def _token_indices(names, hk):
+    """Context-token index per block and the layer-token mask."""
+    if hk.get("share_layer_index", False):
+        return {n: 0 for n in names}, (True,)
+    if "image_encoder" not in tuple(hk.get("shared_modules", ())):
+        raise ValueError("Pretrained image encoders must be shared")
+    # module groups in the JAX plan's order: the image encoder, each
+    # Transformer_0 child, the other encoder children, the action head
+    groups, mask = ["encoder/image_encoder"], [False]
+    enc_children = sorted({n.split("/")[1] for n in names
+                           if n.startswith("encoder/")})
+    tf = sorted({n.split("/")[2] for n in names
+                 if n.startswith("encoder/Transformer_0/")})
+    groups += [f"encoder/Transformer_0/{m}" for m in tf]
+    groups += [f"encoder/{m}" for m in enc_children
+               if m not in ("Transformer_0", "image_encoder")]
+    groups.append("action_head")
+    mask += [True] * (len(groups) - 1)
+    index = {}
+    for n in names:
+        matches = [i for i, g in enumerate(groups)
+                   if n == g or n.startswith(g + "/")]
+        index[n] = matches[0]
+    return index, tuple(mask)
+
+
+def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
+    hk = config["hypernet_kwargs"]
+    if hk.get("share_TF_output_head", False):
+        raise NotImplementedError(
+            "share_TF_output_head is not ported yet (ROADMAP.md)")
+    if int(hk.get("init_strategy", BIAS_INIT)) != BIAS_INIT:
+        raise NotImplementedError(
+            "init_strategy VARIANCE_INIT is not ported yet (ROADMAP.md)")
+    specs = base_net.specs()
+    names = sorted(specs, key=lambda n: tuple(n.split("/")))
+    shapes = {n: tuple(specs[n][0]) for n in names}
+    shared_modules = tuple(hk.get("shared_modules", ()))
+    if hk.get("share_all_params", False):
+        flags = {n: False for n in names}
+    else:
+        flags = {n: not any(m in key for m in shared_modules
+                            for key in n.split("/")) for n in names}
+    token_index, layer_token_mask = _token_indices(names, hk)
+    info = {
+        WeightPlan.flat_name(n): {
+            "output_dim": math.prod(shapes[n]) if shapes[n] else 1,
+            "generation_flag": flags[n],
+            "init_strategy": BIAS_INIT,
+            "init_variance": 0.0,
+        }
+        for n in names
+    }
+    return WeightPlan(names, shapes, flags, token_index, layer_token_mask,
+                      len(layer_token_mask), info)
+
+
+def init_base_net(config: dict, generator: torch.Generator):
+    """Builds the base network and a fresh init of its params.
+
+    Returns (base_net, init_params, plan); init_params is a flat dict of
+    fp32 CPU tensors keyed by block path. Pretrained DINOv2 weights are not
+    in the repository, so the shared trunk keeps its random init."""
+    base_net = BaseNetwork(**config["base_net_kwargs"])
+    plan = build_weight_plan(config, base_net)
+    specs = base_net.specs()
+    # draw in the plan's order so a seed fixes every value
+    params = {n: specs[n][1](specs[n][0], generator).float()
+              for n in plan.names}
+    return base_net, params, plan

@@ -1,0 +1,303 @@
+"""The DINOv2 serving trunk over stacked per-layer weights (bs=1, bf16).
+
+Counterpart of hypervla_tpu/ops/dino_layer.py. The Pallas TPU kernel
+`dino_layers_serving` becomes a set of hand-written CUDA kernels
+(csrc/dino_layer.cu): a row LayerNorm, a bf16 GEMM with a fused epilogue
+(bias, GELU or LayerScale residual) and a per-head attention kernel,
+launched once per layer by `dino_layers_serving`. Each kernel has a plain
+PyTorch version here with the same rounding points (the TPU package's
+`_serving_layer_body`): every dot is an fp32 matmul of bf16-valued tensors
+rounded once to bf16, biases are added in bf16, LayerNorm uses flax's fast
+variance in fp32, softmax is fp32, GELU is exact in fp32.
+
+A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
+tensor it launches its kernel or raises. Each kernel launch adds one to
+`LAUNCHES[<kernel name>]`, and a trunk run on the card adds one to
+`LAUNCHES["dino_layers_serving"]`, so a run can show which path it took.
+"""
+import ctypes
+import functools
+import math
+from typing import Dict, Optional
+
+import torch
+
+HEAD_DIM = 64
+# rows of the per-layer p array (fp32 LN / layer-scale parameters)
+LN1_S, LN1_B, LN2_S, LN2_B, LS1, LS2 = range(6)
+EPILOGUES = {"none": 0, "gelu": 1, "residual": 2}
+
+#: launches of each CUDA kernel (and of the whole trunk) since the last reset
+LAUNCHES: Dict[str, int] = {
+    "dino_layer_norm": 0, "dino_gemm": 0, "dino_attention": 0,
+    "dino_layers_serving": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.cache
+def _lib():
+    """The built kernel library, its C signatures declared (built and
+    loaded at the first launch, never at import)."""
+    from hypervla_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library("dino_layer.cu")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dino_layer_norm.argtypes = [p, p, p, p, i, i, f, p]
+    lib.dino_gemm.argtypes = [p, i, p, i, i, p, p, p, p, i, i, i, i, p]
+    lib.dino_attention.argtypes = [p, p, i, i, p]
+    for fn in (lib.dino_layer_norm, lib.dino_gemm, lib.dino_attention):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on_error(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def _route(*tensors) -> str:
+    """'cpu' (plain version) or 'cuda' (kernel); raises on anything else."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return "cpu"
+    if kinds == {"cuda"}:
+        return "cuda"
+    raise ValueError(f"tensors must all lie on the CPU or all on CUDA: {kinds}")
+
+
+# ------------------------------- LayerNorm -------------------------------
+
+
+def layer_norm_rows_reference(x, scale, bias, eps: float):
+    """flax LayerNorm semantics: fp32 fast-variance stats, fp32 normalize,
+    one bf16 rounding. x (rows, d) bf16; scale, bias (d,) fp32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).bfloat16()
+
+
+def layer_norm_rows(x, scale, bias, eps: float):
+    if _route(x, scale, bias) == "cpu":
+        return layer_norm_rows_reference(x, scale, bias, eps)
+    _check(x.dim() == 2 and x.dtype == torch.bfloat16 and x.is_contiguous(),
+           f"x must be contiguous 2-D bf16, got {x.dtype} {tuple(x.shape)}")
+    for t in (scale, bias):
+        _check(t.dtype == torch.float32 and t.is_contiguous()
+               and t.shape == (x.shape[1],), "scale/bias must be (d,) fp32")
+    out = torch.empty_like(x)
+    code = _lib().dino_layer_norm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        x.shape[0], x.shape[1], float(eps), _stream(),
+    )
+    _raise_on_error("dino_layer_norm", code)
+    LAUNCHES["dino_layer_norm"] += 1
+    return out
+
+
+# ---------------------------- GEMM + epilogue ----------------------------
+
+
+def gemm_reference(a, w, bias, epilogue: str = "none", residual=None,
+                   layer_scale=None, transpose_w: bool = False):
+    """bf16(a @ w) + bf16(bias), then the epilogue. a (M, K) bf16; w (K, N)
+    bf16, or (N, K) with transpose_w; bias, layer_scale (N,) fp32."""
+    wf = w.float().t() if transpose_w else w.float()
+    y = (a.float() @ wf).bfloat16() + bias.bfloat16()
+    if epilogue == "gelu":
+        yf = y.float()
+        return (yf * (0.5 * (1.0 + torch.erf(yf * math.sqrt(0.5))))).bfloat16()
+    if epilogue == "residual":
+        return residual + layer_scale.bfloat16() * y
+    _check(epilogue == "none", f"unknown epilogue {epilogue!r}")
+    return y
+
+
+def gemm(a, w, bias, epilogue: str = "none", residual=None,
+         layer_scale=None, transpose_w: bool = False):
+    extra = (residual, layer_scale) if epilogue == "residual" else ()
+    if _route(a, w, bias, *extra) == "cpu":
+        return gemm_reference(a, w, bias, epilogue, residual, layer_scale,
+                              transpose_w)
+    _check(epilogue in EPILOGUES, f"unknown epilogue {epilogue!r}")
+    _check(a.dim() == 2 and a.dtype == torch.bfloat16 and a.is_contiguous(),
+           "a must be contiguous 2-D bf16")
+    _check(w.dim() == 2 and w.dtype == torch.bfloat16 and w.stride(1) == 1
+           and w.stride(0) % 8 == 0 and w.data_ptr() % 16 == 0,
+           "w must be 2-D bf16 with unit inner stride, 16-byte aligned rows")
+    m, k = a.shape
+    n = w.shape[0] if transpose_w else w.shape[1]
+    _check((w.shape[1] if transpose_w else w.shape[0]) == k,
+           f"inner dims differ: a {tuple(a.shape)}, w {tuple(w.shape)}")
+    _check(n % 64 == 0 and k % 32 == 0, f"need N % 64 == 0, K % 32 == 0: {n}, {k}")
+    _check(bias.dtype == torch.float32 and bias.is_contiguous()
+           and bias.shape == (n,), "bias must be (N,) fp32")
+    res_ptr = ls_ptr = None
+    if epilogue == "residual":
+        _check(residual.dtype == torch.bfloat16 and residual.is_contiguous()
+               and residual.shape == (m, n), "residual must be (M, N) bf16")
+        _check(layer_scale.dtype == torch.float32
+               and layer_scale.is_contiguous() and layer_scale.shape == (n,),
+               "layer_scale must be (N,) fp32")
+        res_ptr, ls_ptr = residual.data_ptr(), layer_scale.data_ptr()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    code = _lib().dino_gemm(
+        a.data_ptr(), k, w.data_ptr(), w.stride(0), int(transpose_w),
+        bias.data_ptr(), res_ptr, ls_ptr, out.data_ptr(), m, n, k,
+        EPILOGUES[epilogue], _stream(),
+    )
+    _raise_on_error("dino_gemm", code)
+    LAUNCHES["dino_gemm"] += 1
+    return out
+
+
+# ------------------------------- Attention -------------------------------
+
+
+def attention_reference(qkv):
+    """All heads of softmax attention over qkv (S, 3*hidden) bf16 laid out
+    [q | k | v], head dim 64 -> (S, hidden) bf16."""
+    seq, width = qkv.shape
+    hidden = width // 3
+    heads = hidden // HEAD_DIM
+
+    def split(t):
+        return t.reshape(seq, heads, HEAD_DIM).transpose(0, 1).float()
+
+    q = qkv[:, :hidden] * 0.125  # exact in bf16
+    scores = (split(q) @ split(qkv[:, hidden:2 * hidden]).transpose(1, 2))
+    scores = scores.bfloat16().float()
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    probs = (e / e.sum(-1, keepdim=True)).bfloat16()
+    ao = (probs.float() @ split(qkv[:, 2 * hidden:])).bfloat16()
+    return ao.transpose(0, 1).reshape(seq, hidden)
+
+
+def attention(qkv):
+    if _route(qkv) == "cpu":
+        return attention_reference(qkv)
+    _check(qkv.dim() == 2 and qkv.dtype == torch.bfloat16
+           and qkv.is_contiguous() and qkv.shape[1] % (3 * HEAD_DIM) == 0,
+           "qkv must be contiguous (S, 3*hidden) bf16 with hidden % 64 == 0")
+    seq, width = qkv.shape
+    out = torch.empty((seq, width // 3), dtype=torch.bfloat16,
+                      device=qkv.device)
+    code = _lib().dino_attention(
+        qkv.data_ptr(), out.data_ptr(), seq, width // 3, _stream()
+    )
+    _raise_on_error("dino_attention", code)
+    LAUNCHES["dino_attention"] += 1
+    return out
+
+
+# --------------------------------- Trunk ---------------------------------
+
+
+def _run_layers(x, w, b, p, eps, layer_norm_fn, gemm_fn, attention_fn):
+    hidden = x.shape[1]
+    for i in range(w.shape[0]):
+        n = layer_norm_fn(x, p[i, LN1_S], p[i, LN1_B], eps)
+        qkv = gemm_fn(n, w[i, 0, :, :3 * hidden], b[i, 0, :3 * hidden])
+        ao = attention_fn(qkv)
+        x = gemm_fn(ao, w[i, 0, :, 3 * hidden:], b[i, 0, 3 * hidden:],
+                    "residual", x, p[i, LS1])
+        n = layer_norm_fn(x, p[i, LN2_S], p[i, LN2_B], eps)
+        h = gemm_fn(n, w[i, 1], b[i, 1], "gelu")
+        # w[i, 2] holds W2^T (hidden, 4*hidden): contract h against its dim 1
+        x = gemm_fn(h, w[i, 2], b[i, 2, :hidden], "residual", x, p[i, LS2],
+                    True)
+    return x
+
+
+def _check_trunk(x, w, b, p):
+    seq, hidden = x.shape
+    layers = w.shape[0]
+    _check(hidden % HEAD_DIM == 0, f"hidden {hidden} not a multiple of 64")
+    _check(tuple(w.shape) == (layers, 3, hidden, 4 * hidden)
+           and w.dtype == torch.bfloat16, f"w: {tuple(w.shape)} {w.dtype}")
+    _check(tuple(b.shape) == (layers, 3, 4 * hidden)
+           and b.dtype == torch.float32, f"b: {tuple(b.shape)} {b.dtype}")
+    _check(tuple(p.shape) == (layers, 6, hidden)
+           and p.dtype == torch.float32, f"p: {tuple(p.shape)} {p.dtype}")
+    for t in (x, w, b, p):
+        _check(t.is_contiguous(), "trunk tensors must be contiguous")
+
+
+def dino_layers_serving_reference(x, w, b, p, eps: float = 1e-6):
+    """Plain PyTorch trunk: the kernels' plain versions, layer by layer."""
+    x = x.bfloat16()
+    _check_trunk(x, w, b, p)
+    return _run_layers(x, w, b, p, eps, layer_norm_rows_reference,
+                       gemm_reference, attention_reference)
+
+
+def dino_layers_serving(x, w, b, p, eps: float = 1e-6):
+    """Runs the stacked DINOv2 layers over x.
+
+    x: (seq, hidden) bf16, the embedded tokens (batch squeezed outside).
+    w: (L, 3, hidden, 4*hidden) bf16: [Wq|Wk|Wv|Wo], W1, W2^T per layer.
+    b: (L, 3, 4*hidden) fp32: per-stage biases (fc2's padded to 4*hidden).
+    p: (L, 6, hidden) fp32: LN scales/biases and layer scales.
+    """
+    if _route(x, w, b, p) == "cpu":
+        return dino_layers_serving_reference(x, w, b, p, eps)
+    _check(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
+    _check_trunk(x, w, b, p)
+    out = _run_layers(x, w, b, p, eps, layer_norm_rows, gemm, attention)
+    LAUNCHES["dino_layers_serving"] += 1
+    return out
+
+
+# ------------------------------- Stacking --------------------------------
+
+
+def stack_serving_layer_params(layer_params: Dict[str, torch.Tensor],
+                               layerscale_value: float = 1.0,
+                               device: Optional[torch.device] = None):
+    """Builds the trunk's (w, b, p) stacks from per-layer params keyed
+    "<i>/attention/attention/query/kernel" and so on (the JAX package's
+    encoder/layer subtree, Dense kernels in (in, out) layout). Runs once
+    per episode, off the per-tick path. p rows follow
+    (LN1_S, LN1_B, LN2_S, LN2_B, LS1, LS2)."""
+    num_layers = 1 + max(int(k.split("/", 1)[0]) for k in layer_params)
+    ws, bs, ps = [], [], []
+    for i in range(num_layers):
+        def g(name, i=i):
+            return layer_params[f"{i}/{name}"].to(device).float()
+
+        att = "attention/attention"
+        hidden = g("norm1/scale").shape[0]
+        w0 = torch.cat([g(f"{att}/query/kernel"), g(f"{att}/key/kernel"),
+                        g(f"{att}/value/kernel"),
+                        g("attention/output/dense/kernel")], dim=1)
+        ws.append(torch.stack([w0, g("mlp/fc1/kernel"),
+                               g("mlp/fc2/kernel").t()]))
+        b0 = torch.cat([g(f"{att}/query/bias"), g(f"{att}/key/bias"),
+                        g(f"{att}/value/bias"),
+                        g("attention/output/dense/bias")])
+        pad = torch.zeros(3 * hidden, device=b0.device)
+        bs.append(torch.stack([b0, g("mlp/fc1/bias"),
+                               torch.cat([g("mlp/fc2/bias"), pad])]))
+        ps.append(torch.stack([
+            g("norm1/scale"), g("norm1/bias"),
+            g("norm2/scale"), g("norm2/bias"),
+            layerscale_value * g("layer_scale1/lambda1"),
+            layerscale_value * g("layer_scale2/lambda1"),
+        ]))
+    return (torch.stack(ws).bfloat16().contiguous(), torch.stack(bs),
+            torch.stack(ps))

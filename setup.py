@@ -7,7 +7,8 @@ setup(
         "TPU-native hypernetwork vision-language-action framework "
         "(JAX/XLA/GSPMD/Pallas)"
     ),
-    packages=find_packages(include=["hypervla_tpu*"]),
+    packages=find_packages(include=["hypervla_tpu*", "hypervla_tpu_torch*"]),
+    package_data={"hypervla_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
