@@ -1,8 +1,9 @@
 """Configs and DINOv2 geometries for the port.
 
 Plain-dict copies of hypervla_tpu/configs/defaults.py (`pretrain_config`,
-`flagship_pretrain_config`, `tiny_test_config`), keeping only the keys the
-serving path reads, and of the DINOv2 geometries in
+`flagship_pretrain_config`, `tiny_test_config`, `apply_fast_training_preset`,
+`disable_unused_attention_capture`), keeping the keys the serving path and
+the training step read, and of the DINOv2 geometries in
 hypervla_tpu/models/encoders/dinov2.py. The JAX configs module imports
 flax, so the port keeps its own copy.
 """
@@ -49,9 +50,28 @@ def dinov2_config(name: str) -> DINOv2Config:
 
 
 def pretrain_config() -> Dict[str, Any]:
-    """The reference defaults, cut to the keys the serving path reads
-    (training, data, dropout and octo keys are not copied)."""
+    """The reference defaults, cut to the keys the serving path and the
+    training step read (the data pipeline's, dropout and octo keys are not
+    copied)."""
+    def schedule(peak):
+        return {"name": "rsqrt", "init_value": 0.0, "peak_value": peak,
+                "warmup_steps": 2000, "timescale": 10000}
+
     return {
+        "num_steps": 300000,
+        "save_param_EMA": False,
+        "EMA_start_step": 5000,
+        "EMA_decay": 0.999,
+        "optimizer": {
+            "learning_rate": schedule(3e-4),
+            "base_learning_rate": schedule(3e-5),
+            "weight_decay": 0.1,
+            "base_weight_decay": 0.0,
+            "weight_decay_strategy": "v1",
+            "clip_gradient": 1.0,
+            "frozen_keys": tuple(),
+            "grad_accumulation_steps": 1,
+        },
         "hypernet_kwargs": {
             "context_embedding_dim": 128,
             "context_encoder_kwargs": {
@@ -89,15 +109,28 @@ def pretrain_config() -> Dict[str, Any]:
                 "use_differential_transformer": False,
                 "add_positional_embedding": True,
                 "include_class_token": False,
+                "fine_tune_pretrained_image_encoder": False,
+                "image_embedding_noise": 0.0,
+                "return_attention_map": False,
             },
             "action_head_kwargs": {
                 "token_per_horizon": False,
                 "squash_continuous_action": True,
                 "tanh_scaling_factor": 5.0,
+                "clip_target": False,
                 "max_action": 5.0,
                 "hidden_dims": tuple(),
             },
         },
+        "auxiliary_loss": {
+            "HN_regularizer": 0.0,
+            "close_drawer_weight": 1.0,
+            "attention_map_alignment": 0.0,
+            "attention_entropy": 0.0,
+            "rephrase_strategy": None,
+            "rephrase_alignment_coef": 1.0,
+        },
+        "dataset_kwargs": {"text_tokenizer": "t5-base"},
     }
 
 
@@ -105,6 +138,10 @@ def flagship_pretrain_config() -> Dict[str, Any]:
     """The README vit_t,oxe recipe: DINOv2-base encoder shared, block
     generation off one shared layer token, mix action head."""
     config = pretrain_config()
+    config["num_steps"] = 100000
+    config["optimizer"].update(
+        weight_decay_strategy="v5", weight_decay=0.05, base_weight_decay=0.0
+    )
     config["hypernet_kwargs"].update(
         context_embedding_dim=128,
         context_encoder_kwargs={
@@ -131,10 +168,14 @@ def flagship_pretrain_config() -> Dict[str, Any]:
         use_differential_transformer=False,
         add_positional_embedding=True,
         use_language_token=False,
+        fine_tune_pretrained_image_encoder=True,
     )
     config["base_net_kwargs"]["action_head_kwargs"].update(
-        squash_continuous_action=True, tanh_scaling_factor=5.0
+        clip_target=True, squash_continuous_action=True,
+        tanh_scaling_factor=5.0
     )
+    config["auxiliary_loss"]["rephrase_strategy"] = "replace"
+    config["save_param_EMA"] = True
     return config
 
 
@@ -176,4 +217,34 @@ def tiny_test_config(**overrides) -> Dict[str, Any]:
     hk_overrides = overrides.pop("hypernet_kwargs", {})
     config["hypernet_kwargs"].update(hk_overrides)
     config.update(copy.deepcopy(overrides))
+    return config
+
+
+def disable_unused_attention_capture(config):
+    """Turns off DINO attention-map capture when nothing consumes it (no
+    aux loss, no return_attention_map)."""
+    aux = config["auxiliary_loss"]
+    if (
+        aux.get("attention_map_alignment", 0.0) == 0.0
+        and aux.get("attention_entropy", 0.0) == 0.0
+        and not config["base_net_kwargs"]["vit_kwargs"].get(
+            "return_attention_map", False
+        )
+    ):
+        config["base_net_kwargs"]["vit_kwargs"].setdefault(
+            "sow_dino_attention", False
+        )
+    return config
+
+
+def apply_fast_training_preset(config):
+    """The training fast path: a bfloat16 trunk, the fused training
+    attention in the trunk (ops/fused_attention.py) and the no-residual
+    layer forward for the frozen conditioning encoder
+    (ops/dino_layer_train.py), no unused attention capture."""
+    vk = config["base_net_kwargs"]["vit_kwargs"]
+    vk["encoder_dtype"] = "bfloat16"
+    vk["dino_fused_attention"] = True
+    config["frozen_encoder_layer_kernel"] = True
+    disable_unused_attention_capture(config)
     return config

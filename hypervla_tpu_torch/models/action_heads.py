@@ -1,14 +1,24 @@
 """The mix action head (counterpart of
 hypervla_tpu/models/action_heads.py::MixActionHead): tanh-squashed
 continuous arm dims plus a binary gripper decoded from the sign of its
-logit. The other heads (continuous, discrete, diffusion) are not ported yet
-(ROADMAP.md, queue A3).
+logit, and its training loss. The other heads (continuous, discrete,
+diffusion) are not ported yet (ROADMAP.md, queue A3).
 """
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from hypervla_tpu_torch.models import layers
+
+
+def masked_mean(x, mask):
+    """Per-sample mean of x where the (broadcast) mask is set, as the JAX
+    package's masked_mean takes it inside its per-sample vmap:
+    mean(x * mask) / max(mean(mask), 1e-5) over all but the leading axis."""
+    mask = mask.expand_as(x).to(x.dtype)
+    denom = torch.clamp(mask.flatten(1).mean(1), min=1e-5)
+    return (x * mask).flatten(1).mean(1) / denom
 
 
 class MixActionHead:
@@ -24,6 +34,7 @@ class MixActionHead:
         self.squash = kw["squash_continuous_action"]
         self.tanh_scaling_factor = kw.get("tanh_scaling_factor", 5.0)
         self.max_action = kw.get("max_action", 5.0)
+        self.clip_target = kw.get("clip_target", False)
 
     def __call__(self, params: Dict[str, torch.Tensor], tokens):
         """tokens (B, window, 1, emb) -> (arm (B, window, horizon,
@@ -40,6 +51,24 @@ class MixActionHead:
         if self.squash:
             arm = torch.tanh(arm / self.tanh_scaling_factor) * self.max_action
         return arm, grip
+
+    def loss(self, params: Dict[str, torch.Tensor], tokens, actions,
+             timestep_pad_mask, action_pad_mask):
+        """Per-sample loss (B,) and metrics: the masked arm MSE times
+        (action_dim - 1) plus the masked sigmoid cross-entropy of the
+        gripper. actions, action_pad_mask (B, window, horizon, action_dim);
+        timestep_pad_mask (B, window)."""
+        arm, grip = self(params, tokens)
+        if self.clip_target:
+            actions = torch.clamp(actions, -self.max_action, self.max_action)
+        mask = timestep_pad_mask[:, :, None, None] & action_pad_mask
+        arm_loss = masked_mean(torch.square(arm - actions[..., :-1]),
+                               mask[..., :-1]) * (self.action_dim - 1)
+        bce = F.binary_cross_entropy_with_logits(
+            grip, actions[..., -1:], reduction="none")
+        gripper_loss = masked_mean(bce, mask[..., -1:])
+        return arm_loss + gripper_loss, {"continuous_loss": arm_loss,
+                                         "gripper_loss": gripper_loss}
 
     def predict_action(self, params, tokens):
         """The last window step's chunk (B, horizon, action_dim), gripper

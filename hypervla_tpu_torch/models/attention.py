@@ -25,20 +25,21 @@ def dot_product_attention_weights(query, key, mask: Optional[torch.Tensor]):
 
 def multi_head_attention(params: Dict[str, torch.Tensor], prefix: str,
                          inputs_q, inputs_kv, mask, num_heads: int):
-    """Self or cross attention; `prefix` names the module's param subtree."""
+    """Self or cross attention; `prefix` names the module's param subtree.
+    The params may carry a leading per-sample axis in the broadcast layout
+    of models/hypernetwork.py::per_sample_view."""
     def proj(name, x):
-        kernel = params[f"{prefix}/{name}/kernel"]  # (in, h, d)
-        y = x @ kernel.reshape(kernel.shape[0], -1)
-        y = y + params[f"{prefix}/{name}/bias"].reshape(-1)
-        return y.reshape(*x.shape[:-1], *kernel.shape[1:])
+        kernel = params[f"{prefix}/{name}/kernel"]  # ([B,] in, h, d)
+        y = x @ kernel.flatten(-2)
+        y = y + params[f"{prefix}/{name}/bias"].flatten(-2)
+        return y.reshape(*x.shape[:-1], *kernel.shape[-2:])
 
     q, k, v = proj("query", inputs_q), proj("key", inputs_kv), \
         proj("value", inputs_kv)
     weights = dot_product_attention_weights(q, k, mask)
     x = torch.einsum("...hqk,...khd->...qhd", weights, v)
-    out = params[f"{prefix}/out/kernel"]  # (h, d, out)
-    return layers.dense(x.reshape(*x.shape[:-2], -1),
-                        out.reshape(-1, out.shape[-1]),
+    out = params[f"{prefix}/out/kernel"]  # ([B,] h, d, out)
+    return layers.dense(x.reshape(*x.shape[:-2], -1), out.flatten(-3, -2),
                         params[f"{prefix}/out/bias"])
 
 

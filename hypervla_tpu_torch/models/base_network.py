@@ -1,7 +1,9 @@
 """BaseNetwork: the generated policy (counterpart of
 hypervla_tpu/models/base_network.py), for model_type "vit" with the mix
 action head. Its params are a flat dict keyed by the JAX package's paths;
-at serving time they come from the hypernetwork once per episode.
+at serving time they come from the hypernetwork once per episode, in
+training per sample (a leading batch axis, models/hypernetwork.py::
+per_sample_view).
 """
 from typing import Dict, Tuple
 
@@ -30,6 +32,17 @@ class BaseNetwork:
     def encode(self, params, images, trunk_impl: str = "kernel"):
         """(B, H, W, C) uint8 -> readout tokens (B, window=1, n, emb)."""
         return self.encoder(params, images, trunk_impl)[:, None]
+
+    def loss(self, params: Dict[str, torch.Tensor], batch: dict,
+             image_embeddings):
+        """Per-sample loss (B,) and metrics of the policy on a training
+        batch, from the batched trunk's patch embeddings (B, patches, dim):
+        the mix head's loss on the batch's actions and masks."""
+        tokens = self.encoder(params, image_embeddings=image_embeddings)
+        return self.action_head.loss(
+            params, tokens[:, None], batch["action"],
+            batch["observation"]["timestep_pad_mask"],
+            batch["action_pad_mask"])
 
     def predict_action(self, params: Dict[str, torch.Tensor], images,
                        trunk_impl: str = "kernel"):

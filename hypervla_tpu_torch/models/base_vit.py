@@ -4,9 +4,12 @@ hypervla_tpu/models/base_vit.py).
 Flow: ImageNet-normalise the frame -> shared DINOv2 trunk -> drop the CLS
 token -> project to hidden_dim -> append zero action tokens -> learned
 positions -> tiny transformer under the segment mask -> the last
-`action_token_num` embeddings. Params live under the JAX package's names
-(encoder/image_encoder, encoder/image_embedding_projection,
-encoder/pos_embedding, encoder/Transformer_0).
+`action_token_num` embeddings. In training the trunk runs once over the
+whole batch (`train_image_embeddings`) and the per-sample policy consumes
+its patch embeddings, detached unless fine_tune_pretrained_image_encoder.
+Params live under the JAX package's names (encoder/image_encoder,
+encoder/image_embedding_projection, encoder/pos_embedding,
+encoder/Transformer_0).
 
 Other encoder types, language tokens, the class token, positions on the
 action tokens only, and differential attention are not ported yet and
@@ -43,6 +46,18 @@ def segment_attention_mask(batch, n_patch, n_action, device=None):
     return mask
 
 
+def normalize_pixels(images):
+    """uint8 (B, H, W, 3) -> ImageNet-normalised fp32 pixels."""
+    mean = torch.tensor(DINO_IMAGE_MEAN, device=images.device)
+    std = torch.tensor(DINO_IMAGE_STD, device=images.device)
+    return (images.float() / 255.0 - mean) / std
+
+
+def _check_resolution(images):
+    if tuple(images.shape[1:3]) != (RESOLUTION, RESOLUTION):
+        raise ValueError(f"DINOv2 input must be {RESOLUTION}x{RESOLUTION}")
+
+
 class ViT:
     """Config holder + forward of the DINOv2 policy ViT."""
 
@@ -66,6 +81,11 @@ class ViT:
         self.dino = dinov2_config(kw.get("pretrained_encoder_name",
                                          "dinov2-base"))
         self.encoder_dtype = str(kw.get("encoder_dtype", "float32"))
+        self.fine_tune = kw.get("fine_tune_pretrained_image_encoder", False)
+        # the JAX trunk takes the fused attention only when it does not
+        # capture attention maps (sow_dino_attention defaults to on)
+        self.fused_attention = kw.get("dino_fused_attention", False) and (
+            not kw.get("sow_dino_attention", True))
         self.hidden_dim = kw["hidden_dim"]
         self.num_layers = kw["num_layers"]
         self.num_heads = kw["num_heads"]
@@ -81,9 +101,7 @@ class ViT:
                          trunk_impl: str = "kernel"):
         """uint8 (B, 224, 224, 3) -> DINOv2 patch embeddings (fp32). A bf16
         trunk runs over prepared params (ops/serving.py)."""
-        mean = torch.tensor(DINO_IMAGE_MEAN, device=images.device)
-        std = torch.tensor(DINO_IMAGE_STD, device=images.device)
-        pixels = (images.float() / 255.0 - mean) / std
+        pixels = normalize_pixels(images)
         enc = subtree(params, "encoder/image_encoder/")
         if self.bf16_trunk:
             emb = dinov2_serving_forward(self.dino, enc, pixels, trunk_impl)
@@ -91,12 +109,31 @@ class ViT:
             emb = dinov2_forward(self.dino, enc, pixels)
         return emb[:, 1:]  # drop the CLS token
 
-    def __call__(self, params: Dict[str, torch.Tensor], images,
-                 trunk_impl: str = "kernel"):
-        batch, height, width, _ = images.shape
-        if (height, width) != (RESOLUTION, RESOLUTION):
-            raise ValueError(f"DINOv2 input must be {RESOLUTION}x{RESOLUTION}")
-        emb = self.image_embeddings(params, images, trunk_impl)
+    def train_image_embeddings(self, trunk_params: Dict[str, torch.Tensor],
+                               images):
+        """uint8 (B, 224, 224, 3) -> patch embeddings (fp32) from the
+        differentiable training trunk over per-layer params (keys under
+        encoder/image_encoder/, prefix removed), in the encoder dtype, with
+        the fused training attention when configured."""
+        _check_resolution(images)
+        dtype = torch.bfloat16 if self.bf16_trunk else torch.float32
+        emb = dinov2_forward(self.dino, trunk_params, normalize_pixels(images),
+                             dtype, fused_attention=self.fused_attention)
+        return emb[:, 1:]
+
+    def __call__(self, params: Dict[str, torch.Tensor], images=None,
+                 trunk_impl: str = "kernel", image_embeddings=None):
+        """Readout embeddings (B, action_token_num, hidden_dim) from uint8
+        images, or from patch embeddings computed outside (the training
+        step's batched trunk). params may carry a leading per-sample axis
+        (models/hypernetwork.py::per_sample_view)."""
+        emb = image_embeddings
+        if emb is None:
+            _check_resolution(images)
+            emb = self.image_embeddings(params, images, trunk_impl)
+        if not self.fine_tune:
+            emb = emb.detach()
+        batch = emb.shape[0]
         patches = layers.dense(emb,
                                params["encoder/image_embedding_projection/kernel"],
                                params["encoder/image_embedding_projection/bias"])
@@ -104,7 +141,7 @@ class ViT:
             batch, self.action_token_num, self.hidden_dim)], dim=1)
         x = x + params["encoder/pos_embedding"]
         mask = segment_attention_mask(batch, patches.shape[1],
-                                      self.action_token_num, images.device)
+                                      self.action_token_num, emb.device)
         x = transformer(params, "encoder/Transformer_0", x, mask,
                         self.num_layers, self.num_heads)
         return x[:, -self.action_token_num:]

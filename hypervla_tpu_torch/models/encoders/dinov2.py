@@ -7,8 +7,11 @@ encoder/layer/<i>/..., layernorm/{scale,bias}, with the patch kernel in
 nn.Conv's (kh, kw, cin, cout) layout applied as one GEMM over patches.
 
 Two layer paths, as in the JAX package:
-  * `dinov2_forward` runs the fp32 layer loop (goldens, tiny configs, the
-    once-per-episode encode of the initial image);
+  * `dinov2_forward` runs the layer loop in fp32 (goldens, tiny configs,
+    the once-per-episode encode of the initial image) or bf16 (the
+    differentiable training trunk, with the fused training attention as an
+    option; the frozen conditioning encoder, whose layers may go through
+    the no-residual layer forward of ops/dino_layer_train.py);
   * `dinov2_serving_forward` runs the bf16 embeddings, the stacked serving
     trunk (ops/dino_layer.py: the CUDA kernels on the card) and the final
     LayerNorm, over params prepared by ops/serving.py.
@@ -20,7 +23,8 @@ import torch
 
 from hypervla_tpu_torch.configs import DINOv2Config
 from hypervla_tpu_torch.models import layers
-from hypervla_tpu_torch.ops import dino_layer
+from hypervla_tpu_torch.ops import dino_layer, dino_layer_train
+from hypervla_tpu_torch.ops import fused_attention as fused_attention_op
 
 
 # ----------------------- position-grid interpolation -----------------------
@@ -128,47 +132,112 @@ def embeddings(config: DINOv2Config, params: Dict[str, torch.Tensor],
     return x + pos.to(dtype)
 
 
-# ------------------------------ fp32 layers ------------------------------
+# ------------------------------ layer loop -------------------------------
 
 
-def _layer(config, params, prefix, x):
+class GeluExact(torch.autograd.Function):
+    """Exact GELU of a bf16 tensor, evaluated in fp32 and rounded once; the
+    backward keeps the bf16 input and computes the derivative in fp32
+    (hypervla_tpu/models/encoders/dinov2.py::_gelu_exact)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return layers.gelu_exact(x.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xf = x.float()
+        cdf = 0.5 * torch.erfc(-xf * math.sqrt(0.5))
+        pdf = torch.exp(-0.5 * xf * xf) * (1.0 / math.sqrt(2 * math.pi))
+        return (cdf + xf * pdf).to(g.dtype) * g
+
+
+def _layer(config, params, prefix, x, dtype, fused_attention):
+    """One layer as flax's `_Layer` runs it in `dtype`: Dense layers as
+    native-`dtype` matmuls with the cast bias added after, LayerNorm with
+    fp32 statistics and one rounding, LayerScale cast to `dtype` before the
+    multiply. Differentiable with torch autograd."""
     c = config
     heads = c.num_attention_heads
     head_dim = c.hidden_size // heads
 
     def lin(name, h):
-        return layers.dense(h, params[f"{prefix}/{name}/kernel"],
-                            params[f"{prefix}/{name}/bias"])
+        return (h @ params[f"{prefix}/{name}/kernel"].to(dtype)
+                + params[f"{prefix}/{name}/bias"].to(dtype))
 
     def ln(name, h):
         return layers.layer_norm(h, params[f"{prefix}/{name}/scale"],
                                  params[f"{prefix}/{name}/bias"],
-                                 c.layer_norm_eps)
+                                 c.layer_norm_eps).to(dtype)
+
+    def layer_scale(name):
+        return (c.layerscale_value
+                * params[f"{prefix}/{name}/lambda1"].float()).to(dtype)
 
     n = ln("norm1", x)
-    shape = (*n.shape[:2], heads, head_dim)
     att = "attention/attention"
-    q = lin(f"{att}/query", n).reshape(shape) / math.sqrt(head_dim)
-    k = lin(f"{att}/key", n).reshape(shape)
-    v = lin(f"{att}/value", n).reshape(shape)
-    probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
-    a = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(n.shape)
-    a = lin("attention/output/dense", a)
-    ls1 = c.layerscale_value * params[f"{prefix}/layer_scale1/lambda1"]
-    x = ls1 * a + x
-    y = lin("mlp/fc2", layers.gelu_exact(lin("mlp/fc1", ln("norm2", x))))
-    ls2 = c.layerscale_value * params[f"{prefix}/layer_scale2/lambda1"]
-    return ls2 * y + x
+    q, k, v = (lin(f"{att}/{name}", n) for name in ("query", "key", "value"))
+    if fused_attention:
+        a = fused_attention_op.mha_fused_train(
+            q.bfloat16(), k.bfloat16(), v.bfloat16(), heads,
+            1.0 / math.sqrt(head_dim)).to(dtype)
+    else:
+        shape = (*n.shape[:2], heads, head_dim)
+        q = q.reshape(shape) / torch.tensor(math.sqrt(head_dim), dtype=dtype)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k.reshape(shape))
+        probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+        a = torch.einsum("bhqk,bkhd->bqhd", probs, v.reshape(shape))
+        a = a.reshape(n.shape)
+    x = layer_scale("layer_scale1") * lin("attention/output/dense", a) + x
+    h = lin("mlp/fc1", ln("norm2", x))
+    h = layers.gelu_exact(h) if dtype == torch.float32 else GeluExact.apply(h)
+    return layer_scale("layer_scale2") * lin("mlp/fc2", h) + x
 
 
 def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
-                   pixel_values):
-    """fp32 DINOv2 -> last_hidden_state (B, 1 + patches, hidden)."""
-    x = embeddings(config, params, pixel_values, torch.float32)
+                   pixel_values, dtype: torch.dtype = torch.float32,
+                   fused_attention: bool = False, layer_kernel: bool = False):
+    """DINOv2 -> last_hidden_state (B, 1 + patches, hidden), fp32.
+
+    dtype is the compute dtype (the params stay fp32). fused_attention runs
+    attention through ops/fused_attention.py (bf16, differentiable);
+    layer_kernel runs every layer through ops/dino_layer_train.py's
+    no-residual forward (bf16, no autograd: the frozen encoder's route) on
+    params packed by `pack_frozen_layers`."""
+    x = embeddings(config, params, pixel_values, dtype)
     for i in range(config.num_hidden_layers):
-        x = _layer(config, params, f"encoder/layer/{i}", x)
-    return layers.layer_norm(x, params["layernorm/scale"],
-                             params["layernorm/bias"], config.layer_norm_eps)
+        prefix = f"encoder/layer/{i}"
+        if layer_kernel:
+            x = dino_layer_train.dino_layer_train_packed(
+                x.bfloat16(),
+                tuple(params[f"{prefix}/packed/{name}"]
+                      for name in dino_layer_train.OPERANDS),
+                config.num_attention_heads, config.layer_norm_eps)
+        else:
+            x = _layer(config, params, prefix, x, dtype, fused_attention)
+    x = layers.layer_norm(x, params["layernorm/scale"],
+                          params["layernorm/bias"], config.layer_norm_eps)
+    return x.to(dtype).float()
+
+
+def pack_frozen_layers(config: DINOv2Config,
+                       params: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """The frozen encoder's params for dinov2_forward(layer_kernel=True):
+    each layer's leaves replaced, once, by the layer forward's operands
+    (ops/dino_layer_train.py::pack_layer_params: bf16 weights, QKV
+    concatenated) keyed "encoder/layer/<i>/packed/<operand>"."""
+    out = {k: v for k, v in params.items()
+           if not k.startswith("encoder/layer/")}
+    for i in range(config.num_hidden_layers):
+        prefix = f"encoder/layer/{i}"
+        ops = dino_layer_train.pack_layer_params(params, prefix,
+                                                 config.layerscale_value)
+        out.update({f"{prefix}/packed/{name}": t
+                    for name, t in zip(dino_layer_train.OPERANDS, ops)})
+    return out
 
 
 def dinov2_serving_forward(config: DINOv2Config,

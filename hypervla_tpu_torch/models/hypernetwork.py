@@ -9,6 +9,10 @@ a context token are concatenated into one [context_dim, sum(dims)] matrix
 and applied as one matmul per token group. Shared blocks (the DINOv2 trunk)
 are flat params copied into the base-net tree unchanged.
 
+In training the hypernetwork runs over the whole batch; `per_sample_view`
+lays each sample's generated blocks out so that the base net's ops
+broadcast over the sample axis (the JAX package vmaps a per-sample loss).
+
 Param names follow the JAX package: task_token_projection,
 task_pos_embedding, initial_image_projection, initial_image_pos_embedding,
 layer_pos_embedding, context_encoder/..., output_head_<block>/{kernel,bias}
@@ -168,3 +172,23 @@ class HyperNetwork:
                 out[name] = params[WeightPlan.flat_name(name)].reshape(
                     plan.param_shape[name])
         return out
+
+
+def per_sample_view(plan: WeightPlan, base_params: Params) -> Params:
+    """Base-net params from `HyperNetwork.generate` in the layout the base
+    net's ops broadcast over: a generated kernel stays (B, *shape), so
+    `x @ W` is a batched matmul; a per-sample shape with a leading 1 (the
+    position table) drops it, (B, n, d); any other generated block, a bias
+    or a scale, gets a singleton after the sample axis, (B, 1, *shape),
+    so that it broadcasts against (B, tokens, d). Shared blocks are
+    unchanged."""
+    out = {}
+    for name, value in base_params.items():
+        shape = plan.param_shape[name]
+        if not plan.generation_flag[name] or name.endswith("/kernel"):
+            out[name] = value
+        elif len(shape) > 1 and shape[0] == 1:
+            out[name] = value.squeeze(1)
+        else:
+            out[name] = value.unsqueeze(1)
+    return out

@@ -109,12 +109,16 @@ class HyperVLA:
                  "pad_mask_dict": {"language_instruction": pad_mask}}
         return base_params, tasks
 
-    def shared_params(self, prefix: str = "encoder/image_encoder/") -> Params:
+    def shared_params(self, prefix: str = "encoder/image_encoder/",
+                      params: Optional[Params] = None) -> Params:
         """The shared (task-independent) base-net blocks under `prefix`,
-        reshaped from the hypernetwork's flat params without running it
-        (hypervla_tpu/models/hypernetwork.py::rebuild_shared_subtree)."""
+        reshaped from the hypernetwork's flat params (`params`, default the
+        model's own) without running it (hypervla_tpu/models/
+        hypernetwork.py::rebuild_shared_subtree). The reshapes are views,
+        so gradients reach the flat params."""
+        params = self.params if params is None else params
         return {
-            n[len(prefix):]: self.params[WeightPlan.flat_name(n)].reshape(
+            n[len(prefix):]: params[WeightPlan.flat_name(n)].reshape(
                 self.plan.param_shape[n])
             for n in self.plan.names
             if n.startswith(prefix) and not self.plan.generation_flag[n]

@@ -41,28 +41,34 @@ def _find_nvcc() -> str:
     )
 
 
+def build(source: str) -> Path:
+    """Builds `csrc/<source>` unless a library for this source and these
+    flags exists; returns the library's path. The library appears under its
+    final name only once complete, so processes building one source at once
+    are safe, and threads may build different sources at once."""
+    src = _PACKAGE_DIR / "csrc" / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"{src.stem}_{digest}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {src}:\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)
+    return lib_path
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Returns the loaded library built from `csrc/<source>`, building it
     first if no library for this source and these flags exists yet."""
     with _lock:
-        if source in _loaded:
-            return _loaded[source]
-        src = _PACKAGE_DIR / "csrc" / source
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"{src.stem}_{digest}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {src}:\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        _loaded[source] = lib
-        return lib
+        if source not in _loaded:
+            _loaded[source] = ctypes.CDLL(str(build(source)))
+        return _loaded[source]

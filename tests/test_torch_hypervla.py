@@ -25,7 +25,7 @@ def test_bias_init_protocol_emits_fresh_base_init(seed):
     """Zero fan-out kernels: any task generates exactly the fresh base-net
     init that from_config drew (hypervla_tpu/models/hypervla.py:160-262)."""
     config = tiny_test_config()
-    batch = make_flagship_batch(seed, instr_len=8, initial_patch_dim=32)
+    batch = make_flagship_batch(instr_len=8, initial_patch_dim=32, seed=seed)
     model = HyperVLA.from_config(config, batch, seed=seed)
     _, fresh, _ = init_base_net(config, torch.Generator().manual_seed(seed))
     base_params, _ = model.create_tasks(_instruction(batch),
