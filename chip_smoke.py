@@ -14,17 +14,35 @@
    steps on random 256x256 frames (crop and ensembling on). Checks that every
    step went through the trunk kernels and that the actions match the same
    steps run with the plain trunk.
-4. Training kernel phase: the fused training attention forward and
-   backward at B=64, S=257, H=12, D=64 and the no-residual layer forward at
-   (64, 257, 768), one layer and 12 stacked, against their plain versions;
-   both timed.
-5. Train phase: the full-width flagship under the fast training preset at
-   batch 64 through the entry points of scripts/bench_train.py --fast, the
-   frozen T5 and DINOv2 drawn from seeds, the LR at its peak: 2 warm-up and
-   8 steps on one fixed batch. Checks every step's launches, a finite and
-   falling loss, and the first step against the plain path (the same step
-   with dino_fused_attention and frozen_encoder_layer_kernel off); times
-   both in turns.
+4. Training kernel phase, at B=64, S=257, H=12, D=64, width 768, each
+   kernel against its plain version, both timed: the fused training
+   attention forward and backward; the layer forward without residuals (one
+   layer and 12 stacked) and with them (all outputs); the layer backward
+   (dx, the weight gradients, dpv, db1), which must also repeat bit for bit
+   and equal the sum over two half batches; the training LayerNorm forward
+   and backward; and each kernel of csrc/layer_backward.cu and each GEMM
+   shape of the layer alone.
+5. Train phase: the full-width flagship at batch 64 through the entry
+   points of scripts/bench_train.py (build_frozen_encoders,
+   make_train_step), the frozen T5 and DINOv2 drawn from seeds, the LR at
+   its peak, on one fixed batch, under two configurations: the fast
+   training preset (fused attention in a cuBLAS trunk, the frozen encoder
+   through the layer forward), and the fast preset with the layer-kernel
+   trunk (hoist_shared_trunk, dino_layers_impl="pallas_train",
+   fused_layer_norm="pallas_train": every trunk layer through the
+   residual-saving layer forward and the layer backward, the final
+   LayerNorm of both encoders through the training LayerNorm). For each:
+   every step's launches, a finite and falling loss, and the first step
+   against the plain path (the same step with the kernel switches off);
+   all three timed in turns.
+
+Beside each kernel's time the script prints the least time the card could
+take for the same work (the larger of bytes moved over 3.35 TB/s and
+operations over the peak rate for their type: 989 TFLOP/s bf16 on the
+tensor cores, 67 TFLOP/s fp32) and, where one PyTorch call computes the
+same function (torch.matmul, F.layer_norm,
+F.scaled_dot_product_attention, a sum), that call's time: a yardstick that
+the port never calls.
 
 Prints the card's name and power limit, the per-phase results, a
 {"kernels": [...]} JSON line, and as its last line
@@ -41,7 +59,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 STEPS = 50
 SEED = 0
-SOURCES = ("dino_layer.cu", "fused_attention.cu")
+SOURCES = ("dino_layer.cu", "fused_attention.cu", "layer_backward.cu")
 TRUNK_SOURCE = "hypervla_tpu_torch/csrc/dino_layer.cu"
 TPU_KERNEL = "hypervla_tpu/ops/dino_layer.py:87"  # `_kernel`, the Pallas body
 # the training kernels: (source, the Pallas body each replaces)
@@ -52,7 +70,32 @@ TRAIN_KERNELS = {
                             "hypervla_tpu/ops/fused_attention.py:78"),
     "dino_layer_train_fwd": ("hypervla_tpu_torch/ops/dino_layer_train.py",
                              "hypervla_tpu/ops/dino_layer_train.py:139"),
+    "dino_layer_train_fwd_res": (
+        "hypervla_tpu_torch/ops/dino_layer_train.py",
+        "hypervla_tpu/ops/dino_layer_train.py:139"),
+    "dino_layer_train_bwd": ("hypervla_tpu_torch/ops/dino_layer_train.py",
+                             "hypervla_tpu/ops/dino_layer_train.py:188"),
+    "layer_norm_pallas_fwd": ("hypervla_tpu_torch/csrc/dino_layer.cu",
+                              "hypervla_tpu/ops/layer_norm.py:201"),
+    "layer_norm_pallas_bwd": ("hypervla_tpu_torch/csrc/layer_backward.cu",
+                              "hypervla_tpu/ops/layer_norm.py:211"),
+    # the launches a layer's backward adds to the forward's kernels
+    "dino_gemm_train": ("hypervla_tpu_torch/csrc/dino_layer.cu",
+                        "hypervla_tpu/ops/dino_layer_train.py:188"),
+    "layer_gemm_tn": ("hypervla_tpu_torch/csrc/layer_backward.cu",
+                      "hypervla_tpu/ops/dino_layer_train.py:188"),
+    "layer_norm_bwd_rows": ("hypervla_tpu_torch/csrc/layer_backward.cu",
+                            "hypervla_tpu/ops/dino_layer_train.py:82"),
+    "layer_scale_grad": ("hypervla_tpu_torch/csrc/layer_backward.cu",
+                         "hypervla_tpu/ops/dino_layer_train.py:216"),
+    "layer_gelu_bwd": ("hypervla_tpu_torch/csrc/layer_backward.cu",
+                       "hypervla_tpu/ops/dino_layer_train.py:90"),
+    "layer_colsum": ("hypervla_tpu_torch/csrc/layer_backward.cu",
+                     "hypervla_tpu/ops/dino_layer_train.py:289"),
 }
+# the card's published peaks (H100 SXM): device memory, dense bf16 on the
+# tensor cores, fp32 outside them
+PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
 # kernel-vs-plain bounds: one bf16 ulp of the output scale for one kernel
 # launch; the bounds the JAX package holds between its own trunks for the
 # 12-layer trunk and for the actions
@@ -65,7 +108,10 @@ LAYER_BOUND = 2 ** -6
 # the train phase: batch, steps, and the bounds the JAX package holds
 # between its own trunks (tests/test_layer_kernel_train_step.py)
 TRAIN_BATCH = 64
-TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+TRAIN_WARMUP, TRAIN_STEPS = 2, 6
+# the layer backward: cosine per output against the plain version (the JAX
+# package holds its kernel to 0.99 per leaf, tests/test_dino_layer_train.py)
+GRAD_COSINE_BOUND = 0.999
 STEP_REL_BOUND = 0.02
 COSINE_BOUND = 0.98
 
@@ -99,6 +145,59 @@ def interleaved(kernel_fn, plain_fn, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound_ms(nbytes, flops, peak=PEAK_BF16):
+    """The least time the card could take: (ms, what sets it), the larger
+    of the bytes moved over the memory rate and the operations over the
+    peak rate for their type."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class KernelTable:
+    """Each kernel's times beside its bound. `add` times one call of a
+    kernel in turns with its plain version, and the one PyTorch call for
+    the same function where there is one; calls under one name add up (one
+    layer's launches of that kernel). `rows` gives, per name, the keys the
+    {"kernels": [...]} line carries."""
+
+    def __init__(self):
+        self._rows = {}
+
+    def add(self, name, label, err, kernel_fn, plain_fn, iters, cost,
+            library=None):
+        """cost: (bytes moved, operations, the peak rate of their type)."""
+        k_ms, p_ms = interleaved(kernel_fn, plain_fn, iters)
+        lib_ms = cuda_ms(library, iters) if library else None
+        least, by = bound_ms(*cost)
+        log(f"kernel {name} {label}: ms {k_ms:.6g} plain_ms {p_ms:.6g} "
+            f"library_ms {'none' if lib_ms is None else format(lib_ms, '.6g')}"
+            f" bound_ms {least:.6g} ({by})")
+        r = self._rows.setdefault(name, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+            "library_ms": None, "bytes": 0.0, "ops": 0.0, "peak": cost[2]})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += k_ms
+        r["plain_ms"] += p_ms
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+        r["bytes"] += cost[0]
+        r["ops"] += cost[1]
+
+    def rows(self):
+        out = {}
+        for name, r in self._rows.items():
+            least, by = bound_ms(r["bytes"], r["ops"], r["peak"])
+            out[name] = {key: r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "library_ms")}
+            out[name].update(bound_ms=least, bound_by=by)
+        return out
+
+
 def max_err(got, ref):
     import torch
 
@@ -112,6 +211,7 @@ def kernel_phase(device):
     """Checks and times every trunk kernel at the flagship's shapes."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from hypervla_tpu_torch.ops import dino_layer as dl
 
@@ -137,67 +237,86 @@ def kernel_phase(device):
     qkv = t(rng.standard_normal((seq, 3 * hidden)) * 2.0, torch.bfloat16)
     hd = hidden
 
-    # one layer's launches of each kernel, as the trunk makes them
+    def gemm_cost(a, w_t, *extra):
+        m, k = a.shape
+        n = w_t.numel() // k
+        return nbytes(a, w_t, *extra) + 2 * m * n, 2 * m * n * k, PEAK_BF16
+
+    def ln_case(label, s_row, b_row):
+        sc, bi = p[0, s_row], p[0, b_row]
+        sc16, bi16 = sc.bfloat16(), bi.bfloat16()
+        return (label, dl.layer_norm_rows, dl.layer_norm_rows_reference,
+                (x, sc, bi, 1e-6),
+                lambda: F.layer_norm(x, (hidden,), sc16, bi16, 1e-6),
+                (nbytes(x, x, sc, bi), 8 * x.numel(), PEAK_FP32))
+
+    w_qkv, w_o = w[0, 0, :, :3 * hd], w[0, 0, :, 3 * hd:]
+    heads = hidden // 64
+    q4, k4, v4 = (qkv[:, i * hd:(i + 1) * hd].reshape(seq, heads, 64)
+                  .transpose(0, 1)[None] for i in range(3))
+    # one layer's launches of each kernel, as the trunk makes them:
+    # (label, kernel, plain, args, the one PyTorch call, (bytes, ops, peak))
     cases = {
-        "dino_layer_norm": [
-            ("ln1", dl.layer_norm_rows, dl.layer_norm_rows_reference,
-             (x, p[0, dl.LN1_S], p[0, dl.LN1_B], 1e-6), {}),
-            ("ln2", dl.layer_norm_rows, dl.layer_norm_rows_reference,
-             (x, p[0, dl.LN2_S], p[0, dl.LN2_B], 1e-6), {}),
-        ],
+        "dino_layer_norm": [ln_case("ln1", dl.LN1_S, dl.LN1_B),
+                            ln_case("ln2", dl.LN2_S, dl.LN2_B)],
         "dino_gemm": [
             ("qkv [257,768]x[768,2304]", dl.gemm, dl.gemm_reference,
-             (x, w[0, 0, :, :3 * hd], b[0, 0, :3 * hd]), {}),
+             (x, w_qkv, b[0, 0, :3 * hd]), lambda: x @ w_qkv,
+             gemm_cost(x, w_qkv, b[0, 0, :3 * hd])),
             ("out-proj [257,768]x[768,768] +residual", dl.gemm,
-             dl.gemm_reference, (x, w[0, 0, :, 3 * hd:], b[0, 0, 3 * hd:],
-                                 "residual", x, p[0, dl.LS1]), {}),
+             dl.gemm_reference, (x, w_o, b[0, 0, 3 * hd:], "residual", x,
+                                 p[0, dl.LS1]), lambda: x @ w_o,
+             gemm_cost(x, w_o, b[0, 0, 3 * hd:], x, p[0, dl.LS1])),
             ("fc1 [257,768]x[768,3072] +gelu", dl.gemm, dl.gemm_reference,
-             (x, w[0, 1], b[0, 1], "gelu"), {}),
+             (x, w[0, 1], b[0, 1], "gelu"), lambda: x @ w[0, 1],
+             gemm_cost(x, w[0, 1], b[0, 1])),
             ("fc2 [257,3072]x[768,3072]^T +residual", dl.gemm,
              dl.gemm_reference, (h_in, w[0, 2], b[0, 2, :hd], "residual", x,
-                                 p[0, dl.LS2], True), {}),
+                                 p[0, dl.LS2], True),
+             lambda: h_in @ w[0, 2].t(),
+             gemm_cost(h_in, w[0, 2], b[0, 2, :hd], x, p[0, dl.LS2])),
         ],
         "dino_attention": [
             ("12 heads x 257 tokens", dl.attention, dl.attention_reference,
-             (qkv,), {}),
+             (qkv,), lambda: F.scaled_dot_product_attention(q4, k4, v4),
+             (nbytes(qkv) + 2 * seq * hd, 4 * seq * seq * hd, PEAK_BF16)),
         ],
     }
-    results = {}
+    table = KernelTable()
     for name, calls in cases.items():
-        err_all, ms, plain_ms = 0.0, 0.0, 0.0
-        for label, kern, plain, args, kw in calls:
-            got = kern(*args, **kw)
+        for label, kern, plain, args, library, cost in calls:
+            got = kern(*args)
             torch.cuda.synchronize()
-            err, scale = max_err(got, plain(*args, **kw))
+            err, scale = max_err(got, plain(*args))
             bound = ULP_BOUND * max(scale, 1.0)
-            k_ms, p_ms = interleaved(lambda: kern(*args, **kw),
-                                     lambda: plain(*args, **kw), 200)
-            log(f"kernel {name} {label}: max_abs_err {err:.6g} "
-                f"(bound {bound:.6g}) ms {k_ms:.6g} plain_ms {p_ms:.6g}")
+            log(f"kernel {name} {label}: max_abs_err {err:.6g} (bound "
+                f"{bound:.6g})")
             if not err <= bound:
                 raise AssertionError(f"{name} {label}: {err} > {bound}")
-            err_all = max(err_all, err)
-            ms += k_ms
-            plain_ms += p_ms
-        results[name] = {"max_abs_err": err_all, "ms": ms,
-                         "plain_ms": plain_ms}
+            table.add(name, label, err, lambda: kern(*args),
+                      lambda: plain(*args), 200, cost, library)
 
     got = dl.dino_layers_serving(x, w, b, p)
     torch.cuda.synchronize()
     err, scale = max_err(got, dl.dino_layers_serving_reference(x, w, b, p))
     bound = TRUNK_BOUND * max(scale, 1.0)
-    k_ms, p_ms = interleaved(lambda: dl.dino_layers_serving(x, w, b, p),
-                             lambda: dl.dino_layers_serving_reference(
-                                 x, w, b, p), 20)
     log(f"kernel dino_layers_serving 12 layers: max_abs_err {err:.6g} "
-        f"(bound {bound:.6g}) ms {k_ms:.6g} plain_ms {p_ms:.6g}")
+        f"(bound {bound:.6g})")
     if not err < bound:
         raise AssertionError(f"12-layer trunk: {err} >= {bound}")
-    results["dino_layers_serving"] = {"max_abs_err": err, "ms": k_ms,
-                                      "plain_ms": p_ms}
+    # each input read once, the output written once; per layer the four
+    # GEMMs and the attention products
+    trunk_ops = layers * (2 * seq * hidden * 12 * hidden
+                          + 4 * seq * seq * hidden)
+    table.add("dino_layers_serving", "12 layers", err,
+              lambda: dl.dino_layers_serving(x, w, b, p),
+              lambda: dl.dino_layers_serving_reference(x, w, b, p), 20,
+              (nbytes(x, w, b, p, x), trunk_ops, PEAK_BF16))
+    results = table.rows()
     weight_bytes = w.numel() * 2
+    trunk_ms = results["dino_layers_serving"]["ms"]
     log(f"trunk weights {weight_bytes / 1e6:.1f} MB; kernel trunk reads them "
-        f"at {weight_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective")
+        f"at {weight_bytes / (trunk_ms * 1e-3) / 1e9:.1f} GB/s effective")
     return results
 
 
@@ -322,11 +441,15 @@ def train_kernel_phase(device):
     """Checks and times the training kernels at the flagship's B=64."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
+    from hypervla_tpu_torch.ops import dino_layer as dl
     from hypervla_tpu_torch.ops import dino_layer_train as dlt
     from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.ops import layer_norm as tln
 
     batch, seq, heads, hidden = TRAIN_BATCH, 257, 12, 768
+    mlp, m = 4 * hidden, TRAIN_BATCH * 257
     scale = 1.0 / 8.0
     rng = np.random.default_rng(SEED + 2)
 
@@ -334,46 +457,65 @@ def train_kernel_phase(device):
         return torch.tensor(np.asarray(a, np.float32), dtype=dtype,
                             device=device)
 
-    q, k, v, g = (t(rng.standard_normal((batch, seq, hidden)))
-                  for _ in range(4))
-    results = {}
-
-    def check(name, label, got, ref, bound):
+    def check(name, label, got, ref, bound, cosine=None):
         err, ref_scale = max_err(got, ref)
         limit = bound * max(ref_scale, 1.0)
-        log(f"kernel {name} {label}: max_abs_err {err:.6g} (bound "
-            f"{limit:.6g})")
+        msg = (f"kernel {name} {label}: max_abs_err {err:.6g} (bound "
+               f"{limit:.6g})")
+        if cosine is not None:
+            cos = _cosine(got, ref)
+            msg += f" cosine {cos:.6f} (bound {cosine})"
+            if not cos > cosine:
+                raise AssertionError(f"{name} {label}: cosine {cos}")
+        log(msg)
         if not err <= limit:
             raise AssertionError(f"{name} {label}: {err} > {limit}")
         return err
+
+    table = KernelTable()
+    timed = table.add
+
+    # ---- kernel 2: the fused training attention ----
+    q, k, v, g = (t(rng.standard_normal((batch, seq, hidden)))
+                  for _ in range(4))
+    attn_ops = 4 * batch * seq * seq * hidden  # q.k^T and P.v
+
+    def split(a):
+        return a.view(batch, seq, heads, 64).transpose(1, 2)
 
     o, probs = fa.mha_fused_train_fwd(q, k, v, heads, scale)
     torch.cuda.synchronize()
     ref_o, ref_p = fa.mha_fused_train_fwd_reference(q, k, v, heads, scale)
     err = max(check("mha_fused_train_fwd", "o", o, ref_o, ULP_BOUND),
               check("mha_fused_train_fwd", "P", probs, ref_p, ULP_BOUND))
-    k_ms, p_ms = interleaved(
-        lambda: fa.mha_fused_train_fwd(q, k, v, heads, scale),
-        lambda: fa.mha_fused_train_fwd_reference(q, k, v, heads, scale), 20)
-    results["mha_fused_train_fwd"] = {"max_abs_err": err, "ms": k_ms,
-                                      "plain_ms": p_ms}
+    timed("mha_fused_train_fwd", "", err,
+          lambda: fa.mha_fused_train_fwd(q, k, v, heads, scale),
+          lambda: fa.mha_fused_train_fwd_reference(q, k, v, heads, scale),
+          20, (nbytes(q, k, v, o, probs), attn_ops, PEAK_BF16),
+          # the library call stores no P
+          lambda: F.scaled_dot_product_attention(split(q), split(k),
+                                                 split(v)))
 
     grads = fa.mha_fused_train_bwd(q, k, v, ref_p, g, heads, scale)
     torch.cuda.synchronize()
     refs = fa.mha_fused_train_bwd_reference(q, k, v, ref_p, g, heads, scale)
     err = max(check("mha_fused_train_bwd", name, a, b, GRAD_BOUND)
               for name, a, b in zip(("dq", "dk", "dv"), grads, refs))
-    k_ms, p_ms = interleaved(
-        lambda: fa.mha_fused_train_bwd(q, k, v, ref_p, g, heads, scale),
-        lambda: fa.mha_fused_train_bwd_reference(q, k, v, ref_p, g, heads,
-                                                 scale), 20)
-    results["mha_fused_train_bwd"] = {"max_abs_err": err, "ms": k_ms,
-                                      "plain_ms": p_ms}
+    leaves = [split(a).detach().requires_grad_(True) for a in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    timed("mha_fused_train_bwd", "", err,
+          lambda: fa.mha_fused_train_bwd(q, k, v, ref_p, g, heads, scale),
+          lambda: fa.mha_fused_train_bwd_reference(q, k, v, ref_p, g, heads,
+                                                   scale),
+          20, (nbytes(q, k, v, ref_p, g, q, k, v), 2 * attn_ops, PEAK_BF16),
+          lambda: torch.autograd.grad(sdpa_out, leaves, split(g),
+                                      retain_graph=True))
+    del leaves, sdpa_out, grads, refs, o, probs, ref_o, ref_p
 
+    # ---- kernel 3: the layer, forward without and with residuals ----
     def layer_operands():
         weights = [t(rng.standard_normal(shape) * 0.02) for shape in
-                   [(hidden, hidden)] * 4 + [(hidden, 4 * hidden),
-                                             (4 * hidden, hidden)]]
+                   [(hidden, hidden)] * 4 + [(hidden, mlp), (mlp, hidden)]]
         pv = t(np.concatenate([
             0.02 * rng.standard_normal((5, hidden)),
             1 + 0.1 * rng.standard_normal((1, hidden)),
@@ -382,29 +524,220 @@ def train_kernel_phase(device):
             0.1 * rng.standard_normal((1, hidden)),
             0.1 + 0.02 * rng.standard_normal((2, hidden)),
         ]), torch.float32)
-        b1 = t(0.02 * rng.standard_normal((1, 4 * hidden)), torch.float32)
+        b1 = t(0.02 * rng.standard_normal((1, mlp)), torch.float32)
         return (*weights, pv, b1, heads, 1e-6)
 
     x = t(rng.standard_normal((batch, seq, hidden)) * 0.5)
-    ops = [layer_operands() for _ in range(12)]
-    got = dlt.dino_layer_train(x, *ops[0])
+    layer_args = [layer_operands() for _ in range(12)]
+    ops = dlt.pack_operands(*layer_args[0][:8])
+    gemm_ops = 2 * m * 12 * hidden * hidden  # qkv, out-proj, fc1, fc2
+    got = dlt.dino_layer_train(x, *layer_args[0])
     torch.cuda.synchronize()
     err = check("dino_layer_train_fwd", "one layer (64, 257, 768)", got,
-                dlt.dino_layer_train_reference(x, *ops[0]), LAYER_BOUND)
-    k_ms, p_ms = interleaved(
-        lambda: dlt.dino_layer_train(x, *ops[0]),
-        lambda: dlt.dino_layer_train_reference(x, *ops[0]), 10)
-    results["dino_layer_train_fwd"] = {"max_abs_err": err, "ms": k_ms,
-                                       "plain_ms": p_ms}
+                dlt.dino_layer_train_reference(x, *layer_args[0]),
+                LAYER_BOUND)
+    timed("dino_layer_train_fwd", "one layer", err,
+          lambda: dlt.dino_layer_train(x, *layer_args[0]),
+          lambda: dlt.dino_layer_train_reference(x, *layer_args[0]), 10,
+          (nbytes(x, *ops, x), gemm_ops + attn_ops, PEAK_BF16))
     got, ref = x, x
-    for args in ops:
+    for args in layer_args:
         got = dlt.dino_layer_train(got, *args)
         ref = dlt.dino_layer_train_reference(ref, *args)
     torch.cuda.synchronize()
     check("dino_layer_train_fwd", "12 stacked layers", got, ref, TRUNK_BOUND)
+    del got, ref, layer_args
+
+    out, res = dlt.forward_with_residuals(x, ops, heads, 1e-6)
+    torch.cuda.synchronize()
+    if not torch.equal(out, dlt.dino_layer_train_packed(x, ops, heads, 1e-6)):
+        raise AssertionError("the residual-saving forward and the primal "
+                             "differ")
+    ref_out, ref_res = dlt.forward_with_residuals_reference(x, ops, heads,
+                                                            1e-6)
+    err = max(check("dino_layer_train_fwd_res", name, a, b, LAYER_BOUND)
+              for name, a, b in zip(("out", *dlt.RESIDUALS), (out, *res),
+                                    (ref_out, *ref_res)))
+    timed("dino_layer_train_fwd_res", "one layer", err,
+          lambda: dlt.forward_with_residuals(x, ops, heads, 1e-6),
+          lambda: dlt.forward_with_residuals_reference(x, ops, heads, 1e-6),
+          10, (nbytes(x, *ops, out, *res), gemm_ops + attn_ops, PEAK_BF16))
+    del ref_out, ref_res
+
+    # ---- kernel 3: the layer backward, on the kernel forward's residuals ----
+    g = t(rng.standard_normal((batch, seq, hidden)))
+    names = ("dx", "dwqkv", "dwo", "dw1", "dw2", "dpv", "db1")
+    got = dlt.layer_backward(g, x, ops, res, heads, 1e-6)
+    torch.cuda.synchronize()
+    ref = dlt.layer_backward_reference(g, x, ops, res, heads, 1e-6)
+    err = max(check("dino_layer_train_bwd", name, a, b, LAYER_BOUND,
+                    GRAD_COSINE_BOUND)
+              for name, a, b in zip(names, got, ref))
+    again = dlt.layer_backward(g, x, ops, res, heads, 1e-6)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two runs of the layer backward differ")
+    half = batch // 2
+    halves = [dlt.layer_backward(g[sl], x[sl], ops, [r[sl] for r in res],
+                                 heads, 1e-6)
+              for sl in (slice(0, half), slice(half, batch))]
+    for name, full, a, b in zip(names[1:], got[1:], *(h[1:] for h in halves)):
+        full, parts = full.float(), a.float() + b.float()
+        # rtol 0.05 (the JAX package's bound) with one bf16 ulp of the
+        # leaf's largest value: each call rounds its own sum once
+        atol = float(ULP_BOUND * full.abs().max())
+        worst = float((full - parts).abs().max())
+        log(f"kernel dino_layer_train_bwd {name}: batch {batch} against "
+            f"two halves max_abs_diff {worst:.6g} (atol {atol:.6g} + 0.05 "
+            "rel)")
+        if not bool(((full - parts).abs() <= atol + 0.05 * parts.abs()
+                     ).all()):
+            raise AssertionError(f"{name}: batch sum differs from its halves")
+    log("kernel dino_layer_train_bwd: two runs bit-equal")
+    timed("dino_layer_train_bwd", "one layer", err,
+          lambda: dlt.layer_backward(g, x, ops, res, heads, 1e-6),
+          lambda: dlt.layer_backward_reference(g, x, ops, res, heads, 1e-6),
+          10, (nbytes(g, x, *ops, *res, *got),
+               2 * gemm_ops + 2 * attn_ops, PEAK_BF16))
+    del again, halves, ref
+
+    # ---- kernel 6: the training LayerNorm at the trunk's final shape ----
+    rows = x.view(m, hidden)
+    ln_s, ln_b = ops[5][dlt.LN1_S], ops[5][dlt.LN1_B]
+    s16, b16 = ln_s.bfloat16(), ln_b.bfloat16()
+    g_rows = g.view(m, hidden)
+    with torch.no_grad():
+        y = tln.layer_norm_pallas(x, ln_s, ln_b, 1e-6)
+    torch.cuda.synchronize()
+    err = check("layer_norm_pallas_fwd", "(64, 257, 768) bf16", y.view(
+        m, hidden), tln.layer_norm_pallas_reference(rows, ln_s, ln_b, 1e-6),
+        ULP_BOUND)
+
+    def ln_forward():
+        with torch.no_grad():
+            return tln.layer_norm_pallas(x, ln_s, ln_b, 1e-6)
+
+    timed("layer_norm_pallas_fwd", "", err, ln_forward,
+          lambda: tln.layer_norm_pallas_reference(rows, ln_s, ln_b, 1e-6),
+          50, (nbytes(x, x, ln_s, ln_b), 8 * x.numel(), PEAK_FP32),
+          lambda: F.layer_norm(x, (hidden,), s16, b16, 1e-6))
+    got = tln.layer_norm_bwd_rows(rows, g_rows, ln_s, 1e-6)
+    torch.cuda.synchronize()
+    ref = tln.layer_norm_bwd_rows_reference(rows, g_rows, ln_s, 1e-6)
+    # dscale, dbias: fp32 sums of 16448 terms in another order
+    err = max(check("layer_norm_pallas_bwd", name, a, b, bound)
+              for name, a, b, bound in zip(
+                  ("dx", "dscale", "dbias"), got, ref,
+                  (ULP_BOUND, 1e-4, 1e-4)))
+    xl = x.detach().clone().requires_grad_(True)
+    sl, bl = (a.detach().clone().requires_grad_(True) for a in (s16, b16))
+    ln_out = F.layer_norm(xl, (hidden,), sl, bl, 1e-6)
+    timed("layer_norm_pallas_bwd", "", err,
+          lambda: tln.layer_norm_bwd_rows(rows, g_rows, ln_s, 1e-6),
+          lambda: tln.layer_norm_bwd_rows_reference(rows, g_rows, ln_s, 1e-6),
+          50, (nbytes(x, g, ln_s, x, ln_s, ln_s), 14 * x.numel(), PEAK_FP32),
+          lambda: torch.autograd.grad(ln_out, (xl, sl, bl), g,
+                                      retain_graph=True))
+    del xl, ln_out, y
+
+    # ---- the launches a layer is made of, each alone at its shape ----
+    x1, qkv, _, hc, y1, y2, ao = (r.view(m, -1) for r in res)
+    wqkv, _, wo, w1, w2, pv, b1 = ops
+    n1 = dl.layer_norm_rows(rows, pv[dlt.LN1_S], pv[dlt.LN1_B], 1e-6)
+    hid = dl.gemm(n1, w1, b1, "gelu")
+    dy = g_rows
+    dbig = t(rng.standard_normal((m, mlp)) * 0.1)
+    dqkv = t(rng.standard_normal((m, 3 * hidden)) * 0.1)
+
+    def gemm_case(label, args, kw, library, f32=False):
+        a, w = args[0], args[1]
+        got = dl.gemm(*args, **kw)
+        torch.cuda.synchronize()
+        ref = dl.gemm_reference(*args, **kw)
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        # fp32 out: sums of K products in another order
+        err = max(check("dino_gemm_train", label, a_, b_,
+                        1e-4 if f32 else ULP_BOUND) for a_, b_ in pairs)
+        outs = got if isinstance(got, tuple) else (got,)
+        extra = [v for v in (*args[2:], *kw.values())
+                 if isinstance(v, torch.Tensor)]
+        timed("dino_gemm_train", label, err, lambda: dl.gemm(*args, **kw),
+              lambda: dl.gemm_reference(*args, **kw), 10,
+              (nbytes(a, w, *extra, *outs), 2 * a.shape[0] * w.numel(),
+               PEAK_BF16), library)
+
+    gemm_case("qkv [16448,768]x[768,2304]", (n1, wqkv, ops[1]), {},
+              lambda: n1 @ wqkv)
+    gemm_case("out-proj [16448,768]x[768,768] +residual, y1 stored",
+              (ao, wo, pv[dlt.BO], "residual", rows, pv[dlt.LS1]),
+              {"with_pre": True}, lambda: ao @ wo)
+    gemm_case("fc1 [16448,768]x[768,3072] +gelu, hc stored",
+              (n1, w1, b1, "gelu"), {"with_pre": True}, lambda: n1 @ w1)
+    gemm_case("fc2 [16448,3072]x[3072,768] +residual, y2 stored",
+              (hid, w2, pv[dlt.B2], "residual", x1, pv[dlt.LS2]),
+              {"with_pre": True}, lambda: hid @ w2)
+    gemm_case("dh [16448,768]x[3072,768]^T", (dy, w2, None),
+              {"transpose_w": True}, lambda: dy @ w2.t())
+    gemm_case("dao [16448,768]x[768,768]^T", (dy, wo, None),
+              {"transpose_w": True}, lambda: dy @ wo.t())
+    gemm_case("dn2 [16448,3072]x[768,3072]^T fp32 out", (dbig, w1, None,
+                                                         "f32"),
+              {"transpose_w": True}, lambda: dbig @ w1.t(), f32=True)
+    gemm_case("dn1 [16448,2304]x[768,2304]^T fp32 out", (dqkv, wqkv, None,
+                                                         "f32"),
+              {"transpose_w": True}, lambda: dqkv @ wqkv.t(), f32=True)
+
+    for label, a, b in (("dW2 [16448,3072]^T x [16448,768]", hid, dy),
+                        ("dW1 [16448,768]^T x [16448,3072]", n1, dbig),
+                        ("dWo [16448,768]^T x [16448,768]", ao, dy),
+                        ("dWqkv [16448,768]^T x [16448,2304]", n1, dqkv)):
+        got = dlt.gemm_tn(a, b)
+        torch.cuda.synchronize()
+        err = check("layer_gemm_tn", label, got, dlt.gemm_tn_reference(a, b),
+                    ULP_BOUND)
+        timed("layer_gemm_tn", label, err, lambda: dlt.gemm_tn(a, b),
+              lambda: dlt.gemm_tn_reference(a, b), 10,
+              (nbytes(a, b, got), 2 * m * a.shape[1] * b.shape[1],
+               PEAK_BF16), lambda: a.t() @ b)
+
+    def pass_case(name, label, kern, plain, args, bounds, ops_per_elt,
+                  library=None):
+        got = kern(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = plain(*args)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(check(name, f"{label} output {i}", a_, b_, bound)
+                  for i, (a_, b_, bound) in enumerate(zip(got, ref, bounds)))
+        tensors = [v for v in args if isinstance(v, torch.Tensor)]
+        timed(name, label, err, lambda: kern(*args), lambda: plain(*args),
+              20, (nbytes(*tensors, *got), ops_per_elt * args[0].numel(),
+                   PEAK_FP32), library)
+
+    dn = t(rng.standard_normal((m, hidden)) * 0.1, torch.float32)
+    # fp32 column sums: 16448 terms in another order, and one-ulp flips of
+    # single bf16 terms
+    pass_case("layer_norm_bwd_rows", "(16448, 768), fp32 cotangent, added "
+              "to the residual gradient", tln.layer_norm_bwd_rows,
+              tln.layer_norm_bwd_rows_reference,
+              (rows, dn, pv[dlt.LN2_S], 1e-6, g_rows),
+              (ULP_BOUND, 1e-4, 1e-4), 14)
+    pass_case("layer_scale_grad", "(16448, 768)", dlt.scale_grad,
+              dlt.scale_grad_reference, (g_rows, y2, pv[dlt.LS2]),
+              (ULP_BOUND, 1e-4, 2 ** -9), 4)
+    pass_case("layer_gelu_bwd", "(16448, 3072)", dlt.gelu_bwd,
+              dlt.gelu_bwd_reference, (hc, dbig),
+              (ULP_BOUND, ULP_BOUND, 2 ** -9), 30)
+    pass_case("layer_colsum", "(16448, 2304)", dlt.colsum,
+              dlt.colsum_reference, (dqkv,), (1e-4,), 1,
+              lambda: dqkv.sum(0, dtype=torch.float32))
+
+    results = table.rows()
     for name, r in results.items():
-        log(f"kernel {name} at B={batch}: ms {r['ms']:.6g} plain_ms "
-            f"{r['plain_ms']:.6g}")
+        lib = r["library_ms"]
+        log(f"kernel {name} at B={batch}, per layer: ms {r['ms']:.6g} "
+            f"plain_ms {r['plain_ms']:.6g} library_ms "
+            f"{'none' if lib is None else format(lib, '.6g')} bound_ms "
+            f"{r['bound_ms']:.6g} ({r['bound_by']})")
     return results
 
 
@@ -417,8 +750,10 @@ def _cosine(a, b):
 
 
 def train_phase(device):
-    """Drives the full-width flagship's training step under the fast preset
-    through the entry points of scripts/bench_train.py --fast."""
+    """Drives the full-width flagship's training step through the entry
+    points of scripts/bench_train.py under two kernel configurations (the
+    fast preset; the fast preset with the layer-kernel trunk) and on the
+    plain path. Returns each kernel configuration's launches."""
     import copy
 
     import torch
@@ -427,8 +762,10 @@ def train_phase(device):
     from hypervla_tpu_torch.flagship import build_flagship, make_flagship_batch
     from hypervla_tpu_torch.models.base_network import BaseNetwork
     from hypervla_tpu_torch.models.hypervla import HyperVLA
+    from hypervla_tpu_torch.ops import dino_layer as dl
     from hypervla_tpu_torch.ops import dino_layer_train as dlt
     from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.ops import layer_norm as tln
     from hypervla_tpu_torch.train.optimizer import (
         create_optimizer,
         hn_param_type_tree,
@@ -439,96 +776,123 @@ def train_phase(device):
 
     t0 = time.perf_counter()
     model, _ = build_flagship(seed=SEED, device=device, training=True)
-    config = apply_fast_training_preset(copy.deepcopy(model.config))
-    model = HyperVLA.from_config(config, make_flagship_batch(seed=SEED),
+    fast = apply_fast_training_preset(copy.deepcopy(model.config))
+    model = HyperVLA.from_config(fast, make_flagship_batch(seed=SEED),
                                  seed=SEED, device=device)
-    text_apply, dino_apply, t5_params, dino_params = build_frozen_encoders(
-        config, device=device, seed=SEED + 1)
+    # the layer-kernel trunk: every trunk layer through the layer kernel,
+    # forward with residuals and backward; the final LayerNorm of both
+    # encoders through the training LayerNorm
+    layer = copy.deepcopy(fast)
+    layer["hoist_shared_trunk"] = True
+    layer["base_net_kwargs"]["vit_kwargs"].update(
+        dino_layers_impl="pallas_train", fused_layer_norm="pallas_train",
+        fine_tune_pretrained_image_encoder=True)
+    # the plain path: the fast preset's step with the kernel switches off
+    plain = copy.deepcopy(fast)
+    plain["base_net_kwargs"]["vit_kwargs"]["dino_fused_attention"] = False
+    plain["frozen_encoder_layer_kernel"] = False
+    configs = {"plain": plain, "fast_preset": fast, "layer_kernel": layer}
+    kernel_configs = ("fast_preset", "layer_kernel")
+
     tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
-        model.params, hn_param_type_tree(model.params), **config["optimizer"])
+        model.params, hn_param_type_tree(model.params), **fast["optimizer"])
     state0 = TrainState.create(model.params, tx,
-                               track_ema=config.get("save_param_EMA", True))
+                               track_ema=fast.get("save_param_EMA", True))
     # the LR at its peak: the schedules read the optimizer's update count
-    warmup = config["optimizer"]["learning_rate"]["warmup_steps"]
+    warmup = fast["optimizer"]["learning_rate"]["warmup_steps"]
     state0.step = warmup
     state0.opt_state["count"] = warmup
-    step_kernel = make_train_step(model, config, tx, lr_fn, base_lr_fn,
-                                  pnorm_fn, text_encode=text_apply,
-                                  dino_encode=dino_apply)
-    # the plain path: the same step with the two kernel switches off
-    plain_config = copy.deepcopy(config)
-    plain_config["base_net_kwargs"]["vit_kwargs"]["dino_fused_attention"] = (
-        False)
-    plain_config["frozen_encoder_layer_kernel"] = False
-    plain_model = HyperVLA(model.hypernet,
-                           BaseNetwork(**plain_config["base_net_kwargs"]),
-                           plain_config, model.params, model.plan, None,
-                           device)
-    # the same frozen DINOv2 draw, unpacked: its layers take the plain loop
-    _, plain_dino_apply, _, plain_dino_params = build_frozen_encoders(
-        plain_config, device=device, seed=SEED + 1)
-    step_plain = make_train_step(plain_model, plain_config, tx, lr_fn,
-                                 base_lr_fn, pnorm_fn,
-                                 text_encode=text_apply,
-                                 dino_encode=plain_dino_apply)
+    steps, encoders, dino_applies = {}, {}, {}
+    t5_params = None
+    for name, config in configs.items():
+        variant = model if config is fast else HyperVLA(
+            model.hypernet, BaseNetwork(**config["base_net_kwargs"]), config,
+            model.params, model.plan, None, device)
+        # the same draws for every configuration; the frozen DINOv2's layers
+        # packed for the layer forward, or left for the plain loop
+        text_apply, dino_apply, t5, dino_params = build_frozen_encoders(
+            config, device=device, seed=SEED + 1)
+        t5_params = t5_params if t5_params is not None else t5
+        del t5
+        steps[name] = make_train_step(variant, config, tx, lr_fn, base_lr_fn,
+                                      pnorm_fn, text_encode=text_apply,
+                                      dino_encode=dino_apply)
+        encoders[name] = {"t5": t5_params, "dino": dino_params}
+        dino_applies[name] = dino_apply
     batch = make_flagship_batch(batch_size=TRAIN_BATCH, seed=SEED)
     # the step embeds the instruction and the initial image itself
     del batch["task"]["language_instruction"]["token_embedding"]
     del batch["initial_state"]["patch_embeddings"]
     batch = to_tensors(batch, device)
-    enc_kernel = {"t5": t5_params, "dino": dino_params}
-    enc_plain = {"t5": t5_params, "dino": plain_dino_params}
     n_params = sum(v.numel() for v in model.params.values())
     torch.cuda.synchronize()
     log(f"train build s {time.perf_counter() - t0:.3f}; {n_params} trained "
         f"params, batch {TRAIN_BATCH}, lr {lr_fn(warmup):.6g}")
 
-    counted = ("mha_fused_train_fwd", "mha_fused_train_bwd",
-               "dino_layer_train_fwd")
     layers = model.base_net.encoder.dino.num_hidden_layers
+    # launches per step of each wrapper that a configuration must show
+    per_step = {
+        "plain": {},
+        "fast_preset": {"mha_fused_train_fwd": layers,
+                        "mha_fused_train_bwd": layers,
+                        "dino_layer_train_fwd": layers},
+        "layer_kernel": {"dino_layer_train_fwd_res": layers,
+                         "dino_layer_train_bwd": layers,
+                         "dino_layer_train_fwd": layers,
+                         "layer_norm_pallas_fwd": 2,
+                         "layer_norm_pallas_bwd": 1},
+    }
+    counted = sorted(set().union(*per_step.values()))
 
     def counts():
-        return {**fa.LAUNCHES, **dlt.LAUNCHES}
+        return {**fa.LAUNCHES, **dlt.LAUNCHES, **tln.LAUNCHES,
+                "dino_gemm_train": dl.LAUNCHES["dino_gemm"]}
 
-    def run(step_fn, state, n, kernel, with_metrics=False):
-        """n steps from state; (state, infos, per-step device ms)."""
-        infos, times = [], []
+    totals = {name: dict.fromkeys(counts(), 0) for name in configs}
+    infos = {name: [] for name in configs}
+    peaks = dict.fromkeys(configs, 0)
+
+    def run(name, state, n, with_metrics=False):
+        """n steps of one configuration from state, its launches counted
+        from zero; (state, per-step device ms)."""
+        for module in (fa, dlt, tln, dl):
+            module.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
         for _ in range(n):
             before = counts()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            state, info = step_fn(
-                state, batch, encoder_params=enc_kernel if kernel else
-                enc_plain, with_metrics=with_metrics)
+            state, info = steps[name](state, batch,
+                                      encoder_params=encoders[name],
+                                      with_metrics=with_metrics)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
-            infos.append(info)
+            infos[name].append(info)
             after = counts()
-            per_step = {k: after[k] - before[k] for k in counted}
-            want = layers if kernel else 0
-            if any(v != want for v in per_step.values()):
-                raise AssertionError(f"step launches {per_step}, want "
-                                     f"{want} of each")
-        return state, infos, times
+            got = {k: after[k] - before[k] for k in counted}
+            want = {k: per_step[name].get(k, 0) for k in counted}
+            if got != want:
+                raise AssertionError(f"{name} step launches {got}, want "
+                                     f"{want}")
+        for k, v in counts().items():
+            totals[name][k] += v
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+        return state, times
 
-    # the main path, counted: every launch below is a training step's
-    fa.reset_launch_counts()
-    dlt.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    state_k, infos_k, _ = run(step_kernel, state0, 1, True, True)
-    peak_k = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    state_p, infos_p, _ = run(step_plain, state0, 1, False, True)
-    peak_p = torch.cuda.max_memory_allocated()
-    first_k, first_p = infos_k[0], infos_p[0]
-    for key in ("training_loss", "grad_norm"):
-        a, b = float(first_k[key]), float(first_p[key])
-        log(f"train first step {key}: kernels {a:.6g} plain {b:.6g} "
-            f"(rel {abs(a - b) / abs(b):.3g}, bound {STEP_REL_BOUND})")
-        if not abs(a - b) <= STEP_REL_BOUND * abs(b):
-            raise AssertionError(f"first-step {key} kernels vs plain")
+    # the main paths, counted: every launch below is a training step's
+    states = {name: run(name, state0, 1, True)[0] for name in configs}
+    first_p = infos["plain"][0]
+
+    def updates_of(name):
+        return {k: states[name].params[k].detach() - v.detach()
+                for k, v in state0.params.items()}
+
+    plain_updates = updates_of("plain")
+    typical = statistics.median(float(p.norm())
+                                for p in plain_updates.values())
     # the update (new - old) per leaf: Adam's first step is ~lr * sign(g),
     # so this compares the two paths' gradients leaf by leaf. A leaf whose
     # exact gradient is 0 barely moves: the context encoder's (the output
@@ -536,89 +900,97 @@ def train_phase(device):
     # and the key biases (softmax ignores a uniform key shift). On such a
     # leaf the kernels must move as little (tests/test_torch_train_step.py
     # holds the port to JAX by the same rule)
-    updates = {k: (state_k.params[k].detach() - v.detach(),
-                   state_p.params[k].detach() - v.detach())
-               for k, v in state0.params.items()}
-    typical = statistics.median(float(p.norm()) for _, p in updates.values())
-    degenerate = [k for k, (_, p) in updates.items()
+    degenerate = [k for k, p in plain_updates.items()
                   if float(p.norm()) < 1e-3 * typical]
-    worst = min((_cosine(*updates[k]), k) for k in updates
-                if k not in degenerate)
-    log(f"train first step updates, kernels vs plain: lowest per-leaf "
-        f"cosine {worst[0]:.6f} ({worst[1]}), bound {COSINE_BOUND}; "
-        f"{len(degenerate)} leaves barely move (update below 1e-3 of the "
-        f"median leaf's): {sorted(degenerate)}")
-    if not worst[0] > COSINE_BOUND:
-        raise AssertionError("the updates disagree with the plain path")
-    for k in degenerate:
-        if not float(updates[k][0].norm()) < 1e-2 * typical:
-            raise AssertionError(f"{k}: the plain path leaves it at noise")
-    # and the post-update params themselves
-    worst = min((_cosine(state_k.params[k], state_p.params[k]), k)
-                for k in updates if k not in degenerate)
-    log(f"train first step post-update params, kernels vs plain: lowest "
-        f"per-leaf cosine {worst[0]:.6f} ({worst[1]}), bound {COSINE_BOUND}")
-    if not worst[0] > COSINE_BOUND:
-        raise AssertionError("post-update params disagree with the plain path")
-    # two fp32 copies of the trained params: not to be counted in the peak
-    del updates
+    for name in kernel_configs:
+        first_k = infos[name][0]
+        for key in ("training_loss", "grad_norm"):
+            a, b = float(first_k[key]), float(first_p[key])
+            log(f"train {name} first step {key}: kernels {a:.6g} plain "
+                f"{b:.6g} (rel {abs(a - b) / abs(b):.3g}, bound "
+                f"{STEP_REL_BOUND})")
+            if not abs(a - b) <= STEP_REL_BOUND * abs(b):
+                raise AssertionError(f"{name}: first-step {key} kernels vs "
+                                     "plain")
+        updates = updates_of(name)
+        worst = min((_cosine(updates[k], plain_updates[k]), k)
+                    for k in updates if k not in degenerate)
+        log(f"train {name} first step updates, kernels vs plain: lowest "
+            f"per-leaf cosine {worst[0]:.6f} ({worst[1]}), bound "
+            f"{COSINE_BOUND}; {len(degenerate)} leaves barely move (update "
+            "below 1e-3 of the median leaf's)")
+        if not worst[0] > COSINE_BOUND:
+            raise AssertionError(f"{name}: the updates disagree with the "
+                                 "plain path")
+        for k in degenerate:
+            if not float(updates[k].norm()) < 1e-2 * typical:
+                raise AssertionError(f"{name} {k}: the plain path leaves it "
+                                     "at noise")
+        # and the post-update params themselves
+        worst = min((_cosine(states[name].params[k],
+                             states["plain"].params[k]), k)
+                    for k in updates if k not in degenerate)
+        log(f"train {name} first step post-update params, kernels vs "
+            f"plain: lowest per-leaf cosine {worst[0]:.6f} ({worst[1]}), "
+            f"bound {COSINE_BOUND}")
+        if not worst[0] > COSINE_BOUND:
+            raise AssertionError(f"{name}: post-update params disagree with "
+                                 "the plain path")
+        # fp32 copies of the trained params: not to be counted in the peak
+        del updates
+    log(f"train leaves that barely move: {sorted(degenerate)}")
+    del plain_updates
 
-    state_k, more, _ = run(step_kernel, state_k, TRAIN_WARMUP - 1, True)
-    infos_k += more
-    state_p, _, _ = run(step_plain, state_p, TRAIN_WARMUP - 1, False)
-    # 8 timed steps each, in turns: plain, kernel, kernel, plain
+    for name in configs:
+        states[name], _ = run(name, states[name], TRAIN_WARMUP - 1)
+    # timed steps, in turns: plain, kernels, kernels, plain
     half = TRAIN_STEPS // 2
-    times_k, times_p = [], []
-    for kernel in (False, True, True, False):
-        torch.cuda.reset_peak_memory_stats()
-        if kernel:
-            state_k, more, times = run(step_kernel, state_k, half, True)
-            infos_k += more
-            times_k += times
-            peak_k = max(peak_k, torch.cuda.max_memory_allocated())
-        else:
-            state_p, _, times = run(step_plain, state_p, half, False)
-            times_p += times
-            peak_p = max(peak_p, torch.cuda.max_memory_allocated())
-    launches = {k: counts()[k] for k in counted}
-    log(f"train launches over {len(infos_k)} kernel steps: {launches}")
+    times = {name: [] for name in configs}
+    for name in ("plain", *kernel_configs, *reversed(kernel_configs),
+                 "plain"):
+        states[name], more = run(name, states[name], half)
+        times[name] += more
+    for name in kernel_configs:
+        log(f"train {name} launches over {len(infos[name])} steps: "
+            f"{ {k: v for k, v in totals[name].items() if v} }")
 
     # the frozen DINOv2 encode of the initial images alone, in turns
     images = batch["initial_state"]["image_primary"].squeeze(1)
 
-    def encode_ms(apply, params, n=5):
-        times = []
+    def encode_ms(name, n=5):
+        out = []
         with torch.no_grad():
             for _ in range(n):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                apply(params, images)
+                dino_applies[name](encoders[name]["dino"], images)
                 end.record()
                 end.synchronize()
-                times.append(start.elapsed_time(end))
-        return times
+                out.append(start.elapsed_time(end))
+        return out
 
-    enc_p = encode_ms(plain_dino_apply, plain_dino_params)
-    enc_k = encode_ms(dino_apply, dino_params)
-    enc_k += encode_ms(dino_apply, dino_params)
-    enc_p += encode_ms(plain_dino_apply, plain_dino_params)
+    enc = {name: [] for name in configs}
+    for name in ("plain", *kernel_configs, *reversed(kernel_configs),
+                 "plain"):
+        enc[name] += encode_ms(name)
     log(f"train frozen DINOv2 encode of {TRAIN_BATCH} images ms (median of "
-        f"CUDA events): kernels {statistics.median(enc_k):.4f} plain "
-        f"{statistics.median(enc_p):.4f}")
+        "CUDA events): " + ", ".join(
+            f"{name} {statistics.median(v):.4f}" for name, v in enc.items()))
 
-    losses = [float(info["training_loss"]) for info in infos_k]
-    log(f"train losses (kernels): {[round(x, 4) for x in losses]}")
-    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        raise AssertionError("train loss not finite or not falling")
-    k_med, p_med = statistics.median(times_k), statistics.median(times_p)
-    log(f"train ms/step (median of CUDA events, {TRAIN_STEPS} steps each): "
-        f"kernels {k_med:.4f} plain {p_med:.4f}; samples/s kernels "
-        f"{TRAIN_BATCH * 1e3 / k_med:.1f} plain "
-        f"{TRAIN_BATCH * 1e3 / p_med:.1f}; peak memory (max_memory_allocated)"
-        f" kernels {peak_k / 2 ** 30:.3f} GiB plain {peak_p / 2 ** 30:.3f} "
-        "GiB")
-    return launches
+    for name in kernel_configs:
+        losses = [float(info["training_loss"]) for info in infos[name]]
+        log(f"train {name} losses: {[round(x, 4) for x in losses]}")
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: train loss not finite or not "
+                                 "falling")
+    for name in configs:
+        med = statistics.median(times[name])
+        log(f"train {name} ms/step (median of CUDA events, {TRAIN_STEPS} "
+            f"steps): {med:.4f}; samples/s {TRAIN_BATCH * 1e3 / med:.1f}; "
+            f"peak memory (max_memory_allocated) "
+            f"{peaks[name] / 2 ** 30:.3f} GiB")
+    return {name: totals[name] for name in kernel_configs}
 
 
 def main() -> int:
@@ -655,28 +1027,35 @@ def main() -> int:
     train_results = train_kernel_phase(device)
     train_launches = train_phase(device)
 
+    # the configuration whose steps launch each training kernel
+    path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")
+    path_of.update(mha_fused_train_fwd="fast_preset",
+                   mha_fused_train_bwd="fast_preset",
+                   dino_layer_train_fwd="fast_preset")
     kernels = [
         {"name": name, "route": "cuda", "source": TRUNK_SOURCE,
-         "replaces": TPU_KERNEL, "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         "replaces": TPU_KERNEL, "launches": launches[name], **r}
         for name, r in results.items()
     ] + [
         {"name": name, "route": "cuda", "source": TRAIN_KERNELS[name][0],
          "replaces": TRAIN_KERNELS[name][1],
-         "launches": train_launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         "launches": train_launches[path_of[name]][name], **r}
         for name, r in train_results.items()
     ]
-    log("kernels ms/plain_ms: per flagship layer for the three kernels "
-        "(2 LayerNorms, 4 GEMMs, 1 attention), per 12-layer trunk for "
-        "dino_layers_serving, per launch at B=64 for the training kernels; "
-        "launches: over the serving steps for the first four, over the "
-        "train steps for the training kernels, where mha_fused_train_fwd "
-        "counts the trunk's attention forward and dino_layer_train_fwd "
-        "counts layer calls, each of which also launches the attention "
-        "forward kernel once (P store off)")
+    for kernel in kernels:
+        if kernel["launches"] == 0:
+            raise AssertionError(f"{kernel['name']} was not launched on its "
+                                 "main path")
+    log("kernels ms/plain_ms/library_ms/bound_ms: per flagship layer for "
+        "the serving kernels (2 LayerNorms, 4 GEMMs, 1 attention), per "
+        "12-layer trunk for dino_layers_serving, per launch at B=64 for the "
+        "training kernels, where dino_gemm_train and layer_gemm_tn add up "
+        "one layer's launches (8 and 4 shapes); launches: over the serving "
+        "steps for the first four, over the fast preset's train steps for "
+        "mha_fused_train_* and dino_layer_train_fwd (mha_fused_train_fwd "
+        "counts the trunk's attention forward; a layer call also launches "
+        "the attention kernels, counted under the layer), over the "
+        "layer-kernel trunk's train steps for the rest")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

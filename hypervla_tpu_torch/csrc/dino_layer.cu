@@ -18,6 +18,11 @@
 // memory with no pipelining; K and V of one head held in shared memory for
 // attention. TMA/wgmma pipelines and a persistent kernel are later work.
 //
+// The training layer (hypervla_tpu_torch/ops/dino_layer_train.py) and the
+// training LayerNorm (ops/layer_norm.py) launch the same LayerNorm and GEMM
+// at M = B*S rows: for them the LayerNorm also takes fp32 rows, and the
+// GEMM has a second output, a no-bias form and an fp32 output (below).
+//
 // Plain C interface (loaded with ctypes). Every entry point launches on the
 // given stream and returns cudaGetLastError().
 
@@ -51,19 +56,26 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // ------------------------------- LayerNorm -------------------------------
 // One block per row. flax fast variance: var = max(E[x^2] - mu^2, 0), then
-// ((x - mu) * rsqrt(var + eps)) * scale + bias in fp32, rounded once.
+// ((x - mu) * rsqrt(var + eps)) * scale + bias in fp32, rounded once to the
+// input's type T (bf16 in the trunks; fp32 too for the training LayerNorm
+// of ops/layer_norm.py, whose forward this kernel is).
 
 constexpr int LN_THREADS = 256;
 
+__device__ __forceinline__ float ln_load(const bf16* p) { return bf(*p); }
+__device__ __forceinline__ float ln_load(const float* p) { return *p; }
+__device__ __forceinline__ void ln_store(bf16* p, float v) { *p = tobf(v); }
+__device__ __forceinline__ void ln_store(float* p, float v) { *p = v; }
+
+template <typename T>
 __global__ void __launch_bounds__(LN_THREADS) layer_norm_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ scale,
-    const float* __restrict__ bias, bf16* __restrict__ out, int d,
-    float eps) {
-  const bf16* xr = x + (size_t)blockIdx.x * d;
-  bf16* orow = out + (size_t)blockIdx.x * d;
+    const T* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ bias, T* __restrict__ out, int d, float eps) {
+  const T* xr = x + (size_t)blockIdx.x * d;
+  T* orow = out + (size_t)blockIdx.x * d;
   float s = 0.f, s2 = 0.f;
   for (int i = threadIdx.x; i < d; i += LN_THREADS) {
-    const float v = bf(xr[i]);
+    const float v = ln_load(xr + i);
     s += v;
     s2 += v * v;
   }
@@ -91,8 +103,8 @@ __global__ void __launch_bounds__(LN_THREADS) layer_norm_kernel(
   const float var = fmaxf(red[1][0] / (float)d - mu * mu, 0.f);
   const float rs = rsqrtf(var + eps);
   for (int i = threadIdx.x; i < d; i += LN_THREADS) {
-    const float y = (bf(xr[i]) - mu) * rs;
-    orow[i] = tobf(y * scale[i] + bias[i]);
+    const float y = (ln_load(xr + i) - mu) * rs;
+    ln_store(orow + i, y * scale[i] + bias[i]);
   }
 }
 
@@ -102,22 +114,29 @@ __global__ void __launch_bounds__(LN_THREADS) layer_norm_kernel(
 // fc2 keeps W2^T and contracts on its dim 1. Block tile 64x64x32, four
 // warps of 32x32, WMMA 16x16x16 bf16 with fp32 accumulators. Rows past M
 // are masked; N % 64 == 0 and K % 32 == 0 are checked by the wrapper.
-// Epilogue, in order: round the fp32 sum to bf16; add bf16(bias); then
+// Epilogue, in order: round the fp32 sum to bf16; add bf16(bias) where a
+// bias is given; then
 //   EPI_NONE:     nothing
 //   EPI_GELU:     x * 0.5 * (1 + erf(x / sqrt 2)) in fp32, rounded to bf16
 //   EPI_RESIDUAL: residual + bf16(layer_scale) * y, each op rounded to bf16
+//   EPI_F32:      none of the above: the fp32 sum itself, written as fp32
+//                 (the layer backward's LayerNorm cotangents)
+// With out2, EPI_GELU and EPI_RESIDUAL also write y as it was before the
+// GELU or the LayerScale multiply: the residuals the training layer saves
+// (ops/dino_layer_train.py), so that the saving forward and the plain one
+// are the same arithmetic.
 
 constexpr int BM = 64, BN = 64, BK = 32;
 constexpr int GEMM_THREADS = 128;
 constexpr int SPAD = 8;  // shared-memory row pad, in bf16 elements
-enum { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
+enum { EPI_NONE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_F32 = 3 };
 
 template <bool TRANS_B, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(
     const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
     const float* __restrict__ bias, const bf16* __restrict__ residual,
-    const float* __restrict__ layer_scale, bf16* __restrict__ out, int M,
-    int N, int K) {
+    const float* __restrict__ layer_scale, void* __restrict__ out,
+    bf16* __restrict__ out2, int M, int N, int K) {
   __shared__ __align__(128) bf16 As[BM][BK + SPAD];
   __shared__ __align__(128)
       bf16 Bs[TRANS_B ? BN : BK][TRANS_B ? BK + SPAD : BN + SPAD];
@@ -202,14 +221,21 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(
     const int r = idx / BN, c = idx % BN;
     const int m = m0 + r, n = n0 + c;
     if (m >= M) continue;
-    float y = rbf(rbf(Cs[r][c]) + rbf(bias[n]));
+    const size_t o = (size_t)m * N + n;
+    if (EPI == EPI_F32) {
+      static_cast<float*>(out)[o] = Cs[r][c];
+      continue;
+    }
+    float y = rbf(Cs[r][c]);
+    if (bias) y = rbf(y + rbf(bias[n]));
+    if (EPI != EPI_NONE && out2) out2[o] = tobf(y);
     if (EPI == EPI_GELU) {
       y = rbf(y * (0.5f * (1.f + erff(y * 0.70710678118654752f))));
     } else if (EPI == EPI_RESIDUAL) {
       const float t = rbf(rbf(layer_scale[n]) * y);
-      y = rbf(bf(residual[(size_t)m * N + n]) + t);
+      y = rbf(bf(residual[o]) + t);
     }
-    out[(size_t)m * N + n] = tobf(y);
+    static_cast<bf16*>(out)[o] = tobf(y);
   }
 }
 
@@ -304,47 +330,59 @@ template <bool TRANS_B>
 static void launch_gemm(int epilogue, dim3 grid, cudaStream_t stream,
                         const bf16* a, int lda, const bf16* b, int ldb,
                         const float* bias, const bf16* residual,
-                        const float* layer_scale, bf16* out, int m, int n,
-                        int k) {
+                        const float* layer_scale, void* out, bf16* out2,
+                        int m, int n, int k) {
   switch (epilogue) {
     case EPI_GELU:
       gemm_kernel<TRANS_B, EPI_GELU><<<grid, GEMM_THREADS, 0, stream>>>(
-          a, lda, b, ldb, bias, residual, layer_scale, out, m, n, k);
+          a, lda, b, ldb, bias, residual, layer_scale, out, out2, m, n, k);
       break;
     case EPI_RESIDUAL:
       gemm_kernel<TRANS_B, EPI_RESIDUAL><<<grid, GEMM_THREADS, 0, stream>>>(
-          a, lda, b, ldb, bias, residual, layer_scale, out, m, n, k);
+          a, lda, b, ldb, bias, residual, layer_scale, out, out2, m, n, k);
+      break;
+    case EPI_F32:
+      gemm_kernel<TRANS_B, EPI_F32><<<grid, GEMM_THREADS, 0, stream>>>(
+          a, lda, b, ldb, bias, residual, layer_scale, out, out2, m, n, k);
       break;
     default:
       gemm_kernel<TRANS_B, EPI_NONE><<<grid, GEMM_THREADS, 0, stream>>>(
-          a, lda, b, ldb, bias, residual, layer_scale, out, m, n, k);
+          a, lda, b, ldb, bias, residual, layer_scale, out, out2, m, n, k);
   }
 }
 
 extern "C" {
 
+// x and out are fp32 with `is_f32`, else bf16.
 int dino_layer_norm(const void* x, const void* scale, const void* bias,
-                    void* out, int rows, int d, float eps, void* stream) {
-  layer_norm_kernel<<<rows, LN_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)scale, (const float*)bias, (bf16*)out, d,
-      eps);
+                    void* out, int rows, int d, float eps, int is_f32,
+                    void* stream) {
+  if (is_f32)
+    layer_norm_kernel<float><<<rows, LN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)scale, (const float*)bias,
+        (float*)out, d, eps);
+  else
+    layer_norm_kernel<bf16><<<rows, LN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const bf16*)x, (const float*)scale, (const float*)bias, (bf16*)out,
+        d, eps);
   return (int)cudaGetLastError();
 }
 
 int dino_gemm(const void* a, int lda, const void* b, int ldb, int trans_b,
               const void* bias, const void* residual, const void* layer_scale,
-              void* out, int m, int n, int k, int epilogue, void* stream) {
+              void* out, void* out2, int m, int n, int k, int epilogue,
+              void* stream) {
   const dim3 grid(n / BN, (m + BM - 1) / BM);
   if (trans_b)
     launch_gemm<true>(epilogue, grid, (cudaStream_t)stream, (const bf16*)a,
                       lda, (const bf16*)b, ldb, (const float*)bias,
-                      (const bf16*)residual, (const float*)layer_scale,
-                      (bf16*)out, m, n, k);
+                      (const bf16*)residual, (const float*)layer_scale, out,
+                      (bf16*)out2, m, n, k);
   else
     launch_gemm<false>(epilogue, grid, (cudaStream_t)stream, (const bf16*)a,
                        lda, (const bf16*)b, ldb, (const float*)bias,
-                       (const bf16*)residual, (const float*)layer_scale,
-                       (bf16*)out, m, n, k);
+                       (const bf16*)residual, (const float*)layer_scale, out,
+                       (bf16*)out2, m, n, k);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,8 @@ encoder/Transformer_0).
 
 Other encoder types, language tokens, the class token, positions on the
 action tokens only, and differential attention are not ported yet and
-raise (ROADMAP.md, queue A3).
+raise (ROADMAP.md, queue A3), as do the trunk switches whose TPU kernel has
+no counterpart yet (`check_trunk_switches`).
 """
 from typing import Dict, Tuple
 
@@ -25,6 +26,7 @@ from hypervla_tpu_torch.models.encoders.dinov2 import (
     dinov2_forward,
     dinov2_serving_forward,
     dinov2_specs,
+    layer_norm_fn,
 )
 from hypervla_tpu_torch.models.transformer import transformer, transformer_specs
 from hypervla_tpu_torch.utils.convert import subtree
@@ -58,6 +60,30 @@ def _check_resolution(images):
         raise ValueError(f"DINOv2 input must be {RESOLUTION}x{RESOLUTION}")
 
 
+def check_trunk_switches(vit_kwargs: dict) -> None:
+    """Raises NotImplementedError for a trunk switch that selects a TPU
+    kernel of the JAX package (hypervla_tpu/models/base_vit.py) which the
+    port does not have yet, rather than run the plain trunk without a
+    word."""
+    unported = {
+        "use_flash_attention": "the flash attention kernel, ROADMAP.md B4",
+        "dino_fused_add_ln":
+            "the fused add + LayerNorm kernels, ROADMAP.md B7 and B8",
+    }
+    for name, what in unported.items():
+        if vit_kwargs.get(name, False):
+            raise NotImplementedError(
+                f"vit_kwargs {name}={vit_kwargs[name]!r} is not ported yet "
+                f"({what})")
+    layer_norm_fn(vit_kwargs.get("fused_layer_norm", False))
+    impl = vit_kwargs.get("dino_layers_impl")
+    if impl not in (None, "pallas_train", "pallas_serving"):
+        raise NotImplementedError(
+            f"vit_kwargs dino_layers_impl={impl!r} is not ported (the XLA "
+            "scan twins of the serving trunk have no counterpart; "
+            "ROADMAP.md A3)")
+
+
 class ViT:
     """Config holder + forward of the DINOv2 policy ViT."""
 
@@ -78,6 +104,7 @@ class ViT:
                     f"vit_kwargs {name}={kw.get(name)!r} is not ported yet "
                     "(ROADMAP.md, queue A3)"
                 )
+        check_trunk_switches(kw)
         self.dino = dinov2_config(kw.get("pretrained_encoder_name",
                                          "dinov2-base"))
         self.encoder_dtype = str(kw.get("encoder_dtype", "float32"))
@@ -86,6 +113,13 @@ class ViT:
         # capture attention maps (sow_dino_attention defaults to on)
         self.fused_attention = kw.get("dino_fused_attention", False) and (
             not kw.get("sow_dino_attention", True))
+        # the training trunk's layers as the differentiable layer kernel
+        # (ops/dino_layer_train.py), and its LayerNorm choice
+        self.layer_kernel = kw.get("dino_layers_impl") == "pallas_train"
+        self.fused_ln = kw.get("fused_layer_norm", False)
+        if self.layer_kernel and not self.bf16_trunk:
+            raise ValueError("dino_layers_impl='pallas_train' is a bf16 "
+                             "kernel: set encoder_dtype='bfloat16'")
         self.hidden_dim = kw["hidden_dim"]
         self.num_layers = kw["num_layers"]
         self.num_heads = kw["num_heads"]
@@ -114,11 +148,14 @@ class ViT:
         """uint8 (B, 224, 224, 3) -> patch embeddings (fp32) from the
         differentiable training trunk over per-layer params (keys under
         encoder/image_encoder/, prefix removed), in the encoder dtype, with
-        the fused training attention when configured."""
+        the fused training attention, the layer kernel and the training
+        LayerNorm when configured."""
         _check_resolution(images)
         dtype = torch.bfloat16 if self.bf16_trunk else torch.float32
         emb = dinov2_forward(self.dino, trunk_params, normalize_pixels(images),
-                             dtype, fused_attention=self.fused_attention)
+                             dtype, fused_attention=self.fused_attention,
+                             layer_kernel=self.layer_kernel,
+                             fused_ln=self.fused_ln)
         return emb[:, 1:]
 
     def __call__(self, params: Dict[str, torch.Tensor], images=None,

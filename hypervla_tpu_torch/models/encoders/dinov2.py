@@ -10,8 +10,11 @@ Two layer paths, as in the JAX package:
   * `dinov2_forward` runs the layer loop in fp32 (goldens, tiny configs,
     the once-per-episode encode of the initial image) or bf16 (the
     differentiable training trunk, with the fused training attention as an
-    option; the frozen conditioning encoder, whose layers may go through
-    the no-residual layer forward of ops/dino_layer_train.py);
+    option, or with every layer through the differentiable layer kernel of
+    ops/dino_layer_train.py; the frozen conditioning encoder, whose layers
+    may go through that kernel's no-residual forward on operands packed
+    once). Its LayerNorms follow `fused_ln`, the training LayerNorm of
+    ops/layer_norm.py among the choices;
   * `dinov2_serving_forward` runs the bf16 embeddings, the stacked serving
     trunk (ops/dino_layer.py: the CUDA kernels on the card) and the final
     LayerNorm, over params prepared by ops/serving.py.
@@ -25,6 +28,7 @@ from hypervla_tpu_torch.configs import DINOv2Config
 from hypervla_tpu_torch.models import layers
 from hypervla_tpu_torch.ops import dino_layer, dino_layer_train
 from hypervla_tpu_torch.ops import fused_attention as fused_attention_op
+from hypervla_tpu_torch.ops.layer_norm import layer_norm_pallas
 
 
 # ----------------------- position-grid interpolation -----------------------
@@ -154,7 +158,26 @@ class GeluExact(torch.autograd.Function):
         return (cdf + xf * pdf).to(g.dtype) * g
 
 
-def _layer(config, params, prefix, x, dtype, fused_attention):
+def layer_norm_fn(fused_ln):
+    """The LayerNorm `fused_ln` selects, as hypervla_tpu/models/encoders/
+    dinov2.py::_layer_norm does: (x, scale, bias, eps) -> the normalised x
+    (the caller rounds to its compute dtype). False: flax nn.LayerNorm;
+    "dot": the same arithmetic (the JAX package's MXU ones-dot statistics
+    are a way to schedule the sums, not another function); "pallas_train":
+    the training LayerNorm kernel (ops/layer_norm.py); True: the one-pass
+    serving kernel, which is not ported."""
+    if fused_ln == "pallas_train":
+        return layer_norm_pallas
+    if fused_ln is True:
+        raise NotImplementedError(
+            "fused_layer_norm=True (the one-pass serving LayerNorm kernel) "
+            "is not ported yet (ROADMAP.md B5)")
+    if fused_ln in (False, None, "dot"):
+        return layers.layer_norm
+    raise ValueError(f"unknown fused_layer_norm {fused_ln!r}")
+
+
+def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm):
     """One layer as flax's `_Layer` runs it in `dtype`: Dense layers as
     native-`dtype` matmuls with the cast bias added after, LayerNorm with
     fp32 statistics and one rounding, LayerScale cast to `dtype` before the
@@ -168,9 +191,9 @@ def _layer(config, params, prefix, x, dtype, fused_attention):
                 + params[f"{prefix}/{name}/bias"].to(dtype))
 
     def ln(name, h):
-        return layers.layer_norm(h, params[f"{prefix}/{name}/scale"],
-                                 params[f"{prefix}/{name}/bias"],
-                                 c.layer_norm_eps).to(dtype)
+        return layer_norm(h, params[f"{prefix}/{name}/scale"],
+                          params[f"{prefix}/{name}/bias"],
+                          c.layer_norm_eps).to(dtype)
 
     def layer_scale(name):
         return (c.layerscale_value
@@ -198,27 +221,41 @@ def _layer(config, params, prefix, x, dtype, fused_attention):
 
 def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
                    pixel_values, dtype: torch.dtype = torch.float32,
-                   fused_attention: bool = False, layer_kernel: bool = False):
+                   fused_attention: bool = False, layer_kernel: bool = False,
+                   fused_ln=False):
     """DINOv2 -> last_hidden_state (B, 1 + patches, hidden), fp32.
 
     dtype is the compute dtype (the params stay fp32). fused_attention runs
-    attention through ops/fused_attention.py (bf16, differentiable);
-    layer_kernel runs every layer through ops/dino_layer_train.py's
-    no-residual forward (bf16, no autograd: the frozen encoder's route) on
-    params packed by `pack_frozen_layers`."""
+    attention through ops/fused_attention.py (bf16, differentiable).
+    layer_kernel runs every layer through ops/dino_layer_train.py (bf16):
+    on params packed by `pack_frozen_layers`, its no-residual forward
+    without autograd (the frozen encoder's route); on per-layer fp32 leaves,
+    the differentiable layer (the counterpart of the JAX package's
+    `_KernelLayerCollection`: the operands are stacked and cast per call, so
+    autograd carries their gradients back to the leaves). fused_ln chooses
+    the LayerNorms left outside the layer kernel (`layer_norm_fn`)."""
+    layer_norm = layer_norm_fn(fused_ln)
+    if layer_kernel and dtype != torch.bfloat16:
+        raise ValueError("the layer kernel is bf16: set encoder_dtype="
+                         "'bfloat16'")
     x = embeddings(config, params, pixel_values, dtype)
     for i in range(config.num_hidden_layers):
         prefix = f"encoder/layer/{i}"
-        if layer_kernel:
+        if layer_kernel and f"{prefix}/packed/wqkv" in params:
             x = dino_layer_train.dino_layer_train_packed(
-                x.bfloat16(),
-                tuple(params[f"{prefix}/packed/{name}"]
-                      for name in dino_layer_train.OPERANDS),
+                x, tuple(params[f"{prefix}/packed/{name}"]
+                         for name in dino_layer_train.OPERANDS),
+                config.num_attention_heads, config.layer_norm_eps)
+        elif layer_kernel:
+            x = dino_layer_train.dino_layer_train(
+                x, *dino_layer_train.layer_operands(
+                    params, prefix, config.layerscale_value),
                 config.num_attention_heads, config.layer_norm_eps)
         else:
-            x = _layer(config, params, prefix, x, dtype, fused_attention)
-    x = layers.layer_norm(x, params["layernorm/scale"],
-                          params["layernorm/bias"], config.layer_norm_eps)
+            x = _layer(config, params, prefix, x, dtype, fused_attention,
+                       layer_norm)
+    x = layer_norm(x, params["layernorm/scale"], params["layernorm/bias"],
+                   config.layer_norm_eps)
     return x.to(dtype).float()
 
 

@@ -25,7 +25,7 @@ import torch
 HEAD_DIM = 64
 # rows of the per-layer p array (fp32 LN / layer-scale parameters)
 LN1_S, LN1_B, LN2_S, LN2_B, LS1, LS2 = range(6)
-EPILOGUES = {"none": 0, "gelu": 1, "residual": 2}
+EPILOGUES = {"none": 0, "gelu": 1, "residual": 2, "f32": 3}
 
 #: launches of each CUDA kernel (and of the whole trunk) since the last reset
 LAUNCHES: Dict[str, int] = {
@@ -47,8 +47,8 @@ def _lib():
 
     lib = load_library("dino_layer.cu")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dino_layer_norm.argtypes = [p, p, p, p, i, i, f, p]
-    lib.dino_gemm.argtypes = [p, i, p, i, i, p, p, p, p, i, i, i, i, p]
+    lib.dino_layer_norm.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.dino_gemm.argtypes = [p, i, p, i, i, p, p, p, p, p, i, i, i, i, p]
     lib.dino_attention.argtypes = [p, p, i, i, p]
     for fn in (lib.dino_layer_norm, lib.dino_gemm, lib.dino_attention):
         fn.restype = ctypes.c_int
@@ -84,26 +84,30 @@ def _route(*tensors) -> str:
 
 def layer_norm_rows_reference(x, scale, bias, eps: float):
     """flax LayerNorm semantics: fp32 fast-variance stats, fp32 normalize,
-    one bf16 rounding. x (rows, d) bf16; scale, bias (d,) fp32."""
+    one rounding to x's type. x (rows, d) bf16 or fp32; scale, bias (d,)
+    fp32."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale + bias).bfloat16()
+    return (y * scale + bias).to(x.dtype)
 
 
 def layer_norm_rows(x, scale, bias, eps: float):
     if _route(x, scale, bias) == "cpu":
         return layer_norm_rows_reference(x, scale, bias, eps)
-    _check(x.dim() == 2 and x.dtype == torch.bfloat16 and x.is_contiguous(),
-           f"x must be contiguous 2-D bf16, got {x.dtype} {tuple(x.shape)}")
+    _check(x.dim() == 2 and x.dtype in (torch.bfloat16, torch.float32)
+           and x.is_contiguous(),
+           f"x must be contiguous 2-D bf16 or fp32, got {x.dtype} "
+           f"{tuple(x.shape)}")
     for t in (scale, bias):
         _check(t.dtype == torch.float32 and t.is_contiguous()
                and t.shape == (x.shape[1],), "scale/bias must be (d,) fp32")
     out = torch.empty_like(x)
     code = _lib().dino_layer_norm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        x.shape[0], x.shape[1], float(eps), _stream(),
+        x.shape[0], x.shape[1], float(eps), int(x.dtype == torch.float32),
+        _stream(),
     )
     _raise_on_error("dino_layer_norm", code)
     LAUNCHES["dino_layer_norm"] += 1
@@ -114,27 +118,45 @@ def layer_norm_rows(x, scale, bias, eps: float):
 
 
 def gemm_reference(a, w, bias, epilogue: str = "none", residual=None,
-                   layer_scale=None, transpose_w: bool = False):
-    """bf16(a @ w) + bf16(bias), then the epilogue. a (M, K) bf16; w (K, N)
-    bf16, or (N, K) with transpose_w; bias, layer_scale (N,) fp32."""
+                   layer_scale=None, transpose_w: bool = False,
+                   with_pre: bool = False):
+    """bf16(a @ w) + bf16(bias) (no bias with None), then the epilogue.
+    a (M, K) bf16; w (K, N) bf16, or (N, K) with transpose_w; bias,
+    layer_scale (N,) fp32. Epilogue "f32" returns the fp32 product itself.
+    with_pre ("gelu" and "residual" only) also returns the value before the
+    epilogue: (out, pre)."""
     wf = w.float().t() if transpose_w else w.float()
-    y = (a.float() @ wf).bfloat16() + bias.bfloat16()
+    y = a.float() @ wf
+    if epilogue == "f32":
+        return y
+    y = y.bfloat16()
+    if bias is not None:
+        y = y + bias.bfloat16()
     if epilogue == "gelu":
         yf = y.float()
-        return (yf * (0.5 * (1.0 + torch.erf(yf * math.sqrt(0.5))))).bfloat16()
-    if epilogue == "residual":
-        return residual + layer_scale.bfloat16() * y
-    _check(epilogue == "none", f"unknown epilogue {epilogue!r}")
-    return y
+        out = (yf * (0.5 * (1.0 + torch.erf(yf * math.sqrt(0.5))))).bfloat16()
+    elif epilogue == "residual":
+        out = residual + layer_scale.bfloat16() * y
+    else:
+        _check(epilogue == "none", f"unknown epilogue {epilogue!r}")
+        return y
+    return (out, y) if with_pre else out
 
 
 def gemm(a, w, bias, epilogue: str = "none", residual=None,
-         layer_scale=None, transpose_w: bool = False):
+         layer_scale=None, transpose_w: bool = False,
+         with_pre: bool = False):
     extra = (residual, layer_scale) if epilogue == "residual" else ()
-    if _route(a, w, bias, *extra) == "cpu":
+    if bias is not None:
+        extra += (bias,)
+    if _route(a, w, *extra) == "cpu":
         return gemm_reference(a, w, bias, epilogue, residual, layer_scale,
-                              transpose_w)
+                              transpose_w, with_pre)
     _check(epilogue in EPILOGUES, f"unknown epilogue {epilogue!r}")
+    _check(not with_pre or epilogue in ("gelu", "residual"),
+           f"epilogue {epilogue!r} has no value before it to return")
+    _check(bias is not None or epilogue in ("none", "f32"),
+           f"epilogue {epilogue!r} needs a bias")
     _check(a.dim() == 2 and a.dtype == torch.bfloat16 and a.is_contiguous(),
            "a must be contiguous 2-D bf16")
     _check(w.dim() == 2 and w.dtype == torch.bfloat16 and w.stride(1) == 1
@@ -145,8 +167,9 @@ def gemm(a, w, bias, epilogue: str = "none", residual=None,
     _check((w.shape[1] if transpose_w else w.shape[0]) == k,
            f"inner dims differ: a {tuple(a.shape)}, w {tuple(w.shape)}")
     _check(n % 64 == 0 and k % 32 == 0, f"need N % 64 == 0, K % 32 == 0: {n}, {k}")
-    _check(bias.dtype == torch.float32 and bias.is_contiguous()
-           and bias.shape == (n,), "bias must be (N,) fp32")
+    _check(bias is None or (bias.dtype == torch.float32
+                            and bias.is_contiguous() and bias.shape == (n,)),
+           "bias must be (N,) fp32")
     res_ptr = ls_ptr = None
     if epilogue == "residual":
         _check(residual.dtype == torch.bfloat16 and residual.is_contiguous()
@@ -155,15 +178,18 @@ def gemm(a, w, bias, epilogue: str = "none", residual=None,
                and layer_scale.is_contiguous() and layer_scale.shape == (n,),
                "layer_scale must be (N,) fp32")
         res_ptr, ls_ptr = residual.data_ptr(), layer_scale.data_ptr()
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((m, n), device=a.device, dtype=(
+        torch.float32 if epilogue == "f32" else torch.bfloat16))
+    pre = torch.empty_like(out) if with_pre else None
     code = _lib().dino_gemm(
         a.data_ptr(), k, w.data_ptr(), w.stride(0), int(transpose_w),
-        bias.data_ptr(), res_ptr, ls_ptr, out.data_ptr(), m, n, k,
+        None if bias is None else bias.data_ptr(), res_ptr, ls_ptr,
+        out.data_ptr(), pre.data_ptr() if with_pre else None, m, n, k,
         EPILOGUES[epilogue], _stream(),
     )
     _raise_on_error("dino_gemm", code)
     LAUNCHES["dino_gemm"] += 1
-    return out
+    return (out, pre) if with_pre else out
 
 
 # ------------------------------- Attention -------------------------------

@@ -49,8 +49,8 @@ def _lib():
     lib = load_library("fused_attention.cu")
     p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
     lib.mha_fused_train_fwd.argtypes = [p, p, p, n, p, p, i, i, i, f, p]
-    lib.mha_fused_train_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
-                                        f, p]
+    lib.mha_fused_train_bwd.argtypes = [p, p, p, n, p, p, p, p, p, n, p, i,
+                                        i, i, f, p]
     lib.mha_max_seq.argtypes = []
     for fn in (lib.mha_fused_train_fwd, lib.mha_fused_train_bwd,
                lib.mha_max_seq):
@@ -100,17 +100,23 @@ def _check_qkv(q, k, v, heads: int):
            f"sequence {q.shape[1]} exceeds the kernels' shared memory")
 
 
-def _launch_fwd(q, k, v, heads: int, scale: float, store_p: bool):
-    """Launches the forward kernel (no launch counted). q, k, v may be
-    column slices of one (B, S, 3*H*D) buffer: they share strides, unit
-    inner stride and a dense batch stride."""
-    _check_qkv(q, k, v, heads)
-    b, s, hd = q.shape
-    ld = q.stride(1)
+def _row_stride(q, k, v) -> int:
+    """The row stride q, k, v share. They may be column slices of one
+    (B, S, 3*H*D) buffer: equal strides, unit inner stride and a dense
+    batch stride."""
+    s, ld = q.shape[1], q.stride(1)
     for t in (q, k, v):
         _check(t.stride() == (s * ld, ld, 1) and ld % 2 == 0
                and t.data_ptr() % 4 == 0,
                "q, k, v need strides (S*ld, ld, 1) with even ld")
+    return ld
+
+
+def _launch_fwd(q, k, v, heads: int, scale: float, store_p: bool):
+    """Launches the forward kernel (no launch counted)."""
+    _check_qkv(q, k, v, heads)
+    b, s, hd = q.shape
+    ld = _row_stride(q, k, v)
     o = torch.empty((b, s, hd), dtype=torch.bfloat16, device=q.device)
     probs = (torch.empty((b, heads, s, s), dtype=torch.bfloat16,
                          device=q.device) if store_p else None)
@@ -153,29 +159,38 @@ def mha_fused_train_bwd_reference(q, k, v, probs, g, heads: int,
     return _merge(dq), _merge(dk), _merge(dv)
 
 
+def _launch_bwd(q, k, v, probs, g, heads: int, scale: float):
+    """Launches the backward kernels (no launch counted). q, k, v as the
+    forward takes them; returns one (B, S, 3*H*D) buffer [dq | dk | dv]."""
+    _check_qkv(q, k, v, heads)
+    b, s, hd = q.shape
+    ld = _row_stride(q, k, v)
+    _check(g.is_contiguous() and g.shape == (b, s, hd)
+           and g.dtype == torch.bfloat16,
+           "g must be contiguous (B, S, H*D) bf16")
+    _check(probs.is_contiguous() and probs.dtype == torch.bfloat16
+           and probs.shape == (b, heads, s, s),
+           "P must be contiguous (B, H, S, S) bf16")
+    dqkv = torch.empty((b, s, 3 * hd), dtype=torch.bfloat16, device=q.device)
+    dq, dk, dv = dqkv[..., :hd], dqkv[..., hd:2 * hd], dqkv[..., 2 * hd:]
+    ds = torch.empty_like(probs)
+    code = _lib().mha_fused_train_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, probs.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 3 * hd,
+        ds.data_ptr(), b, s, heads, float(scale), _stream(),
+    )
+    _raise_on_error("mha_fused_train_bwd", code)
+    return dqkv
+
+
 def mha_fused_train_bwd(q, k, v, probs, g, heads: int, scale: float):
     if _route(q, k, v, probs, g) == "cpu":
         return mha_fused_train_bwd_reference(q, k, v, probs, g, heads,
                                              scale)
-    _check_qkv(q, k, v, heads)
-    b, s, hd = q.shape
-    for t in (q, k, v, g):
-        _check(t.is_contiguous() and t.shape == (b, s, hd)
-               and t.dtype == torch.bfloat16,
-               "q, k, v, g must be contiguous (B, S, H*D) bf16")
-    _check(probs.is_contiguous() and probs.dtype == torch.bfloat16
-           and probs.shape == (b, heads, s, s),
-           "P must be contiguous (B, H, S, S) bf16")
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    ds = torch.empty_like(probs)
-    code = _lib().mha_fused_train_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        ds.data_ptr(), b, s, heads, float(scale), _stream(),
-    )
-    _raise_on_error("mha_fused_train_bwd", code)
+    dqkv = _launch_bwd(q, k, v, probs, g, heads, scale)
     LAUNCHES["mha_fused_train_bwd"] += 1
-    return dq, dk, dv
+    hd = q.shape[2]
+    return dqkv[..., :hd], dqkv[..., hd:2 * hd], dqkv[..., 2 * hd:]
 
 
 # ------------------------------- autograd -------------------------------

@@ -9,14 +9,18 @@ the EMA of the params.
 
 The configured paths that the flagship fast preset does not take raise
 NotImplementedError (ROADMAP.md A2.1): delta-decay, the v4 weight decay,
-the attention aux losses, device augmentation, embedding noise, the
-layer-kernel trunk and per-task loss masks.
+the attention aux losses, device augmentation, embedding noise and per-task
+loss masks, and the trunk switches whose kernel is not ported
+(models/base_vit.py::check_trunk_switches). The layer-kernel trunk
+(vit_kwargs dino_layers_impl="pallas_train") needs
+config["hoist_shared_trunk"], as in the JAX package.
 """
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from hypervla_tpu_torch.models.base_vit import check_trunk_switches
 from hypervla_tpu_torch.models.hypernetwork import per_sample_view
 from hypervla_tpu_torch.train.optimizer import global_norm
 from hypervla_tpu_torch.train.train_state import TrainState
@@ -35,8 +39,35 @@ def to_tensors(tree, device):
     return tree
 
 
+def _check_layer_kernel_hoist(config: Dict[str, Any]) -> None:
+    """The JAX package's contract (hypervla_tpu/train/train_step.py): the
+    layer kernel sums its weight gradients over the batch, which exists only
+    where the shared trunk runs once over the whole batch, outside the
+    per-sample loss. This step always runs the trunk so; it still holds a
+    config to the same conditions, so that one config means one thing in
+    both packages."""
+    vk = config["base_net_kwargs"]["vit_kwargs"]
+    if vk.get("dino_layers_impl") != "pallas_train":
+        return
+    shared = tuple(config["hypernet_kwargs"].get("shared_modules") or ())
+    hoist = bool(
+        config.get("hoist_shared_trunk", False)
+        and config["base_net_kwargs"].get("model_type") == "vit"
+        and vk.get("encoder_type") == "DINOv2"
+        and float(vk.get("image_embedding_noise", 0.0)) == 0.0
+        and not vk.get("sow_dino_attention", False)
+        and "image_encoder" in shared)
+    if not hoist:
+        raise ValueError(
+            "dino_layers_impl='pallas_train' requires the hoisted trunk: "
+            "set config['hoist_shared_trunk']=True (and keep "
+            "sow_dino_attention=False, image_embedding_noise=0, "
+            "image_encoder shared)")
+
+
 def _unported(config: Dict[str, Any], pretrained_params) -> None:
     vk = config["base_net_kwargs"]["vit_kwargs"]
+    check_trunk_switches(vk)
     aux = config["auxiliary_loss"]
     opt = config["optimizer"]
     checks = {
@@ -54,8 +85,6 @@ def _unported(config: Dict[str, Any], pretrained_params) -> None:
             config.get("dataset_kwargs", {}).get("device_augment", False),
         "vit_kwargs image_embedding_noise":
             float(vk.get("image_embedding_noise", 0.0)) > 0.0,
-        "vit_kwargs dino_layers_impl='pallas_train' (the layer kernel's "
-        "backward)": vk.get("dino_layers_impl") == "pallas_train",
     }
     for name, bad in checks.items():
         if bad:
@@ -80,6 +109,7 @@ def make_train_step(model, config: Dict[str, Any], tx,
     patch_embeddings. The new state's params are new tensors; the old
     state is left as it was."""
     del base_lr_callable  # only delta-decay reads it, which is not ported
+    _check_layer_kernel_hoist(config)
     _unported(config, pretrained_params)
     hk = config["hypernet_kwargs"]
     use_initial_image = hk.get("use_initial_image", False)

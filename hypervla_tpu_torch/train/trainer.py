@@ -53,7 +53,9 @@ def build_frozen_encoders(config: Dict[str, Any], device="cpu",
     last_hidden_state (B, 1 + patches, width). T5 params are drawn from
     `seed`, DINOv2's from `seed + 1`; on the layer forward's route
     (frozen_layer_kernel) dino_params hold each layer's operands packed
-    once. dino_apply is None without initial-image conditioning."""
+    once. The frozen DINOv2 follows the trunk's compute dtype and its
+    LayerNorm choice (vit_kwargs fused_layer_norm), as the JAX trainer's
+    does. dino_apply is None without initial-image conditioning."""
     tok = config["dataset_kwargs"].get("text_tokenizer", "t5-base")
     t5 = t5_config(tok)
     t5_params = _init(t5_specs(t5), seed, device)
@@ -71,11 +73,12 @@ def build_frozen_encoders(config: Dict[str, Any], device="cpu",
     dtype = (torch.bfloat16 if vk.get("encoder_dtype") == "bfloat16"
              else torch.float32)
     layer_kernel = frozen_layer_kernel(config)
+    fused_ln = vk.get("fused_layer_norm", False)
     if layer_kernel:
         dino_params = pack_frozen_layers(dino, dino_params)
 
     def dino_apply(params, images):
         return dinov2_forward(dino, params, normalize_pixels(images), dtype,
-                              layer_kernel=layer_kernel)
+                              layer_kernel=layer_kernel, fused_ln=fused_ln)
 
     return text_apply, dino_apply, t5_params, dino_params

@@ -1,7 +1,7 @@
 """The port's no-residual DINOv2 layer forward
 (hypervla_tpu_torch/ops/dino_layer_train.py: CPU tensors take the plain
 PyTorch version) against the JAX package's Pallas `dino_layer_train` in
-interpret mode, and the frozen-encoder route through it (the port's
+interpret mode (its backward: tests/test_torch_dino_layer_train_bwd.py), and the frozen-encoder route through it (the port's
 `dinov2_forward(layer_kernel=True)`) against JAX's
 DINOv2Model(layers_impl="pallas_train") on dinov2-test-wide."""
 import jax
@@ -61,12 +61,32 @@ def test_layer_forward_matches_pallas(batch, seq):
 
 
 def test_layer_refuses_gradients():
+    """With no gradient asked for (no operand requires one, or under
+    no_grad) the layer records no graph: it runs the no-residual forward
+    and saves nothing. Asked for one, it returns the same values with a
+    graph, and the gradients reach every operand in its own dtype."""
     x, weights, pv, b1 = _operands(2, 5)
     tb = torch.bfloat16
-    xt = torch.tensor(x).to(tb).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="without autograd"):
-        tdl.dino_layer_train(xt, *(torch.tensor(w).to(tb) for w in weights),
-                             torch.tensor(pv), torch.tensor(b1), HEADS, 1e-6)
+
+    def args(requires_grad):
+        leaves = [torch.tensor(x).to(tb),
+                  *(torch.tensor(w).to(tb) for w in weights),
+                  torch.tensor(pv), torch.tensor(b1)]
+        return [t.requires_grad_(requires_grad) for t in leaves]
+
+    plain = tdl.dino_layer_train(*args(False), HEADS, 1e-6)
+    assert plain.grad_fn is None
+    with torch.no_grad():
+        frozen = tdl.dino_layer_train(*args(True), HEADS, 1e-6)
+    assert frozen.grad_fn is None and torch.equal(frozen, plain)
+    leaves = args(True)
+    out = tdl.dino_layer_train(*leaves, HEADS, 1e-6)
+    assert out.grad_fn is not None and torch.equal(out.detach(), plain)
+    out.float().sum().backward()
+    for leaf in leaves:
+        assert leaf.grad is not None and leaf.grad.dtype == leaf.dtype
+        assert leaf.grad.shape == leaf.shape
+        assert torch.isfinite(leaf.grad.float()).all()
 
 
 def test_frozen_encoder_route_matches_jax():

@@ -1,9 +1,11 @@
 """The training slice's CUDA kernels against their plain PyTorch versions,
 on the card, at the flagship's widths (S=257, H=12, D=64, width 768):
 the fused training attention forward and backward
-(csrc/fused_attention.cu) and the no-residual layer forward
-(ops/dino_layer_train.py over csrc/dino_layer.cu and the attention
-forward).
+(csrc/fused_attention.cu), the layer forward without and with residuals
+and the layer backward (ops/dino_layer_train.py over csrc/dino_layer.cu,
+the attention kernels and csrc/layer_backward.cu), each kernel of
+csrc/layer_backward.cu alone at small and ragged shapes, and the training
+LayerNorm (ops/layer_norm.py).
 
 Skips where there is no CUDA device. On a GPU host without JAX, skip the
 JAX-only conftest: `python -m pytest --noconftest -q
@@ -15,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from hypervla_tpu_torch.ops import dino_layer as dl
 from hypervla_tpu_torch.ops import dino_layer_train as dlt
 from hypervla_tpu_torch.ops import fused_attention as fa
+from hypervla_tpu_torch.ops import layer_norm as tln
 
 pytestmark = pytest.mark.cuda
 
@@ -137,3 +141,208 @@ def test_layer_forward_kernel(device, layers, bound):
     assert dlt.LAUNCHES["dino_layer_train_fwd"] == layers
     err, scale = _err(got, ref)
     assert err <= bound * max(scale, 1.0), (err, scale)
+
+
+# ------------------- the kernels of csrc/layer_backward.cu -------------------
+# small and ragged: 68 and 99 rows leave partial row blocks and GEMM tiles
+
+
+@pytest.mark.parametrize("rows,k1,n", [(68, 128, 384), (99, 512, 128),
+                                       (1028, 768, 768)])
+def test_gemm_tn_kernel(device, rows, k1, n):
+    a = _randn((rows, k1), device, 1.0, 0)
+    b = _randn((rows, n), device, 1.0, 1)
+    dlt.reset_launch_counts()
+    got = dlt.gemm_tn(a, b)
+    torch.cuda.synchronize()
+    assert dlt.LAUNCHES["layer_gemm_tn"] == 1 and got.shape == (k1, n)
+    err, scale = _err(got, dlt.gemm_tn_reference(a, b))
+    # one rounding of an fp32 sum taken in another order
+    assert err <= 2 ** -7 * max(scale, 1.0), (err, scale)
+    assert torch.equal(got, dlt.gemm_tn(a, b))  # no atomics: repeats
+
+
+@pytest.mark.parametrize("epilogue", ["none", "f32"])
+@pytest.mark.parametrize("rows,k,n", [(68, 384, 128), (99, 128, 512)])
+def test_gemm_nt_without_bias(device, epilogue, rows, k, n):
+    """A.B^T through the GEMM of csrc/dino_layer.cu: bf16 out with no bias
+    (dh, dao) and the fp32 sum itself (the LayerNorm cotangents)."""
+    a = _randn((rows, k), device, 1.0, 0)
+    w = _randn((n, k), device, 0.05, 1)
+    got = dl.gemm(a, w, None, epilogue, transpose_w=True)
+    torch.cuda.synchronize()
+    ref = dl.gemm_reference(a, w, None, epilogue, transpose_w=True)
+    assert got.dtype == ref.dtype == (
+        torch.float32 if epilogue == "f32" else torch.bfloat16)
+    err, scale = _err(got, ref)
+    # f32: sums of ~k products in another order; bf16: one ulp
+    bound = 1e-5 * k if epilogue == "f32" else 2 ** -7
+    assert err <= bound * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("epilogue", ["gelu", "residual"])
+def test_gemm_second_output(device, epilogue):
+    """The value before the GELU or the LayerScale multiply, stored beside
+    the epilogue's output; the output itself as without the store."""
+    rows, k, n = 99, 128, 256
+    a = _randn((rows, k), device, 1.0, 0)
+    w = _randn((k, n), device, 0.05, 1)
+    bias = _randn((n,), device, 0.1, 2).float()
+    extra = ((_randn((rows, n), device, 1.0, 3),
+              _randn((n,), device, 0.5, 4).float())
+             if epilogue == "residual" else (None, None))
+    out, pre = dl.gemm(a, w, bias, epilogue, *extra, with_pre=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dl.gemm(a, w, bias, epilogue, *extra))
+    assert torch.equal(pre, dl.gemm(a, w, bias))
+    ref_out, ref_pre = dl.gemm_reference(a, w, bias, epilogue, *extra,
+                                         with_pre=True)
+    for got, ref in ((out, ref_out), (pre, ref_pre)):
+        err, scale = _err(got, ref)
+        assert err <= 2 ** -7 * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("rows,cols", [(68, 128), (1028, 768), (300, 3072)])
+def test_column_sum_passes(device, rows, cols):
+    g, y, dh = (_randn((rows, cols), device, 1.0, seed) for seed in range(3))
+    ls = _randn((cols,), device, 0.5, 3).float()
+    cases = (
+        ("layer_scale_grad", dlt.scale_grad, dlt.scale_grad_reference,
+         (g, y, ls)),
+        ("layer_gelu_bwd", dlt.gelu_bwd, dlt.gelu_bwd_reference, (y, dh)),
+        ("layer_colsum", lambda a: (dlt.colsum(a),),
+         lambda a: (dlt.colsum_reference(a),), (g,)),
+    )
+    for name, kern, plain, args in cases:
+        dlt.reset_launch_counts()
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert dlt.LAUNCHES[name] == 1
+        for a, b in zip(got, plain(*args)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            err, scale = _err(a, b)
+            # bf16 outputs: one ulp (erff and expf against torch's); the
+            # fp32 column sums: terms in another order, and a one-ulp flip
+            # of one bf16 term
+            bound = 2 ** -7 if a.dtype == torch.bfloat16 else 2 ** -8
+            assert err <= bound * max(scale, 1.0), (name, err, scale)
+        again = kern(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+
+
+@pytest.mark.parametrize("mode", ["layer", "bf16", "fp32"])
+@pytest.mark.parametrize("rows,d", [(68, 128), (114, 768), (1028, 768)])
+def test_layer_norm_backward_kernel(device, mode, rows, d):
+    x = _randn((rows, d), device, 2.0, 0)
+    g = _randn((rows, d), device, 1.0, 1)
+    scale = (_randn((d,), device, 0.2, 2).float() + 1.0)
+    residual = None
+    if mode == "layer":
+        g, residual = g.float(), _randn((rows, d), device, 1.0, 3)
+    elif mode == "fp32":
+        x, g = x.float() + 0.001, g.float()
+    tln.reset_launch_counts()
+    got = tln.layer_norm_bwd_rows(x, g, scale, 1e-6, residual)
+    torch.cuda.synchronize()
+    assert tln.LAUNCHES["layer_norm_bwd_rows"] == 1
+    ref = tln.layer_norm_bwd_rows_reference(x, g, scale, 1e-6, residual)
+    err, ref_scale = _err(got[0], ref[0])
+    bound = 1e-5 if mode == "fp32" else 2 ** -7
+    assert got[0].dtype == x.dtype
+    assert err <= bound * max(ref_scale, 1.0), (err, ref_scale)
+    for a, b in zip(got[1:], ref[1:]):
+        err, ref_scale = _err(a, b)
+        assert err <= 1e-6 * rows * max(ref_scale, 1.0), (err, ref_scale)
+    again = tln.layer_norm_bwd_rows(x, g, scale, 1e-6, residual)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_layer_norm_autograd_on_the_card(device, dtype):
+    x = _randn((3, 57, 768), device, 2.0, 0).to(dtype).requires_grad_(True)
+    scale = (_randn((768,), device, 0.2, 1).float() + 1.0).requires_grad_(
+        True)
+    bias = _randn((768,), device, 0.1, 2).float().requires_grad_(True)
+    g = _randn((3, 57, 768), device, 1.0, 3).to(dtype)
+    tln.reset_launch_counts()
+    y = tln.layer_norm_pallas(x, scale, bias, 1e-6)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert tln.LAUNCHES["layer_norm_pallas_fwd"] == 1
+    assert tln.LAUNCHES["layer_norm_pallas_bwd"] == 1
+    rows = x.detach().reshape(-1, 768)
+    bound = 1e-5 if dtype == torch.float32 else 2 ** -7
+    ref_y = tln.layer_norm_pallas_reference(rows, scale.detach(),
+                                            bias.detach(), 1e-6)
+    err, ref_scale = _err(y.detach().reshape(-1, 768), ref_y)
+    assert y.dtype == dtype and err <= bound * max(ref_scale, 1.0)
+    ref = tln.layer_norm_bwd_rows_reference(rows, g.reshape(-1, 768),
+                                            scale.detach(), 1e-6)
+    for leaf, r in zip((x, scale, bias), ref):
+        err, ref_scale = _err(leaf.grad.reshape(r.shape), r)
+        tol = bound if leaf is x else 1e-4
+        assert err <= tol * max(ref_scale, 1.0), (err, ref_scale)
+
+
+# ------------------------ the layer, with residuals ------------------------
+
+
+@pytest.mark.parametrize("batch,seq,width,heads", [(4, 17, 128, 2),
+                                                   (3, 33, 128, 2),
+                                                   (B, S, 768, H)])
+def test_layer_residuals_and_backward_kernels(device, batch, seq, width,
+                                              heads):
+    weights, pv, b1 = _layer_operands(device, width)
+    ops = dlt.pack_operands(*weights, pv, b1)
+    x = _randn((batch, seq, width), device, 0.5)
+    g = _randn((batch, seq, width), device, 1.0, 9)
+    dlt.reset_launch_counts()
+    out, res = dlt.forward_with_residuals(x, ops, heads, 1e-6)
+    torch.cuda.synchronize()
+    assert dlt.LAUNCHES["dino_layer_train_fwd_res"] == 1
+    # the primal (no residual stores) gives the same bits
+    assert torch.equal(out, dlt.dino_layer_train_packed(x, ops, heads, 1e-6))
+    ref_out, ref_res = dlt.forward_with_residuals_reference(x, ops, heads,
+                                                            1e-6)
+    for name, a, b in zip(("out", *dlt.RESIDUALS), (out, *res),
+                          (ref_out, *ref_res)):
+        err, scale = _err(a, b)
+        # a composed layer's bf16 outputs: two ulps
+        assert err <= 2 ** -6 * max(scale, 1.0), (name, err, scale)
+    # the backward, both on the plain forward's residuals
+    got = dlt.layer_backward(g, x, ops, ref_res, heads, 1e-6)
+    torch.cuda.synchronize()
+    assert dlt.LAUNCHES["dino_layer_train_bwd"] == 1
+    ref = dlt.layer_backward_reference(g, x, ops, ref_res, heads, 1e-6)
+    names = ("dx", "dwqkv", "dwo", "dw1", "dw2", "dpv", "db1")
+    for name, a, b in zip(names, got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err, scale = _err(a, b)
+        cos = torch.nn.functional.cosine_similarity(
+            a.double().flatten(), b.double().flatten(), dim=0).item()
+        assert err <= 2 ** -6 * max(scale, 1.0), (name, err, scale)
+        assert cos > 0.999, (name, cos)
+    again = dlt.layer_backward(g, x, ops, ref_res, heads, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_layer_autograd_on_the_card(device):
+    """dino_layer_train under autograd launches the residual-saving forward
+    and the backward, and hands every operand its gradient."""
+    weights, pv, b1 = _layer_operands(device, 128)
+    leaves = [_randn((4, 17, 128), device, 0.5), *weights, pv, b1]
+    leaves = [t.requires_grad_(True) for t in leaves]
+    dlt.reset_launch_counts()
+    out = dlt.dino_layer_train(*leaves, 2, 1e-6)
+    out.backward(_randn(out.shape, device, 1.0, 5))
+    torch.cuda.synchronize()
+    assert dlt.LAUNCHES["dino_layer_train_fwd_res"] == 1
+    assert dlt.LAUNCHES["dino_layer_train_bwd"] == 1
+    assert dlt.LAUNCHES["dino_layer_train_fwd"] == 0
+    cpu = [t.detach().cpu().requires_grad_(True) for t in leaves]
+    dlt.dino_layer_train(*cpu, 2, 1e-6).backward(
+        _randn(out.shape, "cpu", 1.0, 5))
+    for leaf, ref in zip(leaves, cpu):
+        assert leaf.grad.dtype == leaf.dtype and leaf.grad.shape == leaf.shape
+        err, scale = _err(leaf.grad.cpu(), ref.grad)
+        assert err <= 2 ** -6 * max(scale, 1.0), (err, scale)
