@@ -13,8 +13,21 @@
    random (1, 32, 768) instruction embedding and drives ~50 fused serving
    steps on random 256x256 frames (crop and ensembling on). Checks that every
    step went through the trunk kernels and that the actions match the same
-   steps run with the plain trunk.
-4. Training kernel phase, at B=64, S=257, H=12, D=64, width 768, each
+   steps run with the plain trunk. Then a second serving configuration on
+   the same weights: use_flash_attention=True and fused_layer_norm=True
+   through the per-layer serving step (trunk_impl="layers"): 12 flash
+   attention and 25 one-pass LayerNorm launches per step, the actions held
+   against the same steps with both kernels' plain versions, timed beside
+   the stacked-trunk step.
+4. Row and flash kernel phase: the flash attention and the one-pass
+   LayerNorm at the serving shapes (the flash attention at B=64 too), the
+   residual add + LayerNorm pair with and without LayerScale, forward and
+   backward with both cotangents (the backward twice, bit-equal), and the
+   fused exact GELU at the training shapes, each against its plain version,
+   timed with its bound and the one PyTorch call for the same function.
+   The add + LayerNorm without LayerScale lies on no model path: its
+   differentiable function is driven once, counted, forward and backward.
+   Training kernel phase, at B=64, S=257, H=12, D=64, width 768, each
    kernel against its plain version, both timed: the fused training
    attention forward and backward; the layer forward without residuals (one
    layer and 12 stacked) and with them (all outputs); the layer backward
@@ -25,32 +38,43 @@
 5. Train phase: the full-width flagship at batch 64 through the entry
    points of scripts/bench_train.py (build_frozen_encoders,
    make_train_step), the frozen T5 and DINOv2 drawn from seeds, the LR at
-   its peak, on one fixed batch, under two configurations: the fast
+   its peak, on one fixed batch, under three configurations: the fast
    training preset (fused attention in a cuBLAS trunk, the frozen encoder
    through the layer forward), and the fast preset with the layer-kernel
    trunk (hoist_shared_trunk, dino_layers_impl="pallas_train",
    fused_layer_norm="pallas_train": every trunk layer through the
    residual-saving layer forward and the layer backward, the final
-   LayerNorm of both encoders through the training LayerNorm). For each:
+   LayerNorm of both encoders through the training LayerNorm), and the fast
+   preset with dino_fused_add_ln=True and HYPERVLA_FUSED_GELU=1 (set for
+   that configuration's steps only): every residual boundary of the trunk
+   through fused_add_scale_ln forward and backward, the trunk's GELU
+   forward through the fused kernel. For each:
    every step's launches, a finite and falling loss, and the first step
    against the plain path (the same step with the kernel switches off);
-   all three timed in turns.
+   all four timed in turns.
 
 Beside each kernel's time the script prints the least time the card could
 take for the same work (the larger of bytes moved over 3.35 TB/s and
 operations over the peak rate for their type: 989 TFLOP/s bf16 on the
 tensor cores, 67 TFLOP/s fp32) and, where one PyTorch call computes the
-same function (torch.matmul, F.layer_norm,
+same function (torch.matmul, F.layer_norm, F.gelu,
 F.scaled_dot_product_attention, a sum), that call's time: a yardstick that
 the port never calls.
+
+Each serving step and each train configuration is also traced once with
+torch.profiler: its device busy time (the sum of its kernels' device time)
+and kernel count beside the unprofiled step time, i.e. the device's idle
+share.
 
 Prints the card's name and power limit, the per-phase results, a
 {"kernels": [...]} JSON line, and as its last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero
 without that line. Needs a CUDA device: exits non-zero without one.
 """
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -59,7 +83,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 STEPS = 50
 SEED = 0
-SOURCES = ("dino_layer.cu", "fused_attention.cu", "layer_backward.cu")
+SOURCES = ("dino_layer.cu", "fused_attention.cu", "layer_backward.cu",
+           "row_kernels.cu", "flash_attention.cu")
 TRUNK_SOURCE = "hypervla_tpu_torch/csrc/dino_layer.cu"
 TPU_KERNEL = "hypervla_tpu/ops/dino_layer.py:87"  # `_kernel`, the Pallas body
 # the training kernels: (source, the Pallas body each replaces)
@@ -92,6 +117,21 @@ TRAIN_KERNELS = {
                        "hypervla_tpu/ops/dino_layer_train.py:90"),
     "layer_colsum": ("hypervla_tpu_torch/csrc/layer_backward.cu",
                      "hypervla_tpu/ops/dino_layer_train.py:289"),
+}
+# the forward-only serving kernels, the fused residual boundaries and the
+# fused GELU: (source, the Pallas body each replaces)
+ROW_SOURCE = "hypervla_tpu_torch/csrc/row_kernels.cu"
+ROW_FLASH_KERNELS = {
+    "flash_attention": ("hypervla_tpu_torch/csrc/flash_attention.cu",
+                        "hypervla_tpu/ops/flash_attention.py:22"),
+    "layer_norm": (ROW_SOURCE, "hypervla_tpu/ops/layer_norm.py:17"),
+    "fused_add_ln_fwd": (ROW_SOURCE, "hypervla_tpu/ops/add_layer_norm.py:57"),
+    "fused_add_ln_bwd": (ROW_SOURCE, "hypervla_tpu/ops/add_layer_norm.py:70"),
+    "fused_add_scale_ln_fwd": (ROW_SOURCE,
+                               "hypervla_tpu/ops/add_layer_norm.py:207"),
+    "fused_add_scale_ln_bwd": (ROW_SOURCE,
+                               "hypervla_tpu/ops/add_layer_norm.py:221"),
+    "gelu_exact_fused": (ROW_SOURCE, "hypervla_tpu/ops/gelu.py:63"),
 }
 # the card's published peaks (H100 SXM): device memory, dense bf16 on the
 # tensor cores, fp32 outside them
@@ -143,6 +183,28 @@ def interleaved(kernel_fn, plain_fn, iters):
     k2 = cuda_ms(kernel_fn, iters)
     p2 = cuda_ms(plain_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_busy(fn, calls=1):
+    """(device busy ms, device kernels) per call of fn, from a
+    torch.profiler trace of `calls` calls: the sum of the kernels' own
+    device time (one stream, so they do not overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy_us / 1e3 / calls, sum(e.count for e in rows) / calls
 
 
 def bound_ms(nbytes, flops, peak=PEAK_BF16):
@@ -320,6 +382,172 @@ def kernel_phase(device):
     return results
 
 
+def row_flash_kernel_phase(device):
+    """Checks and times the forward-only serving kernels at the serving
+    shapes (the flash attention at B=64 too) and the fused residual
+    boundaries and the fused GELU at the training shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from hypervla_tpu_torch.ops import add_layer_norm as aln
+    from hypervla_tpu_torch.ops import flash_attention as fa
+    from hypervla_tpu_torch.ops import gelu as tg
+    from hypervla_tpu_torch.ops import layer_norm as tln
+
+    seq, heads, hidden, batch = 257, 12, 768, TRAIN_BATCH
+    rng = np.random.default_rng(SEED + 3)
+
+    def t(shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
+        return torch.tensor(
+            (rng.standard_normal(shape) * scale + shift).astype(np.float32),
+            dtype=dtype, device=device)
+
+    def check(name, label, got, ref, bound=ULP_BOUND):
+        err, ref_scale = max_err(got, ref)
+        limit = bound * max(ref_scale, 1.0)
+        log(f"kernel {name} {label}: max_abs_err {err:.6g} (bound "
+            f"{limit:.6g})")
+        if not err <= limit:
+            raise AssertionError(f"{name} {label}: {err} > {limit}")
+        return err
+
+    table = KernelTable()
+
+    # ---- kernel 4: flash attention over (B, S, heads, d), as the layer
+    # reshapes its Dense outputs ----
+    def flash_case(name, b, iters):
+        q, k, v = (t((b, seq, heads, 64)) for _ in range(3))
+        got = fa.mha_flash(q, k, v)
+        torch.cuda.synchronize()
+        err = check(name, f"({b}, 257, 12, 64) bf16", got,
+                    fa.mha_flash_reference(q, k, v))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        table.add(name, f"B={b}", err, lambda: fa.mha_flash(q, k, v),
+                  lambda: fa.mha_flash_reference(q, k, v), iters,
+                  (nbytes(q, k, v, got), 4 * b * seq * seq * hidden,
+                   PEAK_FP32),
+                  lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+    with torch.no_grad():
+        flash_case("flash_attention", 1, 200)
+        flash_case("flash_attention_b64", batch, 10)
+
+        # ---- kernel 5: the one-pass LayerNorm, bf16-stored vectors ----
+        x = t((1, seq, hidden), scale=0.5, shift=0.3)
+        sc, bi = t((hidden,), scale=0.1, shift=1.0), t((hidden,), scale=0.1)
+        got = tln.layer_norm(x, sc, bi, 1e-6)
+        torch.cuda.synchronize()
+        err = check("layer_norm", "(1, 257, 768) bf16", got,
+                    tln.layer_norm_reference(x, sc, bi, 1e-6))
+        table.add("layer_norm", "", err,
+                  lambda: tln.layer_norm(x, sc, bi, 1e-6),
+                  lambda: tln.layer_norm_reference(x, sc, bi, 1e-6), 200,
+                  (nbytes(x, x, sc, bi), 8 * x.numel(), PEAK_FP32),
+                  lambda: F.layer_norm(x, (hidden,), sc, bi, 1e-6))
+
+        # ---- kernel 9: the fused GELU at the fc1 output's shape ----
+        h = t((batch, seq, 4 * hidden), scale=1.5)
+        got = tg.gelu_exact_fused(h)
+        torch.cuda.synchronize()
+        err = check("gelu_exact_fused", "(64, 257, 3072) bf16", got,
+                    tg.gelu_exact_reference(h))
+        table.add("gelu_exact_fused", "", err,
+                  lambda: tg.gelu_exact_fused(h),
+                  lambda: tg.gelu_exact_reference(h), 20,
+                  (nbytes(h, h), 20 * h.numel(), PEAK_FP32),
+                  lambda: F.gelu(h))
+        del h, got
+
+    # ---- kernels 7 and 8: the residual boundaries, forward and backward ----
+    rows = batch * seq
+    x, delta, gy, gxn = (t((rows, hidden), scale=s)
+                         for s in (2.0, 1.0, 1.0, 1.0))
+    ls = t((hidden,), torch.float32, 0.02, 0.1)
+    scale = t((hidden,), torch.float32, 0.1, 1.0)
+    bias = t((hidden,), torch.float32, 0.1)
+    for name, vec in (("fused_add_ln", None), ("fused_add_scale_ln", ls)):
+        xn, y = aln.add_ln_fwd(x, delta, vec, scale, bias, 1e-6)
+        torch.cuda.synchronize()
+        ref_xn, ref_y = aln.add_ln_fwd_reference(x, delta, vec, scale, bias,
+                                                 1e-6)
+        if not torch.equal(xn, ref_xn):
+            raise AssertionError(f"{name}: x_new differs from the plain "
+                                 "version's roundings")
+        err = check(f"{name}_fwd", "y (16448, 768) bf16", y, ref_y)
+        log(f"kernel {name}_fwd x_new: bit-equal to the plain version")
+        extra = () if vec is None else (vec,)
+        table.add(f"{name}_fwd", "", err,
+                  lambda: aln.add_ln_fwd(x, delta, vec, scale, bias, 1e-6),
+                  lambda: aln.add_ln_fwd_reference(x, delta, vec, scale, bias,
+                                                   1e-6), 50,
+                  (nbytes(x, delta, xn, y, scale, bias, *extra),
+                   12 * x.numel(), PEAK_FP32))
+        got = aln.add_ln_bwd(gy, gxn, xn, delta, vec, scale, 1e-6)
+        torch.cuda.synchronize()
+        again = aln.add_ln_bwd(gy, gxn, xn, delta, vec, scale, 1e-6)
+        ref = aln.add_ln_bwd_reference(gy, gxn, xn, delta, vec, scale, 1e-6)
+        errs = []
+        # dls, dscale, dbias: fp32 sums of 16448 terms in another order
+        for out, a, b, c, bound in zip(
+                ("dx", "ddelta", "dls", "dscale", "dbias"), got, again, ref,
+                (ULP_BOUND, ULP_BOUND, 1e-4, 1e-4, 1e-4)):
+            if c is None:
+                continue
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}_bwd {out}: two runs differ")
+            errs.append(check(f"{name}_bwd", out, a, c, bound))
+        log(f"kernel {name}_bwd: two runs bit-equal")
+        if vec is None and got[0] is not got[1]:
+            raise AssertionError("fused_add_ln: dx and ddelta are two buffers")
+        moved = ((gy, gxn, xn, got[0], scale, scale, scale) if vec is None
+                 else (gy, gxn, xn, delta, got[0], got[1], vec, vec, scale,
+                       scale, scale))
+        table.add(f"{name}_bwd", "", max(errs),
+                  lambda: aln.add_ln_bwd(gy, gxn, xn, delta, vec, scale,
+                                         1e-6),
+                  lambda: aln.add_ln_bwd_reference(gy, gxn, xn, delta, vec,
+                                                   scale, 1e-6), 50,
+                  (nbytes(*moved), 24 * x.numel(), PEAK_FP32))
+        del got, again, ref, xn, y, ref_xn, ref_y
+
+    # fused_add_ln (no LayerScale) lies on no model path of either package:
+    # its path is the differentiable function itself, driven once here with
+    # the counts at zero, forward and backward with both cotangents, over
+    # the trunk's (B, S, width) tensors
+    aln.reset_launch_counts()
+    shape = (batch, seq, hidden)
+    leaves = [a.view(shape).requires_grad_(True) for a in (x, delta)]
+    params = [a.clone().requires_grad_(True) for a in (scale, bias)]
+    xn, y = aln.fused_add_ln(*leaves, *params, 1e-6)
+    torch.autograd.backward((xn, y), (gxn.view(shape), gy.view(shape)))
+    torch.cuda.synchronize()
+    driven = {name: aln.LAUNCHES[name]
+              for name in ("fused_add_ln_fwd", "fused_add_ln_bwd")}
+    ref = aln.add_ln_bwd_reference(gy, gxn, xn.detach().view(rows, hidden),
+                                   None, None, scale, 1e-6)
+    check("fused_add_ln", "function dx", leaves[0].grad.view(rows, hidden),
+          ref[0])
+    check("fused_add_ln", "function dscale", params[0].grad, ref[3], 1e-4)
+    check("fused_add_ln", "function dbias", params[1].grad, ref[4], 1e-4)
+    check("fused_add_ln", "function ddelta",
+          leaves[1].grad.view(rows, hidden), ref[1])
+    log(f"fused_add_ln function launches: {driven}")
+    if driven != {"fused_add_ln_fwd": 1, "fused_add_ln_bwd": 1}:
+        raise AssertionError(f"fused_add_ln launches {driven}, want one "
+                             "forward and one backward")
+    del leaves, params, xn, y, ref
+
+    results = table.rows()
+    for name, r in results.items():
+        lib = r["library_ms"]
+        log(f"kernel {name}, per launch: ms {r['ms']:.6g} plain_ms "
+            f"{r['plain_ms']:.6g} library_ms "
+            f"{'none' if lib is None else format(lib, '.6g')} bound_ms "
+            f"{r['bound_ms']:.6g} ({r['bound_by']})")
+    return results, driven
+
+
 def make_wrapper(model, trunk_impl):
     from hypervla_tpu_torch.eval.inference import InferenceWrapper
 
@@ -329,13 +557,21 @@ def make_wrapper(model, trunk_impl):
 
 
 def slice_phase(device):
-    """Drives the full-width flagship through the serving entry points."""
+    """Drives the full-width flagship through the serving entry points: the
+    stacked-trunk step, then the per-layer step with the flash attention
+    and the one-pass LayerNorm. Returns the launches of each."""
+    import copy
+
     import numpy as np
     import torch
 
     from hypervla_tpu_torch.eval.inference import initial_state
     from hypervla_tpu_torch.flagship import build_flagship
+    from hypervla_tpu_torch.models.base_network import BaseNetwork
+    from hypervla_tpu_torch.models.hypervla import HyperVLA
     from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import flash_attention as fa
+    from hypervla_tpu_torch.ops import layer_norm as tln
 
     rng = np.random.default_rng(SEED)
     stats = {"action": {
@@ -434,6 +670,73 @@ def slice_phase(device):
     log(f"slice per-step ms (median of CUDA events): kernel trunk {k_med:.4f} "
         f"plain trunk {p_med:.4f}; actions/s kernel {1e3 / k_med:.1f} "
         f"plain {1e3 / p_med:.1f}")
+    del plain
+
+    # ---- the second serving configuration: the per-layer serving step ----
+    # the same weights; attention through the flash kernel, every LayerNorm
+    # of the trunk through the one-pass kernel, the Dense layers cuBLAS
+    config = copy.deepcopy(model.config)
+    config["base_net_kwargs"]["vit_kwargs"].update(
+        use_flash_attention=True, fused_layer_norm=True,
+        sow_dino_attention=False)
+    flash_model = HyperVLA(model.hypernet,
+                           BaseNetwork(**config["base_net_kwargs"]), config,
+                           model.params, model.plan, stats, device)
+    layers = make_wrapper(flash_model, "layers")
+    layers_plain = make_wrapper(flash_model, "layers_reference")
+    for wrapper in (layers, layers_plain):
+        wrapper.reset("pick up the cube", instruction, init)
+    depth = flash_model.base_net.encoder.dino.num_hidden_layers
+    per_step = {"flash_attention": depth, "layer_norm": 2 * depth + 1}
+
+    # the main path, counted: every launch below is the per-layer step's
+    for module in (dl, fa, tln):
+        module.reset_launch_counts()
+    actions = [layers.step(f)[0] for f in frames[1:]]
+    torch.cuda.synchronize()
+    got = {"flash_attention": fa.LAUNCHES["flash_attention"],
+           "layer_norm": tln.LAUNCHES["layer_norm"]}
+    log(f"slice per-layer serving launches over {STEPS} steps: {got}")
+    if got != {k: v * STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"per-layer serving launches {got}, want "
+                             f"{per_step} per step")
+    if any(dl.LAUNCHES.values()):
+        raise AssertionError("the per-layer step went through the stacked "
+                             "trunk's kernels")
+    actions = np.stack(actions)
+    if actions.shape != (STEPS, 7) or not np.isfinite(actions).all():
+        raise AssertionError(f"bad per-layer actions {actions.shape}")
+    plain_actions = np.stack([layers_plain.step(f)[0] for f in frames[1:]])
+    if fa.LAUNCHES["flash_attention"] != got["flash_attention"]:
+        raise AssertionError("the plain versions launched a kernel")
+    scale = max(np.abs(plain_actions[:, :6]).max(), 1.0)
+    arm_err = float(np.abs(actions[:, :6] - plain_actions[:, :6]).max())
+    grip_agree = float((actions[:, 6] == plain_actions[:, 6]).mean())
+    log(f"slice per-layer actions kernels vs their plain versions: arm "
+        f"max_abs_err {arm_err:.6g} (bound {TRUNK_BOUND * scale:.6g}), "
+        f"gripper agreement {grip_agree:.3f}; first action "
+        f"{actions[0].tolist()}")
+    if not arm_err < TRUNK_BOUND * scale:
+        raise AssertionError("per-layer actions disagree with the plain "
+                             "versions")
+    # beside the stacked-trunk step, in turns
+    stacked_ms = window(policy)
+    layers_ms = window(layers) + window(layers)
+    stacked_ms += window(policy)
+    plain_ms = window(layers_plain)
+    l_med, s_med = statistics.median(layers_ms), statistics.median(stacked_ms)
+    log(f"slice per-step ms (median of CUDA events): per-layer step "
+        f"{l_med:.4f} (plain versions {statistics.median(plain_ms):.4f}) "
+        f"stacked-trunk step {s_med:.4f}; actions/s per-layer "
+        f"{1e3 / l_med:.1f} stacked {1e3 / s_med:.1f}")
+    # where the step's time is: device busy against the step's wall time
+    for label, wrapper, med in (("stacked-trunk", policy, s_med),
+                                ("per-layer", layers, l_med)):
+        busy, count = device_busy(lambda: wrapper.step(frames[1]), 10)
+        log(f"slice {label} step profiled: device busy ms {busy:.4f}, "
+            f"{count:.0f} device kernels per step, idle share "
+            f"{1 - busy / med:.3f} of the {med:.4f} ms step")
+    launches.update(got)
     return launches
 
 
@@ -749,11 +1052,27 @@ def _cosine(a, b):
     return float(a @ b) / n
 
 
+@contextlib.contextmanager
+def fused_gelu_env(on):
+    """HYPERVLA_FUSED_GELU=1 inside the block if `on`, restored after."""
+    old = os.environ.get("HYPERVLA_FUSED_GELU")
+    if on:
+        os.environ["HYPERVLA_FUSED_GELU"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("HYPERVLA_FUSED_GELU", None)
+        else:
+            os.environ["HYPERVLA_FUSED_GELU"] = old
+
+
 def train_phase(device):
     """Drives the full-width flagship's training step through the entry
-    points of scripts/bench_train.py under two kernel configurations (the
-    fast preset; the fast preset with the layer-kernel trunk) and on the
-    plain path. Returns each kernel configuration's launches."""
+    points of scripts/bench_train.py under three kernel configurations (the
+    fast preset; the fast preset with the layer-kernel trunk; the fast
+    preset with the fused residual boundaries and the fused GELU) and on
+    the plain path. Returns each kernel configuration's launches."""
     import copy
 
     import torch
@@ -762,9 +1081,11 @@ def train_phase(device):
     from hypervla_tpu_torch.flagship import build_flagship, make_flagship_batch
     from hypervla_tpu_torch.models.base_network import BaseNetwork
     from hypervla_tpu_torch.models.hypervla import HyperVLA
+    from hypervla_tpu_torch.ops import add_layer_norm as aln
     from hypervla_tpu_torch.ops import dino_layer as dl
     from hypervla_tpu_torch.ops import dino_layer_train as dlt
     from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.ops import gelu as tg
     from hypervla_tpu_torch.ops import layer_norm as tln
     from hypervla_tpu_torch.train.optimizer import (
         create_optimizer,
@@ -787,12 +1108,18 @@ def train_phase(device):
     layer["base_net_kwargs"]["vit_kwargs"].update(
         dino_layers_impl="pallas_train", fused_layer_norm="pallas_train",
         fine_tune_pretrained_image_encoder=True)
+    # the fused residual boundaries: every LayerScale multiply, residual add
+    # and the LayerNorm after it as one kernel, forward and backward; with
+    # HYPERVLA_FUSED_GELU=1 during its steps, the trunk's GELU forward too
+    fused = copy.deepcopy(fast)
+    fused["base_net_kwargs"]["vit_kwargs"]["dino_fused_add_ln"] = True
     # the plain path: the fast preset's step with the kernel switches off
     plain = copy.deepcopy(fast)
     plain["base_net_kwargs"]["vit_kwargs"]["dino_fused_attention"] = False
     plain["frozen_encoder_layer_kernel"] = False
-    configs = {"plain": plain, "fast_preset": fast, "layer_kernel": layer}
-    kernel_configs = ("fast_preset", "layer_kernel")
+    configs = {"plain": plain, "fast_preset": fast, "layer_kernel": layer,
+               "fused_add_ln": fused}
+    kernel_configs = ("fast_preset", "layer_kernel", "fused_add_ln")
 
     tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
         model.params, hn_param_type_tree(model.params), **fast["optimizer"])
@@ -841,11 +1168,21 @@ def train_phase(device):
                          "dino_layer_train_fwd": layers,
                          "layer_norm_pallas_fwd": 2,
                          "layer_norm_pallas_bwd": 1},
+        # every residual boundary but the last, forward and backward; one
+        # GELU per trunk layer (the frozen encoder's is the GEMM epilogue)
+        "fused_add_ln": {"mha_fused_train_fwd": layers,
+                         "mha_fused_train_bwd": layers,
+                         "dino_layer_train_fwd": layers,
+                         "fused_add_scale_ln_fwd": 2 * layers - 1,
+                         "fused_add_scale_ln_bwd": 2 * layers - 1,
+                         "gelu_exact_fused": layers},
     }
     counted = sorted(set().union(*per_step.values()))
+    counting = (fa, dlt, tln, dl, aln, tg)
 
     def counts():
         return {**fa.LAUNCHES, **dlt.LAUNCHES, **tln.LAUNCHES,
+                **aln.LAUNCHES, **tg.LAUNCHES,
                 "dino_gemm_train": dl.LAUNCHES["dino_gemm"]}
 
     totals = {name: dict.fromkeys(counts(), 0) for name in configs}
@@ -855,7 +1192,7 @@ def train_phase(device):
     def run(name, state, n, with_metrics=False):
         """n steps of one configuration from state, its launches counted
         from zero; (state, per-step device ms)."""
-        for module in (fa, dlt, tln, dl):
+        for module in counting:
             module.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -864,9 +1201,10 @@ def train_phase(device):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            state, info = steps[name](state, batch,
-                                      encoder_params=encoders[name],
-                                      with_metrics=with_metrics)
+            with fused_gelu_env(name == "fused_add_ln"):
+                state, info = steps[name](state, batch,
+                                          encoder_params=encoders[name],
+                                          with_metrics=with_metrics)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
@@ -990,6 +1328,19 @@ def train_phase(device):
             f"steps): {med:.4f}; samples/s {TRAIN_BATCH * 1e3 / med:.1f}; "
             f"peak memory (max_memory_allocated) "
             f"{peaks[name] / 2 ** 30:.3f} GiB")
+    # where the step's time is: one profiled step of each configuration,
+    # its device busy time against the unprofiled median above
+    for name in configs:
+        def one_step(name=name):
+            with fused_gelu_env(name == "fused_add_ln"):
+                steps[name](states[name], batch,
+                            encoder_params=encoders[name], with_metrics=False)
+
+        busy, count = device_busy(one_step)
+        med = statistics.median(times[name])
+        log(f"train {name} step profiled: device busy ms {busy:.3f}, "
+            f"{count:.0f} device kernels, idle share {1 - busy / med:.3f} "
+            f"of the {med:.4f} ms step")
     return {name: totals[name] for name in kernel_configs}
 
 
@@ -1024,6 +1375,7 @@ def main() -> int:
 
     results = kernel_phase(device)
     launches = slice_phase(device)
+    row_results, add_ln_launches = row_flash_kernel_phase(device)
     train_results = train_kernel_phase(device)
     train_launches = train_phase(device)
 
@@ -1042,6 +1394,17 @@ def main() -> int:
          "launches": train_launches[path_of[name]][name], **r}
         for name, r in train_results.items()
     ]
+    # the kernels of the per-layer serving step and of the fused-add-LN train
+    # step; fused_add_ln (no LayerScale) lies on no model path of either
+    # package, so its launches are those of its own function, driven and
+    # counted in the row kernel phase; flash_attention_b64 is the serving
+    # kernel at another shape (logged)
+    row_launches = {**train_launches["fused_add_ln"], **add_ln_launches,
+                    **launches}
+    for name, (source, replaces) in ROW_FLASH_KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": row_launches[name],
+                        **row_results[name]})
     for kernel in kernels:
         if kernel["launches"] == 0:
             raise AssertionError(f"{kernel['name']} was not launched on its "
@@ -1055,7 +1418,13 @@ def main() -> int:
         "mha_fused_train_* and dino_layer_train_fwd (mha_fused_train_fwd "
         "counts the trunk's attention forward; a layer call also launches "
         "the attention kernels, counted under the layer), over the "
-        "layer-kernel trunk's train steps for the rest")
+        "layer-kernel trunk's train steps for the other training kernels; "
+        "flash_attention and layer_norm per launch at the serving shapes, "
+        "launches over the per-layer serving steps; fused_add_scale_ln_* "
+        "and gelu_exact_fused per launch at B=64, launches over the "
+        "fused-add-LN train steps; fused_add_ln_* per launch at B=64, "
+        "launches of one counted call of the differentiable function, "
+        "forward and backward (it lies on no model path)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

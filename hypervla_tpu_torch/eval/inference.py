@@ -2,7 +2,8 @@
 hypervla_tpu/eval/inference.py::InferenceWrapper, fused-serving path).
 
 `reset` runs one hypernetwork forward (create_tasks), prepares the params
-for serving (bf16 trunk, stacked layers) and clears the action history;
+for serving (bf16 trunk; stacked layers, or with trunk_impl "layers" the
+per-layer leaves) and clears the action history;
 `step` runs the fused serving step (ops/serving.py) on the model's device
 and applies the per-robot post-processing on the host (google-robot sticky
 gripper, widowx binarisation, libero rescale).
@@ -27,6 +28,7 @@ from hypervla_tpu_torch.models.encoders.dinov2 import dinov2_forward
 from hypervla_tpu_torch.ops import preprocess
 from hypervla_tpu_torch.ops.serving import (
     make_serving_step,
+    per_layer_trunk,
     prepare_serving_params,
 )
 
@@ -96,7 +98,9 @@ class InferenceWrapper:
         base_params, self.task = self.model.create_tasks(
             instruction_dict=instruction_dict, initial_state=initial_state
         )
-        self.base_params = prepare_serving_params(self.model, base_params)
+        self.base_params = prepare_serving_params(
+            self.model, base_params,
+            stack_trunk=not per_layer_trunk(self.trunk_impl))
         self.instruction_dict = instruction_dict
         if self._serving_step is None:
             self._serving_step, self._init_history = make_serving_step(

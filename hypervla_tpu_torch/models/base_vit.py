@@ -13,8 +13,8 @@ encoder/Transformer_0).
 
 Other encoder types, language tokens, the class token, positions on the
 action tokens only, and differential attention are not ported yet and
-raise (ROADMAP.md, queue A3), as do the trunk switches whose TPU kernel has
-no counterpart yet (`check_trunk_switches`).
+raise (ROADMAP.md, queue A3), as do the trunk switches with no counterpart
+(`check_trunk_switches`).
 """
 from typing import Dict, Tuple
 
@@ -61,27 +61,30 @@ def _check_resolution(images):
 
 
 def check_trunk_switches(vit_kwargs: dict) -> None:
-    """Raises NotImplementedError for a trunk switch that selects a TPU
-    kernel of the JAX package (hypervla_tpu/models/base_vit.py) which the
-    port does not have yet, rather than run the plain trunk without a
-    word."""
-    unported = {
-        "use_flash_attention": "the flash attention kernel, ROADMAP.md B4",
-        "dino_fused_add_ln":
-            "the fused add + LayerNorm kernels, ROADMAP.md B7 and B8",
-    }
-    for name, what in unported.items():
-        if vit_kwargs.get(name, False):
-            raise NotImplementedError(
-                f"vit_kwargs {name}={vit_kwargs[name]!r} is not ported yet "
-                f"({what})")
-    layer_norm_fn(vit_kwargs.get("fused_layer_norm", False))
-    impl = vit_kwargs.get("dino_layers_impl")
+    """Raises NotImplementedError for a trunk switch of the JAX package
+    (hypervla_tpu/models/base_vit.py) that the port has no counterpart for,
+    rather than run the plain trunk without a word, and ValueError for a
+    combination the JAX package refuses."""
+    kw = vit_kwargs
+    if kw.get("flash_attention_trainable", False):
+        raise NotImplementedError(
+            "vit_kwargs flash_attention_trainable=True is not ported: the "
+            "differentiable flash attention is a library kernel in the JAX "
+            "package, and its hand-written twin is still to write "
+            "(ROADMAP.md, queue A4)")
+    layer_norm_fn(kw.get("fused_layer_norm", False))
+    impl = kw.get("dino_layers_impl")
     if impl not in (None, "pallas_train", "pallas_serving"):
         raise NotImplementedError(
             f"vit_kwargs dino_layers_impl={impl!r} is not ported (the XLA "
             "scan twins of the serving trunk have no counterpart; "
             "ROADMAP.md A3)")
+    remat = kw.get("remat_dino", False) or kw.get("dino_remat_policy")
+    if (kw.get("dino_fused_add_ln", False) and remat
+            and impl != "pallas_train"
+            and not kw.get("sow_dino_attention", True)):
+        raise ValueError("dino_fused_add_ln is incompatible with layer remat "
+                         "(remat_dino, dino_remat_policy)")
 
 
 class ViT:
@@ -109,12 +112,18 @@ class ViT:
                                          "dinov2-base"))
         self.encoder_dtype = str(kw.get("encoder_dtype", "float32"))
         self.fine_tune = kw.get("fine_tune_pretrained_image_encoder", False)
-        # the JAX trunk takes the fused attention only when it does not
-        # capture attention maps (sow_dino_attention defaults to on)
-        self.fused_attention = kw.get("dino_fused_attention", False) and (
-            not kw.get("sow_dino_attention", True))
-        # the training trunk's layers as the differentiable layer kernel
-        # (ops/dino_layer_train.py), and its LayerNorm choice
+        # the JAX trunk takes the fused attention, the forward-only flash
+        # attention (ops/flash_attention.py) and the fused residual
+        # boundaries (ops/add_layer_norm.py) only when it does not capture
+        # attention maps (sow_dino_attention defaults to on)
+        capture = kw.get("sow_dino_attention", True)
+        self.fused_attention = (kw.get("dino_fused_attention", False)
+                                and not capture)
+        self.use_flash = kw.get("use_flash_attention", False) and not capture
+        self.fused_add_ln = kw.get("dino_fused_add_ln", False) and not capture
+        # the trunk's layers as the differentiable layer kernel
+        # (ops/dino_layer_train.py; it wins over fused_add_ln), and the
+        # LayerNorm choice
         self.layer_kernel = kw.get("dino_layers_impl") == "pallas_train"
         self.fused_ln = kw.get("fused_layer_norm", False)
         if self.layer_kernel and not self.bf16_trunk:
@@ -131,31 +140,44 @@ class ViT:
     def bf16_trunk(self) -> bool:
         return self.encoder_dtype in ("bfloat16", "bf16")
 
+    def _trunk_switches(self) -> dict:
+        return dict(fused_attention=self.fused_attention,
+                    layer_kernel=self.layer_kernel, fused_ln=self.fused_ln,
+                    use_flash=self.use_flash, fused_add_ln=self.fused_add_ln)
+
     def image_embeddings(self, params: Dict[str, torch.Tensor], images,
                          trunk_impl: str = "kernel"):
         """uint8 (B, 224, 224, 3) -> DINOv2 patch embeddings (fp32). A bf16
-        trunk runs over prepared params (ops/serving.py)."""
+        trunk runs over params prepared by ops/serving.py: the stacked trunk
+        (trunk_impl "kernel", or "reference" for its plain version), or,
+        with "layers", the layer loop over the bf16-stored per-layer leaves
+        under the trunk switches of the config, as the JAX serving step does
+        without its trunk kernel ("layers_reference": the same with the
+        plain versions of the forward-only serving kernels). An fp32 trunk
+        always runs the layer loop."""
         pixels = normalize_pixels(images)
         enc = subtree(params, "encoder/image_encoder/")
-        if self.bf16_trunk:
+        if self.bf16_trunk and trunk_impl in ("kernel", "reference"):
             emb = dinov2_serving_forward(self.dino, enc, pixels, trunk_impl)
         else:
-            emb = dinov2_forward(self.dino, enc, pixels)
+            dtype = torch.bfloat16 if self.bf16_trunk else torch.float32
+            emb = dinov2_forward(self.dino, enc, pixels, dtype,
+                                 plain=trunk_impl == "layers_reference",
+                                 **self._trunk_switches())
         return emb[:, 1:]  # drop the CLS token
 
     def train_image_embeddings(self, trunk_params: Dict[str, torch.Tensor],
                                images):
         """uint8 (B, 224, 224, 3) -> patch embeddings (fp32) from the
         differentiable training trunk over per-layer params (keys under
-        encoder/image_encoder/, prefix removed), in the encoder dtype, with
-        the fused training attention, the layer kernel and the training
-        LayerNorm when configured."""
+        encoder/image_encoder/, prefix removed), in the encoder dtype, under
+        the trunk switches of the config (the fused training attention, the
+        layer kernel, the LayerNorm choice, the fused residual
+        boundaries)."""
         _check_resolution(images)
         dtype = torch.bfloat16 if self.bf16_trunk else torch.float32
         emb = dinov2_forward(self.dino, trunk_params, normalize_pixels(images),
-                             dtype, fused_attention=self.fused_attention,
-                             layer_kernel=self.layer_kernel,
-                             fused_ln=self.fused_ln)
+                             dtype, **self._trunk_switches())
         return emb[:, 1:]
 
     def __call__(self, params: Dict[str, torch.Tensor], images=None,

@@ -13,13 +13,20 @@ Two layer paths, as in the JAX package:
     option, or with every layer through the differentiable layer kernel of
     ops/dino_layer_train.py; the frozen conditioning encoder, whose layers
     may go through that kernel's no-residual forward on operands packed
-    once). Its LayerNorms follow `fused_ln`, the training LayerNorm of
-    ops/layer_norm.py among the choices;
+    once; the serving step's per-layer trunk over bf16-stored weights). Its
+    LayerNorms follow `fused_ln`, the training LayerNorm and the one-pass
+    serving LayerNorm of ops/layer_norm.py among the choices; `use_flash`
+    runs attention through the forward-only kernel of
+    ops/flash_attention.py; `fused_add_ln` runs every residual boundary
+    (LayerScale multiply, add, the next LayerNorm) through
+    ops/add_layer_norm.py; with HYPERVLA_FUSED_GELU=1 in the environment a
+    large bf16 GELU goes through ops/gelu.py;
   * `dinov2_serving_forward` runs the bf16 embeddings, the stacked serving
     trunk (ops/dino_layer.py: the CUDA kernels on the card) and the final
     LayerNorm, over params prepared by ops/serving.py.
 """
 import math
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -28,7 +35,17 @@ from hypervla_tpu_torch.configs import DINOv2Config
 from hypervla_tpu_torch.models import layers
 from hypervla_tpu_torch.ops import dino_layer, dino_layer_train
 from hypervla_tpu_torch.ops import fused_attention as fused_attention_op
-from hypervla_tpu_torch.ops.layer_norm import layer_norm_pallas
+from hypervla_tpu_torch.ops.add_layer_norm import fused_add_scale_ln
+from hypervla_tpu_torch.ops.flash_attention import (
+    mha_flash,
+    mha_flash_reference,
+)
+from hypervla_tpu_torch.ops.gelu import gelu_exact_fused
+from hypervla_tpu_torch.ops.layer_norm import layer_norm as layer_norm_one_pass
+from hypervla_tpu_torch.ops.layer_norm import (
+    layer_norm_pallas,
+    layer_norm_reference,
+)
 
 
 # ----------------------- position-grid interpolation -----------------------
@@ -139,14 +156,25 @@ def embeddings(config: DINOv2Config, params: Dict[str, torch.Tensor],
 # ------------------------------ layer loop -------------------------------
 
 
+#: the smallest tensor whose GELU forward takes the fused kernel when
+#: HYPERVLA_FUSED_GELU=1 (the JAX package's own threshold)
+FUSED_GELU_MIN_SIZE = 4 * 257 * 3072
+
+
 class GeluExact(torch.autograd.Function):
     """Exact GELU of a bf16 tensor, evaluated in fp32 and rounded once; the
     backward keeps the bf16 input and computes the derivative in fp32
-    (hypervla_tpu/models/encoders/dinov2.py::_gelu_exact)."""
+    (hypervla_tpu/models/encoders/dinov2.py::_gelu_exact). With
+    HYPERVLA_FUSED_GELU=1 in the environment (read at each call) a tensor of
+    at least FUSED_GELU_MIN_SIZE elements takes the fused forward kernel
+    (ops/gelu.py); the backward is the same either way."""
 
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
+        if (os.environ.get("HYPERVLA_FUSED_GELU", "0") == "1"
+                and x.numel() >= FUSED_GELU_MIN_SIZE):
+            return gelu_exact_fused(x)
         return layers.gelu_exact(x.float()).to(x.dtype)
 
     @staticmethod
@@ -158,30 +186,37 @@ class GeluExact(torch.autograd.Function):
         return (cdf + xf * pdf).to(g.dtype) * g
 
 
-def layer_norm_fn(fused_ln):
+def layer_norm_fn(fused_ln, plain: bool = False):
     """The LayerNorm `fused_ln` selects, as hypervla_tpu/models/encoders/
     dinov2.py::_layer_norm does: (x, scale, bias, eps) -> the normalised x
     (the caller rounds to its compute dtype). False: flax nn.LayerNorm;
     "dot": the same arithmetic (the JAX package's MXU ones-dot statistics
     are a way to schedule the sums, not another function); "pallas_train":
-    the training LayerNorm kernel (ops/layer_norm.py); True: the one-pass
-    serving kernel, which is not ported."""
+    the training LayerNorm kernel (ops/layer_norm.py); True: the one-pass,
+    forward-only serving kernel beside it (two-pass variance), or with
+    `plain` that kernel's plain version whatever the device."""
     if fused_ln == "pallas_train":
         return layer_norm_pallas
     if fused_ln is True:
-        raise NotImplementedError(
-            "fused_layer_norm=True (the one-pass serving LayerNorm kernel) "
-            "is not ported yet (ROADMAP.md B5)")
+        return layer_norm_reference if plain else layer_norm_one_pass
     if fused_ln in (False, None, "dot"):
         return layers.layer_norm
     raise ValueError(f"unknown fused_layer_norm {fused_ln!r}")
 
 
-def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm):
+def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm,
+           flash=None, fused_add_ln=False, pending=None):
     """One layer as flax's `_Layer` runs it in `dtype`: Dense layers as
     native-`dtype` matmuls with the cast bias added after, LayerNorm with
     fp32 statistics and one rounding, LayerScale cast to `dtype` before the
-    multiply. Differentiable with torch autograd."""
+    multiply. Differentiable with torch autograd (not with `flash`, the
+    forward-only attention function to use, if any).
+
+    With fused_add_ln the layer takes the delayed-residual form: its two
+    residual boundaries go through ops/add_layer_norm.py, it takes the
+    previous layer's un-added residual as `pending` (delta, ls), or None in
+    the first layer, and returns (x, (delta, ls)) with its own last residual
+    un-added, for the next layer's norm1 (or the caller) to add."""
     c = config
     heads = c.num_attention_heads
     head_dim = c.hidden_size // heads
@@ -195,34 +230,58 @@ def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm):
                           params[f"{prefix}/{name}/bias"],
                           c.layer_norm_eps).to(dtype)
 
-    def layer_scale(name):
-        return (c.layerscale_value
-                * params[f"{prefix}/{name}/lambda1"].float()).to(dtype)
+    def ls_vector(name):
+        return c.layerscale_value * params[f"{prefix}/{name}/lambda1"].float()
 
-    n = ln("norm1", x)
-    att = "attention/attention"
-    q, k, v = (lin(f"{att}/{name}", n) for name in ("query", "key", "value"))
-    if fused_attention:
-        a = fused_attention_op.mha_fused_train(
-            q.bfloat16(), k.bfloat16(), v.bfloat16(), heads,
-            1.0 / math.sqrt(head_dim)).to(dtype)
-    else:
+    def add_ln(name, h, delta, ls):
+        h, y = fused_add_scale_ln(
+            h, delta.to(h.dtype), ls, params[f"{prefix}/{name}/scale"],
+            params[f"{prefix}/{name}/bias"], c.layer_norm_eps)
+        return h, y.to(dtype)
+
+    def attention(n):
+        att = "attention/attention"
+        q, k, v = (lin(f"{att}/{name}", n)
+                   for name in ("query", "key", "value"))
+        if fused_attention:
+            return fused_attention_op.mha_fused_train(
+                q.bfloat16(), k.bfloat16(), v.bfloat16(), heads,
+                1.0 / math.sqrt(head_dim)).to(dtype)
         shape = (*n.shape[:2], heads, head_dim)
+        if flash:  # q is not pre-scaled: the kernel scales it in fp32
+            return flash(q.reshape(shape), k.reshape(shape),
+                         v.reshape(shape)).reshape(n.shape)
         q = q.reshape(shape) / torch.tensor(math.sqrt(head_dim), dtype=dtype)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k.reshape(shape))
         probs = torch.softmax(scores.float(), dim=-1).to(dtype)
         a = torch.einsum("bhqk,bkhd->bqhd", probs, v.reshape(shape))
-        a = a.reshape(n.shape)
-    x = layer_scale("layer_scale1") * lin("attention/output/dense", a) + x
-    h = lin("mlp/fc1", ln("norm2", x))
-    h = layers.gelu_exact(h) if dtype == torch.float32 else GeluExact.apply(h)
-    return layer_scale("layer_scale2") * lin("mlp/fc2", h) + x
+        return a.reshape(n.shape)
+
+    def mlp(y):
+        h = lin("mlp/fc1", y)
+        h = (layers.gelu_exact(h) if dtype == torch.float32
+             else GeluExact.apply(h))
+        return lin("mlp/fc2", h)
+
+    if fused_add_ln:
+        if pending is None:
+            n = ln("norm1", x)
+        else:
+            x, n = add_ln("norm1", x, *pending)
+        x, y = add_ln("norm2", x, lin("attention/output/dense", attention(n)),
+                      ls_vector("layer_scale1"))
+        return x, (mlp(y), ls_vector("layer_scale2"))
+    a = attention(ln("norm1", x))
+    x = ls_vector("layer_scale1").to(dtype) * lin("attention/output/dense",
+                                                  a) + x
+    return ls_vector("layer_scale2").to(dtype) * mlp(ln("norm2", x)) + x
 
 
 def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
                    pixel_values, dtype: torch.dtype = torch.float32,
                    fused_attention: bool = False, layer_kernel: bool = False,
-                   fused_ln=False):
+                   fused_ln=False, use_flash: bool = False,
+                   fused_add_ln: bool = False, plain: bool = False):
     """DINOv2 -> last_hidden_state (B, 1 + patches, hidden), fp32.
 
     dtype is the compute dtype (the params stay fp32). fused_attention runs
@@ -233,12 +292,24 @@ def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
     the differentiable layer (the counterpart of the JAX package's
     `_KernelLayerCollection`: the operands are stacked and cast per call, so
     autograd carries their gradients back to the leaves). fused_ln chooses
-    the LayerNorms left outside the layer kernel (`layer_norm_fn`)."""
-    layer_norm = layer_norm_fn(fused_ln)
+    the LayerNorms left outside the layer kernel (`layer_norm_fn`).
+    use_flash runs attention through ops/flash_attention.py (forward only;
+    the fused training attention wins where both are set). fused_add_ln
+    runs the layers in the delayed-residual form of `_layer` (the layer
+    kernel wins where both are set); the last layer's residual is added
+    here, plainly, with the per-op roundings of LayerScale and add. plain
+    puts the plain versions of the two forward-only serving kernels (flash
+    attention, the one-pass LayerNorm) in their place whatever the device,
+    for a caller that holds the kernels against them."""
+    layer_norm = layer_norm_fn(fused_ln, plain)
+    flash = None
+    if use_flash:
+        flash = mha_flash_reference if plain else mha_flash
     if layer_kernel and dtype != torch.bfloat16:
         raise ValueError("the layer kernel is bf16: set encoder_dtype="
                          "'bfloat16'")
     x = embeddings(config, params, pixel_values, dtype)
+    pending = None
     for i in range(config.num_hidden_layers):
         prefix = f"encoder/layer/{i}"
         if layer_kernel and f"{prefix}/packed/wqkv" in params:
@@ -251,9 +322,16 @@ def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
                 x, *dino_layer_train.layer_operands(
                     params, prefix, config.layerscale_value),
                 config.num_attention_heads, config.layer_norm_eps)
+        elif fused_add_ln:
+            x, pending = _layer(config, params, prefix, x, dtype,
+                                fused_attention, layer_norm, flash, True,
+                                pending)
         else:
             x = _layer(config, params, prefix, x, dtype, fused_attention,
-                       layer_norm)
+                       layer_norm, flash)
+    if pending is not None:
+        delta, ls = pending
+        x = (x + ls.to(x.dtype) * delta).to(x.dtype)
     x = layer_norm(x, params["layernorm/scale"], params["layernorm/bias"],
                    config.layer_norm_eps)
     return x.to(dtype).float()

@@ -1,6 +1,7 @@
 """The training LayerNorm, forward and backward (counterpart of
-hypervla_tpu/ops/layer_norm.py::layer_norm_pallas), and the LayerNorm
-backward the training layer shares with it.
+hypervla_tpu/ops/layer_norm.py::layer_norm_pallas), the LayerNorm backward
+the training layer shares with it, and the one-pass serving LayerNorm
+(counterpart of hypervla_tpu/ops/layer_norm.py::layer_norm).
 
 The Pallas TPU kernels `_ln_train_fwd_kernel` / `_ln_train_bwd_kernel`
 become hand-written CUDA kernels: the forward is the row LayerNorm of
@@ -12,6 +13,11 @@ g that a finishing launch adds in block order (dscale, dbias in fp32; no
 atomics, so results repeat bit for bit). The same backward kernel, with an
 fp32 cotangent and dx added in bf16 to a residual gradient, is the layer
 backward's (ops/dino_layer_train.py): one source for both uses.
+
+The Pallas TPU kernel `_ln_kernel` of the forward-only serving LayerNorm
+becomes csrc/row_kernels.cu's `row_layer_norm`: fp32 statistics on the
+uncast input with the two-pass variance mean((x - mean)^2), where the
+kernels above take flax's fast variance, and one rounding to x.dtype.
 
 Beside each kernel is its plain PyTorch version with the same arithmetic. A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -38,7 +44,8 @@ ROWS_PER_BLOCK = 32
 #: launches of each wrapper since the last reset
 LAUNCHES: Dict[str, int] = {"layer_norm_pallas_fwd": 0,
                             "layer_norm_pallas_bwd": 0,
-                            "layer_norm_bwd_rows": 0}
+                            "layer_norm_bwd_rows": 0,
+                            "layer_norm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +71,28 @@ def _lib():
     for fn in (lib.layer_gemm_tn, lib.layer_norm_bwd_max_width,
                lib.layer_norm_bwd, lib.layer_scale_grad, lib.layer_gelu_bwd,
                lib.layer_colsum, lib.layer_finish_sums):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def row_lib():
+    """The built library of the row kernels (csrc/row_kernels.cu: the
+    one-pass LayerNorm, the residual add + LayerNorm pair, the exact GELU),
+    its C signatures declared."""
+    from hypervla_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library("row_kernels.cu")
+    p, i, f, n = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
+    lib.row_max_width.argtypes = []
+    lib.row_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, p]
+    lib.row_add_ln_fwd.argtypes = [p, p, p, p, p, p, p, i, i, f, i, p]
+    lib.row_add_ln_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i,
+                                   p]
+    lib.row_gelu.argtypes = [p, p, n, i, i, p]
+    for fn in (lib.row_max_width, lib.row_layer_norm, lib.row_add_ln_fwd,
+               lib.row_add_ln_bwd, lib.row_gelu):
         fn.restype = ctypes.c_int
     return lib
 
@@ -186,3 +215,51 @@ def layer_norm_pallas(x, scale, bias, eps: float = 1e-6):
     the params' dtype."""
     _check_ln(x, scale, bias)
     return _LayerNormPallas.apply(x, scale, bias, eps)
+
+
+# ----------------------- the one-pass serving LN ------------------------
+
+
+def layer_norm_reference(x, scale, bias, eps: float = 1e-6):
+    """Plain PyTorch forward of the one-pass LayerNorm: fp32 statistics on
+    the uncast input, the two-pass variance mean((x - mean)^2), one rounding
+    to x.dtype."""
+    xf = x.float()
+    centred = xf - xf.mean(-1, keepdim=True)
+    var = (centred * centred).mean(-1, keepdim=True)
+    y = centred * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-6):
+    """Forward-only LayerNorm over the last axis. x (..., d) bf16 or fp32;
+    scale, bias (d,). Returns x's shape and dtype (the caller casts to its
+    compute dtype). Like the TPU kernel it has no gradient: an input that
+    requires one raises."""
+    _check_ln(x, scale, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, scale, bias)):
+        raise RuntimeError(
+            "the one-pass LayerNorm (fused_layer_norm=True) is forward only: "
+            "run it under torch.no_grad(), or train with "
+            "fused_layer_norm='pallas_train'")
+    if _route(x, scale, bias) == "cpu":
+        return layer_norm_reference(x, scale, bias, eps)
+    rows = x.reshape(-1, x.shape[-1]).contiguous()
+    _check(rows.shape[1] <= row_lib().row_max_width(),
+           f"row width {rows.shape[1]} exceeds the row kernel's registers")
+    # bf16-stored scale and bias (the serving step's prepared params) go to
+    # the kernel as they are: it widens them on read
+    if not (scale.dtype == bias.dtype
+            and scale.dtype in (torch.bfloat16, torch.float32)):
+        scale, bias = scale.float(), bias.float()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    out = torch.empty_like(rows)
+    code = row_lib().row_layer_norm(
+        rows.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        rows.shape[0], rows.shape[1], float(eps),
+        int(x.dtype == torch.float32), int(scale.dtype == torch.float32),
+        _stream())
+    _raise_on_error("row_layer_norm", code)
+    LAUNCHES["layer_norm"] += 1
+    return out.view(x.shape)

@@ -10,10 +10,13 @@ the EMA of the params.
 The configured paths that the flagship fast preset does not take raise
 NotImplementedError (ROADMAP.md A2.1): delta-decay, the v4 weight decay,
 the attention aux losses, device augmentation, embedding noise and per-task
-loss masks, and the trunk switches whose kernel is not ported
+loss masks, and the trunk switches with no counterpart
 (models/base_vit.py::check_trunk_switches). The layer-kernel trunk
 (vit_kwargs dino_layers_impl="pallas_train") needs
-config["hoist_shared_trunk"], as in the JAX package.
+config["hoist_shared_trunk"], as in the JAX package. vit_kwargs
+dino_fused_add_ln runs every residual boundary of the trunk through
+ops/add_layer_norm.py, forward and backward; the frozen encoder does not
+take that switch (it takes fused_layer_norm, as the JAX trainer's does).
 """
 from typing import Any, Callable, Dict, Optional
 

@@ -6,6 +6,12 @@ JAX key path joined with "/", for example
 flax's (in, out) layout and the port applies them as `x @ W`, so the
 generated weights, which arrive as flat slices reshaped to JAX shapes, are
 never transposed.
+
+The trunk switches change no key: the JAX package's fused modules
+(`_FusedLayerNorm`, `_PallasTrainLayerNorm`, `_FusedAddLayerNorm`,
+`_LayerScaleVector`, the layer kernel's collection) keep nn.LayerNorm's
+"scale"/"bias" and _LayerScale's "lambda1" under the same module names, so
+a tree from a model built with any of them converts as it is.
 """
 from typing import Any, Dict, Optional
 

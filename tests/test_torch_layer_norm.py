@@ -3,7 +3,8 @@ tensors take the plain PyTorch versions) against the JAX package's Pallas
 `layer_norm_pallas` in interpret mode, forward and gradients, fp32 and
 bf16, on the shapes of tests/test_layer_norm_pallas.py (114 rows in blocks
 of 32 leave a partial block); the LayerNorm choice of the port's DINOv2
-(`fused_ln`) against the JAX model's.
+(`fused_ln`) against the JAX model's; the one-pass serving LayerNorm
+against the Pallas `layer_norm`.
 
 Tolerances. fp32: 1e-5 on the output, 1e-4 on dx, 1e-4 relative on dscale
 and dbias (the Pallas kernel sums bf16 hi/lo halves on the MXU, ~2^-16
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from hypervla_tpu.models.encoders import dinov2 as jd
+from hypervla_tpu.ops.layer_norm import layer_norm as jax_ln_one_pass
 from hypervla_tpu.ops.layer_norm import layer_norm_pallas as jax_ln
 from hypervla_tpu_torch import configs
 from hypervla_tpu_torch.models.encoders import dinov2 as td
@@ -158,10 +160,54 @@ def test_trunk_route_matches_jax():
 
 def test_layer_norm_choices():
     """False and "dot" are the plain LayerNorm, "pallas_train" the training
-    LayerNorm, True (the one-pass serving kernel) is not ported."""
+    LayerNorm, True the one-pass serving kernel's function (its plain
+    version on request)."""
     assert td.layer_norm_fn(False) is td.layer_norm_fn("dot")
     assert td.layer_norm_fn("pallas_train") is tln.layer_norm_pallas
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.layer_norm_fn(True)
+    assert td.layer_norm_fn(True) is tln.layer_norm
+    assert td.layer_norm_fn(True, plain=True) is tln.layer_norm_reference
     with pytest.raises(ValueError, match="unknown"):
         td.layer_norm_fn("pallas")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 257, 48), (100, 768)])
+def test_one_pass_forward_matches_pallas(dtype, shape):
+    """The one-pass serving LayerNorm (two-pass variance) against the JAX
+    package's Pallas `layer_norm` in interpret mode, on the shapes of its
+    own test (257 and 100 rows leave a partial 128-row block): fp32 1e-5,
+    bf16 one ulp of the output's largest value."""
+    jdt, tdt = DTYPES[dtype]
+    x, scale, bias = _setup(shape)
+    x = x + 3.0  # a mean far from 0: where the two variances differ
+    ref = jax_ln_one_pass(jnp.asarray(x, jdt), jnp.asarray(scale),
+                          jnp.asarray(bias), eps=1e-6)
+    tln.reset_launch_counts()
+    got = tln.layer_norm(torch.tensor(x).to(tdt), torch.tensor(scale),
+                         torch.tensor(bias), 1e-6)
+    assert tln.LAUNCHES["layer_norm"] == 0  # CPU: the plain version
+    assert got.dtype == tdt
+    err, ref_scale = _err(got, ref)
+    tol = 1e-5 if dtype == "float32" else 2 ** -7 * max(ref_scale, 1.0)
+    assert err <= tol, (err, ref_scale)
+
+
+def test_one_pass_statistics_from_the_uncast_input():
+    """fp32 rows stay fp32 for the statistics and the output; bf16-stored
+    scale and bias (the serving step's prepared params) are widened."""
+    x, scale, bias = (torch.tensor(a) for a in _setup((7, 64)))
+    got = tln.layer_norm(x, scale.bfloat16(), bias.bfloat16())
+    assert got.dtype == torch.float32
+    ref = tln.layer_norm_reference(x, scale.bfloat16().float(),
+                                   bias.bfloat16().float())
+    assert torch.equal(got, ref)
+    assert not torch.equal(got.bfloat16(),
+                           tln.layer_norm(x.bfloat16(), scale, bias))
+
+
+def test_one_pass_is_forward_only():
+    x, scale, bias = (torch.tensor(a) for a in _setup((3, 16)))
+    with pytest.raises(RuntimeError, match="forward only"):
+        tln.layer_norm(x.requires_grad_(True), scale, bias)
+    with torch.no_grad():
+        assert tln.layer_norm(x, scale, bias).shape == (3, 16)

@@ -9,8 +9,9 @@ DINOv2 the no-residual forward, and the final LayerNorm of both the
 training LayerNorm. Loss within 2e-2 rel and the post-update params per
 leaf at cosine > 0.98: the bounds the JAX package holds between its own
 trunks (tests/test_layer_kernel_train_step.py, which is marked slow). Also
-the config contract around it: the ValueError without the hoist, and the
-NotImplementedError for trunk switches whose kernel is not ported.
+the config contract around it: the ValueError without the hoist, the
+NotImplementedError for trunk switches with no counterpart, and each ported
+switch selecting its kernel's function.
 """
 import copy
 
@@ -209,15 +210,15 @@ def test_layer_kernel_needs_the_hoisted_trunk(change):
 
 
 @pytest.mark.parametrize("switch", [
-    {"use_flash_attention": True},
-    {"dino_fused_add_ln": True},
-    {"fused_layer_norm": True},
+    {"flash_attention_trainable": True},
+    {"use_flash_attention": True, "flash_attention_trainable": True},
+    {"dino_layers_impl": "unroll_serving"},
     {"dino_layers_impl": "scan_serving"},
 ])
 def test_unported_trunk_switches_raise(switch):
-    """A trunk switch that selects a TPU kernel with no counterpart yet
-    raises at model build and at make_train_step, instead of running the
-    plain trunk without a word."""
+    """A trunk switch with no counterpart in the port raises at model build
+    and at make_train_step, instead of running the plain trunk without a
+    word."""
     config = tiny_test_config()
     config["base_net_kwargs"]["vit_kwargs"].update(switch)
     example = make_flagship_batch(instr_len=8, action_horizon=2,
@@ -226,6 +227,56 @@ def test_unported_trunk_switches_raise(switch):
         HyperVLA.from_config(config, example)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _make_step(config)
+
+
+@pytest.mark.parametrize("switch,function,calls", [
+    ({"use_flash_attention": True}, "mha_flash", 2),
+    ({"fused_layer_norm": True}, "layer_norm_one_pass", 5),
+    ({"dino_fused_add_ln": True}, "fused_add_scale_ln", 3),
+])
+def test_trunk_switch_selects_its_kernel(monkeypatch, switch, function,
+                                         calls):
+    """Each switch sends the two-layer trunk through its kernel's function:
+    one attention per layer; norm1, norm2 per layer and the final
+    LayerNorm; every residual boundary but the last. With attention
+    capture on (the default) the flash attention and the fused boundaries
+    stay off, as in the JAX package."""
+    from hypervla_tpu_torch.models.encoders import dinov2 as td
+
+    seen = []
+    real = getattr(td, function)
+    monkeypatch.setattr(td, function,
+                        lambda *a, **k: seen.append(1) or real(*a, **k))
+    example = make_flagship_batch(instr_len=8, action_horizon=2,
+                                  initial_patch_dim=32)
+    images = torch.as_tensor(example["observation"]["image_primary"][:, 0])
+    outs = {}
+    for capture in (False, True):
+        config = tiny_test_config()
+        config["base_net_kwargs"]["vit_kwargs"].update(
+            switch, sow_dino_attention=capture)
+        model = HyperVLA.from_config(config, example)
+        _make_step(config)  # the train step takes the config too
+        seen.clear()
+        with torch.no_grad():
+            outs[capture] = model.base_net.encoder.train_image_embeddings(
+                model.shared_params(), images)
+        if capture and function != "layer_norm_one_pass":
+            assert not seen
+        else:
+            assert len(seen) == calls
+    # the same function up to rounding, on either route
+    assert (outs[True] - outs[False]).abs().max() < 1e-4 * max(
+        float(outs[True].abs().max()), 1.0)
+
+
+def test_fused_add_ln_refuses_layer_remat():
+    config = tiny_test_config()
+    config["base_net_kwargs"]["vit_kwargs"].update(
+        dino_fused_add_ln=True, sow_dino_attention=False, remat_dino=True)
+    with pytest.raises(ValueError, match="remat"):
+        HyperVLA.from_config(config, make_flagship_batch(
+            instr_len=8, action_horizon=2, initial_patch_dim=32))
 
 
 def test_layer_kernel_needs_a_bf16_trunk():

@@ -164,7 +164,7 @@ def test_build_frozen_encoders_shapes():
     lambda c: c["base_net_kwargs"]["vit_kwargs"].update(
         image_embedding_noise=0.1),
     lambda c: c["base_net_kwargs"]["vit_kwargs"].update(
-        dino_fused_add_ln=True),
+        flash_attention_trainable=True),
     lambda c: c["dataset_kwargs"].update(device_augment=True),
 ])
 def test_unported_train_options_raise(change):
