@@ -53,6 +53,14 @@
    against the plain path (the same step with the kernel switches off);
    all four timed in turns.
 
+The two kernels redesigned for Hopper, the training attention (forward and
+backward on the bf16 tensor cores) and the layer and trunk GEMM (a pipelined
+`wgmma` kernel), are also run twice and compared bit for bit, at every GEMM
+shape of the serving trunk and of the training layer (every epilogue, both
+layouts of the weight); at M = 16448 the rows of the ragged last row tile
+are checked on their own, and a row past M, poisoned before the launch, is
+found untouched after it.
+
 Beside each kernel's time the script prints the least time the card could
 take for the same work (the larger of bytes moved over 3.35 TB/s and
 operations over the peak rate for their type: 989 TFLOP/s bf16 on the
@@ -351,10 +359,19 @@ def kernel_phase(device):
             torch.cuda.synchronize()
             err, scale = max_err(got, plain(*args))
             bound = ULP_BOUND * max(scale, 1.0)
+            note = ""
+            if name == "dino_gemm":
+                a, w_t = args[0], args[1]
+                cfg = dl.gemm_config(a.shape[0], w_t.numel() // a.shape[1],
+                                     a.shape[1])
+                note = (f"; tile {cfg.block_m}x{cfg.block_n}, split-K "
+                        f"{cfg.split_k}")
             log(f"kernel {name} {label}: max_abs_err {err:.6g} (bound "
-                f"{bound:.6g})")
+                f"{bound:.6g}); a second run is bit-equal{note}")
             if not err <= bound:
                 raise AssertionError(f"{name} {label}: {err} > {bound}")
+            if not torch.equal(got, kern(*args)):
+                raise AssertionError(f"{name} {label}: two runs differ")
             table.add(name, label, err, lambda: kern(*args),
                       lambda: plain(*args), 200, cost, library)
 
@@ -620,6 +637,22 @@ def slice_phase(device):
     log(f"slice launches over {STEPS} steps: {launches}")
     if launches["dino_layers_serving"] != STEPS:
         raise AssertionError("not every step went through the trunk kernel")
+    depth = model.base_net.encoder.dino.num_hidden_layers
+    width = model.base_net.encoder.dino.hidden_size
+    # seven wrapper launches a layer; a split-K GEMM's finishing pass is a
+    # second device kernel inside its one wrapper launch
+    want = {"dino_layer_norm": 2 * depth * STEPS,
+            "dino_gemm": 4 * depth * STEPS, "dino_attention": depth * STEPS,
+            "dino_layers_serving": STEPS}
+    if launches != want:
+        raise AssertionError(f"stacked serving launches {launches}, want "
+                             f"{want}")
+    split = [dl.gemm_config(257, n, k).split_k
+             for n, k in ((3 * width, width), (width, width),
+                          (4 * width, width), (width, 4 * width))]
+    log(f"slice stacked step: 7 launches a layer (2 LayerNorms, 4 GEMMs, 1 "
+        f"attention); split-K of the 4 GEMMs {split}: "
+        f"{sum(x > 1 for x in split)} finishing passes a layer")
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {name} was not launched")
@@ -791,6 +824,12 @@ def train_kernel_phase(device):
     ref_o, ref_p = fa.mha_fused_train_fwd_reference(q, k, v, heads, scale)
     err = max(check("mha_fused_train_fwd", "o", o, ref_o, ULP_BOUND),
               check("mha_fused_train_fwd", "P", probs, ref_p, ULP_BOUND))
+    o2, p2 = fa.mha_fused_train_fwd(q, k, v, heads, scale)
+    if not (torch.equal(o, o2) and torch.equal(probs, p2)):
+        raise AssertionError("two runs of the attention forward differ")
+    log(f"kernel mha_fused_train_fwd: two runs bit-equal; P row stride "
+        f"{probs.stride(2)} values for {seq} columns")
+    del o2, p2
     timed("mha_fused_train_fwd", "", err,
           lambda: fa.mha_fused_train_fwd(q, k, v, heads, scale),
           lambda: fa.mha_fused_train_fwd_reference(q, k, v, heads, scale),
@@ -799,11 +838,19 @@ def train_kernel_phase(device):
           lambda: F.scaled_dot_product_attention(split(q), split(k),
                                                  split(v)))
 
+    # the plain forward's P, in the row-padded layout the kernels read (the
+    # forward's own layout; a dense P would be copied into it at every call)
+    ref_p = fa.padded_probs(ref_p)
     grads = fa.mha_fused_train_bwd(q, k, v, ref_p, g, heads, scale)
     torch.cuda.synchronize()
     refs = fa.mha_fused_train_bwd_reference(q, k, v, ref_p, g, heads, scale)
     err = max(check("mha_fused_train_bwd", name, a, b, GRAD_BOUND)
               for name, a, b in zip(("dq", "dk", "dv"), grads, refs))
+    again = fa.mha_fused_train_bwd(q, k, v, ref_p, g, heads, scale)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError("two runs of the attention backward differ")
+    log("kernel mha_fused_train_bwd: two runs bit-equal")
+    del again
     leaves = [split(a).detach().requires_grad_(True) for a in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves)
     timed("mha_fused_train_bwd", "", err,
@@ -943,13 +990,51 @@ def train_kernel_phase(device):
     del xl, ln_out, y
 
     # ---- the launches a layer is made of, each alone at its shape ----
-    x1, qkv, _, hc, y1, y2, ao = (r.view(m, -1) for r in res)
+    # every residual but the probabilities (index 2), as rows
+    x1, qkv, hc, y1, y2, ao = (r.view(m, -1)
+                               for i, r in enumerate(res) if i != 2)
     wqkv, _, wo, w1, w2, pv, b1 = ops
     n1 = dl.layer_norm_rows(rows, pv[dlt.LN1_S], pv[dlt.LN1_B], 1e-6)
     hid = dl.gemm(n1, w1, b1, "gelu")
     dy = g_rows
     dbig = t(rng.standard_normal((m, mlp)) * 0.1)
     dqkv = t(rng.standard_normal((m, 3 * hidden)) * 0.1)
+
+    def ragged_rows(label, outs, refs, bound):
+        """The rows of the last, ragged row tile (M = 16448 = 128 x 128 +
+        64) against the plain version, on their own."""
+        first = m - m % 128
+        err = max(max_err(a_[first:], b_[first:])[0]
+                  for a_, b_ in zip(outs, refs))
+        limit = bound * max(max(float(b_.float().abs().max())
+                                for b_ in refs), 1.0)
+        log(f"kernel dino_gemm_train {label}: rows {first}..{m - 1} of the "
+            f"ragged last tile max_abs_err {err:.6g} (bound {limit:.6g})")
+        if not err <= limit:
+            raise AssertionError(f"dino_gemm_train {label}: ragged tile "
+                                 f"{err} > {limit}")
+
+    def poisoned_row_case(label, a, w, transpose_w, epilogue, with_pre):
+        """The launch writes M rows and nothing past them: row M of a
+        larger `out` (and second output) keeps the value put there."""
+        n = w.shape[0] if transpose_w else w.shape[1]
+        dtype = torch.float32 if epilogue == "f32" else torch.bfloat16
+        bias = None if epilogue == "f32" else b1[:n].contiguous()
+        out = torch.full((m + 1, n), 777.0, device=device, dtype=dtype)
+        pre = torch.full_like(out, 777.0) if with_pre else None
+        dl._launch_gemm(a, w, transpose_w, bias, None, None, out, pre, n,
+                        epilogue)
+        torch.cuda.synchronize()
+        want = dl.gemm(a, w, bias, epilogue, transpose_w=transpose_w,
+                       with_pre=with_pre)
+        want = want if with_pre else (want,)
+        for got, ref in zip((out, pre) if with_pre else (out,), want):
+            if not (bool((got[m] == 777.0).all())
+                    and torch.equal(got[:m], ref)):
+                raise AssertionError(f"dino_gemm_train {label}: wrote past "
+                                     "row M or changed with the buffer")
+        log(f"kernel dino_gemm_train {label}: row {m} past M poisoned before "
+            "the launch, untouched after it")
 
     def gemm_case(label, args, kw, library, f32=False):
         a, w = args[0], args[1]
@@ -961,6 +1046,16 @@ def train_kernel_phase(device):
         err = max(check("dino_gemm_train", label, a_, b_,
                         1e-4 if f32 else ULP_BOUND) for a_, b_ in pairs)
         outs = got if isinstance(got, tuple) else (got,)
+        ragged_rows(label, outs, ref if isinstance(ref, tuple) else (ref,),
+                    1e-4 if f32 else ULP_BOUND)
+        again = dl.gemm(*args, **kw)
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(outs, again)):
+            raise AssertionError(f"dino_gemm_train {label}: two runs differ")
+        cfg = dl.gemm_config(a.shape[0], w.numel() // a.shape[1], a.shape[1])
+        log(f"kernel dino_gemm_train {label}: two runs bit-equal; tile "
+            f"{cfg.block_m}x{cfg.block_n}, split-K {cfg.split_k}")
+        del again
         extra = [v for v in (*args[2:], *kw.values())
                  if isinstance(v, torch.Tensor)]
         timed("dino_gemm_train", label, err, lambda: dl.gemm(*args, **kw),
@@ -988,6 +1083,9 @@ def train_kernel_phase(device):
     gemm_case("dn1 [16448,2304]x[768,2304]^T fp32 out", (dqkv, wqkv, None,
                                                          "f32"),
               {"transpose_w": True}, lambda: dqkv @ wqkv.t(), f32=True)
+
+    poisoned_row_case("fc1 +gelu, hc stored", n1, w1, False, "gelu", True)
+    poisoned_row_case("dn2 ^T fp32 out", dbig, w1, True, "f32", False)
 
     for label, a, b in (("dW2 [16448,3072]^T x [16448,768]", hid, dy),
                         ("dW1 [16448,768]^T x [16448,3072]", n1, dbig),

@@ -7,7 +7,6 @@ files are not in the repository)."""
 from typing import Optional
 
 import numpy as np
-import torch
 
 from hypervla_tpu_torch.configs import (
     disable_unused_attention_capture,
@@ -65,11 +64,12 @@ def make_flagship_batch(
     }
 
 
-def build_flagship(tiny: bool = False, seed: int = 0, device="cpu",
+def build_flagship(tiny: bool = False, seed: int = 0, device=None,
                    encoder_dtype: Optional[str] = "bfloat16",
                    training: bool = False,
                    dataset_statistics: Optional[dict] = None):
-    """Returns (model, example_batch) on `device`. encoder_dtype None keeps
+    """Returns (model, example_batch) on `device` (None: the CUDA card, see
+    utils/device.py::resolve_device). encoder_dtype None keeps
     the config's own (float32); the default is the bf16 serving trunk."""
     if tiny:
         config = tiny_test_config()
@@ -85,5 +85,5 @@ def build_flagship(tiny: bool = False, seed: int = 0, device="cpu",
         disable_unused_attention_capture(config)
     model = HyperVLA.from_config(config, batch, seed=seed,
                                  dataset_statistics=dataset_statistics,
-                                 device=torch.device(device))
+                                 device=device)
     return model, batch

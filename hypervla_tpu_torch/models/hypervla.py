@@ -17,6 +17,7 @@ import torch
 
 from hypervla_tpu_torch.models.hypernetwork import HyperNetwork
 from hypervla_tpu_torch.models.weight_plan import WeightPlan, init_base_net
+from hypervla_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -42,11 +43,11 @@ class HyperVLA:
     @classmethod
     def from_config(cls, config: dict, example_batch: dict, seed: int = 0,
                     dataset_statistics: Optional[dict] = None,
-                    device="cpu") -> "HyperVLA":
+                    device=None) -> "HyperVLA":
         """example_batch gives the shapes the params depend on: the
         instruction's token embedding (B, L, token_dim) and, with
         initial-image conditioning, its patch embeddings (B, T, dim)."""
-        device = torch.device(device)
+        device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         base_net, init_params, plan = init_base_net(config, gen)
         hypernet = HyperNetwork(plan, config["hypernet_kwargs"])

@@ -18,7 +18,7 @@ tensor it launches its kernel or raises. Each kernel launch adds one to
 import ctypes
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -48,7 +48,8 @@ def _lib():
     lib = load_library("dino_layer.cu")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dino_layer_norm.argtypes = [p, p, p, p, i, i, f, i, p]
-    lib.dino_gemm.argtypes = [p, i, p, i, i, p, p, p, p, p, i, i, i, i, p]
+    lib.dino_gemm.argtypes = [p, i, p, i, i, p, p, p, p, p, i, i, i, i, i,
+                              i, p, p]
     lib.dino_attention.argtypes = [p, p, i, i, p]
     for fn in (lib.dino_layer_norm, lib.dino_gemm, lib.dino_attention):
         fn.restype = ctypes.c_int
@@ -143,6 +144,43 @@ def gemm_reference(a, w, bias, epilogue: str = "none", residual=None,
     return (out, y) if with_pre else out
 
 
+#: multiprocessors of the card the configurations are chosen for (H100)
+GEMM_SMS = 132
+#: depth of one k-tile of the kernel's shared-memory ring
+GEMM_BLOCK_K = 64
+
+
+class GemmConfig(NamedTuple):
+    """A tile of the GEMM kernels: block_m x block_n outputs a block (128 x
+    256: the TMA-fed kernel; 64 x 64: the cp.async-fed one), K cut into
+    split_k parts whose fp32 partial sums a finishing pass adds (64 x 64
+    only)."""
+    block_m: int
+    block_n: int
+    split_k: int
+
+
+def gemm_config(m: int, n: int, k: int) -> GemmConfig:
+    """The configuration `gemm` launches for an (m, k) x (k, n) product.
+
+    Large m (the product is bound by operations) takes the 128 x 256 tile
+    where n is a multiple of 256, as every product of the flagship layer is.
+    Everything else takes the 64 x 64 tile; small m, where the weight read
+    bounds the product and that grid would leave multiprocessors idle, also
+    splits K in two, four, ... as long as the grid is under one block a
+    multiprocessor, the split divides the k-tiles and each part keeps at
+    least four of them."""
+    if m > 512 and n % 256 == 0:
+        return GemmConfig(128, 256, 1)
+    blocks = -(-m // 64) * (n // 64)
+    k_tiles = -(-k // GEMM_BLOCK_K)
+    split = 1
+    while (blocks * split < GEMM_SMS and k_tiles % (2 * split) == 0
+           and k_tiles // (2 * split) >= 4):
+        split *= 2
+    return GemmConfig(64, 64, split)
+
+
 def gemm(a, w, bias, epilogue: str = "none", residual=None,
          layer_scale=None, transpose_w: bool = False,
          with_pre: bool = False):
@@ -157,8 +195,9 @@ def gemm(a, w, bias, epilogue: str = "none", residual=None,
            f"epilogue {epilogue!r} has no value before it to return")
     _check(bias is not None or epilogue in ("none", "f32"),
            f"epilogue {epilogue!r} needs a bias")
-    _check(a.dim() == 2 and a.dtype == torch.bfloat16 and a.is_contiguous(),
-           "a must be contiguous 2-D bf16")
+    _check(a.dim() == 2 and a.dtype == torch.bfloat16 and a.is_contiguous()
+           and a.data_ptr() % 16 == 0,
+           "a must be contiguous 2-D bf16, 16-byte aligned")
     _check(w.dim() == 2 and w.dtype == torch.bfloat16 and w.stride(1) == 1
            and w.stride(0) % 8 == 0 and w.data_ptr() % 16 == 0,
            "w must be 2-D bf16 with unit inner stride, 16-byte aligned rows")
@@ -166,30 +205,47 @@ def gemm(a, w, bias, epilogue: str = "none", residual=None,
     n = w.shape[0] if transpose_w else w.shape[1]
     _check((w.shape[1] if transpose_w else w.shape[0]) == k,
            f"inner dims differ: a {tuple(a.shape)}, w {tuple(w.shape)}")
-    _check(n % 64 == 0 and k % 32 == 0, f"need N % 64 == 0, K % 32 == 0: {n}, {k}")
+    _check(n % 64 == 0 and k % 32 == 0,
+           f"need N % 64 == 0, K % 32 == 0: {n}, {k}")
     _check(bias is None or (bias.dtype == torch.float32
-                            and bias.is_contiguous() and bias.shape == (n,)),
-           "bias must be (N,) fp32")
+                            and bias.is_contiguous() and bias.shape == (n,)
+                            and bias.data_ptr() % 16 == 0),
+           "bias must be (N,) fp32, 16-byte aligned")
     res_ptr = ls_ptr = None
     if epilogue == "residual":
         _check(residual.dtype == torch.bfloat16 and residual.is_contiguous()
                and residual.shape == (m, n), "residual must be (M, N) bf16")
         _check(layer_scale.dtype == torch.float32
-               and layer_scale.is_contiguous() and layer_scale.shape == (n,),
-               "layer_scale must be (N,) fp32")
+               and layer_scale.is_contiguous() and layer_scale.shape == (n,)
+               and layer_scale.data_ptr() % 16 == 0,
+               "layer_scale must be (N,) fp32, 16-byte aligned")
         res_ptr, ls_ptr = residual.data_ptr(), layer_scale.data_ptr()
     out = torch.empty((m, n), device=a.device, dtype=(
         torch.float32 if epilogue == "f32" else torch.bfloat16))
     pre = torch.empty_like(out) if with_pre else None
+    _launch_gemm(a, w, transpose_w, bias, res_ptr, ls_ptr, out, pre, n,
+                 epilogue)
+    LAUNCHES["dino_gemm"] += 1
+    return (out, pre) if with_pre else out
+
+
+def _launch_gemm(a, w, transpose_w, bias, res_ptr, ls_ptr, out, pre, n,
+                 epilogue):
+    """Launches the checked product into `out` (and `pre`): the kernel
+    writes their first a.shape[0] rows and nothing past them."""
+    m, k = a.shape
+    config = gemm_config(m, n, k)
+    partial = (torch.empty((config.split_k, m, n), device=a.device,
+                           dtype=torch.float32)
+               if config.split_k > 1 else None)
     code = _lib().dino_gemm(
         a.data_ptr(), k, w.data_ptr(), w.stride(0), int(transpose_w),
         None if bias is None else bias.data_ptr(), res_ptr, ls_ptr,
-        out.data_ptr(), pre.data_ptr() if with_pre else None, m, n, k,
-        EPILOGUES[epilogue], _stream(),
+        out.data_ptr(), None if pre is None else pre.data_ptr(), m, n, k,
+        EPILOGUES[epilogue], config.block_n, config.split_k,
+        None if partial is None else partial.data_ptr(), _stream(),
     )
     _raise_on_error("dino_gemm", code)
-    LAUNCHES["dino_gemm"] += 1
-    return (out, pre) if with_pre else out
 
 
 # ------------------------------- Attention -------------------------------

@@ -361,7 +361,10 @@ def _check_backward(g, x, ops, residuals, heads):
               "probs": (b, heads, s, s), "hc": (b, s, mlp), "y1": (b, s, h),
               "y2": (b, s, h), "ao": (b, s, h), "g": (b, s, h)}
     for name, t in zip((*RESIDUALS, "g"), (*residuals, g)):
-        dl._check(t.dtype == torch.bfloat16 and t.is_contiguous()
+        # probs may be the padded-row view the attention forward returns
+        dense = t.is_contiguous() or (name == "probs"
+                                      and fa._is_padded_probs(t))
+        dl._check(t.dtype == torch.bfloat16 and dense
                   and tuple(t.shape) == shapes[name],
                   f"{name}: {tuple(t.shape)} {t.dtype}, expected contiguous "
                   f"{shapes[name]} bf16")

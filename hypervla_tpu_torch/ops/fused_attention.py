@@ -5,11 +5,14 @@ The Pallas TPU kernel `mha_fused_train` becomes two hand-written CUDA entry
 points (csrc/fused_attention.cu): `mha_fused_train_fwd` -> (o, P) and
 `mha_fused_train_bwd` -> (dq, dk, dv), joined by a torch.autograd.Function
 whose saved residual is the bf16 probabilities P. q, k, v and o keep the
-(B, S, H*D) layout the Dense layers emit. Beside each kernel is its plain
-PyTorch version with the same rounding points (the TPU kernels' bodies):
-bf16 scaled q, scores from an fp32 sum rounded to bf16, fp32 softmax stored
-as bf16 P, P.v from an fp32 sum rounded to bf16; the backward rounds dv, ds,
-dq and dk to bf16 where the TPU kernel does.
+(B, S, H*D) layout the Dense layers emit. On the card P is the `[..., :S]`
+view of a (B, H, S, SP) buffer whose row stride SP is S rounded up to 8
+values (`probs_row_stride`), so that every row starts 16-byte aligned for
+the kernels' vector accesses; its pad columns hold zeros. Beside each
+kernel is its plain PyTorch version with the same rounding points (the TPU
+kernels' bodies): bf16 scaled q, scores from an fp32 sum rounded to bf16,
+fp32 softmax stored as bf16 P, P.v from an fp32 sum rounded to bf16; the
+backward rounds dv, ds, dq and dk to bf16 where the TPU kernel does.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises. Each launch adds one to
@@ -97,19 +100,53 @@ def _check_qkv(q, k, v, heads: int):
            f"width {q.shape[2]} is not {heads} heads x {HEAD_DIM}")
     _check(k.dtype == v.dtype == torch.bfloat16, "k, v must be bf16")
     _check(q.shape[1] <= _lib().mha_max_seq(),
-           f"sequence {q.shape[1]} exceeds the kernels' shared memory")
+           f"sequence {q.shape[1]} exceeds the {_lib().mha_max_seq()} rows "
+           "the kernels' shared memory holds")
 
 
 def _row_stride(q, k, v) -> int:
     """The row stride q, k, v share. They may be column slices of one
     (B, S, 3*H*D) buffer: equal strides, unit inner stride and a dense
-    batch stride."""
+    batch stride; rows 16-byte aligned for the kernels' 16-byte copies."""
     s, ld = q.shape[1], q.stride(1)
     for t in (q, k, v):
-        _check(t.stride() == (s * ld, ld, 1) and ld % 2 == 0
-               and t.data_ptr() % 4 == 0,
-               "q, k, v need strides (S*ld, ld, 1) with even ld")
+        _check(t.stride() == (s * ld, ld, 1) and ld % 8 == 0
+               and t.data_ptr() % 16 == 0,
+               "q, k, v need strides (S*ld, ld, 1), ld % 8 == 0 and "
+               "16-byte alignment")
     return ld
+
+
+def probs_row_stride(seq: int) -> int:
+    """The row stride, in values, of P and of the backward's ds scratch on
+    the card: seq rounded up to a multiple of 8."""
+    return -(-seq // 8) * 8
+
+
+def _empty_probs(b: int, heads: int, s: int, device) -> torch.Tensor:
+    """The (B, H, S, S) view of a new (B, H, S, SP) bf16 buffer."""
+    return torch.empty((b, heads, s, probs_row_stride(s)),
+                       dtype=torch.bfloat16, device=device)[..., :s]
+
+
+def _is_padded_probs(probs) -> bool:
+    _, heads, s, _ = probs.shape
+    sp = probs_row_stride(s)
+    return (probs.stride() == (heads * s * sp, s * sp, sp, 1)
+            and probs.data_ptr() % 16 == 0)
+
+
+def padded_probs(probs) -> torch.Tensor:
+    """P in the layout the backward kernels read: the tensor itself if it
+    already is a `[..., :S]` view of a (B, H, S, SP) buffer (as the forward
+    returns it), else a copy into one, the pad columns zero."""
+    if _is_padded_probs(probs):
+        return probs
+    b, heads, s, _ = probs.shape
+    out = torch.zeros((b, heads, s, probs_row_stride(s)), dtype=probs.dtype,
+                      device=probs.device)
+    out[..., :s] = probs
+    return out[..., :s]
 
 
 def _launch_fwd(q, k, v, heads: int, scale: float, store_p: bool):
@@ -118,8 +155,7 @@ def _launch_fwd(q, k, v, heads: int, scale: float, store_p: bool):
     b, s, hd = q.shape
     ld = _row_stride(q, k, v)
     o = torch.empty((b, s, hd), dtype=torch.bfloat16, device=q.device)
-    probs = (torch.empty((b, heads, s, s), dtype=torch.bfloat16,
-                         device=q.device) if store_p else None)
+    probs = _empty_probs(b, heads, s, q.device) if store_p else None
     code = _lib().mha_fused_train_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, o.data_ptr(),
         probs.data_ptr() if store_p else None, b, s, heads, float(scale),
@@ -161,19 +197,21 @@ def mha_fused_train_bwd_reference(q, k, v, probs, g, heads: int,
 
 def _launch_bwd(q, k, v, probs, g, heads: int, scale: float):
     """Launches the backward kernels (no launch counted). q, k, v as the
-    forward takes them; returns one (B, S, 3*H*D) buffer [dq | dk | dv]."""
+    forward takes them; P as the forward returns it (any other layout is
+    first copied into that one); returns one (B, S, 3*H*D) buffer
+    [dq | dk | dv]."""
     _check_qkv(q, k, v, heads)
     b, s, hd = q.shape
     ld = _row_stride(q, k, v)
     _check(g.is_contiguous() and g.shape == (b, s, hd)
            and g.dtype == torch.bfloat16,
            "g must be contiguous (B, S, H*D) bf16")
-    _check(probs.is_contiguous() and probs.dtype == torch.bfloat16
-           and probs.shape == (b, heads, s, s),
-           "P must be contiguous (B, H, S, S) bf16")
+    _check(probs.dtype == torch.bfloat16
+           and probs.shape == (b, heads, s, s), "P must be (B, H, S, S) bf16")
+    probs = padded_probs(probs)
     dqkv = torch.empty((b, s, 3 * hd), dtype=torch.bfloat16, device=q.device)
     dq, dk, dv = dqkv[..., :hd], dqkv[..., hd:2 * hd], dqkv[..., 2 * hd:]
-    ds = torch.empty_like(probs)
+    ds = _empty_probs(b, heads, s, q.device)
     code = _lib().mha_fused_train_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, probs.data_ptr(),
         g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 3 * hd,

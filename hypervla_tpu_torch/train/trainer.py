@@ -23,6 +23,7 @@ from hypervla_tpu_torch.models.encoders.t5 import (
     t5_encode,
     t5_specs,
 )
+from hypervla_tpu_torch.utils.device import resolve_device
 
 
 def _init(specs, seed: int, device):
@@ -45,7 +46,7 @@ def frozen_layer_kernel(config: Dict[str, Any]) -> bool:
         and dinov2_config(name).hidden_size % 128 == 0)
 
 
-def build_frozen_encoders(config: Dict[str, Any], device="cpu",
+def build_frozen_encoders(config: Dict[str, Any], device=None,
                           seed: int = 0):
     """Returns (text_apply, dino_apply, t5_params, dino_params):
     text_apply(t5_params, input_ids, attention_mask) -> fp32 token
@@ -56,6 +57,7 @@ def build_frozen_encoders(config: Dict[str, Any], device="cpu",
     once. The frozen DINOv2 follows the trunk's compute dtype and its
     LayerNorm choice (vit_kwargs fused_layer_norm), as the JAX trainer's
     does. dino_apply is None without initial-image conditioning."""
+    device = resolve_device(device)
     tok = config["dataset_kwargs"].get("text_tokenizer", "t5-base")
     t5 = t5_config(tok)
     t5_params = _init(t5_specs(t5), seed, device)

@@ -5,6 +5,8 @@ Skips where there is no CUDA device. On a GPU host without JAX, skip the
 JAX-only conftest: `python -m pytest --noconftest -q
 tests/test_torch_dino_layer_cuda.py`.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -82,6 +84,107 @@ def test_gemm_kernel(device, which):
     err, scale = _err(got, ref)
     # fp32 sums in another order: at most one bf16 ulp after rounding
     assert err <= 2 ** -7 * max(scale, 1.0), (which, err, scale)
+
+
+def _ulp_bound(scale):
+    """One bf16 ulp at the output's largest magnitude (a power of two)."""
+    return 2 ** -7 * 2 ** math.ceil(math.log2(max(scale, 1.0)))
+
+
+GEMM_CASES = [(epi, tw, pre) for epi in ("none", "gelu", "residual", "f32")
+              for tw in (False, True)
+              for pre in ((False, True) if epi in ("gelu", "residual")
+                          else (False,))]
+
+
+def _check_gemm(device, m, n, k, epilogue, transpose_w, with_pre,
+                with_bias=True):
+    """One product against its plain version (one bf16 ulp; for the fp32
+    output, sums of k products in another order), and twice for the same
+    bits."""
+    gen = torch.Generator().manual_seed(m)
+
+    def randn(shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * std).to(device).to(dtype)
+
+    a = randn((m, k), 1.0)
+    w = randn((n, k) if transpose_w else (k, n), 0.03)
+    bias = (randn((n,), 0.1, torch.float32)
+            if with_bias and epilogue != "f32" else None)
+    kw = dict(transpose_w=transpose_w)
+    if epilogue == "residual":
+        kw.update(residual=randn((m, n), 1.0),
+                  layer_scale=randn((n,), 0.5, torch.float32))
+    if with_pre:
+        kw.update(with_pre=True)
+    got = dl.gemm(a, w, bias, epilogue, **kw)
+    torch.cuda.synchronize()
+    ref = dl.gemm_reference(a, w, bias, epilogue, **kw)
+    again = dl.gemm(a, w, bias, epilogue, **kw)
+    if not with_pre:
+        got, ref, again = (got,), (ref,), (again,)
+    for g_, r_, a_ in zip(got, ref, again):
+        assert g_.dtype == r_.dtype and g_.shape == r_.shape
+        err, scale = _err(g_, r_)
+        bound = 1e-5 * k * max(scale, 1.0) if epilogue == "f32" \
+            else _ulp_bound(scale)
+        assert err <= bound, (err, scale)
+        assert torch.equal(g_, a_)
+
+
+@pytest.mark.parametrize("epilogue,transpose_w,with_pre", GEMM_CASES)
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 257, 16448])
+def test_gemm_kernel_over_shapes(device, m, epilogue, transpose_w, with_pre):
+    """The pipelined tensor-core GEMM at ragged and full row tiles, both
+    kernels and the split-K configurations, every epilogue, both layouts
+    of the weight, the second output on and off, no bias where the
+    epilogue allows it (at odd m), the fp32 output."""
+    k = 4 * HIDDEN if m == 257 and transpose_w else HIDDEN
+    _check_gemm(device, m, HIDDEN, k, epilogue, transpose_w, with_pre,
+                with_bias=not (epilogue == "none" and m % 2))
+
+
+@pytest.mark.parametrize("m", [1, 65, 257, 16448])
+def test_gemm_leaves_rows_past_m_alone(device, m):
+    """The last row tile is ragged at every tile height: the kernel writes
+    M rows of `out` and of the second output and nothing after them."""
+    n = k = HIDDEN
+    a = torch.randn(m, k, device=device).bfloat16()
+    w = (torch.randn(k, n, device=device) * 0.03).bfloat16()
+    bias = torch.randn(n, device=device) * 0.1
+    out = torch.full((m + 1, n), 777.0, device=device, dtype=torch.bfloat16)
+    pre = torch.full((m + 1, n), 777.0, device=device, dtype=torch.bfloat16)
+    dl._launch_gemm(a, w, False, bias, None, None, out, pre, n, "gelu")
+    torch.cuda.synchronize()
+    ref_out, ref_pre = dl.gemm_reference(a, w, bias, "gelu", with_pre=True)
+    for got, ref in ((out, ref_out), (pre, ref_pre)):
+        assert bool((got[m] == 777.0).all())
+        err, scale = _err(got[:m], ref)
+        assert err <= _ulp_bound(scale), (err, scale)
+
+
+def test_gemm_config_is_what_the_kernel_takes(device):
+    """Every configuration the chooser can return launches: the TMA-fed
+    128 x 256 tile, the 64 x 64 tile at small and large M, split-K 2 and 4,
+    a K that is no multiple of the 64-deep k-tile."""
+    seen = set()
+    for m, n, k in ((16448, 768, 768), (1028, 384, 128), (600, 128, 96),
+                    (257, 2304, 768), (257, 768, 768), (257, 768, 3072),
+                    (600, 192, 96), (5, 64, 32)):
+        seen.add(dl.gemm_config(m, n, k))
+        _check_gemm(device, m, n, k, "none", False, False, with_bias=False)
+    assert seen == {(128, 256, 1), (64, 64, 1), (64, 64, 2), (64, 64, 4)}
+
+
+@pytest.mark.parametrize("epilogue,transpose_w,with_pre", GEMM_CASES)
+def test_gemm_kernels_ragged_k(device, epilogue, transpose_w, with_pre):
+    """Both kernels at a K that is no multiple of the 64-deep k-tile (the
+    last tile's columns past K are zero-filled) and a ragged last row tile,
+    through every epilogue and both layouts of the weight."""
+    for (m, n, k), tile in (((1028, 512, 224), (128, 256, 1)),
+                            ((1028, 384, 224), (64, 64, 1))):
+        assert dl.gemm_config(m, n, k) == tile
+        _check_gemm(device, m, n, k, epilogue, transpose_w, with_pre)
 
 
 def test_attention_kernel(device):

@@ -34,7 +34,7 @@ def golden():
             "token_embedding": io["token_embedding"]}},
         "initial_state": {"patch_embeddings": io["initial_patch_embeddings"]},
     }
-    model = HyperVLA.from_config(tiny_test_config(), batch)
+    model = HyperVLA.from_config(tiny_test_config(), batch, device="cpu")
     ref_params = from_jax_params(_load("hypernet_params.msgpack"))
     assert set(ref_params) == set(model.params)
     for name, value in ref_params.items():

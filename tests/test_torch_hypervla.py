@@ -26,7 +26,7 @@ def test_bias_init_protocol_emits_fresh_base_init(seed):
     init that from_config drew (hypervla_tpu/models/hypervla.py:160-262)."""
     config = tiny_test_config()
     batch = make_flagship_batch(instr_len=8, initial_patch_dim=32, seed=seed)
-    model = HyperVLA.from_config(config, batch, seed=seed)
+    model = HyperVLA.from_config(config, batch, seed=seed, device="cpu")
     _, fresh, _ = init_base_net(config, torch.Generator().manual_seed(seed))
     base_params, _ = model.create_tasks(_instruction(batch),
                                         batch["initial_state"])
@@ -64,7 +64,7 @@ def test_hypernet_forward_matches_jax(hk):
         initial_state=example["initial_state"])
 
     model = HyperVLA.from_config(tiny_test_config(hypernet_kwargs=dict(hk)),
-                                 example)
+                                 example, device="cpu")
     model.params = from_jax_params(params)
     got, _ = model.create_tasks(_instruction(example),
                                 example["initial_state"])

@@ -65,7 +65,7 @@ def _build(vit_overrides, patch_dim):
 
     config = tiny_test_config()
     config["base_net_kwargs"]["vit_kwargs"].update(vit_overrides)
-    model = HyperVLA.from_config(config, example)
+    model = HyperVLA.from_config(config, example, device="cpu")
     model.params = from_jax_params(params)
     base, _ = model.create_tasks(instruction, example["initial_state"])
     frames = np.random.default_rng(1).integers(

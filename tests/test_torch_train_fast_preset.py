@@ -86,7 +86,8 @@ def test_fast_preset_step_matches_jax():
     config = apply_fast_training_preset(config)
     config["EMA_start_step"] = 0
     model = HyperVLA.from_config(config, make_flagship_batch(
-        instr_len=8, action_horizon=2, initial_patch_dim=128))
+        instr_len=8, action_horizon=2, initial_patch_dim=128),
+        device="cpu")
     model.params = from_jax_params(jmodel.params)
     assert frozen_layer_kernel(config)
     assert model.base_net.encoder.fused_attention

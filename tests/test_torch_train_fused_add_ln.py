@@ -63,7 +63,8 @@ def test_fused_add_ln_step_matches_jax(monkeypatch):
 
     config = _slice_config(tiny_test_config(), apply_fast_training_preset)
     model = HyperVLA.from_config(config, make_flagship_batch(
-        instr_len=8, action_horizon=2, initial_patch_dim=128))
+        instr_len=8, action_horizon=2, initial_patch_dim=128),
+        device="cpu")
     converted = from_jax_params(jmodel.params)
     # the fused modules keep nn.LayerNorm's and _LayerScale's param names
     assert set(converted) == set(model.params)

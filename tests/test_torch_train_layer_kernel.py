@@ -103,7 +103,8 @@ def test_layer_kernel_step_matches_jax():
 
     config = _slice_config(tiny_test_config(), apply_fast_training_preset)
     model = HyperVLA.from_config(config, make_flagship_batch(
-        instr_len=8, action_horizon=2, initial_patch_dim=128))
+        instr_len=8, action_horizon=2, initial_patch_dim=128),
+        device="cpu")
     model.params = from_jax_params(jmodel.params)
     encoder = model.base_net.encoder
     assert frozen_layer_kernel(config)
@@ -186,7 +187,7 @@ def test_layer_kernel_trunk_reaches_the_fp32_leaves():
 
 
 def _make_step(config):
-    model, _ = build_flagship(tiny=True, training=True)
+    model, _ = build_flagship(tiny=True, training=True, device="cpu")
     tx, lr_fn, base_lr_fn, pnorm_fn = topt.create_optimizer(
         model.params, topt.hn_param_type_tree(model.params),
         **config["optimizer"])
@@ -224,7 +225,7 @@ def test_unported_trunk_switches_raise(switch):
     example = make_flagship_batch(instr_len=8, action_horizon=2,
                                   initial_patch_dim=32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HyperVLA.from_config(config, example)
+        HyperVLA.from_config(config, example, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _make_step(config)
 
@@ -255,7 +256,7 @@ def test_trunk_switch_selects_its_kernel(monkeypatch, switch, function,
         config = tiny_test_config()
         config["base_net_kwargs"]["vit_kwargs"].update(
             switch, sow_dino_attention=capture)
-        model = HyperVLA.from_config(config, example)
+        model = HyperVLA.from_config(config, example, device="cpu")
         _make_step(config)  # the train step takes the config too
         seen.clear()
         with torch.no_grad():
@@ -276,7 +277,8 @@ def test_fused_add_ln_refuses_layer_remat():
         dino_fused_add_ln=True, sow_dino_attention=False, remat_dino=True)
     with pytest.raises(ValueError, match="remat"):
         HyperVLA.from_config(config, make_flagship_batch(
-            instr_len=8, action_horizon=2, initial_patch_dim=32))
+            instr_len=8, action_horizon=2, initial_patch_dim=32),
+            device="cpu")
 
 
 def test_layer_kernel_needs_a_bf16_trunk():
@@ -285,4 +287,5 @@ def test_layer_kernel_needs_a_bf16_trunk():
         "pallas_train")
     with pytest.raises(ValueError, match="bf16"):
         HyperVLA.from_config(config, make_flagship_batch(
-            instr_len=8, action_horizon=2, initial_patch_dim=32))
+            instr_len=8, action_horizon=2, initial_patch_dim=32),
+            device="cpu")

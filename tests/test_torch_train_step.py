@@ -104,7 +104,8 @@ def test_fp32_step_matches_jax():
     batch = jax_batch(**BATCH, initial_patch_dim=32)
     ref_params, ref_ema, ref_info = _jax_step(jmodel, config, batch)
 
-    model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None)
+    model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None,
+                              device="cpu")
     model.config["EMA_start_step"] = 0
     model.params = from_jax_params(jmodel.params)
     old = {k: v.numpy() for k, v in model.params.items()}
@@ -140,11 +141,11 @@ def test_build_frozen_encoders_shapes():
     """The port's frozen encoders from seeds: T5 token embeddings and the
     conditioning DINOv2's fp32 last_hidden_state, CLS token included."""
     model, batch = build_flagship(tiny=True, training=True,
-                                  encoder_dtype=None)
+                                  encoder_dtype=None, device="cpu")
     config = copy.deepcopy(model.config)
     config["dataset_kwargs"]["text_tokenizer"] = "t5-small"
     text_apply, dino_apply, t5_params, dino_params = build_frozen_encoders(
-        config, seed=3)
+        config, seed=3, device="cpu")
     ids = torch.as_tensor(batch["task"]["language_instruction"]["input_ids"])
     mask = torch.ones_like(ids)
     emb = text_apply(t5_params, ids, mask)
@@ -168,7 +169,8 @@ def test_build_frozen_encoders_shapes():
     lambda c: c["dataset_kwargs"].update(device_augment=True),
 ])
 def test_unported_train_options_raise(change):
-    model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None)
+    model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None,
+                              device="cpu")
     config = copy.deepcopy(model.config)
     change(config)
     tx, lr_fn, base_lr_fn, pnorm_fn = topt.create_optimizer(
@@ -181,7 +183,8 @@ def test_unported_train_options_raise(change):
 def test_per_sample_view_matches_a_sample_loop():
     """The base-net loss with the sample axis written out equals the loss
     of each sample run alone on its own generated params."""
-    model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None)
+    model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None,
+                              device="cpu")
     gen = torch.Generator().manual_seed(0)
     for name, value in model.params.items():
         if name.startswith("output_head_") and name.endswith("/kernel"):
