@@ -20,7 +20,10 @@
    against the same steps with both kernels' plain versions, timed beside
    the stacked-trunk step.
 4. Row and flash kernel phase: the flash attention and the one-pass
-   LayerNorm at the serving shapes (the flash attention at B=64 too), the
+   LayerNorm at the serving shapes (the flash attention also at B=64, as
+   cross attention with 65 queries on 300 keys and at head dim 128; each
+   twice bit for bit, its error against the exact function in fp64 beside
+   that of the fp32-FMA kernel it replaced), the
    residual add + LayerNorm pair with and without LayerScale, forward and
    backward with both cotangents (the backward twice, bit-equal), and the
    fused exact GELU at the training shapes, each against its plain version,
@@ -53,13 +56,15 @@
    against the plain path (the same step with the kernel switches off);
    all four timed in turns.
 
-The two kernels redesigned for Hopper, the training attention (forward and
-backward on the bf16 tensor cores) and the layer and trunk GEMM (a pipelined
-`wgmma` kernel), are also run twice and compared bit for bit, at every GEMM
-shape of the serving trunk and of the training layer (every epilogue, both
-layouts of the weight); at M = 16448 the rows of the ragged last row tile
-are checked on their own, and a row past M, poisoned before the launch, is
-found untouched after it.
+The kernels redesigned for Hopper, the training attention (forward and
+backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
+`wgmma` kernel), the layer backward's A^T.B weight gradients (`wgmma` on
+MN-major operands, the rows split over blocks and finished in order) and
+the flash attention, are also run twice and compared bit for bit, at every
+GEMM shape of the serving trunk and of the training layer (every epilogue,
+both layouts of the weight); at M = 16448 the rows of the ragged last row
+tile are checked on their own, and a row past M, poisoned before the launch,
+is found untouched after it; the weight gradients also at M = 16485 and 99.
 
 Beside each kernel's time the script prints the least time the card could
 take for the same work (the larger of bytes moved over 3.35 TB/s and
@@ -67,7 +72,10 @@ operations over the peak rate for their type: 989 TFLOP/s bf16 on the
 tensor cores, 67 TFLOP/s fp32) and, where one PyTorch call computes the
 same function (torch.matmul, F.layer_norm, F.gelu,
 F.scaled_dot_product_attention, a sum), that call's time: a yardstick that
-the port never calls.
+the port never calls. `ms` is CUDA events around back-to-back calls, which
+for a kernel of a few microseconds is the rate its wrapper launches at;
+`device_ms` is the kernels' own device time over the same calls, from a
+torch.profiler trace.
 
 Each serving step and each train configuration is also traced once with
 torch.profiler: its device busy time (the sum of its kernels' device time)
@@ -156,6 +164,8 @@ LAYER_BOUND = 2 ** -6
 # the train phase: batch, steps, and the bounds the JAX package holds
 # between its own trunks (tests/test_layer_kernel_train_step.py)
 TRAIN_BATCH = 64
+# calls of a kernel traced for its device time
+PROFILED_CALLS = 10
 TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 # the layer backward: cosine per output against the plain version (the JAX
 # package holds its kernel to 0.99 per leaf, tests/test_dino_layer_train.py)
@@ -195,24 +205,51 @@ def interleaved(kernel_fn, plain_fn, iters):
 
 def device_busy(fn, calls=1):
     """(device busy ms, device kernels) per call of fn, from a
-    torch.profiler trace of `calls` calls: the sum of the kernels' own
-    device time (one stream, so they do not overlap)."""
+    torch.profiler trace of `calls` identical calls: the sum of the kernels'
+    own device time (one stream, so they do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    # a trace now and then comes back without its device records: it is
+    # taken again, and only a third empty one fails the run
+    for attempt in range(3):
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    if busy_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return busy_us / 1e3 / calls, sum(e.count for e in rows) / calls
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count > 0]
+        # a trace often lacks the record of a launch or two: each kernel's
+        # mean time over the records that are there, times its launches a
+        # call (the records over the calls, rounded)
+        per_call = [(e.self_device_time_total / e.count,
+                     max(1, round(e.count / calls))) for e in rows]
+        busy_us = sum(mean_us * n for mean_us, n in per_call)
+        if busy_us > 0:
+            return busy_us / 1e3, sum(n for _, n in per_call)
+        log(f"profiler: trace {attempt + 1} of {calls} calls held no device "
+            "time")
+    raise AssertionError("the profiler saw no device time")
+
+
+def confirmed_device_ms(fn, calls):
+    """Device ms per call of fn from two traces of `calls` calls that agree
+    (the same number of device kernels, times within a quarter): a trace now
+    and then comes back without any of one kernel's records, which a single
+    trace cannot tell from a faster function."""
+    prev = device_busy(fn, calls)
+    for _ in range(3):
+        cur = device_busy(fn, calls)
+        if (cur[1] == prev[1]
+                and abs(cur[0] - prev[0]) <= 0.25 * max(cur[0], prev[0])):
+            return (cur[0] + prev[0]) / 2
+        log(f"profiler: two traces disagree ({prev[0]:.6g} ms in {prev[1]:g} "
+            f"kernels, then {cur[0]:.6g} ms in {cur[1]:g}); tracing again")
+        prev = cur
+    raise AssertionError("no two profiler traces in a row agree")
 
 
 def bound_ms(nbytes, flops, peak=PEAK_BF16):
@@ -230,8 +267,9 @@ def nbytes(*tensors):
 
 class KernelTable:
     """Each kernel's times beside its bound. `add` times one call of a
-    kernel in turns with its plain version, and the one PyTorch call for
-    the same function where there is one; calls under one name add up (one
+    kernel in turns with its plain version, the one PyTorch call for the
+    same function where there is one, and the kernel's device time from a
+    profiler trace of the same calls; calls under one name add up (one
     layer's launches of that kernel). `rows` gives, per name, the keys the
     {"kernels": [...]} line carries."""
 
@@ -243,27 +281,52 @@ class KernelTable:
         """cost: (bytes moved, operations, the peak rate of their type)."""
         k_ms, p_ms = interleaved(kernel_fn, plain_fn, iters)
         lib_ms = cuda_ms(library, iters) if library else None
+        # the same calls under the profiler: the kernels' own device time,
+        # where `ms` of a short kernel is the rate its wrapper launches at
+        calls = min(iters, PROFILED_CALLS)
+        dev_ms = confirmed_device_ms(kernel_fn, calls)
+        lib_dev = confirmed_device_ms(library, calls) if library else None
         least, by = bound_ms(*cost)
-        log(f"kernel {name} {label}: ms {k_ms:.6g} plain_ms {p_ms:.6g} "
-            f"library_ms {'none' if lib_ms is None else format(lib_ms, '.6g')}"
-            f" bound_ms {least:.6g} ({by})")
+
+        def fmt(ms):
+            return "none" if ms is None else format(ms, ".6g")
+
+        log(f"kernel {name} {label}: ms {k_ms:.6g} device_ms {dev_ms:.6g} "
+            f"plain_ms {p_ms:.6g} library_ms {fmt(lib_ms)} "
+            f"library_device_ms {fmt(lib_dev)} bound_ms {least:.6g} ({by})")
         r = self._rows.setdefault(name, {
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-            "library_ms": None, "bytes": 0.0, "ops": 0.0, "peak": cost[2]})
+            "max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+            "library_ms": None, "library_device_ms": None, "bytes": 0.0,
+            "ops": 0.0, "peak": cost[2]})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += k_ms
+        r["device_ms"] += dev_ms
         r["plain_ms"] += p_ms
         if lib_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+            r["library_device_ms"] = ((r["library_device_ms"] or 0.0)
+                                      + lib_dev)
         r["bytes"] += cost[0]
         r["ops"] += cost[1]
+
+    def log_rows(self, where):
+        """Logs each name's summed row, labelled `where`; returns rows()."""
+        results = self.rows()
+        for name, r in results.items():
+            log(f"kernel {name}{where}: " + " ".join(
+                f"{key} {'none' if r[key] is None else format(r[key], '.6g')}"
+                for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                            "library_device_ms", "bound_ms"))
+                + f" ({r['bound_by']})")
+        return results
 
     def rows(self):
         out = {}
         for name, r in self._rows.items():
             least, by = bound_ms(r["bytes"], r["ops"], r["peak"])
             out[name] = {key: r[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "library_ms")}
+                "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms")}
             out[name].update(bound_ms=least, bound_by=by)
         return out
 
@@ -391,7 +454,8 @@ def kernel_phase(device):
               lambda: dl.dino_layers_serving(x, w, b, p),
               lambda: dl.dino_layers_serving_reference(x, w, b, p), 20,
               (nbytes(x, w, b, p, x), trunk_ops, PEAK_BF16))
-    results = table.rows()
+    results = table.log_rows(" at bs=1, a layer's launches (the trunk: 12 "
+                             "layers)")
     weight_bytes = w.numel() * 2
     trunk_ms = results["dino_layers_serving"]["ms"]
     log(f"trunk weights {weight_bytes / 1e6:.1f} MB; kernel trunk reads them "
@@ -432,23 +496,57 @@ def row_flash_kernel_phase(device):
     table = KernelTable()
 
     # ---- kernel 4: flash attention over (B, S, heads, d), as the layer
-    # reshapes its Dense outputs ----
-    def flash_case(name, b, iters):
-        q, k, v = (t((b, seq, heads, 64)) for _ in range(3))
+    # reshapes its Dense outputs; both products on the bf16 tensor cores, P
+    # kept in fp32 as three bf16 terms ----
+    def flash_case(name, b, q_len, kv_len, h, d, iters):
+        q = t((b, q_len, h, d))
+        k, v = (t((b, kv_len, h, d)) for _ in range(2))
         got = fa.mha_flash(q, k, v)
         torch.cuda.synchronize()
-        err = check(name, f"({b}, 257, 12, 64) bf16", got,
-                    fa.mha_flash_reference(q, k, v))
+        shape = f"q ({b}, {q_len}, {h}, {d}) kv_len {kv_len} bf16"
+        err = check(name, shape, got, fa.mha_flash_reference(q, k, v))
+        if not torch.equal(got, fa.mha_flash(q, k, v)):
+            raise AssertionError(f"{name}: two runs differ")
+        # against the exact function (fp64 on the same bf16 inputs): the
+        # tensor-core kernel beside the fp32-FMA kernel it replaced
+        q64, k64, v64 = (a.double().transpose(1, 2) for a in (q, k, v))
+        exact = (torch.softmax(q64 @ k64.transpose(-1, -2) / math.sqrt(d), -1)
+                 @ v64).transpose(1, 2)
+        fma = fa.mha_flash_fma(q, k, v)
+        err_tc = float((got.double() - exact).abs().max())
+        err_fma = float((fma.double() - exact).abs().max())
+        err_plain = float((fa.mha_flash_reference(q, k, v).double()
+                           - exact).abs().max())
+        del q64, k64, v64
+        warps = fa.flash_warps(b * h, q_len)
+        log(f"kernel {name} {shape}: three-term P split, max_abs_err against "
+            f"fp64 {err_tc:.6g} (the FMA kernel {err_fma:.6g}, the plain "
+            f"version {err_plain:.6g}); two runs bit-equal; grid "
+            f"({-(-q_len // (16 * warps))}, {b * h}) blocks of {warps} warps")
+        # both round the same fp32 value up to the order of its sum
+        slack = 1e-6 * max(float(exact.abs().max()), 1.0)
+        if not err_tc <= err_fma + slack:
+            raise AssertionError(f"{name}: error {err_tc} against fp64 above "
+                                 f"the FMA kernel's {err_fma}")
+        del exact
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        table.add(name, f"B={b}", err, lambda: fa.mha_flash(q, k, v),
+        # q.k^T and one P.V product per bf16 term of P, on the tensor cores
+        table.add(name, shape, err, lambda: fa.mha_flash(q, k, v),
                   lambda: fa.mha_flash_reference(q, k, v), iters,
-                  (nbytes(q, k, v, got), 4 * b * seq * seq * hidden,
-                   PEAK_FP32),
+                  (nbytes(q, k, v, got), 8 * b * h * q_len * kv_len * d,
+                   PEAK_BF16),
                   lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        fma_ms = cuda_ms(lambda: fa.mha_flash_fma(q, k, v), iters)
+        fma_dev = confirmed_device_ms(lambda: fa.mha_flash_fma(q, k, v),
+                                      min(iters, PROFILED_CALLS))
+        log(f"kernel {name} {shape}: the FMA kernel it replaced ms "
+            f"{fma_ms:.6g} device_ms {fma_dev:.6g}")
 
     with torch.no_grad():
-        flash_case("flash_attention", 1, 200)
-        flash_case("flash_attention_b64", batch, 10)
+        flash_case("flash_attention", 1, seq, seq, heads, 64, 200)
+        flash_case("flash_attention_b64", batch, seq, seq, heads, 64, 10)
+        flash_case("flash_attention_cross", 2, 65, 300, heads, 64, 50)
+        flash_case("flash_attention_d128", 2, seq, seq, 6, 128, 50)
 
         # ---- kernel 5: the one-pass LayerNorm, bf16-stored vectors ----
         x = t((1, seq, hidden), scale=0.5, shift=0.3)
@@ -555,14 +653,7 @@ def row_flash_kernel_phase(device):
                              "forward and one backward")
     del leaves, params, xn, y, ref
 
-    results = table.rows()
-    for name, r in results.items():
-        lib = r["library_ms"]
-        log(f"kernel {name}, per launch: ms {r['ms']:.6g} plain_ms "
-            f"{r['plain_ms']:.6g} library_ms "
-            f"{'none' if lib is None else format(lib, '.6g')} bound_ms "
-            f"{r['bound_ms']:.6g} ({r['bound_by']})")
-    return results, driven
+    return table.log_rows(", per launch"), driven
 
 
 def make_wrapper(model, trunk_impl):
@@ -1087,18 +1178,43 @@ def train_kernel_phase(device):
     poisoned_row_case("fc1 +gelu, hc stored", n1, w1, False, "gelu", True)
     poisoned_row_case("dn2 ^T fp32 out", dbig, w1, True, "f32", False)
 
-    for label, a, b in (("dW2 [16448,3072]^T x [16448,768]", hid, dy),
-                        ("dW1 [16448,768]^T x [16448,3072]", n1, dbig),
-                        ("dWo [16448,768]^T x [16448,768]", ao, dy),
-                        ("dWqkv [16448,768]^T x [16448,2304]", n1, dqkv)):
+    def gemm_tn_case(label, a, b, time_it):
         got = dlt.gemm_tn(a, b)
         torch.cuda.synchronize()
         err = check("layer_gemm_tn", label, got, dlt.gemm_tn_reference(a, b),
                     ULP_BOUND)
-        timed("layer_gemm_tn", label, err, lambda: dlt.gemm_tn(a, b),
-              lambda: dlt.gemm_tn_reference(a, b), 10,
-              (nbytes(a, b, got), 2 * m * a.shape[1] * b.shape[1],
-               PEAK_BF16), lambda: a.t() @ b)
+        if not torch.equal(got, dlt.gemm_tn(a, b)):
+            raise AssertionError(f"layer_gemm_tn {label}: two runs differ")
+        rows_a, k1, n = *a.shape, b.shape[1]
+        cfg = dlt.gemm_tn_config(rows_a, k1, n)
+        tiles = (k1 // cfg.block_m) * (n // cfg.block_n)
+        log(f"kernel layer_gemm_tn {label}: two runs bit-equal; tile "
+            f"{cfg.block_m}x{cfg.block_n}, {-(-rows_a // 64)} row tiles split "
+            f"{cfg.split}, grid ({tiles}, {cfg.split}) of "
+            f"{dlt.gemm_tn_blocks_per_wave(cfg)} blocks a wave")
+        if time_it:
+            timed("layer_gemm_tn", label, err, lambda: dlt.gemm_tn(a, b),
+                  lambda: dlt.gemm_tn_reference(a, b), 10,
+                  (nbytes(a, b, got), 2 * rows_a * k1 * n, PEAK_BF16),
+                  lambda: a.t() @ b)
+
+    for label, a, b in (("dW2 [16448,3072]^T x [16448,768]", hid, dy),
+                        ("dW1 [16448,768]^T x [16448,3072]", n1, dbig),
+                        ("dWo [16448,768]^T x [16448,768]", ao, dy),
+                        ("dWqkv [16448,768]^T x [16448,2304]", n1, dqkv)):
+        gemm_tn_case(label, a, b, True)
+    # a ragged last row tile (the rows past M are zero-filled by the copy)
+    # and fewer rows than two row tiles (the 64 x 64 tile, no split)
+    more = t(rng.standard_normal((37, mlp)))
+    gemm_tn_case("ragged dW1 [16485,768]^T x [16485,3072]",
+                 torch.cat([n1, more[:, :hidden]]),
+                 torch.cat([dbig, more * 0.1]), False)
+    gemm_tn_case("ragged dWo [16485,768]^T x [16485,768]",
+                 torch.cat([ao, more[:, :hidden]]),
+                 torch.cat([dy, more[:, hidden:2 * hidden]]), False)
+    gemm_tn_case("dWo [99,768]^T x [99,768]", ao[:99].contiguous(),
+                 dy[:99].contiguous(), False)
+    del more
 
     def pass_case(name, label, kern, plain, args, bounds, ops_per_elt,
                   library=None):
@@ -1132,14 +1248,7 @@ def train_kernel_phase(device):
               dlt.colsum_reference, (dqkv,), (1e-4,), 1,
               lambda: dqkv.sum(0, dtype=torch.float32))
 
-    results = table.rows()
-    for name, r in results.items():
-        lib = r["library_ms"]
-        log(f"kernel {name} at B={batch}, per layer: ms {r['ms']:.6g} "
-            f"plain_ms {r['plain_ms']:.6g} library_ms "
-            f"{'none' if lib is None else format(lib, '.6g')} bound_ms "
-            f"{r['bound_ms']:.6g} ({r['bound_by']})")
-    return results
+    return table.log_rows(f" at B={batch}, per layer")
 
 
 def _cosine(a, b):
@@ -1507,7 +1616,8 @@ def main() -> int:
         if kernel["launches"] == 0:
             raise AssertionError(f"{kernel['name']} was not launched on its "
                                  "main path")
-    log("kernels ms/plain_ms/library_ms/bound_ms: per flagship layer for "
+    log("kernels ms/device_ms/plain_ms/library_ms/bound_ms: per flagship "
+        "layer for "
         "the serving kernels (2 LayerNorms, 4 GEMMs, 1 attention), per "
         "12-layer trunk for dino_layers_serving, per launch at B=64 for the "
         "training kernels, where dino_gemm_train and layer_gemm_tn add up "

@@ -49,6 +49,29 @@ def dinov2_config(name: str) -> DINOv2Config:
     return _DINOV2_CONFIGS[key]
 
 
+#: the dropout rates the JAX package reads, by the config section that holds
+#: them (hypervla_tpu/models/hypernetwork.py, models/base_vit.py)
+DROPOUT_KEYS = {
+    "hypernet_kwargs": ("image_dropout", "embedding_dropout_rate",
+                        "final_dropout_rate"),
+    "hypernet_kwargs context_encoder_kwargs": ("dropout_rate",
+                                               "attention_dropout_rate"),
+    "vit_kwargs": ("dropout_rate",),
+}
+
+
+def refuse_dropout(section: str, kwargs: Dict[str, Any]) -> None:
+    """Raises NotImplementedError for a nonzero dropout rate among the keys
+    of `section` (a key of DROPOUT_KEYS): the port has no dropout, and a
+    rate it dropped without a word would train another model than the JAX
+    package does. A rate of 0, None or an absent key passes."""
+    for key in DROPOUT_KEYS[section]:
+        if kwargs.get(key):
+            raise NotImplementedError(
+                f"{section} {key}={kwargs[key]!r}: dropout is not ported "
+                "(ROADMAP.md, queue A8); set the rate to 0")
+
+
 def pretrain_config() -> Dict[str, Any]:
     """The reference defaults, cut to the keys the serving path and the
     training step read (the data pipeline's, dropout and octo keys are not

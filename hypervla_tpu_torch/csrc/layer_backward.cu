@@ -28,23 +28,22 @@
 //   layer_finish_sums  sums the per-block partials in block order
 //
 // No atomics anywhere: a column sum is per-block partials in fp32, then one
-// finishing launch that adds them in a fixed order, and a weight gradient
-// tile is owned by one block that walks all rows. Results repeat bit for
-// bit. What bounds the layer backward on this card is the GEMM work (~466
-// GFLOP at B=64 against ~1 GB moved): this first version uses the WMMA tiles
-// of dino_layer.cu (64x64 outputs, unpipelined); wgmma/TMA pipelines and a
-// split over rows for the small weight gradients are later work.
+// finishing launch that adds them in a fixed order; a weight gradient tile
+// is owned by one block that walks all rows or, where the tiles are too few
+// for the card, by `split` blocks that each walk one contiguous range of the
+// rows and leave an fp32 partial tile, added in split order by a finishing
+// launch and rounded once. Results repeat bit for bit.
+//
+// What bounds the layer backward on this card is the GEMM work (~466 GFLOP
+// at B=64 against ~1 GB moved), half of it the four weight gradients (233
+// GFLOP, K1 x N outputs of 768 x 768 up to 3072 x 768 contracted over
+// 16448 rows). They run on `wgmma` with both operands MN-major, fed by TMA
+// (see the note at the kernel).
 //
 // Plain C interface (loaded with ctypes). Every entry point launches on the
 // given stream and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "wgmma_tma.cuh"
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 tobf(float v) { return __float2bfloat16_rn(v); }
@@ -57,82 +56,168 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ------------------------------ A^T B GEMM ------------------------------
-// out[K1, N] = bf16(A[M, K1]^T @ B[M, N]): A and B row-major with row
-// strides lda, ldb, contracted over their M rows. One block owns a 64x64
-// output tile and walks all M rows 32 at a time (rows past M read as zero),
-// four warps of 32x32, WMMA 16x16x16 bf16 with fp32 accumulators; A's tile
-// is staged as it lies in memory and read as a col-major matrix_a fragment,
-// so no transposed copy exists. K1 % 64 == 0 and N % 64 == 0 are checked by
-// the wrapper.
+// out[K1, N] = bf16(A[M, K1]^T @ B[M, N]): A and B row-major bf16 with row
+// strides lda, ldb, contracted over their M rows, the sum kept in fp32 and
+// rounded to bf16 once.
+//
+// What bounds it: operations (2 M K1 N; each operand value is needed K1 or N
+// times), so the product runs on `wgmma` at m64nNk16. The contracted
+// dimension M is the strided one of both A and B, so both operands are
+// MN-major: a stage of the shared-memory ring holds 64 rows x 64 columns
+// boxes of A and of B exactly as they lie in memory (128-byte rows, 128-byte
+// swizzled, written by TMA), and the descriptors' transpose bits read them;
+// no transposed copy of A exists before or after. One thread of a producer
+// warpgroup keeps the TMA loads of the next row tiles in flight; WGS consumer
+// warpgroups multiply the tiles that have arrived, each 64 rows of the 64 WGS
+// x BN_T output tile, and release a stage to its `empty` barrier once the
+// `wgmma` that read it has completed. Rows past M are zero-filled by TMA's
+// clipping.
+//
+// The tiles are few (18 to 72 of 128 x 256 at the flagship's shapes against
+// 132 multiprocessors), so the rows are split: block (tile, s) of grid
+// (tiles, split) walks row tiles [s R / split, (s + 1) R / split) of the R =
+// ceil(M / 64). With split 1 it rounds and writes bf16; else it writes its
+// fp32 sums to partial[s][K1][N] and `gemm_tn_finish_kernel` adds the parts
+// in split order and rounds once. Blocks of one split are neighbours in the
+// grid, so the blocks resident at one time read the same rows of A and B
+// through the L2. The split is chosen by the wrapper
+// (ops/dino_layer_train.py::gemm_tn_config) from the shape alone.
+// K1 % (64 WGS) == 0 and N % BN_T == 0 are checked by the wrapper.
 
-constexpr int TM = 64, TN = 64, TK = 32;
-constexpr int GEMM_THREADS = 128;
-constexpr int SPAD = 8;  // shared-memory row pad, in bf16 elements
+constexpr int TN_STAGES = 4;
 
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_tn_kernel(
-    const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
-    bf16* __restrict__ out, int M, int N) {
-  __shared__ __align__(128) bf16 As[TK][TM + SPAD];
-  __shared__ __align__(128) bf16 Bs[TK][TN + SPAD];
-  __shared__ __align__(128) float Cs[TM][TN + 4];
+template <int WGS, int BN_T>
+struct TnTile {
+  static constexpr int A_BYTES = WGS * 64 * 128;
+  static constexpr int B_BYTES = BN_T * 128;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // ring, 1 KB to align it, 2 x TN_STAGES 8-byte barriers
+  static constexpr int SMEM_BYTES = TN_STAGES * STAGE_BYTES + 1024 + 64;
+  static constexpr int THREADS = 128 * (WGS + 1);
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int i0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+// grid (K1 / (64 WGS) * N / BN_T, split); 128 (WGS + 1) threads.
+template <int WGS, int BN_T>
+__global__ void __launch_bounds__(128 * (WGS + 1), 1) gemm_tn_kernel(
+    const __grid_constant__ CUtensorMap map_a,
+    const __grid_constant__ CUtensorMap map_b, bf16* __restrict__ out,
+    float* __restrict__ partial, int M, int K1, int N) {
+  using T = TnTile<WGS, BN_T>;
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t ring = (smem_u32(gemm_smem) + 1023u) & ~1023u;
+  const uint32_t full = ring + TN_STAGES * T::STAGE_BYTES;
+  const uint32_t empty = full + 8 * TN_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int tiles_n = N / BN_T;
+  const int i0 = (blockIdx.x / tiles_n) * (64 * WGS);
+  const int n0 = (blockIdx.x % tiles_n) * BN_T;
+  const int row_tiles = (M + 63) / 64;
+  const int split = gridDim.y, s = blockIdx.y;
+  const int first = (int)((long long)s * row_tiles / split);
+  const int count = (int)((long long)(s + 1) * row_tiles / split) - first;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int m0 = 0; m0 < M; m0 += TK) {
-    // 32 rows x 64 cols of each operand = 256 16-byte vectors, 2 per thread
-#pragma unroll
-    for (int v = tid; v < TK * TM / 8; v += GEMM_THREADS) {
-      const int r = v / (TM / 8), c = (v % (TM / 8)) * 8;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u), vb = va;
-      if (m0 + r < M) {
-        va = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * lda + i0 +
-                                             c);
-        vb = *reinterpret_cast<const uint4*>(B + (size_t)(m0 + r) * ldb + n0 +
-                                             c);
-      }
-      *reinterpret_cast<uint4*>(&As[r][c]) = va;
-      *reinterpret_cast<uint4*>(&Bs[r][c]) = vb;
+  if (tid == 0) {
+    for (int st = 0; st < TN_STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);         // the producer's expect_tx
+      mbar_init(empty + 8 * st, 4 * WGS);  // one lane of each consumer warp
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[kk][wm + 16 * i], TM + SPAD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk][wn + 16 * j], TN + SPAD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j],
-                              TN + 4, wmma::mem_row_major);
   __syncthreads();
-  for (int idx = tid; idx < TM * TN; idx += GEMM_THREADS) {
-    const int r = idx / TN, c = idx % TN;
-    out[(size_t)(i0 + r) * N + n0 + c] = tobf(Cs[r][c]);
+
+  if (wg == WGS) {
+    // the large tile's consumers hold 128 accumulators a thread: the
+    // producer's registers move to them
+    if constexpr (WGS == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 128 * WGS) {
+      for (int i = 0; i < count; ++i) {
+        const int st = i % TN_STAGES;
+        // the stage's previous tile (i - TN_STAGES) has been multiplied
+        if (i >= TN_STAGES)
+          mbar_wait(empty + 8 * st, (i / TN_STAGES - 1) & 1);
+        const uint32_t sa = ring + st * T::STAGE_BYTES;
+        const uint32_t sb = sa + T::A_BYTES;
+        const int m0 = (first + i) * 64;
+        mbar_expect_tx(full + 8 * st, T::STAGE_BYTES);
+#pragma unroll
+        for (int j = 0; j < WGS; ++j)
+          tma_load_2d(sa + j * 8192, &map_a, full + 8 * st, i0 + 64 * j, m0);
+#pragma unroll
+        for (int j = 0; j < BN_T / 64; ++j)
+          tma_load_2d(sb + j * 8192, &map_b, full + 8 * st, n0 + 64 * j, m0);
+      }
+    }
+    return;
   }
+
+  if constexpr (WGS == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  float acc[BN_T / 2];
+#pragma unroll
+  for (int i = 0; i < BN_T / 2; ++i) acc[i] = 0.f;
+  const int lane = tid & 31;
+  for (int i = 0; i < count; ++i) {
+    const int st = i % TN_STAGES;
+    mbar_wait(full + 8 * st, (i / TN_STAGES) & 1);
+    const uint32_t sa = ring + st * T::STAGE_BYTES;
+    // MN-major tiles: 8 KB from one 64-column box to the next (A has one
+    // box a warpgroup), 1 KB from one group of 8 rows to the next
+    const uint64_t da = wgmma_desc(sa + wg * 8192, 8192, 1024);
+    const uint64_t db = wgmma_desc(sa + T::A_BYTES, 8192, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      // a k-step is 16 rows of 128 bytes; the address is in 16-byte units
+      wgmma_k16<1, 1>(acc, da + kk * 128, db + kk * 128, (i | kk) != 0);
+    wgmma_commit();
+    // row tile i - 1's wgmma has completed: its stage may be refilled
+    wgmma_wait<1>();
+    if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % TN_STAGES));
+  }
+  wgmma_wait<0>();
+
+  // Straight from the accumulator registers: thread (warp w, lane 4g + t)
+  // holds rows 16w + g and 16w + g + 8 and, for each 8-column group j,
+  // columns 8j + 2t and 8j + 2t + 1; a quad writes 32 (fp32) or 16 (bf16)
+  // neighbouring bytes of a row. The output is 1/257 of the operand reads.
+  const int row = i0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const size_t o = (size_t)row * N + n0 + 2 * (lane & 3);
+  if (split == 1) {
+#pragma unroll
+    for (int j = 0; j < BN_T / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + o + 8 * j) =
+          pack2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(out + o + (size_t)8 * N + 8 * j) =
+          pack2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  } else {
+    float* part = partial + (size_t)s * K1 * N;
+#pragma unroll
+    for (int j = 0; j < BN_T / 8; ++j) {
+      *reinterpret_cast<float2*>(part + o + 8 * j) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(part + o + (size_t)8 * N + 8 * j) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+// One thread per eight outputs: adds the splits' partial sums in split
+// order and rounds once.
+__global__ void __launch_bounds__(256) gemm_tn_finish_kernel(
+    const float* __restrict__ partial, int split, bf16* __restrict__ out,
+    size_t total) {
+  const size_t first = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (first >= total) return;
+  float sums[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < split; ++s) {
+    float part[8];
+    load8(part, partial + s * total + first);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sums[i] += part[i];
+  }
+  store8(out + first, sums);
 }
 
 // -------------------------- LayerNorm backward --------------------------
@@ -329,13 +414,53 @@ static dim3 column_grid(int rows, int cols, int rpb) {
   return dim3((cols + CP_THREADS - 1) / CP_THREADS, (rows + rpb - 1) / rpb);
 }
 
+// Launches one tile's instantiation; its first launch raises the dynamic
+// shared-memory limit above the 48 KB default.
+template <int WGS, int BN_T>
+static cudaError_t launch_gemm_tn(cudaStream_t stream, const bf16* a, int lda,
+                                  const bf16* b, int ldb, bf16* out,
+                                  float* partial, int m, int k1, int n,
+                                  int split) {
+  using T = TnTile<WGS, BN_T>;
+  CUtensorMap map_a, map_b;
+  if (!make_tensor_map(&map_a, a, m, k1, lda, 64) ||
+      !make_tensor_map(&map_b, b, m, n, ldb, 64))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_tn_kernel<WGS, BN_T>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((k1 / (64 * WGS)) * (n / BN_T), split);
+  kernel<<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(map_a, map_b, out,
+                                                      partial, m, k1, n);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
+// block_n 256 selects the 128 x 256 tile (k1 % 128 == 0, n % 256 == 0),
+// else the tile is 64 x 64 (k1 % 64 == 0, n % 64 == 0). With split > 1
+// `partial` is fp32 scratch of split * k1 * n.
 int layer_gemm_tn(const void* a, int lda, const void* b, int ldb, void* out,
-                  int m, int k1, int n, void* stream) {
-  const dim3 grid(n / TN, k1 / TM);
-  gemm_tn_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)a, lda, (const bf16*)b, ldb, (bf16*)out, m, n);
+                  int m, int k1, int n, int block_n, int split, void* partial,
+                  void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err =
+      block_n == 256
+          ? launch_gemm_tn<2, 256>(st, (const bf16*)a, lda, (const bf16*)b,
+                                   ldb, (bf16*)out, (float*)partial, m, k1, n,
+                                   split)
+          : launch_gemm_tn<1, 64>(st, (const bf16*)a, lda, (const bf16*)b,
+                                  ldb, (bf16*)out, (float*)partial, m, k1, n,
+                                  split);
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const size_t total = (size_t)k1 * n;
+  gemm_tn_finish_kernel<<<(unsigned)((total / 8 + 255) / 256), 256, 0, st>>>(
+      (const float*)partial, split, (bf16*)out, total);
   return (int)cudaGetLastError();
 }
 

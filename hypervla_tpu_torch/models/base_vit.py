@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from hypervla_tpu_torch.configs import dinov2_config
+from hypervla_tpu_torch.configs import dinov2_config, refuse_dropout
 from hypervla_tpu_torch.models import layers
 from hypervla_tpu_torch.models.encoders.dinov2 import (
     dinov2_forward,
@@ -85,6 +85,23 @@ def check_trunk_switches(vit_kwargs: dict) -> None:
             and not kw.get("sow_dino_attention", True)):
         raise ValueError("dino_fused_add_ln is incompatible with layer remat "
                          "(remat_dino, dino_remat_policy)")
+    for key in ("remat_dino", "dino_remat_policy"):
+        if kw.get(key):
+            raise NotImplementedError(
+                f"vit_kwargs {key}={kw[key]!r} is not ported: the trunk "
+                "keeps every layer's activations for the backward, and a "
+                "config that asks for rematerialisation would report "
+                "another peak memory than it set out to (ROADMAP.md, queue "
+                "A8)")
+    if kw.get("scan_dino_layers", False):
+        raise NotImplementedError(
+            "vit_kwargs scan_dino_layers=True is not ported: it stacks the "
+            "trunk's params under encoder/layers/layer, a layout the port "
+            "does not read (unstack the tree with the JAX package's "
+            "unstack_layer_params and leave the switch off; ROADMAP.md, "
+            "queue A8)")
+    # dino_dot_softmax is accepted and changes nothing: it only re-lays the
+    # softmax sums out for the TPU's matrix unit, the same values up to rounding
 
 
 class ViT:
@@ -98,6 +115,7 @@ class ViT:
             "use_differential_transformer": kw.get(
                 "use_differential_transformer", False),
             "include_class_token": kw.get("include_class_token", False),
+            "return_attention_map": kw.get("return_attention_map", False),
             "add_positional_embedding": not kw.get(
                 "add_positional_embedding", True),
         }
@@ -108,6 +126,7 @@ class ViT:
                     "(ROADMAP.md, queue A3)"
                 )
         check_trunk_switches(kw)
+        refuse_dropout("vit_kwargs", kw)
         self.dino = dinov2_config(kw.get("pretrained_encoder_name",
                                          "dinov2-base"))
         self.encoder_dtype = str(kw.get("encoder_dtype", "float32"))

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from hypervla_tpu_torch.configs import refuse_dropout
 from hypervla_tpu_torch.models import layers
 from hypervla_tpu_torch.models.transformer import transformer, transformer_specs
 from hypervla_tpu_torch.models.weight_plan import WeightPlan
@@ -45,6 +46,9 @@ class HyperNetwork:
             if bad:
                 raise NotImplementedError(
                     f"hypernet_kwargs {name} is not ported yet (ROADMAP.md)")
+        refuse_dropout("hypernet_kwargs", hk)
+        refuse_dropout("hypernet_kwargs context_encoder_kwargs",
+                       hk["context_encoder_kwargs"])
         self.plan = plan
         self.hk = hk
         self.context_dim = hk["context_embedding_dim"]

@@ -39,8 +39,9 @@ A layer call on CUDA tensors adds one to `LAUNCHES["dino_layer_train_fwd"]`
 the attention launches inside a layer are counted there, not under
 `mha_fused_train_*`.
 """
+import functools
 import math
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -107,19 +108,91 @@ def gemm_tn_reference(a, b):
     return (a.float().t() @ b.float()).bfloat16()
 
 
-def gemm_tn(a, b):
+class GemmTnConfig(NamedTuple):
+    """A launch of the A^T.B kernel: block_m x block_n outputs a block (128
+    x 256 or 64 x 64), the ceil(M / 64) row tiles cut into `split`
+    contiguous parts, one block each, whose fp32 partial tiles a finishing
+    pass adds in order."""
+    block_m: int
+    block_n: int
+    split: int
+
+
+#: row tiles a part keeps at least: the depth of the kernel's ring
+GEMM_TN_MIN_ROW_TILES = 4
+
+
+def gemm_tn_blocks_per_wave(config: GemmTnConfig) -> int:
+    """Blocks resident at once: one a multiprocessor for the 128 x 256
+    tile (196 KB of ring), three for the 64 x 64 one (66 KB)."""
+    return dl.GEMM_SMS * (1 if config.block_n == 256 else 3)
+
+
+def gemm_tn_cost_us(m: int, k1: int, n: int, config: GemmTnConfig) -> float:
+    """The model the split is chosen by: the waves of blocks times the
+    `wgmma` time of one block's row tiles at the card's bf16 peak, plus,
+    with a split, the partial tiles written and read once at the card's
+    memory rate."""
+    tiles = (k1 // config.block_m) * (n // config.block_n)
+    row_tiles = -(-m // 64)
+    waves = -(-tiles * config.split // gemm_tn_blocks_per_wave(config))
+    per_block = -(-row_tiles // config.split)
+    flops = 2 * config.block_m * config.block_n * 64
+    sm_peak = 989e12 / dl.GEMM_SMS
+    # three 64 x 64 blocks share a multiprocessor's tensor cores
+    sharing = 1 if config.block_n == 256 else 3
+    cost = waves * per_block * flops * sharing / sm_peak
+    if config.split > 1:
+        cost += 2 * config.split * k1 * n * 4 / 3.35e12
+    return cost * 1e6
+
+
+@functools.lru_cache(maxsize=None)  # the search costs a launch's time
+def gemm_tn_config(m: int, k1: int, n: int) -> GemmTnConfig:
+    """The configuration `gemm_tn` launches for a^T (k1, m) x b (m, n).
+
+    Large m takes the 128 x 256 tile where it divides the output, as every
+    weight gradient of the flagship layer does; everything else the 64 x 64
+    one. The split is the one `gemm_tn_cost_us` makes cheapest among those
+    that leave each part at least GEMM_TN_MIN_ROW_TILES row tiles (the
+    smaller split on a tie): tiles too few for the card are split until
+    their last wave is full, as long as the partial tiles' traffic costs
+    less than the idle multiprocessors did. A pure function of the shape,
+    so a shape always takes the same split and its result repeats bit for
+    bit."""
+    large = m > 512 and k1 % 128 == 0 and n % 256 == 0
+    block_m, block_n = (128, 256) if large else (64, 64)
+    row_tiles = -(-m // 64)
+    splits = range(1, max(1, row_tiles // GEMM_TN_MIN_ROW_TILES) + 1)
+    return min((GemmTnConfig(block_m, block_n, s) for s in splits),
+               key=lambda c: (gemm_tn_cost_us(m, k1, n, c), c.split))
+
+
+def gemm_tn(a, b, config: Optional[GemmTnConfig] = None):
+    """bf16(a^T @ b) on the card; `config` (default: `gemm_tn_config` of
+    the shape) lets a measurement try another tile or split."""
     if dl._route(a, b) == "cpu":
         return gemm_tn_reference(a, b)
     for t in (a, b):
         dl._check(t.dim() == 2 and t.dtype == torch.bfloat16
                   and t.is_contiguous() and t.shape[0] == a.shape[0]
-                  and t.shape[1] % 64 == 0,
-                  "a, b must be contiguous (M, 64k) bf16 with equal M")
-    out = torch.empty((a.shape[1], b.shape[1]), dtype=torch.bfloat16,
-                      device=a.device)
+                  and t.shape[1] % 64 == 0 and t.data_ptr() % 16 == 0,
+                  "a, b must be contiguous (M, 64k) bf16 with equal M, "
+                  "16-byte aligned")
+    m, k1 = a.shape
+    n = b.shape[1]
+    config = config or gemm_tn_config(m, k1, n)
+    dl._check(k1 % config.block_m == 0 and n % config.block_n == 0
+              and (config.block_m, config.block_n) in ((128, 256), (64, 64))
+              and 1 <= config.split <= -(-m // 64),
+              f"{config} does not fit a ({m}, {k1})^T x ({m}, {n}) product")
+    out = torch.empty((k1, n), dtype=torch.bfloat16, device=a.device)
+    partial = (torch.empty((config.split, k1, n), dtype=torch.float32,
+                           device=a.device) if config.split > 1 else None)
     code = ln._lib().layer_gemm_tn(
-        a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1], out.data_ptr(),
-        a.shape[0], a.shape[1], b.shape[1], dl._stream())
+        a.data_ptr(), k1, b.data_ptr(), n, out.data_ptr(), m, k1, n,
+        config.block_n, config.split,
+        None if partial is None else partial.data_ptr(), dl._stream())
     dl._raise_on_error("layer_gemm_tn", code)
     LAUNCHES["layer_gemm_tn"] += 1
     return out

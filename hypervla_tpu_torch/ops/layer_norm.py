@@ -61,7 +61,7 @@ def _lib():
 
     lib = load_library("layer_backward.cu")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.layer_gemm_tn.argtypes = [p, i, p, i, p, i, i, i, p]
+    lib.layer_gemm_tn.argtypes = [p, i, p, i, p, i, i, i, i, i, p, p]
     lib.layer_norm_bwd_max_width.argtypes = []
     lib.layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
     lib.layer_scale_grad.argtypes = [p, p, p, p, p, i, i, i, p]

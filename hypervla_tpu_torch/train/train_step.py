@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from hypervla_tpu_torch.configs import refuse_dropout
 from hypervla_tpu_torch.models.base_vit import check_trunk_switches
 from hypervla_tpu_torch.models.hypernetwork import per_sample_view
 from hypervla_tpu_torch.train.optimizer import global_norm
@@ -71,6 +72,11 @@ def _check_layer_kernel_hoist(config: Dict[str, Any]) -> None:
 def _unported(config: Dict[str, Any], pretrained_params) -> None:
     vk = config["base_net_kwargs"]["vit_kwargs"]
     check_trunk_switches(vk)
+    hk = config["hypernet_kwargs"]
+    refuse_dropout("hypernet_kwargs", hk)
+    refuse_dropout("hypernet_kwargs context_encoder_kwargs",
+                   hk.get("context_encoder_kwargs", {}))
+    refuse_dropout("vit_kwargs", vk)
     aux = config["auxiliary_loss"]
     opt = config["optimizer"]
     checks = {

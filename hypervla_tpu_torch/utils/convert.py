@@ -11,7 +11,10 @@ The trunk switches change no key: the JAX package's fused modules
 (`_FusedLayerNorm`, `_PallasTrainLayerNorm`, `_FusedAddLayerNorm`,
 `_LayerScaleVector`, the layer kernel's collection) keep nn.LayerNorm's
 "scale"/"bias" and _LayerScale's "lambda1" under the same module names, so
-a tree from a model built with any of them converts as it is.
+a tree from a model built with any of them converts as it is. The one
+switch that does change the keys, scan_dino_layers (one stacked
+encoder/layers/layer subtree), is refused here as in
+models/base_vit.py::check_trunk_switches.
 """
 from typing import Any, Dict, Optional
 
@@ -39,6 +42,12 @@ def from_jax_params(tree: Any, device: Optional[torch.device] = None,
     the port's flat param dict of tensors on `device`."""
     out = {}
     for path, leaf in flatten_tree(tree).items():
+        if "encoder/layers/layer/" in path:
+            raise NotImplementedError(
+                f"{path}: a tree built with scan_dino_layers=True stacks the "
+                "trunk's layers under encoder/layers/layer, a layout the "
+                "port does not read; unstack it first with the JAX "
+                "package's unstack_layer_params")
         t = torch.from_numpy(np.array(leaf, copy=True))
         out[path] = t.to(device=device, dtype=dtype or t.dtype)
     return out

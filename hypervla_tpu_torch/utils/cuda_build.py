@@ -3,7 +3,7 @@ interface and loads it with ctypes.
 
 The library is compiled with nvcc for sm_90a at first use, into
 `build/kernels/` beside the package, under a name keyed by a hash of the
-source and the flags, so a changed source is rebuilt and an unchanged one
+source, the headers (`csrc/*.cuh`) and the flags, so a changed source is rebuilt and an unchanged one
 is loaded as it is. A missing compiler or a failed build raises.
 """
 import ctypes
@@ -47,8 +47,11 @@ def build(source: str) -> Path:
     final name only once complete, so processes building one source at once
     are safe, and threads may build different sources at once."""
     src = _PACKAGE_DIR / "csrc" / source
+    # the headers beside the sources are part of every source's key
+    headers = sorted(src.parent.glob("*.cuh"))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(f.read_bytes() for f in (src, *headers))
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{src.stem}_{digest}.so"
     if not lib_path.exists():

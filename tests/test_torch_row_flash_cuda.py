@@ -185,7 +185,7 @@ def test_gelu_kernel(device, dtype, shape):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("bh,q_len,kv_len,d", [
     (12, 257, 257, 64), (2, 128, 128, 64), (3, 30, 77, 16), (1, 16, 16, 8),
-    (2, 65, 300, 128), (5, 1, 1, 32)])
+    (2, 65, 300, 128), (5, 1, 1, 32), (2, 40, 1, 64), (2, 1, 300, 64)])
 def test_flash_attention_kernel(device, dtype, bh, q_len, kv_len, d):
     rng = np.random.default_rng(4)
     dt = DTYPES[dtype]
@@ -197,6 +197,52 @@ def test_flash_attention_kernel(device, dtype, bh, q_len, kv_len, d):
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 1 and got.dtype == dt
     _close(got, fa.flash_attention_reference(q, k, v), dt)
+    assert torch.equal(got, fa.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bh,q_len,kv_len,d", [(12, 257, 257, 64),
+                                               (2, 65, 300, 128)])
+def test_flash_attention_kernel_large_scores(device, dtype, bh, q_len,
+                                             kv_len, d):
+    """q and k of std 4: scores of magnitude 16 and more, rows close to one
+    hot, the row maximum growing from key tile to key tile; a running
+    maximum or a correction applied wrongly shows at once."""
+    rng = np.random.default_rng(6)
+    dt = DTYPES[dtype]
+    q = _t(rng, (bh, q_len, d), dt, device, 4.0)
+    k = _t(rng, (bh, kv_len, d), dt, device, 4.0)
+    v = _t(rng, (bh, kv_len, d), dt, device)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    _close(got, fa.flash_attention_reference(q, k, v), dt)
+
+
+def test_flash_attention_tensor_core_error_no_larger_than_fma(device):
+    """Against the exact function (fp64 on the same bf16 inputs) the
+    tensor-core kernel, with P as three bf16 terms, errs no more than the
+    fp32-FMA kernel does, up to the order of an fp32 sum."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(rng, (2, 257, 12, 64), torch.bfloat16, device)
+               for _ in range(3))
+    q64, k64, v64 = (a.double().transpose(1, 2) for a in (q, k, v))
+    exact = (torch.softmax(q64 @ k64.transpose(-1, -2) / 8.0, -1)
+             @ v64).transpose(1, 2)
+    err_tc = (fa.mha_flash(q, k, v).double() - exact).abs().max().item()
+    err_fma = (fa.mha_flash_fma(q, k, v).double() - exact).abs().max().item()
+    assert err_tc <= err_fma + 1e-6 * max(exact.abs().max().item(), 1.0)
+
+
+def test_mha_flash_unaligned_views_take_the_scalar_loads(device):
+    """k and v as views that start off a 16-byte boundary, with an odd row
+    stride: the same tiles through scalar loads."""
+    rng = np.random.default_rng(8)
+    q = _t(rng, (2, 33, 3, 64), torch.bfloat16, device)
+    kv = _t(rng, (2, 50, 3, 65), torch.bfloat16, device)
+    k, v = kv[..., 1:], kv[..., :64]
+    got = fa.mha_flash(q, k, v)
+    torch.cuda.synchronize()
+    _close(got, fa.mha_flash_reference(q, k, v), torch.bfloat16)
 
 
 def test_mha_flash_reads_heads_in_place(device):

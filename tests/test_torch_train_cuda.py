@@ -223,11 +223,18 @@ def test_layer_forward_kernel(device, layers, bound):
 # small and ragged: 68 and 99 rows leave partial row blocks and GEMM tiles
 
 
-@pytest.mark.parametrize("rows,k1,n", [(68, 128, 384), (99, 512, 128),
-                                       (1028, 768, 768)])
+# and the flagship layer's four weight gradients at M = 16448 = 257 row tiles
+# (the 128 x 256 tile, the rows split over blocks), one with a ragged last
+# row tile
+
+
+@pytest.mark.parametrize("rows,k1,n", [
+    (68, 128, 384), (99, 512, 128), (1028, 768, 768), (1028, 128, 384),
+    (16448, 3072, 768), (16448, 768, 3072), (16448, 768, 768),
+    (16448, 768, 2304), (16485, 768, 768), (16421, 768, 2304)])
 def test_gemm_tn_kernel(device, rows, k1, n):
     a = _randn((rows, k1), device, 1.0, 0)
-    b = _randn((rows, n), device, 1.0, 1)
+    b = _randn((rows, n), device, 0.1 if rows > 2048 else 1.0, 1)
     dlt.reset_launch_counts()
     got = dlt.gemm_tn(a, b)
     torch.cuda.synchronize()
@@ -236,6 +243,23 @@ def test_gemm_tn_kernel(device, rows, k1, n):
     # one rounding of an fp32 sum taken in another order
     assert err <= 2 ** -7 * max(scale, 1.0), (err, scale)
     assert torch.equal(got, dlt.gemm_tn(a, b))  # no atomics: repeats
+
+
+@pytest.mark.parametrize("config", [
+    dlt.GemmTnConfig(128, 256, 1), dlt.GemmTnConfig(128, 256, 5),
+    dlt.GemmTnConfig(128, 256, 33), dlt.GemmTnConfig(64, 64, 1),
+    dlt.GemmTnConfig(64, 64, 4)])
+def test_gemm_tn_kernel_every_tile_and_split(device, config):
+    """Both tiles, unsplit and split (33: one row tile a part), on 33 row
+    tiles with a ragged last one: each within one rounding of the plain
+    version and repeating bit for bit."""
+    a = _randn((2100, 256), device, 1.0, 0)
+    b = _randn((2100, 512), device, 1.0, 1)
+    got = dlt.gemm_tn(a, b, config)
+    torch.cuda.synchronize()
+    err, scale = _err(got, dlt.gemm_tn_reference(a, b))
+    assert err <= 2 ** -7 * max(scale, 1.0), (config, err, scale)
+    assert torch.equal(got, dlt.gemm_tn(a, b, config))
 
 
 @pytest.mark.parametrize("epilogue", ["none", "f32"])
