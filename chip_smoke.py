@@ -7,7 +7,16 @@
    process per source, all at once.
 2. Kernel phase: runs each kernel of the DINOv2 serving trunk, and the
    12-layer trunk, at the flagship's shapes (seq 257, width 768) against its
-   plain PyTorch version on the same inputs, and times both.
+   plain PyTorch version on the same inputs, and times both. Then the
+   kernels of the last redesign over the shapes a first version goes wrong
+   at: the trunk's tensor-core attention at S = 257, 1, 16, 17, 64, 300 and
+   widths 64, 128, 768, and over a hundred random draws at the serving shape
+   (a row beyond one ulp must be one that a score at a bf16 rounding
+   midpoint explains), the warp-per-row LayerNorm forward and backward in
+   every type combination at 16448, 257 and 1001 rows, on shifted inputs, a
+   batch against its two halves, and the widths that keep the first
+   kernels; each twice bit for bit, the LayerNorm timed beside what it
+   replaced.
 3. Slice phase: builds the full-width flagship from a seed, encodes an
    initial frame with the fp32 DINOv2, resets an InferenceWrapper with a
    random (1, 32, 768) instruction embedding and drives ~50 fused serving
@@ -59,8 +68,10 @@
 The kernels redesigned for Hopper, the training attention (forward and
 backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
 `wgmma` kernel), the layer backward's A^T.B weight gradients (`wgmma` on
-MN-major operands, the rows split over blocks and finished in order) and
-the flash attention, are also run twice and compared bit for bit, at every
+MN-major operands, the rows split over blocks and finished in order), the
+flash attention, the serving trunk's attention (bf16 tensor cores, four key
+warps a row warp) and the LayerNorm forward and backward (a warp per row),
+are also run twice and compared bit for bit, at every
 GEMM shape of the serving trunk and of the training layer (every epilogue,
 both layouts of the weight); at M = 16448 the rows of the ragged last row
 tile are checked on their own, and a row past M, poisoned before the launch,
@@ -461,6 +472,192 @@ def kernel_phase(device):
     log(f"trunk weights {weight_bytes / 1e6:.1f} MB; kernel trunk reads them "
         f"at {weight_bytes / (trunk_ms * 1e-3) / 1e9:.1f} GB/s effective")
     return results
+
+
+def redesign_phase(device):
+    """The kernels of the last redesign over the shapes their first versions
+    go wrong at: the serving trunk's tensor-core attention (ragged last
+    query and key tiles, one and twelve heads, a hundred random draws), and
+    the warp-per-row LayerNorm forward and backward (every type
+    combination, a row count that is no multiple of a block's rows, a
+    shifted input, a batch against its two halves), each against its plain
+    version and twice for the same bits. Times the LayerNorm kernels they
+    replaced beside them."""
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import layer_norm as tln
+
+    rng = np.random.default_rng(SEED + 4)
+
+    def t(shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
+        return torch.tensor(
+            (rng.standard_normal(shape) * scale + shift).astype(np.float32),
+            dtype=dtype, device=device)
+
+    def held(name, got, ref, bound):
+        err, scale = max_err(got, ref)
+        limit = bound * max(scale, 1.0)
+        if not err <= limit:
+            raise AssertionError(f"{name}: {err} > {limit}")
+        return err / limit
+
+    # ---- kernel 1's attention: one bf16 ulp of the output scale ----
+    worst = 0.0
+    for seq in (257, 1, 16, 17, 64, 300):
+        for hidden in (64, 128, 768):
+            qkv = t((seq, 3 * hidden), scale=2.0)
+            name = f"dino_attention S={seq} hidden={hidden}"
+            got = dl.attention(qkv)
+            torch.cuda.synchronize()
+            worst = max(worst, held(name, got, dl.attention_reference(qkv),
+                                    ULP_BOUND))
+            if not torch.equal(got, dl.attention(qkv)):
+                raise AssertionError(f"{name}: two runs differ")
+    log("kernel dino_attention S in (257, 1, 16, 17, 64, 300) x hidden in "
+        f"(64, 128, 768): within one bf16 ulp (worst {worst:.3f} of the "
+        "bound), two runs bit-equal")
+    # over random draws at the serving shape: the tensor cores' fp32 sums
+    # differ from the plain version's in their last bits, which rounds a
+    # score at the midpoint of two bf16 values to the other neighbour; where
+    # that score leads its row the row moves by more than an ulp. Every row
+    # (a query of a head) holds one ulp of the plain version, or of the plain
+    # version recomputed with the other neighbour of such a score
+    draws, outright, rows_over, worst = 100, 0, 0, 0.0
+    for _ in range(draws):
+        qkv = t((257, 2304), scale=2.0)
+        got, ref = dl.attention(qkv), dl.attention_reference(qkv).float()
+        scale = max(float(ref.abs().max()), 1.0)
+        over, unexplained = dl.attention_unexplained_rows(qkv, got,
+                                                          ULP_BOUND * scale)
+        if unexplained:
+            raise AssertionError(
+                f"dino_attention: {unexplained} of {over} rows over one ulp "
+                "that no score at a rounding midpoint explains")
+        outright += over == 0
+        rows_over += over
+        worst = max(worst, float((got.float() - ref).abs().max()) / scale)
+    log(f"kernel dino_attention over {draws} draws of std-2 inputs at 12 "
+        f"heads x 257 tokens: {outright} hold one bf16 ulp outright; "
+        f"{rows_over} of {draws * 12 * 257} rows over it (worst error "
+        f"{worst:.4g} of the output scale), each within one ulp of the plain "
+        "version with a midpoint score rounded to its other neighbour")
+    heads, blocks = dl.attention_grid(12, 257)
+    log(f"kernel dino_attention 12 heads x 257 tokens: grid ({heads}, "
+        f"{blocks}) of {dl.attention_warps(12, 257)} row warps x 4 key warps")
+
+    # ---- kernel 6: the LayerNorm forward and backward, a warp per row ----
+    hidden = 768
+    scale = t((hidden,), torch.float32, 0.1, 1.0)
+    bias = t((hidden,), torch.float32, 0.1)
+    modes = {"layer": (torch.bfloat16, torch.float32, True),
+             "bf16": (torch.bfloat16, torch.bfloat16, False),
+             "fp32": (torch.float32, torch.float32, False)}
+    worst_f = worst_b = 0.0
+    for rows in (TRAIN_BATCH * 257, 257, 1001):
+        for shift in (0.0, 1.0):
+            x32 = t((rows, hidden), torch.float32, 0.5, shift)
+            g32 = t((rows, hidden), torch.float32)
+            res = t((rows, hidden))
+            for dtype in (torch.bfloat16, torch.float32):
+                x = x32.to(dtype)
+                name = f"layer_norm_rows ({rows}, {hidden}) {dtype} +{shift}"
+                if dl.layer_norm_plan(rows, hidden, x).chunks != 3:
+                    raise AssertionError(f"{name}: not the warp-per-row "
+                                         "kernel")
+                got = dl.layer_norm_rows(x, scale, bias, 1e-6)
+                torch.cuda.synchronize()
+                bound = ULP_BOUND if dtype == torch.bfloat16 else 1e-5
+                worst_f = max(worst_f, held(
+                    name, got,
+                    dl.layer_norm_rows_reference(x, scale, bias, 1e-6),
+                    bound))
+                if not torch.equal(got, dl.layer_norm_rows(x, scale, bias,
+                                                           1e-6)):
+                    raise AssertionError(f"{name}: two runs differ")
+            for mode, (tx, tg, with_res) in modes.items():
+                args = (x32.to(tx), g32.to(tg), scale, 1e-6,
+                        res if with_res else None)
+                name = f"layer_norm_bwd_rows ({rows}, {hidden}) {mode} +{shift}"
+                got = tln.layer_norm_bwd_rows(*args)
+                torch.cuda.synchronize()
+                ref = tln.layer_norm_bwd_rows_reference(*args)
+                bounds = (ULP_BOUND if tx == torch.bfloat16 else 1e-5, 1e-4,
+                          1e-4)
+                worst_b = max(worst_b, *(held(name, a, b, bound) for a, b,
+                                         bound in zip(got, ref, bounds)))
+                again = tln.layer_norm_bwd_rows(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{name}: two runs differ")
+                if rows % 2 == 0:
+                    # the rows are dealt to the warps of the grid in turn, so
+                    # a batch's sums are its halves' in another order
+                    half = rows // 2
+                    parts = [tln.layer_norm_bwd_rows(
+                        args[0][sl], args[1][sl], scale, 1e-6,
+                        res[sl] if with_res else None)
+                        for sl in (slice(0, half), slice(half, rows))]
+                    for full, a, b in zip(got[1:], parts[0][1:],
+                                          parts[1][1:]):
+                        worst_b = max(worst_b, held(
+                            name + " against two halves", full, a + b, 1e-4))
+    log("kernel layer_norm_rows / layer_norm_bwd_rows at (16448 | 257 | 1001, "
+        "768), bf16 and fp32 forward, the three type combinations backward, "
+        "inputs shifted by 0 and 1: within the bounds (forward worst "
+        f"{worst_f:.3f}, backward worst {worst_b:.3f} of them; column sums "
+        "1e-4, a batch's within 1e-4 of its halves'), two runs bit-equal")
+    # the widths the warp-per-row kernels do not take keep the first kernels
+    for rows, d in ((300, 2048), (68, 100)):
+        x, g = t((rows, d), scale=0.5, shift=0.3), t((rows, d))
+        sc, bi = t((d,), torch.float32, 0.1, 1.0), t((d,), torch.float32, 0.1)
+        if (dl.layer_norm_plan(rows, d, x).chunks
+                or tln.layer_norm_bwd_plan(rows, d, x).chunks):
+            raise AssertionError(f"width {d} took the warp-per-row kernel")
+        held(f"layer_norm_rows ({rows}, {d})",
+             dl.layer_norm_rows(x, sc, bi, 1e-6),
+             dl.layer_norm_rows_reference(x, sc, bi, 1e-6), ULP_BOUND)
+        for a, b, bound in zip(
+                tln.layer_norm_bwd_rows(x, g, sc, 1e-6),
+                tln.layer_norm_bwd_rows_reference(x, g, sc, 1e-6),
+                (ULP_BOUND, 1e-4, 1e-4)):
+            held(f"layer_norm_bwd_rows ({rows}, {d})", a, b, bound)
+    log("kernel layer_norm_rows / layer_norm_bwd_rows at widths 2048 and 100: "
+        "the block-per-row forward and the block-walk backward, within "
+        "their bounds")
+
+    # beside what they replaced, at the training and the serving shape: rows
+    # that do not start at a multiple of 16 bytes take the first kernels
+    def unaligned(a):
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=device)[1:]
+        return flat.view(a.shape).copy_(a)
+
+    for rows in (TRAIN_BATCH * 257, 257):
+        x, g32, res = t((rows, hidden), scale=0.5), t(
+            (rows, hidden), torch.float32), t((rows, hidden))
+        g16, x_odd = g32.bfloat16(), unaligned(x)
+        if (dl.layer_norm_plan(rows, hidden, x_odd).chunks
+                or tln.layer_norm_bwd_plan(rows, hidden, x_odd).chunks
+                or not dl.layer_norm_plan(rows, hidden, x).chunks):
+            raise AssertionError("unaligned rows took the warp-per-row kernel")
+        line = {}
+        for label, fn in (
+                ("forward", lambda x: dl.layer_norm_rows(
+                    x, scale, bias, 1e-6)),
+                ("backward bf16", lambda x: tln.layer_norm_bwd_rows(
+                    x, g16, scale, 1e-6)),
+                ("backward layer form", lambda x: tln.layer_norm_bwd_rows(
+                    x, g32, scale, 1e-6, res))):
+            line[label] = (
+                confirmed_device_ms(lambda: fn(x), PROFILED_CALLS),
+                confirmed_device_ms(lambda: fn(x_odd), PROFILED_CALLS))
+        log(f"kernel LayerNorm ({rows}, {hidden}) device_ms, warp-per-row "
+            "(first version, on unaligned rows; the backward's with the "
+            "split finishing launch): " + ", ".join(
+                f"{label} {new:.6g} ({was:.6g})"
+                for label, (new, was) in line.items())
+            + f"; grids forward {tuple(dl.layer_norm_plan(rows, hidden, x))} "
+            f"backward {tuple(tln.layer_norm_bwd_plan(rows, hidden, x))}")
 
 
 def row_flash_kernel_phase(device):
@@ -1581,6 +1778,7 @@ def main() -> int:
         "(one nvcc each, in parallel)")
 
     results = kernel_phase(device)
+    redesign_phase(device)
     launches = slice_phase(device)
     row_results, add_ln_launches = row_flash_kernel_phase(device)
     train_results = train_kernel_phase(device)

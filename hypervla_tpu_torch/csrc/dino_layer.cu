@@ -14,9 +14,9 @@
 // bf16 weights once against ~44 GFLOP (2 x 86M params x 257 tokens), about
 // 260 FLOP per byte, under the H100's ~295 FLOP/byte ridge: the floor is the
 // weight read (~51 us at 3.35 TB/s). The GEMM is a pipelined `wgmma` kernel
-// (see its note below). The LayerNorm and the attention are still their
-// simple first versions: one block per row; K and V of one head held in
-// shared memory, fp32 FMAs on the CUDA cores.
+// (see its note below), the attention runs its three products on the bf16
+// tensor cores (`mma.sync`, its note below), and the LayerNorm holds a row in
+// the registers of one warp (16-byte loads, shuffles, no block barrier).
 //
 // The training layer (hypervla_tpu_torch/ops/dino_layer_train.py) and the
 // training LayerNorm (ops/layer_norm.py) launch the same LayerNorm and GEMM
@@ -27,31 +27,102 @@
 // given stream and returns cudaGetLastError().
 
 #include "wgmma_tma.cuh"
+#include "mma_sync.cuh"
+#include "row_vec.cuh"
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 tobf(float v) { return __float2bfloat16_rn(v); }
 // round an fp32 value to the nearest bf16 and back
 __device__ __forceinline__ float rbf(float v) { return bf(tobf(v)); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+using row::warp_sum;
 
 // ------------------------------- LayerNorm -------------------------------
-// One block per row. flax fast variance: var = max(E[x^2] - mu^2, 0), then
-// ((x - mu) * rsqrt(var + eps)) * scale + bias in fp32, rounded once to the
-// input's type T (bf16 in the trunks; fp32 too for the training LayerNorm
-// of ops/layer_norm.py, whose forward this kernel is).
+// flax fast variance: var = max(E[x^2] - mu^2, 0), then ((x - mu) *
+// rsqrt(var + eps)) * scale + bias in fp32, rounded once to the input's type
+// T (bf16 in the trunks; fp32 too for the training LayerNorm of
+// ops/layer_norm.py, whose forward this is).
+//
+// What bounds it: bytes (a row is read once and written once; 8 operations a
+// value). `layer_norm_rows_kernel` is the kernel of every width that is a
+// multiple of 8 up to 256 CH (the wrapper chooses, ops/dino_layer.py::
+// layer_norm_plan): a warp owns a row and holds it in registers as CH chunks
+// of eight values a lane (row_vec.cuh), so the row is read once by 16-byte
+// loads, both sums of a row are warp shuffles and no barrier stands in the
+// row loop; scale and bias are read once per warp and kept; a warp walks rows
+// gw, gw + (warps of the grid), ... and has the next row's loads in flight
+// while it computes this one. `layer_norm_kernel` (one block per row, scalar
+// loads, two block barriers) stays for the other widths.
 
+// grid: any number of blocks of 32 * warps threads.
+template <typename T, int CH>
+__global__ void __launch_bounds__(256) layer_norm_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ bias, T* __restrict__ out, int rows, int d,
+    float eps) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int stride = gridDim.x * warps;
+  const int chunks = d >> 3;
+  float sc[CH][8], bi[CH][8];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = lane + 32 * i;
+    if (c < chunks) {
+      row::load8(sc[i], scale + 8 * c);
+      row::load8(bi[i], bias + 8 * c);
+    }
+  }
+  int r = blockIdx.x * warps + (threadIdx.x >> 5);
+  row::Raw<T> cur[CH], nxt[CH];
+  if (r < rows) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if (lane + 32 * i < chunks)
+        row::load_raw(cur[i], x + (size_t)r * d + 8 * (lane + 32 * i));
+  }
+  for (; r < rows; r += stride) {
+    if (r + stride < rows) {
+#pragma unroll
+      for (int i = 0; i < CH; ++i)
+        if (lane + 32 * i < chunks)
+          row::load_raw(nxt[i],
+                        x + (size_t)(r + stride) * d + 8 * (lane + 32 * i));
+    }
+    float v[CH][8];
+    float s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        row::widen(v[i], cur[i]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          s += v[i][k];
+          s2 += v[i][k] * v[i][k];
+        }
+      }
+    }
+    row::warp_sum2(s, s2);
+    const float mu = s / (float)d;
+    const float var = fmaxf(s2 / (float)d - mu * mu, 0.f);
+    const float rs = rsqrtf(var + eps);
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        float y[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float n = (v[i][k] - mu) * rs;
+          y[k] = n * sc[i][k] + bi[i][k];
+        }
+        row::store8(out + (size_t)r * d + 8 * (lane + 32 * i), y);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CH; ++i) cur[i] = nxt[i];
+  }
+}
+
+// The kernel of the other widths: one block per row.
 constexpr int LN_THREADS = 256;
 
 __device__ __forceinline__ float ln_load(const bf16* p) { return bf(*p); }
@@ -463,87 +534,204 @@ __global__ void __launch_bounds__(384, 1) gemm_tma_kernel(
 }
 
 // ------------------------------- Attention -------------------------------
-// Softmax attention of one head over all S tokens, head dim 64, no mask.
-// One block per (head, 32 query rows); K and V of the head sit in dynamic
-// shared memory (rows padded to 66 bf16 so lanes reading different keys
-// hit different banks). One warp per query row: q is scaled by 0.125 in
-// bf16; each score is an fp32 dot rounded to bf16; softmax in fp32 with the
-// probabilities rounded to bf16; P.V summed in fp32, rounded to bf16.
+// Softmax attention of one head over all S tokens of a fused (S, 3 * hidden)
+// [q | k | v] buffer, head dim 64, no mask, at the rounding points of the
+// TPU kernel's body: q2 = bf16(q * 0.125); s = bf16(fp32 sum q2.k); fp32
+// softmax over the whole row; P = bf16(e / sum); o = bf16(fp32 sum P.v).
+// P is rounded after the division by the whole row's sum, so a streaming
+// softmax that rescales a running output would be another function: the
+// row's sum is known before P is formed.
+//
+// What bounds it: neither bytes (0.6 MB) nor operations (0.2 GFLOP): at
+// bs=1 the 12 heads cannot fill 132 multiprocessors with more than one small
+// block each, and the time is one block's serial walk over its head. So the
+// design cuts that walk: both products on the bf16 tensor cores
+// (`mma.sync.m16n8k16`, fp32 sum; operands by `ldmatrix` from shared-memory
+// rows padded to 72 values, mma_sync.cuh), a warp owning 16 query rows, its
+// score accumulator being, register for register, the A operand of P.V, so P
+// never passes through shared memory. K, then V, of the head arrive by
+// 16-byte `cp.async` in two groups: V lands while the scores and the softmax
+// run. Rows past S are zero-filled in shared memory; the key mask is applied
+// on the key tiles that reach past S only; q is read straight from the fused
+// buffer with its row stride. The grid is (heads, ceil(S / (16 * row
+// warps))) blocks, chosen by the wrapper (ops/dino_layer.py::
+// attention_warps): two row warps at the serving shape, 12 x 9 = 108 blocks,
+// one a multiprocessor.
+//
+// What a block spends most on is not the `mma` but the fp32 softmax around
+// them (a rounding, a maximum, an `expf`, a sum, a division and a packing per
+// score). So every 16 query rows go to ATT_KEY_WARPS warps, each a contiguous
+// quarter of the keys: a warp keeps its 16 x 80 scores in its accumulators,
+// so q.k^T is computed once with one `expf` an entry; the warps exchange
+// their row maxima and row sums through shared memory (the sums added in warp
+// order), multiply their quarter of P by V, and leave fp32 partial outputs
+// that are added in warp order and rounded once. That holds rows of up to
+// ATT_MAX_SEQ = 16 * ATT_KEY_WARPS * ATT_HOLD_CHUNKS = 320 keys (the serving
+// trunk's 257); the wrapper refuses longer ones. (A warp per 16 rows over all
+// keys that computes the scores twice, as the training attention's forward
+// does, takes any length at twice the time at S = 257: not kept.)
 
-constexpr int HD = 64;
-constexpr int KV_LD = HD + 2;
-constexpr int ATT_WARPS = 8;
-constexpr int ATT_ROWS = 32;
+constexpr int ATT_KEY_WARPS = 4;    // warps that share 16 query rows
+constexpr int ATT_HOLD_CHUNKS = 5;  // 16-key chunks of scores a warp holds
+constexpr int ATT_MAX_SEQ = 16 * ATT_KEY_WARPS * ATT_HOLD_CHUNKS;
+constexpr int ATT_LDO = HEAD_DIM + 4;  // fp32 row of a partial output tile
 
-__global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
+// Rounds the scores of the 8-key tile at column c0 to bf16, masks the keys
+// at or past S (only a tile that reaches past S pays for the comparison).
+__device__ __forceinline__ void round_and_mask(float (&s)[4], int c0, int S) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = rbf(s[i]);
+  if (c0 + 8 > S) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c0 + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
+  }
+}
+
+// Shared memory after K and V: the key warps' partial outputs, then their
+// row maxima and row sums.
+__host__ __device__ constexpr int att_smem_bytes(int seq, int row_warps) {
+  return 2 * round_up(seq, 16) * HEAD_LDS * (int)sizeof(bf16) +
+         row_warps * ATT_KEY_WARPS * 16 * (ATT_LDO + 2) * (int)sizeof(float);
+}
+
+// grid (heads, ceil(S / (16 * row_warps))); 32 * ATT_KEY_WARPS * row_warps
+// threads (row_warps <= 4): warp w is key warp w % 4 of row warp w / 4.
+// S <= ATT_MAX_SEQ.
+__global__ void __launch_bounds__(512, 1) attention_kernel(
     const bf16* __restrict__ qkv, bf16* __restrict__ out, int S,
     int hidden) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + (size_t)S * KV_LD;
-  float* Ps = reinterpret_cast<float*>(Vs + (size_t)S * KV_LD);
-  const int h = blockIdx.x;
-  const int row0 = blockIdx.y * ATT_ROWS;
-  const int ld = 3 * hidden;
-
-  for (int i = threadIdx.x; i < S * (HD / 2); i += blockDim.x) {
-    const int s = i / (HD / 2), c = (i % (HD / 2)) * 2;
-    const bf16* src = qkv + (size_t)s * ld + h * HD + c;
-    *reinterpret_cast<uint32_t*>(&Ks[s * KV_LD + c]) =
-        *reinterpret_cast<const uint32_t*>(src + hidden);
-    *reinterpret_cast<uint32_t*>(&Vs[s * KV_LD + c]) =
-        *reinterpret_cast<const uint32_t*>(src + 2 * hidden);
-  }
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rw = threadIdx.x >> 7, kw = (threadIdx.x >> 5) & 3;
+  const int row_warps = blockDim.x >> 7;
+  const int S16 = round_up(S, 16);
+  bf16* Ks = reinterpret_cast<bf16*>(att_smem);
+  bf16* Vs = Ks + (size_t)S16 * HEAD_LDS;
+  const long ld = 3 * (long)hidden;
+  const bf16* q = qkv + blockIdx.x * HEAD_DIM;
+  load_head_async(Ks, q + hidden, S, S16, ld);
+  cp_async_commit();
+  load_head_async(Vs, q + 2 * hidden, S, S16, ld);
+  cp_async_commit();
+  const int m0 = (blockIdx.y * row_warps + rw) * 16;  // the row warp's rows
+  uint32_t qa[4][4];
+  load_a_rows_scaled(qa, q, ld, m0, S, 0.125f);
+  float* part = reinterpret_cast<float*>(Vs + (size_t)S16 * HEAD_LDS);
+  float* maxes = part + row_warps * ATT_KEY_WARPS * 16 * ATT_LDO;
+  float* sums = maxes + row_warps * ATT_KEY_WARPS * 16;
+  const int mine = (rw * ATT_KEY_WARPS + kw) * 16;  // this warp's 16 rows
+  const int all = rw * ATT_KEY_WARPS * 16;          // of its key warp 0
+  // this warp's keys [c0, c1): a contiguous share of the 16-key chunks
+  const int per = (S16 / 16 + ATT_KEY_WARPS - 1) / ATT_KEY_WARPS;
+  const int c0 = kw * per * 16;
+  const int c1 = min(S16, c0 + per * 16);
+  cp_async_wait<1>();  // K has landed; V is still in flight
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* p = Ps + (size_t)warp * S;
-  for (int r = warp; r < ATT_ROWS; r += ATT_WARPS) {
-    const int m = row0 + r;
-    if (m >= S) break;
-    const bf16* qrow = qkv + (size_t)m * ld + h * HD;
-    float q[HD];
+  // s[j]: the warp's 16 rows against keys [c0 + 8j, c0 + 8j + 8); entries
+  // [0], [1] of row g, [2], [3] of row g + 8. A share that ends before S
+  // holds a key below S, so its maximum is finite; an empty share leaves
+  // -inf and 0.
+  float s[2 * ATT_HOLD_CHUNKS][4];
+  rows_dot_chunk<ATT_HOLD_CHUNKS>(s, qa, Ks, c0, c1);
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int d = 0; d < HD; ++d) q[d] = rbf(bf(qrow[d]) * 0.125f);
-
-    float mx = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      const bf16* kr = Ks + (size_t)j * KV_LD;
-      float acc = 0.f;
+  for (int j = 0; j < 2 * ATT_HOLD_CHUNKS; ++j) {
+    if (c0 + 8 * j < c1) {
+      round_and_mask(s[j], c0 + 8 * j, S);
 #pragma unroll
-      for (int d = 0; d < HD; d += 2) {
-        const __nv_bfloat162 kv =
-            *reinterpret_cast<const __nv_bfloat162*>(kr + d);
-        acc = fmaf(q[d], __low2float(kv), acc);
-        acc = fmaf(q[d + 1], __high2float(kv), acc);
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    if (t == 0) maxes[mine + g + 8 * r] = mx[r];
+  }
+  __syncthreads();
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = maxes[all + g + 8 * r];
+#pragma unroll
+    for (int k = 1; k < ATT_KEY_WARPS; ++k)
+      mx[r] = fmaxf(mx[r], maxes[all + 16 * k + g + 8 * r]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * ATT_HOLD_CHUNKS; ++j) {
+    if (c0 + 8 * j < c1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = expf(s[j][i] - mx[i >> 1]);
+        sum[i >> 1] += s[j][i];
       }
-      const float sc = rbf(acc);
-      p[j] = sc;
-      mx = fmaxf(mx, sc);
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(p[j] - mx);
-      p[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < S; j += 32) p[j] = rbf(p[j] / sum);
-    __syncwarp();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = quad_sum(sum[r]);
+    if (t == 0) sums[mine + g + 8 * r] = sum[r];
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the row sums are written and V has landed
+  float rcp[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = sums[all + g + 8 * r];
+#pragma unroll
+    for (int k = 1; k < ATT_KEY_WARPS; ++k)
+      sum[r] += sums[all + 16 * k + g + 8 * r];
+    rcp[r] = __frcp_rn(sum[r]);
+  }
 
-    float o0 = 0.f, o1 = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float pj = p[j];
-      const __nv_bfloat162 vv = *reinterpret_cast<const __nv_bfloat162*>(
-          Vs + (size_t)j * KV_LD + 2 * lane);
-      o0 = fmaf(pj, __low2float(vv), o0);
-      o1 = fmaf(pj, __high2float(vv), o1);
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < ATT_HOLD_CHUNKS; ++kk) {
+    if (c0 + 16 * kk < c1) {
+      uint32_t p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // p[0], p[1]: rows g, g + 8 of tile 2kk; p[2], p[3]: of tile 2kk + 1
+        const float(&e)[4] = s[2 * kk + (i >> 1)];
+        const int r = i & 1;
+        p[i] = pack2(div_by(e[2 * r], sum[r], rcp[r]),
+                     div_by(e[2 * r + 1], sum[r], rcp[r]));
+      }
+      step_dot_rows(acc, p, Vs, c0 + 16 * kk);
     }
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * hidden + h * HD +
-                                       2 * lane) =
-        __floats2bfloat162_rn(o0, o1);
-    __syncwarp();
+  }
+  // the key warps' partial outputs, added in warp order, rounded once:
+  // thread 32 kw + lane of a row warp takes 8 neighbouring outputs
+  {
+    float* tile = part + (size_t)mine * ATT_LDO + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(tile + g * ATT_LDO + 8 * j) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(tile + (g + 8) * ATT_LDO + 8 * j) =
+          make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+  __syncthreads();
+  const int idx = 32 * kw + lane, row = idx >> 3, col = (idx & 7) * 8;
+  if (m0 + row < S) {
+    float y[8];
+    load8(y, part + (size_t)(all + row) * ATT_LDO + col);
+#pragma unroll
+    for (int k = 1; k < ATT_KEY_WARPS; ++k) {
+      float more[8];
+      load8(more, part + (size_t)(all + 16 * k + row) * ATT_LDO + col);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) y[i] += more[i];
+    }
+    store8(out + (size_t)(m0 + row) * hidden + blockIdx.x * HEAD_DIM + col,
+           y);
   }
 }
 
@@ -663,20 +851,43 @@ static cudaError_t launch_splitk_finish(int epilogue, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+template <typename T>
+static void launch_layer_norm(const void* x, const void* scale,
+                              const void* bias, void* out, int rows, int d,
+                              float eps, int chunks, int blocks, int warps,
+                              cudaStream_t stream) {
+  const T* px = (const T*)x;
+  const float *ps = (const float*)scale, *pb = (const float*)bias;
+  if (chunks == 0)
+    layer_norm_kernel<T><<<rows, LN_THREADS, 0, stream>>>(px, ps, pb, (T*)out,
+                                                          d, eps);
+  else if (chunks <= 3)
+    layer_norm_rows_kernel<T, 3><<<blocks, 32 * warps, 0, stream>>>(
+        px, ps, pb, (T*)out, rows, d, eps);
+  else
+    layer_norm_rows_kernel<T, 4><<<blocks, 32 * warps, 0, stream>>>(
+        px, ps, pb, (T*)out, rows, d, eps);
+}
+
 extern "C" {
 
-// x and out are fp32 with `is_f32`, else bf16.
+// x and out are fp32 with `is_f32`, else bf16. chunks 0: one block per row
+// (any d). Else the warp-per-row kernel: chunks = the 8-value chunks a lane
+// holds (d % 8 == 0, d <= 256 * chunks <= 1024; x, scale, bias, out 16-byte
+// aligned), `blocks` blocks of `warps` (at most 8) warps.
 int dino_layer_norm(const void* x, const void* scale, const void* bias,
                     void* out, int rows, int d, float eps, int is_f32,
-                    void* stream) {
+                    int chunks, int blocks, int warps, void* stream) {
+  if (chunks != 0 && (chunks < 0 || chunks > 4 || d % 8 != 0 ||
+                      d > 256 * chunks || warps < 1 || warps > 8 ||
+                      blocks < 1))
+    return (int)cudaErrorInvalidValue;
   if (is_f32)
-    layer_norm_kernel<float><<<rows, LN_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)scale, (const float*)bias,
-        (float*)out, d, eps);
+    launch_layer_norm<float>(x, scale, bias, out, rows, d, eps, chunks,
+                             blocks, warps, (cudaStream_t)stream);
   else
-    layer_norm_kernel<bf16><<<rows, LN_THREADS, 0, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const float*)scale, (const float*)bias, (bf16*)out,
-        d, eps);
+    launch_layer_norm<bf16>(x, scale, bias, out, rows, d, eps, chunks, blocks,
+                            warps, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -720,16 +931,29 @@ int dino_gemm(const void* a, int lda, const void* b, int ldb, int trans_b,
                                    (bf16*)out2, m, n);
 }
 
+// The longest sequence the attention takes: a row's scores in the registers
+// of its key warps.
+int dino_attention_max_seq() { return ATT_MAX_SEQ; }
+
+// grid (hidden / 64, ceil(seq / (16 * warps))): `warps` (1 to 4) row warps
+// of 16 query rows a block, each of ATT_KEY_WARPS key warps.
 int dino_attention(const void* qkv, void* out, int seq, int hidden,
-                   void* stream) {
-  const size_t smem = (size_t)2 * seq * KV_LD * sizeof(bf16) +
-                      (size_t)ATT_WARPS * seq * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(hidden / HD, (seq + ATT_ROWS - 1) / ATT_ROWS);
-  attention_kernel<<<grid, ATT_WARPS * 32, smem, (cudaStream_t)stream>>>(
+                   int warps, void* stream) {
+  if (warps < 1 || warps > 4 || seq < 1 || seq > ATT_MAX_SEQ)
+    return (int)cudaErrorInvalidValue;
+  // the first launch raises the dynamic shared-memory limit above the 48 KB
+  // default
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        att_smem_bytes(ATT_MAX_SEQ, 4));
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid(hidden / HEAD_DIM, (seq + 16 * warps - 1) / (16 * warps));
+  attention_kernel<<<grid, 32 * warps * ATT_KEY_WARPS,
+                     att_smem_bytes(seq, warps), (cudaStream_t)stream>>>(
       (const bf16*)qkv, (bf16*)out, seq, hidden);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,8 @@
 //
 //   layer_gemm_tn      out = bf16(A^T B), the sum over all B*S rows kept in
 //                      fp32 and rounded once: the weight gradients
-//   layer_norm_bwd     the LayerNorm input gradient of one row, statistics
+//   layer_norm_bwd     the LayerNorm input gradient of one row (a warp per
+//                      row where the width allows), statistics
 //                      recomputed from the input with the forward's fast
 //                      variance, plus per-block column sums of g*xhat and g
 //                      (dscale, dbias). One kernel for the layer (fp32
@@ -25,7 +26,9 @@
 //   layer_gelu_bwd     h = bf16(gelu(hc)) recomputed, dhc = bf16(gelu'(hc))
 //                      * dh in bf16, the column sums of f32(dhc) (d fc1 bias)
 //   layer_colsum       column sums of a bf16 matrix (dq, dk, dv -> biases)
-//   layer_finish_sums  sums the per-block partials in block order
+//   layer_finish_sums  sums the per-block partials in block order (or,
+//                      for the LayerNorm backward's many partials, eight
+//                      warps a column, then their sums in warp order)
 //
 // No atomics anywhere: a column sum is per-block partials in fp32, then one
 // finishing launch that adds them in a fixed order; a weight gradient tile
@@ -44,16 +47,13 @@
 // given stream and returns cudaGetLastError().
 
 #include "wgmma_tma.cuh"
+#include "row_vec.cuh"
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 tobf(float v) { return __float2bfloat16_rn(v); }
 __device__ __forceinline__ float rbf(float v) { return bf(tobf(v)); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using row::warp_sum;
 
 // ------------------------------ A^T B GEMM ------------------------------
 // out[K1, N] = bf16(A[M, K1]^T @ B[M, N]): A and B row-major bf16 with row
@@ -221,14 +221,138 @@ __global__ void __launch_bounds__(256) gemm_tn_finish_kernel(
 }
 
 // -------------------------- LayerNorm backward --------------------------
-// One block walks rows [blockIdx.x * rpb, +rpb); thread t owns columns
-// t, t + 256, ... (at most LN_MAXC of them: d <= 2048). Per row:
+// Per row:
 //   mu, rs from the fast variance max(E[x^2] - mu^2, 0) of the forward;
 //   xhat = (x - mu) * rs; dxhat = g * scale;
 //   dx = rs * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))   (fp32)
 // With ADD (the layer), dx is rounded to bf16 and added in bf16 to the
 // incoming residual gradient; else it is rounded once to x's type. The
 // block's column sums of g * xhat and g go to part[block][0/1][d].
+//
+// What bounds it: bytes (x, g and the residual read once, dx written once;
+// 14 operations a value). `layer_norm_bwd_rows_kernel` is the kernel of every
+// width that is a multiple of 8 up to 256 CH (the wrapper chooses,
+// ops/layer_norm.py): a warp owns a row and holds x and g of it in registers
+// as CH chunks of eight values a lane (row_vec.cuh): 16-byte loads, the four
+// sums of a row as two pairs of warp shuffles, no barrier in the row loop.
+// A warp walks rows gw, gw + (warps of the grid), ... and keeps the column
+// sums of its rows in registers (16 CH a lane), which with x, g and scale
+// makes ~200 registers a thread: blocks of two warps, four a multiprocessor,
+// one wave (a second row's loads held in registers ahead of time measured
+// no faster, and a cap of 168 registers for three larger blocks spilled). At
+// the end the warps of a block add theirs in warp order through shared
+// memory and the block writes one partial. Which rows a warp takes depends
+// on the shape and the grid alone, so two runs add in the same order.
+// `layer_norm_bwd_kernel` below stays for the other widths: one block walks
+// rows [blockIdx.x * rpb, +rpb); thread t owns columns t, t + 256, ... (at
+// most LN_MAXC of them: d <= 2048), two block sums a row.
+
+// grid: any number of blocks of 32 * warps threads (warps <= 8).
+template <typename TX, typename TG, bool ADD, int CH>
+__global__ void __launch_bounds__(256) layer_norm_bwd_rows_kernel(
+    const TX* __restrict__ x, const TG* __restrict__ g,
+    const float* __restrict__ scale, const TX* __restrict__ residual,
+    TX* __restrict__ dx, float* __restrict__ part, int rows, int d,
+    float eps) {
+  __shared__ float red[2 * 256 * CH];  // the block's sums: g * xhat, then g
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int stride = gridDim.x * warps;
+  const int chunks = d >> 3;
+  float sc[CH][8], sum_gx[CH][8], sum_g[CH][8];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    if (lane + 32 * i < chunks) row::load8(sc[i], scale + 8 * (lane + 32 * i));
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sum_gx[i][k] = sum_g[i][k] = 0.f;
+  }
+  for (int r = blockIdx.x * warps + warp; r < rows; r += stride) {
+    // every load of the row is requested before any of it is used
+    row::Raw<TX> xc[CH], res[CH];
+    row::Raw<TG> gc[CH];
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        const size_t o = (size_t)r * d + 8 * (lane + 32 * i);
+        row::load_raw(xc[i], x + o);
+        row::load_raw(gc[i], g + o);
+        if (ADD) row::load_raw(res[i], residual + o);
+      }
+    }
+    float xv[CH][8], gv[CH][8];
+    float s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        row::widen(xv[i], xc[i]);
+        row::widen(gv[i], gc[i]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          s += xv[i][k];
+          s2 += xv[i][k] * xv[i][k];
+        }
+      }
+    }
+    row::warp_sum2(s, s2);
+    const float mu = s / (float)d;
+    const float var = fmaxf(s2 / (float)d - mu * mu, 0.f);
+    const float rs = rsqrtf(var + eps);
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float xhat = (xv[i][k] - mu) * rs;
+          const float dxhat = gv[i][k] * sc[i][k];
+          sum_gx[i][k] += gv[i][k] * xhat;
+          sum_g[i][k] += gv[i][k];
+          a += dxhat;
+          b += dxhat * xhat;
+          xv[i][k] = xhat;
+          gv[i][k] = dxhat;
+        }
+      }
+    }
+    row::warp_sum2(a, b);
+    const float m1 = a / (float)d, m2 = b / (float)d;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        float y[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          y[k] = rs * (gv[i][k] - m1 - xv[i][k] * m2);
+        if (ADD) {
+          float rv[8];
+          row::widen(rv, res[i]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) y[k] = rv[k] + rbf(y[k]);
+        }
+        row::store8(dx + (size_t)r * d + 8 * (lane + 32 * i), y);
+      }
+    }
+  }
+  // the warps' sums, added in warp order
+  for (int w = 0; w < warps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        if (lane + 32 * i < chunks) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int c = 8 * (lane + 32 * i) + k;
+            red[c] = (w ? red[c] : 0.f) + sum_gx[i][k];
+            red[d + c] = (w ? red[d + c] : 0.f) + sum_g[i][k];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* p = part + (size_t)blockIdx.x * 2 * d;
+  for (int c = threadIdx.x; c < 2 * d; c += blockDim.x) p[c] = red[c];
+}
 
 constexpr int LN_THREADS = 256;
 constexpr int LN_MAXC = 8;
@@ -408,6 +532,31 @@ __global__ void __launch_bounds__(CP_THREADS) finish_sums_kernel(
   out[j] = s;
 }
 
+// The same sum where the parts are many (the LayerNorm backward leaves one a
+// block): block b owns columns [32 b, +32); warp w of its FINISH_WARPS adds
+// parts w, w + FINISH_WARPS, ... of them, a lane a column, and the warps'
+// sums are added in warp order. The order depends on `parts` alone.
+constexpr int FINISH_WARPS = 8;
+
+__global__ void __launch_bounds__(32 * FINISH_WARPS) finish_sums_split_kernel(
+    const float* __restrict__ part, float* __restrict__ out, int parts,
+    int width) {
+  __shared__ float red[FINISH_WARPS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (j < width)
+    for (int p = warp; p < parts; p += FINISH_WARPS)
+      s += part[(size_t)p * width + j];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < width) {
+#pragma unroll
+    for (int w = 1; w < FINISH_WARPS; ++w) s += red[w][lane];
+    out[j] = s;
+  }
+}
+
 // ----------------------------- C interface ------------------------------
 
 static dim3 column_grid(int rows, int cols, int rpb) {
@@ -440,6 +589,28 @@ static cudaError_t launch_gemm_tn(cudaStream_t stream, const bf16* a, int lda,
   return cudaGetLastError();
 }
 
+// Launches one type combination of the LayerNorm backward: the block-walk
+// kernel (chunks 0) or the warp-per-row kernel with 3 or 4 chunks a lane.
+template <typename TX, typename TG, bool ADD>
+static void launch_ln_bwd(const void* x, const void* g, const float* scale,
+                          const void* residual, void* dx, float* part,
+                          int rows, int d, int rpb, float eps, int chunks,
+                          int blocks, int warps, cudaStream_t s) {
+  const TX *px = (const TX*)x, *pr = (const TX*)residual;
+  const TG* pg = (const TG*)g;
+  TX* pdx = (TX*)dx;
+  if (chunks == 0)
+    layer_norm_bwd_kernel<TX, TG, ADD>
+        <<<(rows + rpb - 1) / rpb, LN_THREADS, 0, s>>>(
+            px, pg, scale, pr, pdx, part, rows, d, rpb, eps);
+  else if (chunks <= 3)
+    layer_norm_bwd_rows_kernel<TX, TG, ADD, 3><<<blocks, 32 * warps, 0, s>>>(
+        px, pg, scale, pr, pdx, part, rows, d, eps);
+  else
+    layer_norm_bwd_rows_kernel<TX, TG, ADD, 4><<<blocks, 32 * warps, 0, s>>>(
+        px, pg, scale, pr, pdx, part, rows, d, eps);
+}
+
 extern "C" {
 
 // block_n 256 selects the 128 x 256 tile (k1 % 128 == 0, n % 256 == 0),
@@ -469,24 +640,31 @@ int layer_norm_bwd_max_width() { return LN_THREADS * LN_MAXC; }
 
 // mode 0: x bf16, g fp32, dx = residual + bf16(dx) in bf16 (the layer);
 // mode 1: x, g, dx bf16; mode 2: x, g, dx fp32 (the training LayerNorm).
-// part is ceil(rows / rpb) x 2 x d fp32.
+// chunks 0: a block of 256 threads walks rpb rows (d <=
+// layer_norm_bwd_max_width()); part is ceil(rows / rpb) x 2 x d fp32. Else
+// the warp-per-row kernel: chunks = the 8-value chunks a lane holds (d % 8
+// == 0, d <= 256 * chunks <= 1024; every tensor 16-byte aligned), `blocks`
+// blocks of `warps` (at most 8) warps; part is blocks x 2 x d fp32.
 int layer_norm_bwd(const void* x, const void* g, const void* scale,
                    const void* residual, void* dx, void* part, int rows,
-                   int d, int rpb, float eps, int mode, void* stream) {
-  const int grid = (rows + rpb - 1) / rpb;
-  cudaStream_t s = (cudaStream_t)stream;
+                   int d, int rpb, float eps, int mode, int chunks,
+                   int blocks, int warps, void* stream) {
+  if (chunks != 0 && (chunks < 0 || chunks > 4 || d % 8 != 0 ||
+                      d > 256 * chunks || warps < 1 || warps > 8 ||
+                      blocks < 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* sc = (const float*)scale;
+  float* pt = (float*)part;
   if (mode == 0)
-    layer_norm_bwd_kernel<bf16, float, true><<<grid, LN_THREADS, 0, s>>>(
-        (const bf16*)x, (const float*)g, (const float*)scale,
-        (const bf16*)residual, (bf16*)dx, (float*)part, rows, d, rpb, eps);
+    launch_ln_bwd<bf16, float, true>(x, g, sc, residual, dx, pt, rows, d, rpb,
+                                     eps, chunks, blocks, warps, s);
   else if (mode == 1)
-    layer_norm_bwd_kernel<bf16, bf16, false><<<grid, LN_THREADS, 0, s>>>(
-        (const bf16*)x, (const bf16*)g, (const float*)scale, nullptr,
-        (bf16*)dx, (float*)part, rows, d, rpb, eps);
+    launch_ln_bwd<bf16, bf16, false>(x, g, sc, nullptr, dx, pt, rows, d, rpb,
+                                     eps, chunks, blocks, warps, s);
   else
-    layer_norm_bwd_kernel<float, float, false><<<grid, LN_THREADS, 0, s>>>(
-        (const float*)x, (const float*)g, (const float*)scale, nullptr,
-        (float*)dx, (float*)part, rows, d, rpb, eps);
+    launch_ln_bwd<float, float, false>(x, g, sc, nullptr, dx, pt, rows, d,
+                                       rpb, eps, chunks, blocks, warps, s);
   return (int)cudaGetLastError();
 }
 
@@ -516,12 +694,21 @@ int layer_colsum(const void* a, void* part, int rows, int cols, int rpb,
   return (int)cudaGetLastError();
 }
 
+// split 0: a thread a column walks the parts in order; else the parts are
+// split over layer_finish_split() warps a column (see the kernel).
 int layer_finish_sums(const void* part, void* out, int parts, int width,
-                      void* stream) {
-  finish_sums_kernel<<<(width + CP_THREADS - 1) / CP_THREADS, CP_THREADS, 0,
-                       (cudaStream_t)stream>>>((const float*)part,
-                                               (float*)out, parts, width);
+                      int split, void* stream) {
+  if (split)
+    finish_sums_split_kernel<<<(width + 31) / 32, 32 * FINISH_WARPS, 0,
+                               (cudaStream_t)stream>>>(
+        (const float*)part, (float*)out, parts, width);
+  else
+    finish_sums_kernel<<<(width + CP_THREADS - 1) / CP_THREADS, CP_THREADS, 0,
+                         (cudaStream_t)stream>>>((const float*)part,
+                                                 (float*)out, parts, width);
   return (int)cudaGetLastError();
 }
+
+int layer_finish_split() { return FINISH_WARPS; }
 
 }  // extern "C"

@@ -2,9 +2,9 @@
 
 Counterpart of hypervla_tpu/ops/dino_layer.py. The Pallas TPU kernel
 `dino_layers_serving` becomes a set of hand-written CUDA kernels
-(csrc/dino_layer.cu): a row LayerNorm, a bf16 GEMM with a fused epilogue
-(bias, GELU or LayerScale residual) and a per-head attention kernel,
-launched once per layer by `dino_layers_serving`. Each kernel has a plain
+(csrc/dino_layer.cu): a warp-per-row LayerNorm, a bf16 GEMM with a fused
+epilogue (bias, GELU or LayerScale residual) and a per-head tensor-core
+attention kernel, launched once per layer by `dino_layers_serving`. Each kernel has a plain
 PyTorch version here with the same rounding points (the TPU package's
 `_serving_layer_body`): every dot is an fp32 matmul of bf16-valued tensors
 rounded once to bf16, biases are added in bf16, LayerNorm uses flax's fast
@@ -47,11 +47,13 @@ def _lib():
 
     lib = load_library("dino_layer.cu")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dino_layer_norm.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.dino_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, i, i, p]
     lib.dino_gemm.argtypes = [p, i, p, i, i, p, p, p, p, p, i, i, i, i, i,
                               i, p, p]
-    lib.dino_attention.argtypes = [p, p, i, i, p]
-    for fn in (lib.dino_layer_norm, lib.dino_gemm, lib.dino_attention):
+    lib.dino_attention.argtypes = [p, p, i, i, i, p]
+    lib.dino_attention_max_seq.argtypes = []
+    for fn in (lib.dino_layer_norm, lib.dino_gemm, lib.dino_attention,
+               lib.dino_attention_max_seq):
         fn.restype = ctypes.c_int
     return lib
 
@@ -94,6 +96,60 @@ def layer_norm_rows_reference(x, scale, bias, eps: float):
     return (y * scale + bias).to(x.dtype)
 
 
+#: multiprocessors of the card the grids are chosen for (H100)
+SMS = 132
+#: the widest row the warp-per-row kernels hold in a warp's registers
+ROW_MAX_WIDTH = 1024
+
+
+class RowPlan(NamedTuple):
+    """The launch of a row kernel. chunks: the 8-value chunks of a row that
+    a lane holds (3: widths up to 768, 4: up to 1024), a warp per row; or 0:
+    the kernel for the other widths (one block per row forward, a block
+    walking a range of rows backward). blocks x warps: the grid of the
+    warp-per-row kernel, warp w of the grid walking rows w, w + blocks *
+    warps, ..."""
+    chunks: int
+    blocks: int
+    warps: int
+
+
+def row_chunks(d: int, *tensors) -> int:
+    """The chunks a lane holds of a row of width d, or 0 where the
+    warp-per-row kernels do not take the row: they load 16 bytes at a time
+    (d a multiple of 8, every tensor 16-byte aligned) and keep the row in
+    registers (d <= ROW_MAX_WIDTH)."""
+    if d % 8 or d > ROW_MAX_WIDTH:
+        return 0
+    if any(t.data_ptr() % 16 for t in tensors):
+        return 0
+    return 3 if d <= 768 else 4
+
+
+def row_grid(rows: int, blocks_per_sm: int, warps: int):
+    """(blocks, warps per block) of a warp-per-row kernel over `rows` rows:
+    blocks of `warps` warps, as many as give every warp a row, up to
+    blocks_per_sm a multiprocessor (the warps then walk several rows each);
+    fewer warps a block where that many would leave multiprocessors without
+    a block (the serving trunk's 257 rows: 257 blocks of one warp)."""
+    warps = max(1, min(warps, rows // SMS))
+    return max(1, min(-(-rows // warps), SMS * blocks_per_sm)), warps
+
+
+#: the LayerNorm forward's grid: blocks a multiprocessor, warps a block
+#: (~120 registers a thread: four blocks resident, four waves at most)
+LN_BLOCKS_PER_SM, LN_WARPS = 16, 4
+
+
+def layer_norm_plan(rows: int, d: int, *tensors) -> RowPlan:
+    """The launch `layer_norm_rows` makes for (rows, d), from the shape (and
+    the tensors' alignment) alone."""
+    chunks = row_chunks(d, *tensors)
+    if chunks == 0:
+        return RowPlan(0, rows, 8)
+    return RowPlan(chunks, *row_grid(rows, LN_BLOCKS_PER_SM, LN_WARPS))
+
+
 def layer_norm_rows(x, scale, bias, eps: float):
     if _route(x, scale, bias) == "cpu":
         return layer_norm_rows_reference(x, scale, bias, eps)
@@ -105,10 +161,11 @@ def layer_norm_rows(x, scale, bias, eps: float):
         _check(t.dtype == torch.float32 and t.is_contiguous()
                and t.shape == (x.shape[1],), "scale/bias must be (d,) fp32")
     out = torch.empty_like(x)
+    plan = layer_norm_plan(*x.shape, x, scale, bias, out)
     code = _lib().dino_layer_norm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
         x.shape[0], x.shape[1], float(eps), int(x.dtype == torch.float32),
-        _stream(),
+        plan.chunks, plan.blocks, plan.warps, _stream(),
     )
     _raise_on_error("dino_layer_norm", code)
     LAUNCHES["dino_layer_norm"] += 1
@@ -145,7 +202,7 @@ def gemm_reference(a, w, bias, epilogue: str = "none", residual=None,
 
 
 #: multiprocessors of the card the configurations are chosen for (H100)
-GEMM_SMS = 132
+GEMM_SMS = SMS
 #: depth of one k-tile of the kernel's shared-memory ring
 GEMM_BLOCK_K = 64
 
@@ -270,17 +327,103 @@ def attention_reference(qkv):
     return ao.transpose(0, 1).reshape(seq, hidden)
 
 
+def attention_unexplained_rows(qkv, got, bound: float):
+    """How `got` (S, hidden) stands to attention_reference(qkv): (rows over,
+    rows unexplained). A row is one query of one head; it is over where an
+    entry lies farther than `bound` from the plain version. The plain
+    version rounds every score to bf16, so a score whose exact value lies
+    at the midpoint of two bf16 neighbours is rounded either way by two
+    correct fp32 sums (one that rounds each addition to nearest, as an FMA
+    chain does, and one that truncates, as the tensor cores do), and where
+    such a score is among the largest of its row the whole row of P moves
+    with it. A row over the bound is explained if its output lies within
+    `bound` of the plain version's recomputed with some choice of neighbour
+    for each of its ambiguous scores: those whose exact value (fp64, on the
+    same bf16 inputs) lies within 64 * 2^-23 * sum |q.k terms| of a
+    midpoint, the error bound of an fp32 sum of 64 terms whose additions
+    may truncate, and which lie within 8 of the row's largest (the
+    exponential of a smaller one is under 4e-4 of the largest, and its two
+    roundings differ by less than a seventh of that). Every other score
+    keeps its one rounding."""
+    seq, width = qkv.shape
+    hidden = width // 3
+    heads = hidden // HEAD_DIM
+    ref = attention_reference(qkv)
+    diff = (got.float() - ref.float()).abs().reshape(seq, heads, HEAD_DIM)
+    over = (diff.amax(-1) > bound).nonzero().tolist()
+    unexplained = 0
+    for row, head in over:
+        cols = slice(head * HEAD_DIM, (head + 1) * HEAD_DIM)
+        q = (qkv[row, :hidden][cols] * 0.125).double()
+        k = qkv[:, hidden:2 * hidden][:, cols].double()
+        v = qkv[:, 2 * hidden:][:, cols].float()
+        terms = k * q
+        exact = terms.sum(-1)
+        tol = HEAD_DIM * 2.0 ** -23 * terms.abs().sum(-1)
+        near = exact.float().bfloat16()
+        # the bf16 neighbour of `near` on the side of the exact value
+        up = (exact > near.double()) == (near >= 0)
+        step = torch.where(up, 1, -1).to(torch.int16)
+        other = (near.view(torch.int16) + step).view(torch.bfloat16)
+        middle = (near.double() + other.double()) / 2
+        ambiguous = (((exact - middle).abs() <= tol)
+                     & (exact >= exact.max() - 8)).nonzero().flatten()
+        if len(ambiguous) > 12:
+            unexplained += 1
+            continue
+        bits = torch.arange(len(ambiguous), device=qkv.device)
+        choices = (torch.arange(2 ** len(ambiguous), device=qkv.device)[:, None]
+                   >> bits & 1).bool()
+        scores = near.float().repeat(len(choices), 1)
+        scores[:, ambiguous] = torch.where(
+            choices, other[ambiguous].float(), near[ambiguous].float())
+        e = torch.exp(scores - scores.amax(-1, keepdim=True))
+        probs = (e / e.sum(-1, keepdim=True)).bfloat16()
+        outs = (probs.float() @ v).bfloat16().float()
+        err = (outs - got[row, cols].float()).abs().amax(-1)
+        unexplained += int(not bool((err <= bound).any()))
+    return len(over), unexplained
+
+
+#: the longest row of scores the attention kernel takes: it holds a row's
+#: scores in the registers of four key warps, five chunks of 16 keys each
+ATTENTION_MAX_SEQ = 320
+
+
+def attention_warps(heads: int, seq: int) -> int:
+    """Row warps (of 16 query rows each) a block of the attention kernel
+    takes: four where the 64-row blocks still give every multiprocessor
+    one, else two (the serving trunk's 12 heads x 257 rows: 108 blocks of
+    32 rows, one a multiprocessor). Every row warp is four key warps."""
+    return 4 if heads * -(-seq // 64) >= SMS else 2
+
+
+def attention_grid(heads: int, seq: int):
+    """(heads, blocks a head) of the attention kernel's grid."""
+    return heads, -(-seq // (16 * attention_warps(heads, seq)))
+
+
 def attention(qkv):
+    """All heads of softmax attention over a fused qkv buffer of up to
+    ATTENTION_MAX_SEQ tokens (longer sequences: the per-layer trunk's flash
+    attention, ops/flash_attention.py)."""
     if _route(qkv) == "cpu":
         return attention_reference(qkv)
     _check(qkv.dim() == 2 and qkv.dtype == torch.bfloat16
-           and qkv.is_contiguous() and qkv.shape[1] % (3 * HEAD_DIM) == 0,
-           "qkv must be contiguous (S, 3*hidden) bf16 with hidden % 64 == 0")
+           and qkv.is_contiguous() and qkv.shape[1] % (3 * HEAD_DIM) == 0
+           and qkv.data_ptr() % 16 == 0,
+           "qkv must be contiguous (S, 3*hidden) bf16 with hidden % 64 == 0, "
+           "16-byte aligned")
     seq, width = qkv.shape
+    _check(1 <= seq <= ATTENTION_MAX_SEQ,
+           f"a row of {seq} scores does not fit the attention kernel's "
+           f"registers (at most {ATTENTION_MAX_SEQ})")
+    heads = width // (3 * HEAD_DIM)
     out = torch.empty((seq, width // 3), dtype=torch.bfloat16,
                       device=qkv.device)
     code = _lib().dino_attention(
-        qkv.data_ptr(), out.data_ptr(), seq, width // 3, _stream()
+        qkv.data_ptr(), out.data_ptr(), seq, width // 3,
+        attention_warps(heads, seq), _stream()
     )
     _raise_on_error("dino_attention", code)
     LAUNCHES["dino_attention"] += 1

@@ -10,7 +10,9 @@ uncast input, one rounding to x.dtype); the backward is
 csrc/layer_backward.cu's `layer_norm_bwd`, which recomputes the statistics
 from x, writes dx in x.dtype and leaves per-block column sums of g*xhat and
 g that a finishing launch adds in block order (dscale, dbias in fp32; no
-atomics, so results repeat bit for bit). The same backward kernel, with an
+atomics, so results repeat bit for bit). Both hold a row in the registers of
+one warp where the width allows it (`dl.row_chunks`); other widths take the
+block-per-row forward and the block-walk backward. The same backward kernel, with an
 fp32 cotangent and dx added in bf16 to a residual gradient, is the layer
 backward's (ops/dino_layer_train.py): one source for both uses.
 
@@ -38,8 +40,13 @@ from hypervla_tpu_torch.ops.dino_layer import (
     _stream,
 )
 
-#: rows per block of the backward kernel (its partial sums are per block)
+#: rows per block of the block-walk backward kernel (its partial sums are
+#: per block)
 ROWS_PER_BLOCK = 32
+#: the warp-per-row backward's grid: blocks a multiprocessor, warps a block
+#: (~200 registers a thread: five blocks of two warps fit, so four are one
+#: wave; each block leaves one partial of the column sums)
+LN_BWD_BLOCKS_PER_SM, LN_BWD_WARPS = 4, 2
 
 #: launches of each wrapper since the last reset
 LAUNCHES: Dict[str, int] = {"layer_norm_pallas_fwd": 0,
@@ -63,14 +70,17 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.layer_gemm_tn.argtypes = [p, i, p, i, p, i, i, i, i, i, p, p]
     lib.layer_norm_bwd_max_width.argtypes = []
-    lib.layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
+    lib.layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, i, i,
+                                   p]
     lib.layer_scale_grad.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.layer_gelu_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.layer_colsum.argtypes = [p, p, i, i, i, p]
-    lib.layer_finish_sums.argtypes = [p, p, i, i, p]
+    lib.layer_finish_sums.argtypes = [p, p, i, i, i, p]
+    lib.layer_finish_split.argtypes = []
     for fn in (lib.layer_gemm_tn, lib.layer_norm_bwd_max_width,
                lib.layer_norm_bwd, lib.layer_scale_grad, lib.layer_gelu_bwd,
-               lib.layer_colsum, lib.layer_finish_sums):
+               lib.layer_colsum, lib.layer_finish_sums,
+               lib.layer_finish_split):
         fn.restype = ctypes.c_int
     return lib
 
@@ -97,12 +107,20 @@ def row_lib():
     return lib
 
 
-def finish_sums(part):
-    """Adds per-block partial sums (blocks, ...) fp32 over the blocks, in
-    block order (the finishing launch of every column sum)."""
+#: warps that share a column's parts in the split finishing launch
+FINISH_SPLIT = 8
+
+
+def finish_sums(part, split: bool = False):
+    """Adds per-block partial sums (blocks, ...) fp32 over the blocks (the
+    finishing launch of every column sum): in block order, a thread a
+    column; or, with `split` (the LayerNorm backward, whose parts are many),
+    FINISH_SPLIT warps a column that add parts w, w + FINISH_SPLIT, ... in
+    order and then their sums in warp order."""
     out = torch.empty(part.shape[1:], dtype=torch.float32, device=part.device)
     code = _lib().layer_finish_sums(part.data_ptr(), out.data_ptr(),
-                                    part.shape[0], out.numel(), _stream())
+                                    part.shape[0], out.numel(), int(split),
+                                    _stream())
     _raise_on_error("layer_finish_sums", code)
     return out
 
@@ -128,6 +146,17 @@ def layer_norm_bwd_rows_reference(x, g, scale, eps: float, residual=None):
     if residual is not None:
         dx = residual + dx
     return dx, (gf * xhat).sum(0), gf.sum(0)
+
+
+def layer_norm_bwd_plan(rows: int, d: int, *tensors) -> dl.RowPlan:
+    """The launch `layer_norm_bwd_rows` makes for (rows, d), from the shape
+    (and the tensors' alignment) alone; `blocks` is also the number of
+    partial column sums the finishing launch adds, in block order."""
+    chunks = dl.row_chunks(d, *tensors)
+    if chunks == 0:
+        return dl.RowPlan(0, -(-rows // ROWS_PER_BLOCK), 8)
+    return dl.RowPlan(chunks, *dl.row_grid(rows, LN_BWD_BLOCKS_PER_SM,
+                                           LN_BWD_WARPS))
 
 
 def layer_norm_bwd_rows(x, g, scale, eps: float, residual=None):
@@ -156,16 +185,17 @@ def layer_norm_bwd_rows(x, g, scale, eps: float, residual=None):
                f"x and g must both be bf16 or fp32: {x.dtype}, {g.dtype}")
         mode = 1 if x.dtype == torch.bfloat16 else 2
     dx = torch.empty_like(x)
-    blocks = (rows + ROWS_PER_BLOCK - 1) // ROWS_PER_BLOCK
-    part = torch.empty((blocks, 2, d), dtype=torch.float32, device=x.device)
+    plan = layer_norm_bwd_plan(rows, d, x, g, scale, dx, *extra)
+    part = torch.empty((plan.blocks, 2, d), dtype=torch.float32,
+                       device=x.device)
     code = _lib().layer_norm_bwd(
         x.data_ptr(), g.data_ptr(), scale.data_ptr(),
         None if residual is None else residual.data_ptr(), dx.data_ptr(),
         part.data_ptr(), rows, d, ROWS_PER_BLOCK, float(eps), mode,
-        _stream())
+        plan.chunks, plan.blocks, plan.warps, _stream())
     _raise_on_error("layer_norm_bwd", code)
     LAUNCHES["layer_norm_bwd_rows"] += 1
-    sums = finish_sums(part)
+    sums = finish_sums(part, split=True)
     return dx, sums[0], sums[1]
 
 

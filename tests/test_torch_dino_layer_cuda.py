@@ -63,6 +63,52 @@ def test_layer_norm_kernel(device):
     assert err <= 2 ** -7 * max(scale, 1.0), (err, scale)
 
 
+# (rows, d): the trunk's shapes, a row count that is no multiple of a block's
+# warps, the 4-chunk instantiation, narrow rows with idle lanes; then widths
+# the warp-per-row kernel does not take (no multiple of 8; wider than 1024)
+LN_SHAPES = [(257, 768, 3), (16448, 768, 3), (1001, 768, 3), (77, 1024, 4),
+             (130, 128, 3), (68, 96, 3), (5, 8, 3), (68, 100, 0),
+             (300, 2048, 0), (9, 1032, 0)]
+
+
+@pytest.mark.parametrize("shift", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d,chunks", LN_SHAPES)
+def test_layer_norm_kernel_over_shapes(device, rows, d, chunks, dtype, shift):
+    """The warp-per-row kernel and the block-per-row kernel, each at the
+    widths the wrapper gives it, bf16 and fp32, on a shifted input too (the
+    fast variance cancels there, so the order of a row's sums shows), and
+    twice for the same bits."""
+    gen = torch.Generator().manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=gen) * 0.5 + shift).to(device).to(
+        dtype)
+    scale = (1 + 0.1 * torch.randn(d, generator=gen)).to(device)
+    bias = (0.1 * torch.randn(d, generator=gen)).to(device)
+    assert dl.layer_norm_plan(rows, d, x, scale, bias).chunks == chunks
+    dl.reset_launch_counts()
+    got = dl.layer_norm_rows(x, scale, bias, 1e-6)
+    torch.cuda.synchronize()
+    assert dl.LAUNCHES["dino_layer_norm"] == 1
+    err, ref_scale = _err(got, dl.layer_norm_rows_reference(x, scale, bias,
+                                                            1e-6))
+    bound = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert got.dtype == dtype and err <= bound * max(ref_scale, 1.0), err
+    assert torch.equal(got, dl.layer_norm_rows(x, scale, bias, 1e-6))
+
+
+def test_layer_norm_kernel_unaligned_rows_take_the_first_kernel(device):
+    x, _, _, p = _trunk_inputs(1, device)
+    odd = torch.empty(SEQ * HIDDEN + 1, dtype=x.dtype, device=device)[1:]
+    odd = odd.view(SEQ, HIDDEN).copy_(x)
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    assert dl.layer_norm_plan(SEQ, HIDDEN, odd).chunks == 0
+    got = dl.layer_norm_rows(odd, p[0, 0], p[0, 1], 1e-6)
+    torch.cuda.synchronize()
+    err, scale = _err(got, dl.layer_norm_rows_reference(x, p[0, 0], p[0, 1],
+                                                        1e-6))
+    assert err <= 2 ** -7 * max(scale, 1.0), (err, scale)
+
+
 @pytest.mark.parametrize("which", ["qkv", "out_proj", "fc1", "fc2"])
 def test_gemm_kernel(device, which):
     x, w, b, p = _trunk_inputs(1, device)
@@ -84,6 +130,24 @@ def test_gemm_kernel(device, which):
     err, scale = _err(got, ref)
     # fp32 sums in another order: at most one bf16 ulp after rounding
     assert err <= 2 ** -7 * max(scale, 1.0), (which, err, scale)
+
+
+def _assert_one_ulp_but_for_ambiguous_scores(qkv, got):
+    """Every row (a query of a head) within one bf16 ulp of the output scale
+    of the plain version, but those that a score at the midpoint of two bf16
+    values explains: the tensor cores' fp32 sums and the plain version's
+    differ in their last bits and may round such a score to either
+    neighbour, and a row led by it moves with it. Such a row is held, at
+    the same bound, to the plain version recomputed with the other
+    neighbour (dl.attention_unexplained_rows)."""
+    assert torch.isfinite(got.float()).all()
+    scale = dl.attention_reference(qkv).float().abs().max().item()
+    bound = 2 ** -7 * max(scale, 1.0)
+    over, unexplained = dl.attention_unexplained_rows(qkv, got, bound)
+    assert unexplained == 0, (over, unexplained, bound)
+    # a wrong kernel moves every row; a boundary score a few in a thousand
+    rows = qkv.shape[0] * qkv.shape[1] // (3 * dl.HEAD_DIM)
+    assert over <= max(1, rows // 200), (over, rows)
 
 
 def _ulp_bound(scale):
@@ -191,8 +255,50 @@ def test_attention_kernel(device):
     qkv = (torch.randn(SEQ, 3 * HIDDEN, device=device) * 2.0).bfloat16()
     got = dl.attention(qkv)
     torch.cuda.synchronize()
-    err, scale = _err(got, dl.attention_reference(qkv))
-    assert err <= 2 ** -7 * max(scale, 1.0), (err, scale)
+    _assert_one_ulp_but_for_ambiguous_scores(qkv, got)
+
+
+@pytest.mark.parametrize("hidden", [64, 128, 768])
+@pytest.mark.parametrize("seq", [1, 16, 17, 64, 65, 257, 300, 320])
+def test_attention_kernel_over_shapes(device, seq, hidden):
+    """Ragged last query and key tiles, key shares that are empty or end
+    before S, one, two and twelve heads, against the plain version within
+    one bf16 ulp of the output scale, and twice for the same bits."""
+    gen = torch.Generator().manual_seed(seq * hidden)
+    qkv = (torch.randn(seq, 3 * hidden, generator=gen) * 2.0).to(
+        device).bfloat16()
+    dl.reset_launch_counts()
+    got = dl.attention(qkv)
+    torch.cuda.synchronize()
+    assert dl.LAUNCHES["dino_attention"] == 1
+    _assert_one_ulp_but_for_ambiguous_scores(qkv, got)
+    assert torch.equal(got, dl.attention(qkv))
+
+
+def test_attention_kernel_over_draws(device):
+    """Fifty unseeded draws at the serving shape: no row beyond one ulp
+    that a score at a rounding midpoint does not explain."""
+    for _ in range(50):
+        qkv = (torch.randn(SEQ, 3 * HIDDEN, device=device) * 2.0).bfloat16()
+        _assert_one_ulp_but_for_ambiguous_scores(qkv, dl.attention(qkv))
+
+
+def test_attention_kernel_with_four_row_warps(device):
+    """Enough heads that a block takes four row warps (sixteen warps)."""
+    heads = 44
+    assert dl.attention_warps(heads, SEQ) == 4
+    qkv = (torch.randn(SEQ, 3 * 64 * heads, device=device) * 2.0).bfloat16()
+    got = dl.attention(qkv)
+    torch.cuda.synchronize()
+    _assert_one_ulp_but_for_ambiguous_scores(qkv, got)
+
+
+def test_attention_limit_is_the_kernels(device):
+    assert dl._lib().dino_attention_max_seq() == dl.ATTENTION_MAX_SEQ
+    qkv = torch.zeros(dl.ATTENTION_MAX_SEQ + 1, 3 * 64,
+                      device=device).bfloat16()
+    with pytest.raises(ValueError, match="registers"):
+        dl.attention(qkv)
 
 
 @pytest.mark.parametrize("layers,bound", [(1, 0.01), (12, 0.05)])

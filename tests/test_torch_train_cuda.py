@@ -330,9 +330,15 @@ def test_column_sum_passes(device, rows, cols):
         assert all(torch.equal(a, b) for a, b in zip(got, again)), name
 
 
+# the last four: widths the warp-per-row kernel does not take (no multiple
+# of 8; wider than 1024), its 4-chunk instantiation, the training shape
 @pytest.mark.parametrize("mode", ["layer", "bf16", "fp32"])
-@pytest.mark.parametrize("rows,d", [(68, 128), (114, 768), (1028, 768)])
+@pytest.mark.parametrize("rows,d", [(68, 128), (114, 768), (1028, 768),
+                                    (68, 100), (300, 2048), (77, 1024),
+                                    (16448, 768)])
 def test_layer_norm_backward_kernel(device, mode, rows, d):
+    assert (tln.layer_norm_bwd_plan(rows, d).chunks
+            == (0 if d % 8 or d > 1024 else 3 if d <= 768 else 4))
     x = _randn((rows, d), device, 2.0, 0)
     g = _randn((rows, d), device, 1.0, 1)
     scale = (_randn((d,), device, 0.2, 2).float() + 1.0)
@@ -355,6 +361,59 @@ def test_layer_norm_backward_kernel(device, mode, rows, d):
         assert err <= 1e-6 * rows * max(ref_scale, 1.0), (err, ref_scale)
     again = tln.layer_norm_bwd_rows(x, g, scale, 1e-6, residual)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("mode", ["layer", "bf16", "fp32"])
+@pytest.mark.parametrize("rows", [257, 1001, 2056])
+def test_layer_norm_backward_kernel_shifted_input_and_halves(device, mode,
+                                                             rows):
+    """A large row mean, where the fast variance cancels and the order of a
+    row's sums shows; and the column sums of a batch against the sum of its
+    two halves' (the rows are dealt to the warps in turn, so the order
+    differs: within 1e-4)."""
+    d = 768
+    x = _randn((rows, d), device, 0.5, 0) + 1.0
+    g = _randn((rows, d), device, 1.0, 1)
+    scale = (_randn((d,), device, 0.2, 2).float() + 1.0)
+    residual = None
+    if mode == "layer":
+        g, residual = g.float(), _randn((rows, d), device, 1.0, 3)
+    elif mode == "fp32":
+        x, g = x.float(), g.float()
+
+    def run(sl):
+        return tln.layer_norm_bwd_rows(
+            x[sl], g[sl], scale, 1e-6,
+            None if residual is None else residual[sl])
+
+    got = run(slice(None))
+    torch.cuda.synchronize()
+    ref = tln.layer_norm_bwd_rows_reference(x, g, scale, 1e-6, residual)
+    for a, b, bound in zip(got, ref, (1e-5 if mode == "fp32" else 2 ** -7,
+                                      1e-4, 1e-4)):
+        err, ref_scale = _err(a, b)
+        assert err <= bound * max(ref_scale, 1.0), (err, ref_scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, run(slice(None))))
+    if rows % 2 == 0:
+        lo, hi = run(slice(0, rows // 2)), run(slice(rows // 2, rows))
+        for full, a, b in zip(got[1:], lo[1:], hi[1:]):
+            err, ref_scale = _err(full, a + b)
+            assert err <= 1e-4 * max(ref_scale, 1.0), (err, ref_scale)
+
+
+@pytest.mark.parametrize("parts", [1, 7, 8, 9, 264, 528])
+def test_finishing_launches_agree(device, parts):
+    """The split finishing launch (eight warps a column, then their sums in
+    warp order) against the in-order one and against fp64."""
+    part = _randn((parts, 2, 768), device, 1.0, parts).float()
+    split, plain = tln.finish_sums(part, split=True), tln.finish_sums(part)
+    torch.cuda.synchronize()
+    exact = part.double().sum(0)
+    for got in (split, plain):
+        assert got.shape == (2, 768)
+        assert float((got.double() - exact).abs().max()) <= 1e-6 * parts * 4
+    assert torch.equal(split, tln.finish_sums(part, split=True))
+    assert tln._lib().layer_finish_split() == tln.FINISH_SPLIT
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
