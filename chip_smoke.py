@@ -70,8 +70,10 @@ backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
 `wgmma` kernel), the layer backward's A^T.B weight gradients (`wgmma` on
 MN-major operands, the rows split over blocks and finished in order), the
 flash attention, the serving trunk's attention (bf16 tensor cores, four key
-warps a row warp) and the LayerNorm forward and backward (a warp per row),
-are also run twice and compared bit for bit, at every
+warps a row warp), the LayerNorm forward and backward (a warp per row),
+the column sum (16-byte loads, a block a 256-column strip of a row range)
+and the GELU (64 bytes in flight a thread, erfc by a Chebyshev fit), are
+also run twice and compared bit for bit, at every
 GEMM shape of the serving trunk and of the training layer (every epilogue,
 both layouts of the weight); at M = 16448 the rows of the ragged last row
 tile are checked on their own, and a row past M, poisoned before the launch,
@@ -177,6 +179,11 @@ LAYER_BOUND = 2 ** -6
 TRAIN_BATCH = 64
 # calls of a kernel traced for its device time
 PROFILED_CALLS = 10
+# device ms of the first versions of the last kernels redesigned (their
+# proof run, NVIDIA H100 80GB HBM3, 700 W), logged beside the new ones: the
+# first versions are gone
+FIRST_VERSION_DEVICE_MS = {"layer_colsum (16448, 2304)": 0.0455,
+                           "gelu_exact_fused (64, 257, 3072) bf16": 0.0962}
 TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 # the layer backward: cosine per output against the plain version (the JAX
 # package holds its kernel to 0.99 per leaf, tests/test_dino_layer_train.py)
@@ -214,53 +221,82 @@ def interleaved(kernel_fn, plain_fn, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_busy(fn, calls=1):
-    """(device busy ms, device kernels) per call of fn, from a
-    torch.profiler trace of `calls` identical calls: the sum of the kernels'
-    own device time (one stream, so they do not overlap)."""
+def _trace(fn, calls):
+    """{device kernel: (mean device us a launch, launches a call)} from one
+    torch.profiler trace of `calls` identical calls of fn."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # a trace now and then comes back without its device records: it is
-    # taken again, and only a third empty one fails the run
-    for attempt in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.count > 0]
-        # a trace often lacks the record of a launch or two: each kernel's
-        # mean time over the records that are there, times its launches a
-        # call (the records over the calls, rounded)
-        per_call = [(e.self_device_time_total / e.count,
-                     max(1, round(e.count / calls))) for e in rows]
-        busy_us = sum(mean_us * n for mean_us, n in per_call)
-        if busy_us > 0:
-            return busy_us / 1e3, sum(n for _, n in per_call)
+    # a trace often lacks the record of a launch or two: each kernel's mean
+    # time over the records that are there, times its launches a call (the
+    # records over the calls, rounded)
+    return {e.key: (e.self_device_time_total / e.count,
+                    max(1, round(e.count / calls)))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count > 0}
+
+
+def _device_trace(fn, calls):
+    """_trace, taken again where it comes back without its device records
+    (now and then one does); only a third empty one fails the run."""
+    for attempt in range(3):
+        per_call = _trace(fn, calls)
+        if sum(mean_us * n for mean_us, n in per_call.values()) > 0:
+            return per_call
         log(f"profiler: trace {attempt + 1} of {calls} calls held no device "
             "time")
     raise AssertionError("the profiler saw no device time")
 
 
-def confirmed_device_ms(fn, calls):
-    """Device ms per call of fn from two traces of `calls` calls that agree
-    (the same number of device kernels, times within a quarter): a trace now
-    and then comes back without any of one kernel's records, which a single
-    trace cannot tell from a faster function."""
-    prev = device_busy(fn, calls)
+def device_busy(fn, calls=1):
+    """(device busy ms, device kernels) per call of fn, from a
+    torch.profiler trace of `calls` identical calls: the sum of the kernels'
+    own device time (one stream, so they do not overlap)."""
+    per_call = _device_trace(fn, calls).values()
+    return (sum(mean_us * n for mean_us, n in per_call) / 1e3,
+            sum(n for _, n in per_call))
+
+
+def kernel_device_ms(fn, calls):
+    """{kernel name: device ms per call of fn}, each device kernel apart (a
+    pass and its finishing launch), from two traces of `calls` calls that
+    agree (the same kernels and launches, total times within a quarter): a
+    trace now and then comes back without any of one kernel's records,
+    which a single trace cannot tell from a faster function."""
+    def total(per):
+        return sum(mean_us * n for mean_us, n in per.values())
+
+    prev = _device_trace(fn, calls)
     for _ in range(3):
-        cur = device_busy(fn, calls)
-        if (cur[1] == prev[1]
-                and abs(cur[0] - prev[0]) <= 0.25 * max(cur[0], prev[0])):
-            return (cur[0] + prev[0]) / 2
-        log(f"profiler: two traces disagree ({prev[0]:.6g} ms in {prev[1]:g} "
-            f"kernels, then {cur[0]:.6g} ms in {cur[1]:g}); tracing again")
+        cur = _device_trace(fn, calls)
+        if ({k: n for k, (_, n) in cur.items()}
+                == {k: n for k, (_, n) in prev.items()}
+                and abs(total(cur) - total(prev))
+                <= 0.25 * max(total(cur), total(prev))):
+            out = {}
+            for key in cur:
+                name = key.removeprefix("void ").split("(")[0]
+                out[name] = out.get(name, 0.0) + (
+                    cur[key][0] * cur[key][1]
+                    + prev[key][0] * prev[key][1]) / 2e3
+            return out
+        log(f"profiler: two traces disagree ({total(prev) / 1e3:.6g} ms in "
+            f"{len(prev)} kernels, then {total(cur) / 1e3:.6g} ms in "
+            f"{len(cur)}); tracing again")
         prev = cur
     raise AssertionError("no two profiler traces in a row agree")
+
+
+def confirmed_device_ms(fn, calls):
+    """Device ms per call of fn: its kernels' summed kernel_device_ms."""
+    return sum(kernel_device_ms(fn, calls).values())
 
 
 def bound_ms(nbytes, flops, peak=PEAK_BF16):
@@ -340,6 +376,18 @@ class KernelTable:
                 "library_device_ms")}
             out[name].update(bound_ms=least, bound_by=by)
         return out
+
+
+def bf16_ulps(got, ref):
+    """|got - ref| elementwise in bf16 spacings at ref's value (2^-133, the
+    subnormal spacing, at and below the smallest normal); NaN where both
+    are NaN counts 0 (the caller checks that the NaNs agree)."""
+    import torch
+
+    g, r = got.double(), ref.double()
+    mag = r.abs().clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((g - r).abs() / ulp).nan_to_num(0.0)
 
 
 def max_err(got, ref):
@@ -764,12 +812,49 @@ def row_flash_kernel_phase(device):
         torch.cuda.synchronize()
         err = check("gelu_exact_fused", "(64, 257, 3072) bf16", got,
                     tg.gelu_exact_reference(h))
+        # elementwise within one bf16 ulp of the plain version's value, at
+        # the draw and at every finite bf16 input; twice bit for bit
+        every = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                             device=device).to(torch.int16).view(
+                                 torch.bfloat16)
+        every = every[torch.isfinite(every.float())]
+        for label, x in (("(64, 257, 3072) bf16", h),
+                         (f"every finite bf16 input ({every.numel()})",
+                          every)):
+            out, ref = tg.gelu_exact_fused(x), tg.gelu_exact_reference(x)
+            torch.cuda.synchronize()
+            ulps = float(bf16_ulps(out, ref).max())
+            differ = float((out != ref).float().mean())
+            log(f"kernel gelu_exact_fused {label}: at most {ulps:g} bf16 "
+                f"ulp of the plain version's value, {differ:.3g} of the "
+                "outputs differ from it; two runs bit-equal")
+            if not (ulps <= 1.0 and torch.equal(torch.isnan(out),
+                                                torch.isnan(ref))):
+                raise AssertionError(f"gelu_exact_fused {label}: {ulps} ulp")
+            if not torch.equal(out, tg.gelu_exact_fused(x)):
+                raise AssertionError(f"gelu_exact_fused {label}: two runs "
+                                     "differ")
+        del out, ref
+        # fp32, a few elements and a tail, and a view that starts off a
+        # 16-byte boundary (the scalar path)
+        x32 = t((seq, 4 * hidden), torch.float32, 3.0)
+        check("gelu_exact_fused", "(257, 3072) fp32", tg.gelu_exact_fused(x32),
+              tg.gelu_exact_reference(x32), 1e-5)
+        for label, x in (("5 elements bf16", t((5,), scale=3.0)),
+                         ("1031 elements bf16", t((1031,), scale=3.0)),
+                         ("1031 elements fp32", t((1031,), torch.float32,
+                                                  3.0)),
+                         ("2^20 - 1 elements off a 16-byte boundary",
+                          h.view(-1)[1:2 ** 20])):
+            bound = 1e-5 if x.dtype == torch.float32 else ULP_BOUND
+            check("gelu_exact_fused", label, tg.gelu_exact_fused(x),
+                  tg.gelu_exact_reference(x), bound)
         table.add("gelu_exact_fused", "", err,
                   lambda: tg.gelu_exact_fused(h),
                   lambda: tg.gelu_exact_reference(h), 20,
                   (nbytes(h, h), 20 * h.numel(), PEAK_FP32),
                   lambda: F.gelu(h))
-        del h, got
+        del h, got, every, x32
 
     # ---- kernels 7 and 8: the residual boundaries, forward and backward ----
     rows = batch * seq
@@ -1444,8 +1529,95 @@ def train_kernel_phase(device):
     pass_case("layer_colsum", "(16448, 2304)", dlt.colsum,
               dlt.colsum_reference, (dqkv,), (1e-4,), 1,
               lambda: dqkv.sum(0, dtype=torch.float32))
+    # the column sum over a ragged row range, fewer rows than two parts and
+    # the cuda test's shapes too: against its plain version and fp64, twice
+    # bit for bit
+    more = t(rng.standard_normal((37, 3 * hidden)) * 0.1)
+    cases = [("(16448, 2304)", dqkv), ("(16485, 2304)",
+                                       torch.cat([dqkv, more])),
+             ("(99, 2304)", dqkv[:99].contiguous())] + [
+        (f"({r}, {c})", t(rng.standard_normal((r, c)) * 0.1))
+        for r, c in ((68, 128), (1028, 768), (300, 3072))]
+    for label, a in cases:
+        got = dlt.colsum(a)
+        torch.cuda.synchronize()
+        check("layer_colsum", label, got, dlt.colsum_reference(a), 1e-4)
+        check("layer_colsum", f"{label} against fp64", got,
+              a.double().sum(0), 1e-4)
+        if not torch.equal(got, dlt.colsum(a)):
+            raise AssertionError(f"layer_colsum {label}: two runs differ")
+        cfg = dlt.colsum_config(*a.shape)
+        log(f"kernel layer_colsum {label}: two runs bit-equal; grid "
+            f"({cfg.strips}, {cfg.parts}) of {cfg.warps} warps")
+    del more, cases
 
     return table.log_rows(f" at B={batch}, per layer")
+
+
+def column_pass_phase(device):
+    """Each device kernel of the column-sum passes apart (a pass and its
+    finishing launch) at the training shapes, beside the one PyTorch call
+    for the same function where there is one and the bound: the column sum
+    of dqkv, the LayerScale and GELU backward passes, kernel 8's backward,
+    and kernel 9's GELU (one launch). It calls the wrappers by their public
+    signatures only, so the same phase reads an earlier tree's kernels."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from hypervla_tpu_torch.ops import add_layer_norm as aln
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import gelu as tg
+
+    rows, hidden = TRAIN_BATCH * 257, 768
+    rng = np.random.default_rng(SEED + 5)
+
+    def t(shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
+        return torch.tensor(
+            (rng.standard_normal(shape) * scale + shift).astype(np.float32),
+            dtype=dtype, device=device)
+
+    g, y, xn, delta = (t((rows, hidden)) for _ in range(4))
+    ls = t((hidden,), torch.float32, 0.02, 0.1)
+    scale = t((hidden,), torch.float32, 0.1, 1.0)
+    hc = t((rows, 4 * hidden), scale=1.5)
+    dh = t((rows, 4 * hidden), scale=0.1)
+    dqkv = t((rows, 3 * hidden), scale=0.1)
+    h = t((TRAIN_BATCH, 257, 4 * hidden), scale=1.5)
+    # (the call, the one PyTorch call for the same function or None, the
+    # bytes the function moves)
+    calls = {
+        "layer_colsum (16448, 2304)": (
+            lambda: dlt.colsum(dqkv),
+            lambda: dqkv.sum(0, dtype=torch.float32),
+            nbytes(dqkv) + 4 * 3 * hidden),
+        "layer_scale_grad (16448, 768)": (
+            lambda: dlt.scale_grad(g, y, ls), None,
+            nbytes(g, y, g) + 4 * 3 * hidden),
+        "layer_gelu_bwd (16448, 3072)": (
+            lambda: dlt.gelu_bwd(hc, dh), None,
+            nbytes(hc, dh, hc, hc) + 4 * 4 * hidden),
+        "fused_add_scale_ln_bwd (16448, 768)": (
+            lambda: aln.add_ln_bwd(g, y, xn, delta, ls, scale, 1e-6), None,
+            nbytes(g, y, xn, delta, g, g) + 4 * 5 * hidden),
+        "gelu_exact_fused (64, 257, 3072) bf16": (
+            lambda: tg.gelu_exact_fused(h), lambda: F.gelu(h),
+            nbytes(h, h)),
+    }
+    out = {}
+    for label, (fn, library, moved) in calls.items():
+        split = kernel_device_ms(fn, PROFILED_CALLS)
+        lib = (sum(kernel_device_ms(library, PROFILED_CALLS).values())
+               if library else None)
+        log(f"kernel split {label} device_ms: " + ", ".join(
+            f"{name} {ms:.6g}" for name, ms in split.items())
+            + f"; total {sum(split.values()):.6g}; library_device_ms "
+            + ("none" if lib is None else f"{lib:.6g}")
+            + f"; bound_ms {moved / PEAK_BYTES * 1e3:.6g} (bytes)"
+            + (f"; first version {FIRST_VERSION_DEVICE_MS[label]:.6g} "
+               "(quoted)" if label in FIRST_VERSION_DEVICE_MS else ""))
+        out[label] = split
+    return out
 
 
 def _cosine(a, b):
@@ -1782,6 +1954,7 @@ def main() -> int:
     launches = slice_phase(device)
     row_results, add_ln_launches = row_flash_kernel_phase(device)
     train_results = train_kernel_phase(device)
+    column_pass_phase(device)
     train_launches = train_phase(device)
 
     # the configuration whose steps launch each training kernel

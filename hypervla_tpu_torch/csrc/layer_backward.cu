@@ -26,9 +26,8 @@
 //   layer_gelu_bwd     h = bf16(gelu(hc)) recomputed, dhc = bf16(gelu'(hc))
 //                      * dh in bf16, the column sums of f32(dhc) (d fc1 bias)
 //   layer_colsum       column sums of a bf16 matrix (dq, dk, dv -> biases)
-//   layer_finish_sums  sums the per-block partials in block order (or,
-//                      for the LayerNorm backward's many partials, eight
-//                      warps a column, then their sums in warp order)
+//   layer_finish_sums  sums the per-block partials of every column sum:
+//                      eight warps a column, then their sums in warp order
 //
 // No atomics anywhere: a column sum is per-block partials in fp32, then one
 // finishing launch that adds them in a fixed order; a weight gradient tile
@@ -509,33 +508,76 @@ __global__ void __launch_bounds__(CP_THREADS) gelu_bwd_kernel(
   part[(size_t)blockIdx.y * cols + c] = s;
 }
 
-__global__ void __launch_bounds__(CP_THREADS) colsum_kernel(
-    const bf16* __restrict__ a, float* __restrict__ part, int rows, int cols,
-    int rpb) {
-  const int c = blockIdx.x * CP_THREADS + threadIdx.x;
-  if (c >= cols) return;
-  const int row1 = min(rows, (int)(blockIdx.y + 1) * rpb);
-  float s = 0.f;
-  for (int r = blockIdx.y * rpb; r < row1; ++r)
-    s += bf(a[(size_t)r * cols + c]);
-  part[(size_t)blockIdx.y * cols + c] = s;
+// -------------------------------- column sums --------------------------------
+// part[p][c] = the fp32 sum of a[r][c] over the rows of part p, [p rows /
+// parts, (p + 1) rows / parts): the TPU kernel's dbq / dbk / dbv (f32 sums
+// of dq, dk, dv over the rows inside `_bwd_kernel`) over the port's fused
+// dqkv.
+//
+// What bounds it: bytes (each value read once, one fp32 add). A thread a
+// column with 2-byte loads moves 64 bytes a warp-wide load; here grid
+// (strips, parts): block (s, p) owns columns [256 s, +256) of part p's rows
+// and lane l of each of its warps the 8 neighbouring columns 256 s + 8 l,
+// one 16-byte load a row (a warp reads 512 contiguous bytes of it). Warp w
+// of the block's `warps` takes rows r0 + w, r0 + w + warps, ... of the part
+// in that order, COLSUM_ROWS of them loaded before any is added, into 8 fp32
+// running sums a lane; the block adds its warps' sums in warp order through
+// shared memory and writes one partial, and finish_sums_split_kernel adds
+// the partials. The grid, and with it the order of every sum, comes from the
+// shape alone (ops/dino_layer_train.py::colsum_config). cols % 8 == 0 and a
+// 16-byte aligned are checked by the wrapper.
+
+constexpr int COLSUM_MAX_WARPS = 8;
+constexpr int COLSUM_ROWS = 4;
+
+__global__ void __launch_bounds__(32 * COLSUM_MAX_WARPS) colsum_kernel(
+    const bf16* __restrict__ a, float* __restrict__ part, int rows,
+    int cols) {
+  __shared__ float4 red[COLSUM_MAX_WARPS][64];  // a warp's 256 column sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int p = blockIdx.y, parts = gridDim.y;
+  const int r0 = (int)((long long)p * rows / parts);
+  const int r1 = (int)((long long)(p + 1) * rows / parts);
+  const int c0 = blockIdx.x * 256 + 8 * lane;
+  float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c0 < cols) {
+    for (int r = r0 + warp; r < r1; r += COLSUM_ROWS * warps) {
+      row::Raw<bf16> raw[COLSUM_ROWS];
+#pragma unroll
+      for (int k = 0; k < COLSUM_ROWS; ++k)
+        if (r + k * warps < r1)
+          raw[k].v = __ldg(reinterpret_cast<const uint4*>(
+              a + (size_t)(r + k * warps) * cols + c0));
+#pragma unroll
+      for (int k = 0; k < COLSUM_ROWS; ++k) {
+        if (r + k * warps < r1) {
+          float v[8];
+          row::widen(v, raw[k]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sum[j] += v[j];
+        }
+      }
+    }
+  }
+  red[warp][2 * lane] = make_float4(sum[0], sum[1], sum[2], sum[3]);
+  red[warp][2 * lane + 1] = make_float4(sum[4], sum[5], sum[6], sum[7]);
+  __syncthreads();
+  const float* sums = reinterpret_cast<const float*>(red);
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
+    const int col = blockIdx.x * 256 + c;
+    if (col >= cols) break;
+    float s = sums[c];
+    for (int w = 1; w < warps; ++w) s += sums[w * 256 + c];
+    part[(size_t)p * cols + col] = s;
+  }
 }
 
-// out[j] = sum over p of part[p][j], p in order
-__global__ void __launch_bounds__(CP_THREADS) finish_sums_kernel(
-    const float* __restrict__ part, float* __restrict__ out, int parts,
-    int width) {
-  const int j = blockIdx.x * CP_THREADS + threadIdx.x;
-  if (j >= width) return;
-  float s = 0.f;
-  for (int p = 0; p < parts; ++p) s += part[(size_t)p * width + j];
-  out[j] = s;
-}
-
-// The same sum where the parts are many (the LayerNorm backward leaves one a
-// block): block b owns columns [32 b, +32); warp w of its FINISH_WARPS adds
-// parts w, w + FINISH_WARPS, ... of them, a lane a column, and the warps'
-// sums are added in warp order. The order depends on `parts` alone.
+// out[j] = the sum over p of part[p][j], the finishing launch of every
+// column sum: block b owns columns [32 b, +32); warp w of its FINISH_WARPS
+// adds parts w, w + FINISH_WARPS, ... of them in order, a lane a column, and
+// the warps' sums are added in warp order. The order depends on `parts`
+// alone.
 constexpr int FINISH_WARPS = 8;
 
 __global__ void __launch_bounds__(32 * FINISH_WARPS) finish_sums_split_kernel(
@@ -686,26 +728,26 @@ int layer_gelu_bwd(const void* hc, const void* dh, void* h, void* dhc,
   return (int)cudaGetLastError();
 }
 
-int layer_colsum(const void* a, void* part, int rows, int cols, int rpb,
-                 void* stream) {
-  colsum_kernel<<<column_grid(rows, cols, rpb), CP_THREADS, 0,
+// part is parts x cols fp32; grid (ceil(cols / 256), parts) of `warps`
+// warps (cols % 8 == 0, a 16-byte aligned, 1 <= warps <= 8).
+int layer_colsum(const void* a, void* part, int rows, int cols, int parts,
+                 int warps, void* stream) {
+  if (cols % 8 != 0 || parts < 1 || warps < 1 || warps > COLSUM_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  colsum_kernel<<<dim3((cols + 255) / 256, parts), 32 * warps, 0,
                   (cudaStream_t)stream>>>((const bf16*)a, (float*)part, rows,
-                                          cols, rpb);
+                                          cols);
   return (int)cudaGetLastError();
 }
 
-// split 0: a thread a column walks the parts in order; else the parts are
-// split over layer_finish_split() warps a column (see the kernel).
+// out (width,) = the sum of part (parts, width) over its parts (see the
+// kernel).
 int layer_finish_sums(const void* part, void* out, int parts, int width,
-                      int split, void* stream) {
-  if (split)
-    finish_sums_split_kernel<<<(width + 31) / 32, 32 * FINISH_WARPS, 0,
-                               (cudaStream_t)stream>>>(
-        (const float*)part, (float*)out, parts, width);
-  else
-    finish_sums_kernel<<<(width + CP_THREADS - 1) / CP_THREADS, CP_THREADS, 0,
-                         (cudaStream_t)stream>>>((const float*)part,
-                                                 (float*)out, parts, width);
+                      void* stream) {
+  finish_sums_split_kernel<<<(width + 31) / 32, 32 * FINISH_WARPS, 0,
+                             (cudaStream_t)stream>>>((const float*)part,
+                                                     (float*)out, parts,
+                                                     width);
   return (int)cudaGetLastError();
 }
 

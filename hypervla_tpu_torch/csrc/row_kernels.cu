@@ -26,7 +26,7 @@
 //                         rounded once. Replaces hypervla_tpu/ops/gelu.py::
 //                         gelu_exact_fused (`_gelu_kernel`), whose rational
 //                         polynomial stands in for the erf that its compiler
-//                         lacks; CUDA has erfcf.
+//                         lacks (see the note at the kernel for the erfc here).
 //
 // All of them are bound by bytes on this card: every input is read once and
 // every output written once, with a few dozen fp32 operations per element.
@@ -35,10 +35,9 @@
 // one write. The TPU kernels' 128- and 1024-row blocks and their sequential
 // grid with a VMEM accumulator are not carried over: the forward kernels
 // take one block per row; the backward walks `rpb` rows per block and leaves
-// per-block fp32 partial sums that a finishing launch adds in block order
+// per-block fp32 partial sums that a finishing launch adds in a fixed order
 // (layer_backward.cu's layer_finish_sums), so there are no atomics and two
-// runs give the same bits. The GELU reads and writes 16 bytes per thread in
-// a grid-stride loop, with a scalar tail.
+// runs give the same bits.
 //
 // Plain C interface (loaded with ctypes). Every entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -265,31 +264,85 @@ __global__ void __launch_bounds__(ROW_THREADS) add_ln_bwd_kernel(
 }
 
 // ------------------------------- exact GELU -------------------------------
+// What bounds it: bytes (one read and one write of 2 bytes an element, 202 MB
+// at the training shape: 0.060 ms), with the arithmetic close behind: CUDA's
+// erfcf is ~45 instructions an element, so a kernel that evaluates it on one
+// 16-byte vector before it asks for the next leaves the memory idle. Here a
+// thread requests GELU_VECS 16-byte vectors (64 bytes of bf16) before any
+// arithmetic, the blocks make one pass over the tensor (no grid stride), the
+// loads and stores stream past the L1 (`__ldcs`, `__stcs`: the output is
+// not read again before the next GEMM), and erfc is Numerical Recipes'
+// Chebyshev fit `erfcc`, erfc(a) = t exp(-a^2 + P(t)) with t = 1 / (1 + a/2)
+// for a >= 0 (fractional error < 1.2e-7 everywhere), on the fast reciprocal
+// and `ex2.approx`: ~20 instructions. Against 0.5 x erfc(-x / sqrt 2) with
+// erfcf it is within one bf16 ulp of the value at every finite bf16 input
+// (subnormal outputs included: the non-ftz ex2 keeps them) and within 1e-6
+// of the output scale in fp32.
 
 constexpr int GELU_THREADS = 256;
+constexpr int GELU_VECS = 4;
 
-__device__ __forceinline__ float gelu_exact(float x) {
-  return 0.5f * x * erfcf(-x * 0.70710678118654752f);
+__device__ __forceinline__ float fast_rcp(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
 }
 
-// n elements; with `vectors` > 0 the first vectors * (16 / sizeof(T)) of
-// them go as 16-byte loads and stores (the pointers are then 16-byte
-// aligned), the rest one by one.
+__device__ __forceinline__ float fast_exp2(float v) {
+  float r;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float gelu_exact(float x) {
+  const float z = -x * 0.70710678118654752f;  // gelu(x) = 0.5 x erfc(z)
+  const float a = fabsf(z);
+  const float t = fast_rcp(fmaf(0.5f, a, 1.f));
+  float p = 0.17087277f;
+  p = fmaf(p, t, -0.82215223f);
+  p = fmaf(p, t, 1.48851587f);
+  p = fmaf(p, t, -1.13520398f);
+  p = fmaf(p, t, 0.27886807f);
+  p = fmaf(p, t, -0.18628806f);
+  p = fmaf(p, t, 0.09678418f);
+  p = fmaf(p, t, 0.37409196f);
+  p = fmaf(p, t, 1.00002368f);
+  p = fmaf(p, t, -1.26551223f);
+  const float e = t * fast_exp2(fmaf(-a, a, p) * 1.44269504088896341f);
+  return 0.5f * x * (z < 0.f ? 2.f - e : e);
+}
+
+// n elements. With `vectors` > 0 (x and out 16-byte aligned) the first
+// vectors * (16 / sizeof(T)) go as 16-byte loads and stores, GELU_VECS of
+// them a thread, thread t of block b taking vectors 1024 b + t + 256 k (a
+// warp's loads cover 512 contiguous bytes); the rest go one by one.
 template <typename T>
 __global__ void __launch_bounds__(GELU_THREADS) gelu_kernel(
     const T* __restrict__ x, T* __restrict__ out, long long n,
     long long vectors) {
   constexpr int VEC = 16 / sizeof(T);
-  const long long stride = (long long)gridDim.x * GELU_THREADS;
-  const long long first = (long long)blockIdx.x * GELU_THREADS + threadIdx.x;
-  for (long long i = first; i < vectors; i += stride) {
-    uint4 raw = reinterpret_cast<const uint4*>(x)[i];
-    T* vals = reinterpret_cast<T*>(&raw);
+  const long long first =
+      (long long)blockIdx.x * GELU_THREADS * GELU_VECS + threadIdx.x;
+  uint4 raw[GELU_VECS];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) st(vals + j, gelu_exact(ld(vals + j)));
-    reinterpret_cast<uint4*>(out)[i] = raw;
+  for (int k = 0; k < GELU_VECS; ++k) {
+    const long long i = first + k * GELU_THREADS;
+    if (i < vectors) raw[k] = __ldcs(reinterpret_cast<const uint4*>(x) + i);
   }
-  for (long long i = vectors * VEC + first; i < n; i += stride)
+#pragma unroll
+  for (int k = 0; k < GELU_VECS; ++k) {
+    const long long i = first + k * GELU_THREADS;
+    if (i < vectors) {
+      T* vals = reinterpret_cast<T*>(&raw[k]);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) st(vals + j, gelu_exact(ld(vals + j)));
+      __stcs(reinterpret_cast<uint4*>(out) + i, raw[k]);
+    }
+  }
+  const long long stride = (long long)gridDim.x * GELU_THREADS;
+  for (long long i = vectors * VEC + (long long)blockIdx.x * GELU_THREADS +
+                     threadIdx.x;
+       i < n; i += stride)
     st(out + i, gelu_exact(ld(x + i)));
 }
 
@@ -360,15 +413,17 @@ int row_add_ln_bwd(const void* gy, const void* gxn, const void* xn,
 }
 
 // aligned: x and out are 16-byte aligned, so whole vectors go as 16 bytes.
+// One block a GELU_THREADS * GELU_VECS vectors (or, unaligned, elements).
 int row_gelu(const void* x, void* out, long long n, int aligned, int is_f32,
              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int vec = is_f32 ? 4 : 8;
   const long long vectors = aligned ? n / vec : 0;
   const long long work = vectors > 0 ? vectors : n;
-  long long blocks = (work + GELU_THREADS - 1) / GELU_THREADS;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride from here on
+  const long long per_block = (long long)GELU_THREADS * GELU_VECS;
+  long long blocks = (work + per_block - 1) / per_block;
   if (blocks < 1) blocks = 1;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (is_f32)
     gelu_kernel<float><<<(int)blocks, GELU_THREADS, 0, s>>>(
         (const float*)x, (float*)out, n, vectors);

@@ -19,7 +19,7 @@ takes both cotangents (either may be absent), writes dx_new = inv * (gs -
 mean(gs) - xhat * mean(gs * xhat)) + g_xnew rounded once and, with ls,
 ddelta = dx_new(fp32) * ls rounded once; without ls the one dx buffer is the
 gradient of both x and delta. dscale, dbias and dls are column sums over
-all rows: per-block fp32 partials and one finishing launch in block order
+all rows: per-block fp32 partials and one finishing launch in a fixed order
 (no atomics, so two runs give the same bits).
 
 Beside each kernel is its plain PyTorch version with the same arithmetic. A

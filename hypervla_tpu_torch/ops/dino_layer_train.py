@@ -52,7 +52,8 @@ from hypervla_tpu_torch.ops import layer_norm as ln
 # pv row indices (fp32 per-layer vectors, packed (11, H))
 (BQ, BK, BV, BO, B2, LN1_S, LN1_B, LN2_S, LN2_B, LS1, LS2) = range(11)
 
-#: rows per block of the column-sum passes (their partials are per block)
+#: rows per block of the LayerScale and GELU backward passes (their
+#: partials are per block)
 ROWS_PER_BLOCK = 128
 
 #: launches since the last reset: the composed layer calls, and each kernel
@@ -265,13 +266,53 @@ def colsum_reference(a):
     return a.float().sum(0)
 
 
+class ColsumConfig(NamedTuple):
+    """The column-sum kernel's grid: `strips` blocks of 256 columns across,
+    the rows cut into `parts` contiguous ranges (one fp32 partial each,
+    added by the finishing launch), `warps` warps a block taking a range's
+    rows in turn."""
+    strips: int
+    parts: int
+    warps: int
+
+
+#: the column-sum kernel's blocks: warps, blocks a multiprocessor the grid
+#: fills (one wave), rows a part keeps at least (two of each warp's
+#: four-row loads)
+COLSUM_WARPS, COLSUM_BLOCKS_PER_SM, COLSUM_MIN_ROWS = 8, 4, 64
+
+
+def colsum_config(rows: int, cols: int) -> ColsumConfig:
+    """The grid `colsum` launches for (rows, cols), from the shape alone:
+    as many parts as fill one wave of COLSUM_BLOCKS_PER_SM blocks a
+    multiprocessor, fewer where a part would keep under COLSUM_MIN_ROWS
+    rows. The order of every sum follows, so a shape's sums repeat bit for
+    bit."""
+    strips = -(-cols // 256)
+    parts = max(1, min(rows // COLSUM_MIN_ROWS,
+                       dl.SMS * COLSUM_BLOCKS_PER_SM // strips))
+    return ColsumConfig(strips, parts, COLSUM_WARPS)
+
+
 def colsum(a):
-    """fp32 column sums of a (rows, cols) bf16 matrix."""
+    """fp32 column sums of a (rows, cols) bf16 matrix. On the card the
+    width must be a multiple of 8 and the rows 16-byte aligned (the
+    kernel's 16-byte loads); the layer's dqkv is 3 x hidden wide."""
     if dl._route(a) == "cpu":
         return colsum_reference(a)
     _check_rows(a)
-    return _column_pass("layer_colsum", ln._lib().layer_colsum, *a.shape, 1,
-                        a.device, a.data_ptr())[0]
+    rows, cols = a.shape
+    dl._check(cols % 8 == 0 and a.data_ptr() % 16 == 0,
+              f"colsum takes widths that are multiples of 8 and 16-byte "
+              f"aligned rows, got width {cols}")
+    config = colsum_config(rows, cols)
+    part = torch.empty((config.parts, cols), dtype=torch.float32,
+                       device=a.device)
+    code = ln._lib().layer_colsum(a.data_ptr(), part.data_ptr(), rows, cols,
+                                  config.parts, config.warps, dl._stream())
+    dl._raise_on_error("layer_colsum", code)
+    LAUNCHES["layer_colsum"] += 1
+    return ln.finish_sums(part)
 
 
 def _attention_fwd_reference(q, k, v, heads, scale, store_p):

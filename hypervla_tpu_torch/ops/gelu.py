@@ -3,8 +3,11 @@
 The Pallas TPU kernel `_gelu_kernel` becomes csrc/row_kernels.cu's
 `row_gelu`: read the pre-activation, evaluate 0.5 * x * erfc(-x / sqrt 2)
 in fp32, round once, write in the input's type. The TPU kernel evaluates erf
-by a rational polynomial because its compiler lowers no erf; CUDA has
-erfcf, so the port computes the expression the polynomial approximates.
+by a rational polynomial because its compiler lowers no erf; that form
+cancels in 1 + erf(t) for negative t, so the CUDA kernel evaluates erfc
+itself by a Chebyshev fit on the fast reciprocal and exp2 (see the note in
+the source), within one bf16 ulp of the plain version's torch.erfc at every
+finite bf16 input.
 
 Beside the kernel is its plain PyTorch version. The wrapper takes it only
 for a tensor on the CPU; for a CUDA tensor it launches the kernel or

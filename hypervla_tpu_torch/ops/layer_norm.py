@@ -9,7 +9,7 @@ csrc/dino_layer.cu in the input's type (fp32 fast-variance statistics on the
 uncast input, one rounding to x.dtype); the backward is
 csrc/layer_backward.cu's `layer_norm_bwd`, which recomputes the statistics
 from x, writes dx in x.dtype and leaves per-block column sums of g*xhat and
-g that a finishing launch adds in block order (dscale, dbias in fp32; no
+g that a finishing launch adds in a fixed order (dscale, dbias in fp32; no
 atomics, so results repeat bit for bit). Both hold a row in the registers of
 one warp where the width allows it (`dl.row_chunks`); other widths take the
 block-per-row forward and the block-walk backward. The same backward kernel, with an
@@ -74,8 +74,8 @@ def _lib():
                                    p]
     lib.layer_scale_grad.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.layer_gelu_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.layer_colsum.argtypes = [p, p, i, i, i, p]
-    lib.layer_finish_sums.argtypes = [p, p, i, i, i, p]
+    lib.layer_colsum.argtypes = [p, p, i, i, i, i, p]
+    lib.layer_finish_sums.argtypes = [p, p, i, i, p]
     lib.layer_finish_split.argtypes = []
     for fn in (lib.layer_gemm_tn, lib.layer_norm_bwd_max_width,
                lib.layer_norm_bwd, lib.layer_scale_grad, lib.layer_gelu_bwd,
@@ -107,20 +107,14 @@ def row_lib():
     return lib
 
 
-#: warps that share a column's parts in the split finishing launch
-FINISH_SPLIT = 8
-
-
-def finish_sums(part, split: bool = False):
-    """Adds per-block partial sums (blocks, ...) fp32 over the blocks (the
-    finishing launch of every column sum): in block order, a thread a
-    column; or, with `split` (the LayerNorm backward, whose parts are many),
-    FINISH_SPLIT warps a column that add parts w, w + FINISH_SPLIT, ... in
-    order and then their sums in warp order."""
+def finish_sums(part):
+    """Adds per-block partial sums (blocks, ...) fp32 over the blocks: the
+    finishing launch of every column sum. Warp w of the
+    `_lib().layer_finish_split()` warps a column adds parts w, w + that
+    width, ... in order, and the warps' sums are added in warp order."""
     out = torch.empty(part.shape[1:], dtype=torch.float32, device=part.device)
     code = _lib().layer_finish_sums(part.data_ptr(), out.data_ptr(),
-                                    part.shape[0], out.numel(), int(split),
-                                    _stream())
+                                    part.shape[0], out.numel(), _stream())
     _raise_on_error("layer_finish_sums", code)
     return out
 
@@ -151,7 +145,7 @@ def layer_norm_bwd_rows_reference(x, g, scale, eps: float, residual=None):
 def layer_norm_bwd_plan(rows: int, d: int, *tensors) -> dl.RowPlan:
     """The launch `layer_norm_bwd_rows` makes for (rows, d), from the shape
     (and the tensors' alignment) alone; `blocks` is also the number of
-    partial column sums the finishing launch adds, in block order."""
+    partial column sums the finishing launch adds."""
     chunks = dl.row_chunks(d, *tensors)
     if chunks == 0:
         return dl.RowPlan(0, -(-rows // ROWS_PER_BLOCK), 8)
@@ -195,7 +189,7 @@ def layer_norm_bwd_rows(x, g, scale, eps: float, residual=None):
         plan.chunks, plan.blocks, plan.warps, _stream())
     _raise_on_error("layer_norm_bwd", code)
     LAUNCHES["layer_norm_bwd_rows"] += 1
-    sums = finish_sums(part, split=True)
+    sums = finish_sums(part)
     return dx, sums[0], sums[1]
 
 

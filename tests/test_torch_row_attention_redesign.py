@@ -13,6 +13,7 @@ import torch
 
 from hypervla_tpu_torch.ops import dino_layer as dl
 from hypervla_tpu_torch.ops import layer_norm as tln
+from test_torch_column_gelu_redesign import emulated_finish
 
 # ------------------ which rows take the warp-per-row kernels ------------------
 
@@ -92,12 +93,11 @@ def _bwd_inputs(rows, d, seed, shift=0.0):
     return x, g, scale
 
 
-def _emulated_column_sums(x, g, eps, plan, split=tln.FINISH_SPLIT):
+def _emulated_column_sums(x, g, eps, plan):
     """dscale, dbias as csrc/layer_backward.cu adds them, in fp32: warp w of
     the grid adds g * xhat and g of rows w, w + (warps of the grid), ... in
     that order; a block adds its warps' sums in warp order and leaves one
-    partial; the finishing launch gives warp v of `split` the partials v,
-    v + split, ... and adds the warps' sums in warp order."""
+    partial; the finishing launch adds the partials in its fixed order."""
     f = np.float32
     rows, d = x.shape
     mu = x.sum(-1, dtype=f, keepdims=True) / f(d)
@@ -113,15 +113,7 @@ def _emulated_column_sums(x, g, eps, plan, split=tln.FINISH_SPLIT):
             for r in range(block * plan.warps + warp, rows, total):
                 mine += terms[r]
             part[block] = mine if warp == 0 else part[block] + mine
-    shares = []
-    for v in range(split):
-        share = np.zeros((2, d), f)
-        for p in range(v, plan.blocks, split):
-            share += part[p]
-        shares.append(share)
-    out = shares[0]
-    for share in shares[1:]:
-        out = out + share
+    out = emulated_finish(part)
     return out[0], out[1]
 
 

@@ -21,6 +21,7 @@ from hypervla_tpu_torch.ops import add_layer_norm as aln
 from hypervla_tpu_torch.ops import flash_attention as fa
 from hypervla_tpu_torch.ops import gelu as tg
 from hypervla_tpu_torch.ops import layer_norm as tln
+from test_torch_column_gelu_redesign import bf16_ulps
 
 pytestmark = pytest.mark.cuda
 
@@ -175,11 +176,26 @@ def test_gelu_kernel(device, dtype, shape):
     assert tg.LAUNCHES["gelu_exact_fused"] == 1
     assert got.dtype == x.dtype and got.shape == x.shape
     _close(got, tg.gelu_exact_reference(x), x.dtype)
+    assert torch.equal(got, tg.gelu_exact_fused(x))
     # a view that starts off a 16-byte boundary takes the scalar path
     if x.numel() > 1:
         flat = x.flatten()[1:]
         _close(tg.gelu_exact_fused(flat), tg.gelu_exact_reference(flat),
                x.dtype)
+
+
+def test_gelu_kernel_every_bf16_input(device):
+    """Every finite bf16 input: within one bf16 ulp of the plain version's
+    value (subnormal outputs included), twice bit for bit."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    x = x[torch.isfinite(x.float())].to(device)
+    got = tg.gelu_exact_fused(x)
+    torch.cuda.synchronize()
+    ref = tg.gelu_exact_reference(x)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert float(bf16_ulps(got.float().cpu(), ref.float().cpu()).max()) <= 1
+    assert torch.equal(got, tg.gelu_exact_fused(x))
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -21,6 +21,11 @@ from hypervla_tpu_torch.ops import dino_layer as dl
 from hypervla_tpu_torch.ops import dino_layer_train as dlt
 from hypervla_tpu_torch.ops import fused_attention as fa
 from hypervla_tpu_torch.ops import layer_norm as tln
+from test_torch_column_gelu_redesign import (
+    emulated_colsum,
+    emulated_finish,
+    finish_warps,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -302,7 +307,8 @@ def test_gemm_second_output(device, epilogue):
         assert err <= 2 ** -7 * max(scale, 1.0), (err, scale)
 
 
-@pytest.mark.parametrize("rows,cols", [(68, 128), (1028, 768), (300, 3072)])
+@pytest.mark.parametrize("rows,cols", [(68, 128), (1028, 768), (300, 3072),
+                                       (16448, 2304), (16485, 2304)])
 def test_column_sum_passes(device, rows, cols):
     g, y, dh = (_randn((rows, cols), device, 1.0, seed) for seed in range(3))
     ls = _randn((cols,), device, 0.5, 3).float()
@@ -403,17 +409,48 @@ def test_layer_norm_backward_kernel_shifted_input_and_halves(device, mode,
 
 @pytest.mark.parametrize("parts", [1, 7, 8, 9, 264, 528])
 def test_finishing_launches_agree(device, parts):
-    """The split finishing launch (eight warps a column, then their sums in
-    warp order) against the in-order one and against fp64."""
+    """The finishing launch of every column sum (eight warps a column, then
+    their sums in warp order) against fp64, twice bit for bit, and bit for
+    bit the order the CPU tests emulate."""
     part = _randn((parts, 2, 768), device, 1.0, parts).float()
-    split, plain = tln.finish_sums(part, split=True), tln.finish_sums(part)
+    got = tln.finish_sums(part)
     torch.cuda.synchronize()
     exact = part.double().sum(0)
-    for got in (split, plain):
-        assert got.shape == (2, 768)
-        assert float((got.double() - exact).abs().max()) <= 1e-6 * parts * 4
-    assert torch.equal(split, tln.finish_sums(part, split=True))
-    assert tln._lib().layer_finish_split() == tln.FINISH_SPLIT
+    assert got.shape == (2, 768)
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * parts * 4
+    assert torch.equal(got, tln.finish_sums(part))
+    assert tln._lib().layer_finish_split() == finish_warps()
+    assert np.array_equal(got.cpu().numpy(),
+                          emulated_finish(part.cpu().numpy()))
+
+
+@pytest.mark.parametrize("rows,cols", [(16448, 2304), (16485, 2304),
+                                       (99, 2304), (68, 128), (1028, 768),
+                                       (300, 3072), (1, 8)])
+def test_colsum_kernel_order_and_fp64(device, rows, cols):
+    """The column sum against fp64 and, bit for bit, the order of sums
+    colsum_config gives the shape (lanes, warps in order, blocks, the
+    finishing launch), as the CPU tests emulate it."""
+    a = _randn((rows, cols), device, 0.1, rows)
+    dlt.reset_launch_counts()
+    got = dlt.colsum(a)
+    torch.cuda.synchronize()
+    assert dlt.LAUNCHES["layer_colsum"] == 1
+    exact = a.double().sum(0)
+    assert float((got.double() - exact).abs().max()) <= 1e-4 * max(
+        float(exact.abs().max()), 1.0)
+    assert np.array_equal(got.cpu().numpy(), emulated_colsum(
+        a.float().cpu().numpy(), dlt.colsum_config(rows, cols)))
+
+
+def test_colsum_refuses_widths_off_its_loads(device):
+    """Its 16-byte loads take widths that are multiples of 8 and aligned
+    rows; nothing else is sent to another kernel."""
+    for a in (torch.zeros((4, 100), dtype=torch.bfloat16, device=device),
+              torch.zeros(4 * 768 + 1, dtype=torch.bfloat16,
+                          device=device)[1:].view(4, 768)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            dlt.colsum(a)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
