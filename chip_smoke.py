@@ -34,9 +34,12 @@
    twice bit for bit, its error against the exact function in fp64 beside
    that of the fp32-FMA kernel it replaced), the
    residual add + LayerNorm pair with and without LayerScale, forward and
-   backward with both cotangents (the backward twice, bit-equal), and the
-   fused exact GELU at the training shapes, each against its plain version,
-   timed with its bound and the one PyTorch call for the same function.
+   backward with both cotangents (each twice, bit-equal; also at ragged row
+   counts and four chunks a lane, and at the widths and on the unaligned
+   rows that keep the first kernels, in bf16 and fp32, timed beside them),
+   and the fused exact GELU at the training shapes, each against its plain
+   version, timed with its bound and the one PyTorch call for the same
+   function.
    The add + LayerNorm without LayerScale lies on no model path: its
    differentiable function is driven once, counted, forward and backward.
    Training kernel phase, at B=64, S=257, H=12, D=64, width 768, each
@@ -46,7 +49,11 @@
    (dx, the weight gradients, dpv, db1), which must also repeat bit for bit
    and equal the sum over two half batches; the training LayerNorm forward
    and backward; and each kernel of csrc/layer_backward.cu and each GEMM
-   shape of the layer alone.
+   shape of the layer alone (the GELU backward's h also against kernel 9's
+   and the plain version's, at the layer's input and at every finite bf16
+   input). The column pass phase traces each column-sum pass, kernels 7
+   and 8 and the GELU apart from their finishing launches, beside the first
+   versions' device times.
 5. Train phase: the full-width flagship at batch 64 through the entry
    points of scripts/bench_train.py (build_frozen_encoders,
    make_train_step), the frozen T5 and DINOv2 drawn from seeds, the LR at
@@ -70,9 +77,10 @@ backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
 `wgmma` kernel), the layer backward's A^T.B weight gradients (`wgmma` on
 MN-major operands, the rows split over blocks and finished in order), the
 flash attention, the serving trunk's attention (bf16 tensor cores, four key
-warps a row warp), the LayerNorm forward and backward (a warp per row),
-the column sum (16-byte loads, a block a 256-column strip of a row range)
-and the GELU (64 bytes in flight a thread, erfc by a Chebyshev fit), are
+warps a row warp), the LayerNorm forward and backward and the residual add
++ LayerNorm (a warp per row), the column sum and the GELU backward (16-byte
+loads, a block a 256-column strip of a row range) and the GELU (64 bytes in
+flight a thread, erfc by a Chebyshev fit), are
 also run twice and compared bit for bit, at every
 GEMM shape of the serving trunk and of the training layer (every epilogue,
 both layouts of the weight); at M = 16448 the rows of the ragged last row
@@ -179,11 +187,17 @@ LAYER_BOUND = 2 ** -6
 TRAIN_BATCH = 64
 # calls of a kernel traced for its device time
 PROFILED_CALLS = 10
-# device ms of the first versions of the last kernels redesigned (their
-# proof run, NVIDIA H100 80GB HBM3, 700 W), logged beside the new ones: the
-# first versions are gone
+# device ms of the first versions of the kernels redesigned since (each
+# with its finishing launch; their last full runs, NVIDIA H100 80GB HBM3,
+# 700 W), logged beside the new ones: the first versions are gone, or kept
+# only for the widths the new kernels do not take
 FIRST_VERSION_DEVICE_MS = {"layer_colsum (16448, 2304)": 0.0455,
-                           "gelu_exact_fused (64, 257, 3072) bf16": 0.0962}
+                           "gelu_exact_fused (64, 257, 3072) bf16": 0.0962,
+                           "layer_gelu_bwd (16448, 3072)": 0.2135,
+                           "fused_add_scale_ln_fwd (16448, 768)": 0.0546,
+                           "fused_add_scale_ln_bwd (16448, 768)": 0.2176,
+                           "fused_add_ln_fwd (16448, 768)": 0.0495,
+                           "fused_add_ln_bwd (16448, 768)": 0.1868}
 TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 # the layer backward: cosine per output against the plain version (the JAX
 # package holds its kernel to 0.99 per leaf, tests/test_dino_layer_train.py)
@@ -717,6 +731,7 @@ def row_flash_kernel_phase(device):
     import torch.nn.functional as F
 
     from hypervla_tpu_torch.ops import add_layer_norm as aln
+    from hypervla_tpu_torch.ops import dino_layer as dl
     from hypervla_tpu_torch.ops import flash_attention as fa
     from hypervla_tpu_torch.ops import gelu as tg
     from hypervla_tpu_torch.ops import layer_norm as tln
@@ -872,7 +887,12 @@ def row_flash_kernel_phase(device):
             raise AssertionError(f"{name}: x_new differs from the plain "
                                  "version's roundings")
         err = check(f"{name}_fwd", "y (16448, 768) bf16", y, ref_y)
-        log(f"kernel {name}_fwd x_new: bit-equal to the plain version")
+        again = aln.add_ln_fwd(x, delta, vec, scale, bias, 1e-6)
+        if not (torch.equal(xn, again[0]) and torch.equal(y, again[1])):
+            raise AssertionError(f"{name}_fwd: two runs differ")
+        log(f"kernel {name}_fwd x_new: bit-equal to the plain version; two "
+            f"runs bit-equal; grid {tuple(dl.layer_norm_plan(rows, hidden))}")
+        del again
         extra = () if vec is None else (vec,)
         table.add(f"{name}_fwd", "", err,
                   lambda: aln.add_ln_fwd(x, delta, vec, scale, bias, 1e-6),
@@ -894,7 +914,8 @@ def row_flash_kernel_phase(device):
             if not torch.equal(a, b):
                 raise AssertionError(f"{name}_bwd {out}: two runs differ")
             errs.append(check(f"{name}_bwd", out, a, c, bound))
-        log(f"kernel {name}_bwd: two runs bit-equal")
+        log(f"kernel {name}_bwd: two runs bit-equal; grid "
+            f"{tuple(tln.layer_norm_bwd_plan(rows, hidden))}")
         if vec is None and got[0] is not got[1]:
             raise AssertionError("fused_add_ln: dx and ddelta are two buffers")
         moved = ((gy, gxn, xn, got[0], scale, scale, scale) if vec is None
@@ -907,6 +928,85 @@ def row_flash_kernel_phase(device):
                                                    scale, 1e-6), 50,
                   (nbytes(*moved), 24 * x.numel(), PEAK_FP32))
         del got, again, ref, xn, y, ref_xn, ref_y
+
+    # the warp-per-row kernels at ragged row counts and four chunks a lane;
+    # the first kernels at the widths the warp-per-row kernels do not take
+    # (no multiple of 8, wider than 1024) and on a row off a 16-byte
+    # boundary: each type and both kernels against the plain version, twice
+    # bit for bit
+    def unaligned(a):
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=device)[1:]
+        return flat.view(a.shape).copy_(a)
+
+    worst = 0.0
+    for n, d, odd in ((16485, 768, False), (1001, 1024, False),
+                      (300, 96, False), (68, 100, False), (65, 2048, False),
+                      (257, 768, True)):
+        vecs = [t((d,), torch.float32, 0.1, s) for s in (0.1, 1.0, 0.0)]
+        for dtype in (torch.bfloat16, torch.float32):
+            xs, ds, gys, gxs = (t((n, d), dtype, s) for s in (2.0, 1, 1, 1))
+            if odd:
+                xs, gys = unaligned(xs), unaligned(gys)
+            label = (f"({n}, {d}) {str(dtype)[6:]}"
+                     + (", x and g_y off a 16-byte boundary" if odd else ""))
+            want = 0 if d % 8 or d > 1024 or odd else 3 if d <= 768 else 4
+            if (dl.layer_norm_plan(n, d, xs, ds).chunks != want
+                    or tln.layer_norm_bwd_plan(n, d, gys, ds).chunks != want):
+                raise AssertionError(f"add_ln {label}: not the {want}-chunk "
+                                     "kernel")
+            bound = ULP_BOUND if dtype == torch.bfloat16 else 1e-5
+            for name, ls_ in (("fused_add_ln", None),
+                              ("fused_add_scale_ln", vecs[0])):
+                fwd = aln.add_ln_fwd(xs, ds, ls_, *vecs[1:], 1e-6)
+                bwd = aln.add_ln_bwd(gys, gxs, fwd[0], ds, ls_, vecs[1], 1e-6)
+                torch.cuda.synchronize()
+                ref_f = aln.add_ln_fwd_reference(xs, ds, ls_, *vecs[1:], 1e-6)
+                ref_b = aln.add_ln_bwd_reference(gys, gxs, ref_f[0], ds, ls_,
+                                                 vecs[1], 1e-6)
+                if not torch.equal(fwd[0], ref_f[0]):
+                    raise AssertionError(f"{name} {label}: x_new differs")
+                for out, a, b, bnd in zip(
+                        ("y", "dx", "ddelta", "dls", "dscale", "dbias"),
+                        fwd[1:] + bwd, ref_f[1:] + ref_b,
+                        (bound, bound, bound, 1e-4, 1e-4, 1e-4)):
+                    if b is not None:
+                        err, sc_ = max_err(a, b)
+                        if not err <= bnd * max(sc_, 1.0):
+                            raise AssertionError(f"{name} {label} {out}: "
+                                                 f"{err}")
+                        worst = max(worst, err / (bnd * max(sc_, 1.0)))
+                again = (aln.add_ln_fwd(xs, ds, ls_, *vecs[1:], 1e-6)
+                         + aln.add_ln_bwd(gys, gxs, fwd[0], ds, ls_, vecs[1],
+                                          1e-6))
+                if not all(a is b is None or torch.equal(a, b)
+                           for a, b in zip(fwd + bwd, again)):
+                    raise AssertionError(f"{name} {label}: two runs differ")
+            del xs, ds, gys, gxs, fwd, bwd, ref_f, ref_b, again
+    log("kernel fused_add_ln / fused_add_scale_ln at (16485, 768), (1001, "
+        "1024) and (300, 96) (a warp per row) and at (68, 100), (65, 2048) "
+        "and on unaligned rows (the first kernels), bf16 and fp32, "
+        "forward and backward: within the bounds (worst "
+        f"{worst:.3f} of them), x_new the plain version's bits, two runs "
+        "bit-equal")
+    # beside the first kernels, at the training shape: an x (x_new) off a
+    # 16-byte boundary takes them
+    x_odd = unaligned(x)
+    line = {}
+    for name, vec in (("fused_add_scale_ln", ls), ("fused_add_ln", None)):
+        for label, fn in (
+                ("fwd", lambda xx: aln.add_ln_fwd(xx, delta, vec, scale, bias,
+                                                  1e-6)),
+                ("bwd", lambda xx: aln.add_ln_bwd(gy, gxn, xx, delta, vec,
+                                                  scale, 1e-6))):
+            line[f"{name}_{label}"] = (
+                confirmed_device_ms(lambda: fn(x), PROFILED_CALLS),
+                confirmed_device_ms(lambda: fn(x_odd), PROFILED_CALLS))
+    log("kernel fused_add_(scale_)ln (16448, 768) bf16 device_ms, a warp per "
+        "row (the first kernels, on an unaligned x; the backward's with its "
+        "finishing launch): " + ", ".join(
+            f"{label} {new:.6g} ({was:.6g})"
+            for label, (new, was) in line.items()))
+    del x_odd
 
     # fused_add_ln (no LayerScale) lies on no model path of either package:
     # its path is the differentiable function itself, driven once here with
@@ -1155,6 +1255,7 @@ def train_kernel_phase(device):
     from hypervla_tpu_torch.ops import dino_layer as dl
     from hypervla_tpu_torch.ops import dino_layer_train as dlt
     from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.ops import gelu as tg
     from hypervla_tpu_torch.ops import layer_norm as tln
 
     batch, seq, heads, hidden = TRAIN_BATCH, 257, 12, 768
@@ -1526,6 +1627,45 @@ def train_kernel_phase(device):
     pass_case("layer_gelu_bwd", "(16448, 3072)", dlt.gelu_bwd,
               dlt.gelu_bwd_reference, (hc, dbig),
               (ULP_BOUND, ULP_BOUND, 2 ** -9), 30)
+    # the GELU pass computes h with kernel 9's erfc fit, so its h is the
+    # fused GELU's (counted); the plain version (and the layer forward's
+    # epilogue) take erf, whose 1 + erf(x / sqrt 2) cancels for x below ~-4:
+    # there the two differ by more than an ulp of the tiny value, within
+    # 1e-6. Counted at the layer's hc and at every finite bf16 input (dh =
+    # 1, so dhc = bf16(gelu'(x)))
+    every = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                         device=device).to(torch.int16).view(torch.bfloat16)
+    every = every[torch.isfinite(every.float())].view(-1, 8)
+    for label, a, b in (("(16448, 3072)", hc, dbig),
+                        (f"every finite bf16 input {tuple(every.shape)}",
+                         every, torch.ones_like(every))):
+        h, dhc, _ = dlt.gelu_bwd(a, b)
+        ref_h, ref_dhc, _ = dlt.gelu_bwd_reference(a, b)
+        torch.cuda.synchronize()
+        fused = tg.gelu_exact_fused(a)
+        if not float(bf16_ulps(h, fused).max()) <= 1.0:
+            raise AssertionError(f"layer_gelu_bwd {label}: h beyond one ulp "
+                                 "of the fused GELU's")
+        outs = (("h", h, ref_h),) + ((("dhc", dhc, ref_dhc),)
+                                     if a is every else ())
+        counts = []
+        for out, got, ref in outs:
+            over = bf16_ulps(got, ref) > 1
+            far = float((got.float() - ref.float()).abs()[over].max()) \
+                if bool(over.any()) else 0.0
+            x_over = a.float()[over]
+            counts.append(
+                f"{out} {int(over.sum())} beyond one ulp (x in "
+                + (f"[{float(x_over.min()):g}, {float(x_over.max()):g}]"
+                   if x_over.numel() else "none")
+                + f", within {far:.3g}), {int((got != ref).sum())} differ")
+            if not far <= 1e-6:
+                raise AssertionError(f"layer_gelu_bwd {label} {out}: {far} "
+                                     "beyond one ulp and 1e-6")
+        log(f"kernel layer_gelu_bwd {label}: h differs from "
+            f"gelu_exact_fused's at {int((h != fused).sum())}; against the "
+            "plain (erf) version: " + "; ".join(counts) + f" of {a.numel()}")
+    del every, h, dhc, ref_h, ref_dhc, fused
     pass_case("layer_colsum", "(16448, 2304)", dlt.colsum,
               dlt.colsum_reference, (dqkv,), (1e-4,), 1,
               lambda: dqkv.sum(0, dtype=torch.float32))
@@ -1558,9 +1698,10 @@ def column_pass_phase(device):
     """Each device kernel of the column-sum passes apart (a pass and its
     finishing launch) at the training shapes, beside the one PyTorch call
     for the same function where there is one and the bound: the column sum
-    of dqkv, the LayerScale and GELU backward passes, kernel 8's backward,
-    and kernel 9's GELU (one launch). It calls the wrappers by their public
-    signatures only, so the same phase reads an earlier tree's kernels."""
+    of dqkv, the LayerScale and GELU backward passes, kernels 7 and 8
+    forward and backward, and kernel 9's GELU (one launch). It calls the
+    wrappers by their public signatures only, so the same phase reads an
+    earlier tree's kernels."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1580,6 +1721,7 @@ def column_pass_phase(device):
     g, y, xn, delta = (t((rows, hidden)) for _ in range(4))
     ls = t((hidden,), torch.float32, 0.02, 0.1)
     scale = t((hidden,), torch.float32, 0.1, 1.0)
+    bias = t((hidden,), torch.float32, 0.1)
     hc = t((rows, 4 * hidden), scale=1.5)
     dh = t((rows, 4 * hidden), scale=0.1)
     dqkv = t((rows, 3 * hidden), scale=0.1)
@@ -1597,9 +1739,18 @@ def column_pass_phase(device):
         "layer_gelu_bwd (16448, 3072)": (
             lambda: dlt.gelu_bwd(hc, dh), None,
             nbytes(hc, dh, hc, hc) + 4 * 4 * hidden),
+        "fused_add_scale_ln_fwd (16448, 768)": (
+            lambda: aln.add_ln_fwd(xn, delta, ls, scale, bias, 1e-6), None,
+            nbytes(xn, delta, xn, xn) + 4 * 3 * hidden),
         "fused_add_scale_ln_bwd (16448, 768)": (
             lambda: aln.add_ln_bwd(g, y, xn, delta, ls, scale, 1e-6), None,
             nbytes(g, y, xn, delta, g, g) + 4 * 5 * hidden),
+        "fused_add_ln_fwd (16448, 768)": (
+            lambda: aln.add_ln_fwd(xn, delta, None, scale, bias, 1e-6), None,
+            nbytes(xn, delta, xn, xn) + 4 * 2 * hidden),
+        "fused_add_ln_bwd (16448, 768)": (
+            lambda: aln.add_ln_bwd(g, y, xn, None, None, scale, 1e-6), None,
+            nbytes(g, y, xn, g) + 4 * 3 * hidden),
         "gelu_exact_fused (64, 257, 3072) bf16": (
             lambda: tg.gelu_exact_fused(h), lambda: F.gelu(h),
             nbytes(h, h)),

@@ -24,7 +24,8 @@
 //   layer_scale_grad   dy = g * bf16(ls) with the column sums of
 //                      f32(g)*f32(y) (d layer scale) and f32(dy) (d bias)
 //   layer_gelu_bwd     h = bf16(gelu(hc)) recomputed, dhc = bf16(gelu'(hc))
-//                      * dh in bf16, the column sums of f32(dhc) (d fc1 bias)
+//                      * dh in bf16, the column sums of f32(dhc) (d fc1
+//                      bias), on the column sum's 16-byte rows
 //   layer_colsum       column sums of a bf16 matrix (dq, dk, dv -> biases)
 //   layer_finish_sums  sums the per-block partials of every column sum:
 //                      eight warps a column, then their sums in warp order
@@ -46,6 +47,7 @@
 // given stream and returns cudaGetLastError().
 
 #include "wgmma_tma.cuh"
+#include "gelu_fit.cuh"
 #include "row_vec.cuh"
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
@@ -455,7 +457,7 @@ __global__ void __launch_bounds__(LN_THREADS) layer_norm_bwd_kernel(
   }
 }
 
-// ------------------- elementwise passes with column sums -------------------
+// ---------------- the LayerScale pass with its column sums ----------------
 // grid (ceil(cols / 256), ceil(rows / rpb)): thread t of block (bx, by) owns
 // column bx * 256 + t over rows [by * rpb, +rpb), so a warp reads 32
 // neighbouring columns of one row. Partials go to part[by][sum][cols].
@@ -485,34 +487,11 @@ __global__ void __launch_bounds__(CP_THREADS) scale_grad_kernel(
   p[cols + c] = s_b;
 }
 
-// h = bf16(gelu(hc)), dhc = bf16(bf16(gelu'(hc)) * dh); sum: f32(dhc).
-// gelu(x) = x * cdf, gelu'(x) = cdf + x * pdf, cdf = 0.5 (1 + erf(x / sqrt 2))
-__global__ void __launch_bounds__(CP_THREADS) gelu_bwd_kernel(
-    const bf16* __restrict__ hc, const bf16* __restrict__ dh,
-    bf16* __restrict__ h, bf16* __restrict__ dhc, float* __restrict__ part,
-    int rows, int cols, int rpb) {
-  const int c = blockIdx.x * CP_THREADS + threadIdx.x;
-  if (c >= cols) return;
-  const int row1 = min(rows, (int)(blockIdx.y + 1) * rpb);
-  float s = 0.f;
-  for (int r = blockIdx.y * rpb; r < row1; ++r) {
-    const size_t o = (size_t)r * cols + c;
-    const float x = bf(hc[o]);
-    const float cdf = 0.5f * (1.f + erff(x * 0.70710678118654752f));
-    const float pdf = expf(-0.5f * x * x) * 0.3989422804014327f;
-    const float d = rbf(rbf(cdf + x * pdf) * bf(dh[o]));
-    h[o] = tobf(x * cdf);
-    dhc[o] = tobf(d);
-    s += d;
-  }
-  part[(size_t)blockIdx.y * cols + c] = s;
-}
-
-// -------------------------------- column sums --------------------------------
-// part[p][c] = the fp32 sum of a[r][c] over the rows of part p, [p rows /
-// parts, (p + 1) rows / parts): the TPU kernel's dbq / dbk / dbv (f32 sums
-// of dq, dk, dv over the rows inside `_bwd_kernel`) over the port's fused
-// dqkv.
+// ------------------ column sums along 16-byte rows ------------------
+// colsum_kernel: part[p][c] = the fp32 sum of a[r][c] over the rows of part
+// p, [p rows / parts, (p + 1) rows / parts): the TPU kernel's dbq / dbk / dbv
+// (f32 sums of dq, dk, dv over the rows inside `_bwd_kernel`) over the port's
+// fused dqkv.
 //
 // What bounds it: bytes (each value read once, one fp32 add). A thread a
 // column with 2-byte loads moves 64 bytes a warp-wide load; here grid
@@ -522,18 +501,38 @@ __global__ void __launch_bounds__(CP_THREADS) gelu_bwd_kernel(
 // of the block's `warps` takes rows r0 + w, r0 + w + warps, ... of the part
 // in that order, COLSUM_ROWS of them loaded before any is added, into 8 fp32
 // running sums a lane; the block adds its warps' sums in warp order through
-// shared memory and writes one partial, and finish_sums_split_kernel adds
-// the partials. The grid, and with it the order of every sum, comes from the
-// shape alone (ops/dino_layer_train.py::colsum_config). cols % 8 == 0 and a
-// 16-byte aligned are checked by the wrapper.
+// shared memory and writes one partial (block_column_partial), and
+// finish_sums_split_kernel adds the partials. The grid, and with it the
+// order of every sum, comes from the shape alone (ops/dino_layer_train.py::
+// colsum_config). cols % 8 == 0 and a 16-byte aligned are checked by the
+// wrapper.
 
 constexpr int COLSUM_MAX_WARPS = 8;
 constexpr int COLSUM_ROWS = 4;
 
+// The block's warps' sums of its 256 columns added in warp order, written
+// as part p's row.
+__device__ __forceinline__ void block_column_partial(
+    const float (&sum)[8], float* __restrict__ part, int p, int cols) {
+  __shared__ float4 red[COLSUM_MAX_WARPS][64];  // a warp's 256 column sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  red[warp][2 * lane] = make_float4(sum[0], sum[1], sum[2], sum[3]);
+  red[warp][2 * lane + 1] = make_float4(sum[4], sum[5], sum[6], sum[7]);
+  __syncthreads();
+  const float* sums = reinterpret_cast<const float*>(red);
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
+    const int col = blockIdx.x * 256 + c;
+    if (col >= cols) break;
+    float s = sums[c];
+    for (int w = 1; w < warps; ++w) s += sums[w * 256 + c];
+    part[(size_t)p * cols + col] = s;
+  }
+}
+
 __global__ void __launch_bounds__(32 * COLSUM_MAX_WARPS) colsum_kernel(
     const bf16* __restrict__ a, float* __restrict__ part, int rows,
     int cols) {
-  __shared__ float4 red[COLSUM_MAX_WARPS][64];  // a warp's 256 column sums
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int p = blockIdx.y, parts = gridDim.y;
@@ -560,17 +559,78 @@ __global__ void __launch_bounds__(32 * COLSUM_MAX_WARPS) colsum_kernel(
       }
     }
   }
-  red[warp][2 * lane] = make_float4(sum[0], sum[1], sum[2], sum[3]);
-  red[warp][2 * lane + 1] = make_float4(sum[4], sum[5], sum[6], sum[7]);
-  __syncthreads();
-  const float* sums = reinterpret_cast<const float*>(red);
-  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
-    const int col = blockIdx.x * 256 + c;
-    if (col >= cols) break;
-    float s = sums[c];
-    for (int w = 1; w < warps; ++w) s += sums[w * 256 + c];
-    part[(size_t)p * cols + col] = s;
+  block_column_partial(sum, part, p, cols);
+}
+
+// gelu_bwd_kernel: the GELU backward of the layer, h = bf16(gelu(hc))
+// recomputed, dhc = bf16(bf16(gelu'(hc)) * dh), and part[p][c] = the fp32
+// sum of dhc (d fc1 bias) over part p's rows. gelu(x) = x cdf(x), gelu'(x) =
+// cdf(x) + x pdf(x): cdf = 0.5 erfc(-x / sqrt 2) by gelu_fit.cuh's Chebyshev
+// fit (so h is kernel 9's forward value), pdf by one more `ex2.approx`.
+// Below x ~ -4.4 the plain version's 1 + erf(x / sqrt 2) cancels where the
+// fit does not: there the two differ by more than a bf16 ulp of the (tiny)
+// value, by less than 1e-6 absolute. (Near the zero of gelu', x ~ -0.75,
+// cdf and x pdf cancel in both; no bf16 input there lands beyond one ulp.)
+//
+// What bounds it: bytes (hc, dh read, h, dhc written: 8 bytes an element,
+// 404 MB at the training shape, 0.121 ms); in this layout the arithmetic
+// stays under the memory time with `erff` and `expf` too (the two forms are
+// timed side by side by tools/gelu_colsum_sweep.py).
+// The layout and the order of the sums are colsum_kernel's, grid (strips,
+// parts) from colsum_config: a lane owns 8 neighbouring columns, one 16-byte
+// load of hc and of dh a row, GELU_BWD_ROWS rows of both in flight (64 bytes
+// a thread, as the column sum's four rows of one input); h and dhc go out as
+// 16-byte streaming stores (`__stcs`). At most 64 registers a thread, so four
+// blocks of eight warps stay resident on a multiprocessor and the grid is
+// one wave.
+
+constexpr int GELU_BWD_ROWS = 2;
+
+__global__ void __launch_bounds__(32 * COLSUM_MAX_WARPS, 4) gelu_bwd_kernel(
+    const bf16* __restrict__ hc, const bf16* __restrict__ dh,
+    bf16* __restrict__ h, bf16* __restrict__ dhc, float* __restrict__ part,
+    int rows, int cols) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int p = blockIdx.y, parts = gridDim.y;
+  const int r0 = (int)((long long)p * rows / parts);
+  const int r1 = (int)((long long)(p + 1) * rows / parts);
+  const int c0 = blockIdx.x * 256 + 8 * lane;
+  float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c0 < cols) {
+    for (int r = r0 + warp; r < r1; r += GELU_BWD_ROWS * warps) {
+      uint4 xr[GELU_BWD_ROWS], gr[GELU_BWD_ROWS];
+#pragma unroll
+      for (int k = 0; k < GELU_BWD_ROWS; ++k) {
+        if (r + k * warps < r1) {
+          const size_t o = (size_t)(r + k * warps) * cols + c0;
+          xr[k] = __ldcs(reinterpret_cast<const uint4*>(hc + o));
+          gr[k] = __ldcs(reinterpret_cast<const uint4*>(dh + o));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < GELU_BWD_ROWS; ++k) {
+        if (r + k * warps < r1) {
+          bf16* xv = reinterpret_cast<bf16*>(&xr[k]);
+          bf16* gv = reinterpret_cast<bf16*>(&gr[k]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float x = bf(xv[j]);
+            const float e = gelu_fit::erfc_neg(x);
+            const float dgelu = rbf(0.5f * e + x * gelu_fit::pdf(x));
+            const float d = rbf(dgelu * bf(gv[j]));
+            xv[j] = tobf(0.5f * x * e);
+            gv[j] = tobf(d);
+            sum[j] += d;
+          }
+          const size_t o = (size_t)(r + k * warps) * cols + c0;
+          __stcs(reinterpret_cast<uint4*>(h + o), xr[k]);
+          __stcs(reinterpret_cast<uint4*>(dhc + o), gr[k]);
+        }
+      }
+    }
   }
+  block_column_partial(sum, part, p, cols);
 }
 
 // out[j] = the sum over p of part[p][j], the finishing launch of every
@@ -719,12 +779,17 @@ int layer_scale_grad(const void* g, const void* y, const void* ls, void* dy,
   return (int)cudaGetLastError();
 }
 
+// part is parts x cols fp32; grid (ceil(cols / 256), parts) of `warps`
+// warps (cols % 8 == 0, every tensor 16-byte aligned, 1 <= warps <= 8).
 int layer_gelu_bwd(const void* hc, const void* dh, void* h, void* dhc,
-                   void* part, int rows, int cols, int rpb, void* stream) {
-  gelu_bwd_kernel<<<column_grid(rows, cols, rpb), CP_THREADS, 0,
+                   void* part, int rows, int cols, int parts, int warps,
+                   void* stream) {
+  if (cols % 8 != 0 || parts < 1 || warps < 1 || warps > COLSUM_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  gelu_bwd_kernel<<<dim3((cols + 255) / 256, parts), 32 * warps, 0,
                     (cudaStream_t)stream>>>(
       (const bf16*)hc, (const bf16*)dh, (bf16*)h, (bf16*)dhc, (float*)part,
-      rows, cols, rpb);
+      rows, cols);
   return (int)cudaGetLastError();
 }
 

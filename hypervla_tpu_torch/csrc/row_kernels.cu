@@ -26,18 +26,23 @@
 //                         rounded once. Replaces hypervla_tpu/ops/gelu.py::
 //                         gelu_exact_fused (`_gelu_kernel`), whose rational
 //                         polynomial stands in for the erf that its compiler
-//                         lacks (see the note at the kernel for the erfc here).
+//                         lacks (the erfc here: gelu_fit.cuh).
 //
 // All of them are bound by bytes on this card: every input is read once and
 // every output written once, with a few dozen fp32 operations per element.
-// The row kernels keep a row in registers between its passes (thread t owns
-// columns t, t + 256, ...: d <= 2048), so device memory sees one read and
-// one write. The TPU kernels' 128- and 1024-row blocks and their sequential
-// grid with a VMEM accumulator are not carried over: the forward kernels
-// take one block per row; the backward walks `rpb` rows per block and leaves
-// per-block fp32 partial sums that a finishing launch adds in a fixed order
-// (layer_backward.cu's layer_finish_sums), so there are no atomics and two
-// runs give the same bits.
+// The residual add + LayerNorm pair holds a row in the registers of one warp
+// (csrc/row_vec.cuh: a lane owns chunks of eight neighbouring values, 16-byte
+// loads, the row's sums by shuffles, no barrier in the row loop) where the
+// width allows it (d a multiple of 8 up to 1024, every tensor 16-byte
+// aligned: the wrapper chooses, ops/add_layer_norm.py); the one-pass
+// LayerNorm, and the pair at other widths, keep a row in the registers of a
+// block (thread t owns columns t, t + 256, ...: d <= 2048). Device memory
+// sees one read and one write either way. The TPU kernels' 128- and
+// 1024-row blocks and their sequential grid with a VMEM accumulator are not
+// carried over: the backward's column sums are per-block fp32 partials that
+// a finishing launch adds in a fixed order (layer_backward.cu's
+// layer_finish_sums), so there are no atomics and two runs give the same
+// bits.
 //
 // Plain C interface (loaded with ctypes). Every entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -46,7 +51,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "gelu_fit.cuh"
+#include "row_vec.cuh"
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 tobf(float v) { return __float2bfloat16_rn(v); }
@@ -135,11 +141,286 @@ __global__ void __launch_bounds__(ROW_THREADS) layer_norm_two_pass_kernel(
   }
 }
 
-// ------------------- residual add + LayerNorm, forward -------------------
-// One block per row. HAS_LS: x_new = rnd(x + rnd(rnd(ls) * delta)), else
-// x_new = rnd(x + delta), rnd to T (the explicit round-to-nearest intrinsics
-// keep the compiler from contracting the multiply and the add into one
-// FMA). Statistics from the rounded x_new.
+// -------------- residual add + LayerNorm, a warp per row --------------
+// Forward: HAS_LS: x_new = rnd(x + rnd(rnd(ls) * delta)), else x_new = rnd(x
+// + delta), rnd to T (the explicit round-to-nearest intrinsics keep the
+// compiler from contracting the multiply and the add into one FMA);
+// statistics from the rounded x_new; y = ((x_new - mu) * rs) * scale + bias
+// rounded once.
+// Backward: dx_new = rs * (gs - mean(gs) - xhat * mean(gs * xhat)) + g_xnew
+// in fp32 (gs = g_y * scale), rounded once; with HAS_LS ddelta = dx_new
+// (fp32) * ls rounded once; column sums of g_y * xhat, g_y and dx_new *
+// delta (dscale, dbias, dls). gy or gxn may be null (a cotangent that does
+// not exist reads as zero).
+//
+// What bounds both: bytes (the forward reads x, delta and writes x_new, y;
+// the backward reads x_new, g_y, g_xnew, delta and writes dx_new, ddelta),
+// with ~12 and ~24 fp32 operations a value. The first kernels took a block
+// of 256 threads a row, three 2-byte loads a thread and two block barriers a
+// row (and a block walking 32 rows backward: 514 blocks at the training
+// shape, four barriers a row). Here a warp owns a row and holds it as CH
+// chunks of eight values a lane (row_vec.cuh): 16-byte loads and stores,
+// both pairs of row sums by shuffles, no barrier in the row loop. Warp w of
+// the grid walks rows w, w + (warps of the grid), ... The forward keeps
+// rnd(ls) in registers and reads scale and bias per row (3 KB each, from
+// the L1), ~100 registers: 16 or more warps a multiprocessor keep 48 KB of
+// loads in flight (holding the next row's loads as well cost the registers
+// at which ptxas spilled); its grid is kernel 6's forward's
+// (ops/dino_layer.py::layer_norm_plan). The backward keeps the running
+// sums of g_y * xhat and g_y in registers (16 CH a lane, as kernel 6's
+// backward); the third running sum, dx_new * delta, lives in a row of shared
+// memory a warp that only the lane owning a chunk touches, and scale in
+// shared memory a block (a third 8 CH in registers, or scale's, would pass
+// 255 a thread). In bf16 every load of a row, delta's too, is requested
+// before any of it is used (~200 registers); fp32 chunks, eight registers
+// each, load g_xnew and delta where they are used. Its grid is kernel 6's
+// backward's (ops/layer_norm.py::layer_norm_bwd_plan: one wave of blocks of
+// two warps); at the end a block adds its warps' sums in warp order and
+// writes one fp32 partial of each column sum, part[block][sum][d]. Which
+// rows a warp takes depends on the shape and the grid alone, so two runs
+// add in the same order.
+
+// grid: any number of blocks of 32 * warps threads.
+template <typename T, bool HAS_LS, int CH>
+__global__ void __launch_bounds__(256) add_ln_fwd_rows_kernel(
+    const T* __restrict__ x, const T* __restrict__ delta,
+    const float* __restrict__ ls, const float* __restrict__ scale,
+    const float* __restrict__ bias, T* __restrict__ xn, T* __restrict__ y,
+    int rows, int d, float eps) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int stride = gridDim.x * warps;
+  const int chunks = d >> 3;
+  float lv[CH][8];
+  if (HAS_LS) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        row::load8(lv[i], ls + 8 * (lane + 32 * i));
+#pragma unroll
+        for (int k = 0; k < 8; ++k) lv[i][k] = rnd<T>(lv[i][k]);
+      }
+    }
+  }
+  for (int r = blockIdx.x * warps + (threadIdx.x >> 5); r < rows;
+       r += stride) {
+    row::Raw<T> xc[CH], dc[CH];
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        const size_t o = (size_t)r * d + 8 * (lane + 32 * i);
+        row::load_raw(xc[i], x + o);
+        row::load_raw(dc[i], delta + o);
+      }
+    }
+    float v[CH][8];
+    float s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        float dv[8];
+        row::widen(v[i], xc[i]);
+        row::widen(dv, dc[i]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          float dl = dv[k];
+          if (HAS_LS) dl = rnd<T>(__fmul_rn(lv[i][k], dl));
+          v[i][k] = rnd<T>(__fadd_rn(v[i][k], dl));
+          s += v[i][k];
+          s2 += v[i][k] * v[i][k];
+        }
+        row::store8(xn + (size_t)r * d + 8 * (lane + 32 * i), v[i]);
+      }
+    }
+    row::warp_sum2(s, s2);
+    const float mu = s / (float)d;
+    const float var = fmaxf(s2 / (float)d - mu * mu, 0.f);
+    const float rs = rsqrtf(var + eps);
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        const int c = 8 * (lane + 32 * i);
+        float sc[8], bi[8], out[8];
+        row::load8(sc, scale + c);
+        row::load8(bi, bias + c);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          out[k] = ((v[i][k] - mu) * rs) * sc[k] + bi[k];
+        row::store8(y + (size_t)r * d + c, out);
+      }
+    }
+  }
+}
+
+// grid: any number of blocks of 32 * warps threads (warps <= 8); with HAS_LS,
+// warps * CH KB of dynamic shared memory.
+template <typename T, bool HAS_LS, int CH>
+__global__ void __launch_bounds__(256) add_ln_bwd_rows_kernel(
+    const T* __restrict__ gy, const T* __restrict__ gxn,
+    const T* __restrict__ xn, const T* __restrict__ delta,
+    const float* __restrict__ ls, const float* __restrict__ scale,
+    T* __restrict__ dxn, T* __restrict__ dd, float* __restrict__ part,
+    int rows, int d, float eps) {
+  constexpr int SUMS = HAS_LS ? 3 : 2;
+  // bf16 chunks are four registers: g_xnew and delta are requested with the
+  // row's other loads; fp32 rows load them where they are used
+  constexpr bool EARLY = sizeof(T) == 2;
+  __shared__ float red[2 * 256 * CH];  // the block's sums: g * xhat, then g
+  // scale, and the dls sums of warp w, as chunk i of lane l at [i][half][l]
+  // (four columns a float4: a warp's accesses are 512 contiguous bytes)
+  __shared__ float4 sc[CH * 64];
+  extern __shared__ float4 dls[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int stride = gridDim.x * warps;
+  const int chunks = d >> 3;
+  for (int j = threadIdx.x; j < 2 * chunks; j += blockDim.x)
+    sc[((j >> 6) * 2 + (j & 1)) * 32 + ((j >> 1) & 31)] =
+        reinterpret_cast<const float4*>(scale)[j];
+  float4* mine = dls + warp * CH * 64 + lane;
+  float sum_gx[CH][8], sum_g[CH][8];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    if (HAS_LS && lane + 32 * i < chunks) {
+      mine[64 * i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      mine[64 * i + 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sum_gx[i][k] = sum_g[i][k] = 0.f;
+  }
+  __syncthreads();
+  for (int r = blockIdx.x * warps + warp; r < rows; r += stride) {
+    // the row's loads are requested before any of it is used
+    row::Raw<T> xc[CH], gc[CH], hc[CH], dc[CH];
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        const size_t o = (size_t)r * d + 8 * (lane + 32 * i);
+        row::load_raw(xc[i], xn + o);
+        if (gy != nullptr) row::load_raw(gc[i], gy + o);
+        if (EARLY && gxn != nullptr) row::load_raw(hc[i], gxn + o);
+        if (EARLY && HAS_LS) row::load_raw(dc[i], delta + o);
+      }
+    }
+    float xv[CH][8], gv[CH][8];
+    float s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        row::widen(xv[i], xc[i]);
+        if (gy != nullptr) {
+          row::widen(gv[i], gc[i]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) gv[i][k] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          s += xv[i][k];
+          s2 += xv[i][k] * xv[i][k];
+        }
+      }
+    }
+    row::warp_sum2(s, s2);
+    const float mu = s / (float)d;
+    const float var = fmaxf(s2 / (float)d - mu * mu, 0.f);
+    const float rs = rsqrtf(var + eps);
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        const float4 lo = sc[64 * i + lane], hi = sc[64 * i + 32 + lane];
+        const float scv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float xhat = (xv[i][k] - mu) * rs;
+          const float gs = gv[i][k] * scv[k];
+          sum_gx[i][k] += gv[i][k] * xhat;
+          sum_g[i][k] += gv[i][k];
+          a += gs;
+          b += gs * xhat;
+          xv[i][k] = xhat;
+          gv[i][k] = gs;
+        }
+      }
+    }
+    row::warp_sum2(a, b);
+    const float m1 = a / (float)d, m2 = b / (float)d;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        const int c = 8 * (lane + 32 * i);
+        const size_t o = (size_t)r * d + c;
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = rs * (gv[i][k] - m1 - xv[i][k] * m2);
+        if (gxn != nullptr) {
+          float hv[8];
+          if (!EARLY) row::load_raw(hc[i], gxn + o);
+          row::widen(hv, hc[i]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] += hv[k];
+        }
+        row::store8(dxn + o, v);
+        if (HAS_LS) {
+          float lsv[8], dv[8], out[8];
+          row::load8(lsv, ls + c);
+          if (!EARLY) row::load_raw(dc[i], delta + o);
+          row::widen(dv, dc[i]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) out[k] = v[k] * lsv[k];
+          row::store8(dd + o, out);
+          float4 lo = mine[64 * i], hi = mine[64 * i + 32];
+          lo.x += v[0] * dv[0];
+          lo.y += v[1] * dv[1];
+          lo.z += v[2] * dv[2];
+          lo.w += v[3] * dv[3];
+          hi.x += v[4] * dv[4];
+          hi.y += v[5] * dv[5];
+          hi.z += v[6] * dv[6];
+          hi.w += v[7] * dv[7];
+          mine[64 * i] = lo;
+          mine[64 * i + 32] = hi;
+        }
+      }
+    }
+  }
+  // the warps' sums, added in warp order
+  for (int w = 0; w < warps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        if (lane + 32 * i < chunks) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int c = 8 * (lane + 32 * i) + k;
+            red[c] = (w ? red[c] : 0.f) + sum_gx[i][k];
+            red[d + c] = (w ? red[d + c] : 0.f) + sum_g[i][k];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* p = part + (size_t)blockIdx.x * SUMS * d;
+  for (int c = threadIdx.x; c < 2 * d; c += blockDim.x) p[c] = red[c];
+  if (HAS_LS) {
+    const float* sums = reinterpret_cast<const float*>(dls);
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+      // column c is value c % 4 of float4 [i][half][l] for chunk 32 i + l
+      const int chunk = c >> 3;
+      const int at = (((chunk >> 5) * 2 + ((c >> 2) & 1)) * 32 + (chunk & 31))
+                     * 4 + (c & 3);
+      float s = 0.f;
+      for (int w = 0; w < warps; ++w) s += sums[w * CH * 256 + at];
+      p[2 * d + c] = s;
+    }
+  }
+}
+
+// ------------- residual add + LayerNorm at the other widths -------------
+// The first kernels, for widths the warp-per-row kernels do not take (no
+// multiple of 8, wider than 1024, or a tensor off a 16-byte boundary).
+// Forward: one block per row.
 
 template <typename T, bool HAS_LS>
 __global__ void __launch_bounds__(ROW_THREADS) add_ln_fwd_kernel(
@@ -176,10 +457,8 @@ __global__ void __launch_bounds__(ROW_THREADS) add_ln_fwd_kernel(
   }
 }
 
-// ------------------- residual add + LayerNorm, backward -------------------
-// One block walks rows [blockIdx.x * rpb, +rpb). gy or gxn may be null (a
-// cotangent that does not exist reads as zero). part[block][sum][d]: sums
-// of gy * xhat, gy and, with HAS_LS, dx_new * delta.
+// Backward: one block walks rows [blockIdx.x * rpb, +rpb); part[block][sum]
+// [d] as above.
 
 template <typename T, bool HAS_LS>
 __global__ void __launch_bounds__(ROW_THREADS) add_ln_bwd_kernel(
@@ -271,46 +550,14 @@ __global__ void __launch_bounds__(ROW_THREADS) add_ln_bwd_kernel(
 // thread requests GELU_VECS 16-byte vectors (64 bytes of bf16) before any
 // arithmetic, the blocks make one pass over the tensor (no grid stride), the
 // loads and stores stream past the L1 (`__ldcs`, `__stcs`: the output is
-// not read again before the next GEMM), and erfc is Numerical Recipes'
-// Chebyshev fit `erfcc`, erfc(a) = t exp(-a^2 + P(t)) with t = 1 / (1 + a/2)
-// for a >= 0 (fractional error < 1.2e-7 everywhere), on the fast reciprocal
-// and `ex2.approx`: ~20 instructions. Against 0.5 x erfc(-x / sqrt 2) with
+// not read again before the next GEMM), and erfc is the Chebyshev fit of
+// gelu_fit.cuh: ~20 instructions. Against 0.5 x erfc(-x / sqrt 2) with
 // erfcf it is within one bf16 ulp of the value at every finite bf16 input
 // (subnormal outputs included: the non-ftz ex2 keeps them) and within 1e-6
 // of the output scale in fp32.
 
 constexpr int GELU_THREADS = 256;
 constexpr int GELU_VECS = 4;
-
-__device__ __forceinline__ float fast_rcp(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ float fast_exp2(float v) {
-  float r;
-  asm("ex2.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ float gelu_exact(float x) {
-  const float z = -x * 0.70710678118654752f;  // gelu(x) = 0.5 x erfc(z)
-  const float a = fabsf(z);
-  const float t = fast_rcp(fmaf(0.5f, a, 1.f));
-  float p = 0.17087277f;
-  p = fmaf(p, t, -0.82215223f);
-  p = fmaf(p, t, 1.48851587f);
-  p = fmaf(p, t, -1.13520398f);
-  p = fmaf(p, t, 0.27886807f);
-  p = fmaf(p, t, -0.18628806f);
-  p = fmaf(p, t, 0.09678418f);
-  p = fmaf(p, t, 0.37409196f);
-  p = fmaf(p, t, 1.00002368f);
-  p = fmaf(p, t, -1.26551223f);
-  const float e = t * fast_exp2(fmaf(-a, a, p) * 1.44269504088896341f);
-  return 0.5f * x * (z < 0.f ? 2.f - e : e);
-}
 
 // n elements. With `vectors` > 0 (x and out 16-byte aligned) the first
 // vectors * (16 / sizeof(T)) go as 16-byte loads and stores, GELU_VECS of
@@ -335,7 +582,7 @@ __global__ void __launch_bounds__(GELU_THREADS) gelu_kernel(
     if (i < vectors) {
       T* vals = reinterpret_cast<T*>(&raw[k]);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) st(vals + j, gelu_exact(ld(vals + j)));
+      for (int j = 0; j < VEC; ++j) st(vals + j, gelu_fit::gelu(ld(vals + j)));
       __stcs(reinterpret_cast<uint4*>(out) + i, raw[k]);
     }
   }
@@ -343,7 +590,7 @@ __global__ void __launch_bounds__(GELU_THREADS) gelu_kernel(
   for (long long i = vectors * VEC + (long long)blockIdx.x * GELU_THREADS +
                      threadIdx.x;
        i < n; i += stride)
-    st(out + i, gelu_exact(ld(x + i)));
+    st(out + i, gelu_fit::gelu(ld(x + i)));
 }
 
 // ----------------------------- C interface ------------------------------
@@ -373,14 +620,34 @@ int row_layer_norm(const void* x, const void* scale, const void* bias,
 
 // ls null: x_new = x + delta; else x_new = x + ls * delta. x, delta, xn, y
 // in one type (fp32 with is_f32, else bf16); ls, scale, bias fp32 (d,).
+// chunks 0: one block per row (d <= row_max_width()). Else the warp-per-row
+// kernel: chunks = the 8-value chunks a lane holds (d % 8 == 0, d <= 256 *
+// chunks <= 1024; every tensor 16-byte aligned), `blocks` blocks of `warps`
+// warps.
 int row_add_ln_fwd(const void* x, const void* delta, const void* ls,
                    const void* scale, const void* bias, void* xn, void* y,
-                   int rows, int d, float eps, int is_f32, void* stream) {
+                   int rows, int d, float eps, int is_f32, int chunks,
+                   int blocks, int warps, void* stream) {
+  if (chunks != 0 && (chunks < 0 || chunks > 4 || d % 8 != 0 ||
+                      d > 256 * chunks || warps < 1 || warps > 8 ||
+                      blocks < 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define ADD_LN_FWD(T, HAS_LS)                                              \
-  add_ln_fwd_kernel<T, HAS_LS><<<rows, ROW_THREADS, 0, s>>>(                \
-      (const T*)x, (const T*)delta, (const float*)ls, (const float*)scale,  \
-      (const float*)bias, (T*)xn, (T*)y, d, eps)
+#define ADD_LN_FWD(T, HAS_LS)                                                 \
+  do {                                                                        \
+    const T *px = (const T*)x, *pd = (const T*)delta;                         \
+    const float *pl = (const float*)ls, *ps = (const float*)scale,            \
+                *pb = (const float*)bias;                                     \
+    if (chunks == 0)                                                          \
+      add_ln_fwd_kernel<T, HAS_LS><<<rows, ROW_THREADS, 0, s>>>(              \
+          px, pd, pl, ps, pb, (T*)xn, (T*)y, d, eps);                         \
+    else if (chunks <= 3)                                                     \
+      add_ln_fwd_rows_kernel<T, HAS_LS, 3><<<blocks, 32 * warps, 0, s>>>(     \
+          px, pd, pl, ps, pb, (T*)xn, (T*)y, rows, d, eps);                   \
+    else                                                                      \
+      add_ln_fwd_rows_kernel<T, HAS_LS, 4><<<blocks, 32 * warps, 0, s>>>(     \
+          px, pd, pl, ps, pb, (T*)xn, (T*)y, rows, d, eps);                   \
+  } while (0)
   if (is_f32) {
     if (ls) ADD_LN_FWD(float, true); else ADD_LN_FWD(float, false);
   } else {
@@ -391,18 +658,40 @@ int row_add_ln_fwd(const void* x, const void* delta, const void* ls,
 }
 
 // ls null: no LayerScale (delta, dd unused; part is blocks x 2 x d); else
-// part is blocks x 3 x d, blocks = ceil(rows / rpb). gy, gxn may be null.
+// part is blocks x 3 x d. gy, gxn may be null. chunks 0: a block of 256
+// threads walks rpb rows, blocks = ceil(rows / rpb). Else the warp-per-row
+// kernel (as row_add_ln_fwd), `blocks` blocks of `warps` warps.
 int row_add_ln_bwd(const void* gy, const void* gxn, const void* xn,
                    const void* delta, const void* ls, const void* scale,
                    void* dxn, void* dd, void* part, int rows, int d, int rpb,
-                   float eps, int is_f32, void* stream) {
+                   float eps, int is_f32, int chunks, int blocks, int warps,
+                   void* stream) {
+  if (chunks != 0 && (chunks < 0 || chunks > 4 || d % 8 != 0 ||
+                      d > 256 * chunks || warps < 1 || warps > 8 ||
+                      blocks < 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int grid = (rows + rpb - 1) / rpb;
-#define ADD_LN_BWD(T, HAS_LS)                                               \
-  add_ln_bwd_kernel<T, HAS_LS><<<grid, ROW_THREADS, 0, s>>>(                 \
-      (const T*)gy, (const T*)gxn, (const T*)xn, (const T*)delta,            \
-      (const float*)ls, (const float*)scale, (T*)dxn, (T*)dd, (float*)part,  \
-      rows, d, rpb, eps)
+  // the warp-per-row backward's dls sums: CH KB a warp
+  const size_t smem = ls ? (size_t)warps * (chunks <= 3 ? 3 : 4) * 1024 : 0;
+#define ADD_LN_BWD(T, HAS_LS)                                                 \
+  do {                                                                        \
+    const T *pg = (const T*)gy, *ph = (const T*)gxn, *px = (const T*)xn,      \
+            *pd = (const T*)delta;                                            \
+    const float *pl = (const float*)ls, *ps = (const float*)scale;            \
+    if (chunks == 0)                                                          \
+      add_ln_bwd_kernel<T, HAS_LS><<<(rows + rpb - 1) / rpb, ROW_THREADS, 0,  \
+                                     s>>>(pg, ph, px, pd, pl, ps, (T*)dxn,    \
+                                          (T*)dd, (float*)part, rows, d, rpb, \
+                                          eps);                               \
+    else if (chunks <= 3)                                                     \
+      add_ln_bwd_rows_kernel<T, HAS_LS, 3><<<blocks, 32 * warps, smem, s>>>(  \
+          pg, ph, px, pd, pl, ps, (T*)dxn, (T*)dd, (float*)part, rows, d,     \
+          eps);                                                               \
+    else                                                                      \
+      add_ln_bwd_rows_kernel<T, HAS_LS, 4><<<blocks, 32 * warps, smem, s>>>(  \
+          pg, ph, px, pd, pl, ps, (T*)dxn, (T*)dd, (float*)part, rows, d,     \
+          eps);                                                               \
+  } while (0)
   if (is_f32) {
     if (ls) ADD_LN_BWD(float, true); else ADD_LN_BWD(float, false);
   } else {

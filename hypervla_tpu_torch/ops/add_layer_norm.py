@@ -11,7 +11,10 @@ multiply, the residual add and the LayerNorm that reads the new stream. The
 Pallas TPU kernels (`_fwd_kernel` / `_bwd_kernel`, `_fwd_scale_kernel` /
 `_bwd_scale_kernel`) become one pair of hand-written CUDA kernels,
 templated on whether there is a LayerScale vector (csrc/row_kernels.cu:
-`row_add_ln_fwd`, `row_add_ln_bwd`), with the TPU kernels' rounding points:
+`row_add_ln_fwd`, `row_add_ln_bwd`): a warp per row where the width allows
+it, with kernel 6's grids (`dl.layer_norm_plan`, `tln.layer_norm_bwd_plan`),
+and the first block-per-row kernels at other widths. They keep the TPU
+kernels' rounding points:
 ls is cast to x.dtype, ls * delta and the add are each rounded to x.dtype,
 the statistics are flax's fast variance in fp32 from the rounded sum, y is
 rounded once. The backward recomputes the statistics from the saved x_new,
@@ -19,8 +22,9 @@ takes both cotangents (either may be absent), writes dx_new = inv * (gs -
 mean(gs) - xhat * mean(gs * xhat)) + g_xnew rounded once and, with ls,
 ddelta = dx_new(fp32) * ls rounded once; without ls the one dx buffer is the
 gradient of both x and delta. dscale, dbias and dls are column sums over
-all rows: per-block fp32 partials and one finishing launch in a fixed order
-(no atomics, so two runs give the same bits).
+all rows: per-block fp32 partials (one per block of the backward's plan)
+and one finishing launch in a fixed order (no atomics, so two runs give the
+same bits).
 
 Beside each kernel is its plain PyTorch version with the same arithmetic. A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -31,6 +35,8 @@ from typing import Dict
 
 import torch
 
+from hypervla_tpu_torch.ops import dino_layer as dl
+from hypervla_tpu_torch.ops import layer_norm as tln
 from hypervla_tpu_torch.ops.dino_layer import (
     _check,
     _raise_on_error,
@@ -38,9 +44,6 @@ from hypervla_tpu_torch.ops.dino_layer import (
     _stream,
 )
 from hypervla_tpu_torch.ops.layer_norm import finish_sums, row_lib
-
-#: rows per block of the backward kernel (its partial sums are per block)
-ROWS_PER_BLOCK = 32
 
 #: launches of each wrapper since the last reset
 LAUNCHES: Dict[str, int] = {"fused_add_ln_fwd": 0, "fused_add_ln_bwd": 0,
@@ -126,10 +129,12 @@ def add_ln_fwd(x, delta, ls, scale, bias, eps: float):
     _check_rows(x, delta)
     _check_vectors(x.shape[1], *vectors)
     xn, y = torch.empty_like(x), torch.empty_like(x)
+    plan = dl.layer_norm_plan(*x.shape, x, delta, xn, y, *vectors)
     code = row_lib().row_add_ln_fwd(
         x.data_ptr(), delta.data_ptr(), _ptr(ls), scale.data_ptr(),
         bias.data_ptr(), xn.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
-        float(eps), int(x.dtype == torch.float32), _stream())
+        float(eps), int(x.dtype == torch.float32), plan.chunks, plan.blocks,
+        plan.warps, _stream())
     _raise_on_error("row_add_ln_fwd", code)
     LAUNCHES["fused_add_ln_fwd" if ls is None
              else "fused_add_scale_ln_fwd"] += 1
@@ -147,14 +152,15 @@ def add_ln_bwd(gy, gxn, xn, delta, ls, scale, eps: float):
     rows, d = xn.shape
     dxn = torch.empty_like(xn)
     dd = None if ls is None else torch.empty_like(xn)
-    blocks = (rows + ROWS_PER_BLOCK - 1) // ROWS_PER_BLOCK
-    part = torch.empty((blocks, 2 if ls is None else 3, d),
+    plan = tln.layer_norm_bwd_plan(rows, d, xn, dxn, scale, *given)
+    part = torch.empty((plan.blocks, 2 if ls is None else 3, d),
                        dtype=torch.float32, device=xn.device)
     code = row_lib().row_add_ln_bwd(
         _ptr(gy), _ptr(gxn), xn.data_ptr(),
         None if ls is None else delta.data_ptr(), _ptr(ls), scale.data_ptr(),
-        dxn.data_ptr(), _ptr(dd), part.data_ptr(), rows, d, ROWS_PER_BLOCK,
-        float(eps), int(xn.dtype == torch.float32), _stream())
+        dxn.data_ptr(), _ptr(dd), part.data_ptr(), rows, d,
+        tln.ROWS_PER_BLOCK, float(eps), int(xn.dtype == torch.float32),
+        plan.chunks, plan.blocks, plan.warps, _stream())
     _raise_on_error("row_add_ln_bwd", code)
     LAUNCHES["fused_add_ln_bwd" if ls is None
              else "fused_add_scale_ln_bwd"] += 1

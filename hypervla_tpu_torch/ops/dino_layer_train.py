@@ -52,8 +52,8 @@ from hypervla_tpu_torch.ops import layer_norm as ln
 # pv row indices (fp32 per-layer vectors, packed (11, H))
 (BQ, BK, BV, BO, B2, LN1_S, LN1_B, LN2_S, LN2_B, LS1, LS2) = range(11)
 
-#: rows per block of the LayerScale and GELU backward passes (their
-#: partials are per block)
+#: rows per block of the LayerScale backward pass (its partials are per
+#: block)
 ROWS_PER_BLOCK = 128
 
 #: launches since the last reset: the composed layer calls, and each kernel
@@ -251,17 +251,6 @@ def gelu_bwd_reference(hc, dh):
     return (xf * cdf).bfloat16(), dhc, dhc.float().sum(0)
 
 
-def gelu_bwd(hc, dh):
-    if dl._route(hc, dh) == "cpu":
-        return gelu_bwd_reference(hc, dh)
-    _check_rows(hc, dh)
-    h, dhc = torch.empty_like(hc), torch.empty_like(hc)
-    sums = _column_pass("layer_gelu_bwd", ln._lib().layer_gelu_bwd,
-                        *hc.shape, 1, hc.device, hc.data_ptr(), dh.data_ptr(),
-                        h.data_ptr(), dhc.data_ptr())
-    return h, dhc, sums[0]
-
-
 def colsum_reference(a):
     return a.float().sum(0)
 
@@ -294,6 +283,27 @@ def colsum_config(rows: int, cols: int) -> ColsumConfig:
     return ColsumConfig(strips, parts, COLSUM_WARPS)
 
 
+def _colsum_pass(name, fn, rows, cols, device, *ptrs_before_part):
+    """Launches a pass on the column sum's grid (`colsum_config`) and
+    finishes its partials: the (cols,) fp32 column sums."""
+    config = colsum_config(rows, cols)
+    part = torch.empty((config.parts, cols), dtype=torch.float32,
+                       device=device)
+    code = fn(*ptrs_before_part, part.data_ptr(), rows, cols, config.parts,
+              config.warps, dl._stream())
+    dl._raise_on_error(name, code)
+    LAUNCHES[name] += 1
+    return ln.finish_sums(part)
+
+
+def _check_rows16(name, *tensors):
+    """The 16-byte loads of the passes on the column sum's grid."""
+    cols = tensors[0].shape[1]
+    dl._check(cols % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors),
+              f"{name} takes widths that are multiples of 8 and 16-byte "
+              f"aligned rows, got width {cols}")
+
+
 def colsum(a):
     """fp32 column sums of a (rows, cols) bf16 matrix. On the card the
     width must be a multiple of 8 and the rows 16-byte aligned (the
@@ -301,18 +311,23 @@ def colsum(a):
     if dl._route(a) == "cpu":
         return colsum_reference(a)
     _check_rows(a)
-    rows, cols = a.shape
-    dl._check(cols % 8 == 0 and a.data_ptr() % 16 == 0,
-              f"colsum takes widths that are multiples of 8 and 16-byte "
-              f"aligned rows, got width {cols}")
-    config = colsum_config(rows, cols)
-    part = torch.empty((config.parts, cols), dtype=torch.float32,
-                       device=a.device)
-    code = ln._lib().layer_colsum(a.data_ptr(), part.data_ptr(), rows, cols,
-                                  config.parts, config.warps, dl._stream())
-    dl._raise_on_error("layer_colsum", code)
-    LAUNCHES["layer_colsum"] += 1
-    return ln.finish_sums(part)
+    _check_rows16("colsum", a)
+    return _colsum_pass("layer_colsum", ln._lib().layer_colsum, *a.shape,
+                        a.device, a.data_ptr())
+
+
+def gelu_bwd(hc, dh):
+    """The GELU backward pass on the column sum's grid: the width a
+    multiple of 8 and every row 16-byte aligned on the card."""
+    if dl._route(hc, dh) == "cpu":
+        return gelu_bwd_reference(hc, dh)
+    _check_rows(hc, dh)
+    h, dhc = torch.empty_like(hc), torch.empty_like(hc)
+    _check_rows16("gelu_bwd", hc, dh, h, dhc)
+    sums = _colsum_pass("layer_gelu_bwd", ln._lib().layer_gelu_bwd,
+                        *hc.shape, hc.device, hc.data_ptr(), dh.data_ptr(),
+                        h.data_ptr(), dhc.data_ptr())
+    return h, dhc, sums
 
 
 def _attention_fwd_reference(q, k, v, heads, scale, store_p):

@@ -73,7 +73,7 @@ def _lib():
     lib.layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, i, i,
                                    p]
     lib.layer_scale_grad.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.layer_gelu_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.layer_gelu_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.layer_colsum.argtypes = [p, p, i, i, i, i, p]
     lib.layer_finish_sums.argtypes = [p, p, i, i, p]
     lib.layer_finish_split.argtypes = []
@@ -97,9 +97,10 @@ def row_lib():
                   ctypes.c_longlong)
     lib.row_max_width.argtypes = []
     lib.row_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, p]
-    lib.row_add_ln_fwd.argtypes = [p, p, p, p, p, p, p, i, i, f, i, p]
-    lib.row_add_ln_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i,
+    lib.row_add_ln_fwd.argtypes = [p, p, p, p, p, p, p, i, i, f, i, i, i, i,
                                    p]
+    lib.row_add_ln_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i,
+                                   i, i, i, p]
     lib.row_gelu.argtypes = [p, p, n, i, i, p]
     for fn in (lib.row_max_width, lib.row_layer_norm, lib.row_add_ln_fwd,
                lib.row_add_ln_bwd, lib.row_gelu):

@@ -4,7 +4,7 @@ shape (ops/dino_layer_train.py::colsum_config); numpy emulations of the
 order in which it and the finishing launch of every column sum add
 (csrc/layer_backward.cu: lanes, warps in order, blocks, then the split
 finishing launch) against the plain version and fp64; the GELU kernel's
-erfc form (csrc/row_kernels.cu::gelu_exact) emulated in fp32 over every
+erfc form (csrc/gelu_fit.cuh::gelu) emulated in fp32 over every
 finite bf16 input against the plain version; and the wrappers on CPU
 tensors, which take the plain versions. No JAX, seconds."""
 import math
@@ -185,10 +185,10 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c).float()
 
 
-def emulated_gelu(xf, rcp_err=0.0, exp_err=0.0):
-    """csrc/row_kernels.cu::gelu_exact in fp32; the card's rcp.approx and
-    ex2.approx stand in as the exact functions times (1 + rcp_err) and
-    (1 + exp_err)."""
+def emulated_erfc_neg(xf, rcp_err=0.0, exp_err=0.0):
+    """csrc/gelu_fit.cuh::erfc_neg, erfc(-x / sqrt 2), in fp32; the card's
+    rcp.approx and ex2.approx stand in as the exact functions times (1 +
+    rcp_err) and (1 + exp_err)."""
     f = np.float32
     z = -xf * f(math.sqrt(0.5))
     a = z.abs()
@@ -198,7 +198,12 @@ def emulated_gelu(xf, rcp_err=0.0, exp_err=0.0):
         p = _fma(p, t, c)
     arg = _fma(-a, a, p) * f(1 / math.log(2))
     e = t * (torch.exp2(arg) * f(1 + exp_err))
-    return 0.5 * xf * torch.where(z < 0, 2.0 - e, e)
+    return torch.where(z < 0, 2.0 - e, e)
+
+
+def emulated_gelu(xf, rcp_err=0.0, exp_err=0.0):
+    """csrc/gelu_fit.cuh::gelu in fp32, as emulated_erfc_neg."""
+    return 0.5 * xf * emulated_erfc_neg(xf, rcp_err, exp_err)
 
 
 def _every_finite_bf16():

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from hypervla_tpu_torch.ops import add_layer_norm as aln
+from hypervla_tpu_torch.ops import dino_layer as dl
 from hypervla_tpu_torch.ops import flash_attention as fa
 from hypervla_tpu_torch.ops import gelu as tg
 from hypervla_tpu_torch.ops import layer_norm as tln
@@ -95,22 +96,43 @@ def _add_ln_inputs(rng, shape, dtype, device, with_ls):
     return x, delta, ls, scale, bias
 
 
+# widths 768 and 96 take the warp-per-row kernels' three chunks a lane, 1024
+# four; 100 (no multiple of 8), 2048 (wider than 1024) and x and g_y off a
+# 16-byte boundary the first kernels; the row counts are ragged against
+# every grid
 @pytest.mark.parametrize("with_ls", [False, True])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", [(114, 768), (33, 48), (65, 2048)])
+@pytest.mark.parametrize("shape", [(114, 768), (33, 48), (65, 2048),
+                                   (1001, 1024), (99, 96), (68, 100),
+                                   (16485, 768), ("unaligned", 768)])
 def test_add_ln_kernels(device, dtype, shape, with_ls):
     rng = np.random.default_rng(1)
     dt = DTYPES[dtype]
+    unaligned = shape[0] == "unaligned"
+    shape = (257, shape[1]) if unaligned else shape
     x, delta, ls, scale, bias = _add_ln_inputs(rng, shape, dt, device,
                                                with_ls)
+    gy, gxn = _t(rng, shape, dt, device), _t(rng, shape, dt, device)
+
+    def off16(a):
+        flat = torch.empty(a.numel() + 1, dtype=dt, device=device)
+        return flat[1:].view(shape).copy_(a)
+
+    if unaligned:
+        x, gy = off16(x), off16(gy)
+    d = shape[-1]
+    chunks = (0 if d % 8 or d > 1024 or unaligned else 3 if d <= 768 else 4)
+    assert dl.layer_norm_plan(*shape, x, delta).chunks == chunks
+    assert tln.layer_norm_bwd_plan(*shape, gy, gxn, delta).chunks == chunks
     aln.reset_launch_counts()
     xn, y = aln.add_ln_fwd(x, delta, ls, scale, bias, 1e-6)
     torch.cuda.synchronize()
     ref_xn, ref_y = aln.add_ln_fwd_reference(x, delta, ls, scale, bias, 1e-6)
     assert torch.equal(xn, ref_xn)  # the same roundings: the same bits
     _close(y, ref_y, dt, "y")
+    again = aln.add_ln_fwd(x, delta, ls, scale, bias, 1e-6)
+    assert torch.equal(xn, again[0]) and torch.equal(y, again[1])
 
-    gy, gxn = _t(rng, shape, dt, device), _t(rng, shape, dt, device)
     for cot in ((gy, gxn), (gy, None), (None, gxn)):
         got = aln.add_ln_bwd(*cot, ref_xn, delta, ls, scale, 1e-6)
         torch.cuda.synchronize()
@@ -129,16 +151,18 @@ def test_add_ln_kernels(device, dtype, shape, with_ls):
         if not with_ls:
             assert got[0] is got[1]  # one buffer for dx and ddelta
     suffix = "scale_ln" if with_ls else "ln"
-    assert aln.LAUNCHES[f"fused_add_{suffix}_fwd"] == 1
+    assert aln.LAUNCHES[f"fused_add_{suffix}_fwd"] == 2
     assert aln.LAUNCHES[f"fused_add_{suffix}_bwd"] == 6
 
 
 @pytest.mark.parametrize("with_ls", [False, True])
-def test_add_ln_autograd(device, with_ls):
+@pytest.mark.parametrize("width", [768, 100])
+def test_add_ln_autograd(device, with_ls, width):
     """The autograd functions on the card against the plain versions'
-    gradients through the same functions on the CPU."""
+    gradients through the same functions on the CPU: a warp per row at
+    width 768, the first kernels at 100."""
     rng = np.random.default_rng(2)
-    shape = (2, 57, 768)
+    shape = (2, 57, width)
     args = _add_ln_inputs(rng, shape, torch.bfloat16, device, with_ls)
     gxn = _t(rng, shape, torch.bfloat16, device)
     gy = _t(rng, shape, torch.bfloat16, device)

@@ -327,13 +327,18 @@ def test_column_sum_passes(device, rows, cols):
         for a, b in zip(got, plain(*args)):
             assert a.dtype == b.dtype and a.shape == b.shape
             err, scale = _err(a, b)
-            # bf16 outputs: one ulp (erff and expf against torch's); the
-            # fp32 column sums: terms in another order, and a one-ulp flip
-            # of one bf16 term
+            # bf16 outputs: one ulp (the GELU's erfc fit, erff and expf
+            # against torch's); the fp32 column sums: terms in another
+            # order, and a one-ulp flip of one bf16 term
             bound = 2 ** -7 if a.dtype == torch.bfloat16 else 2 ** -8
             assert err <= bound * max(scale, 1.0), (name, err, scale)
         again = kern(*args)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+    # the GELU pass takes the column sum's grid and 16-byte rows: a width
+    # that is no multiple of 8 raises
+    with pytest.raises(ValueError, match="multiples of 8"):
+        dlt.gelu_bwd(y[:, :cols - 4].contiguous(),
+                     dh[:, :cols - 4].contiguous())
 
 
 # the last four: widths the warp-per-row kernel does not take (no multiple

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Measures the design choices behind two kernels of the PyTorch/CUDA port
+"""Measures the design choices behind three kernels of the PyTorch/CUDA port
 on one NVIDIA GPU, at the training shapes (batch 64, 257 tokens, width 768):
 
-1. The exact GELU's erfc form (hypervla_tpu_torch/csrc/row_kernels.cu::
-   gelu_exact). The same kernel (GELU_VECS 16-byte vectors a thread, one
-   pass of blocks, streaming loads and stores) is built here with each
-   form of 0.5 x erfc(-x / sqrt 2):
+1. The exact GELU's erfc form (hypervla_tpu_torch/csrc/gelu_fit.cuh, kernel
+   9's row_kernels.cu::gelu_kernel). The same kernel (GELU_VECS 16-byte
+   vectors a thread, one pass of blocks, streaming loads and stores) is
+   built here with each form of 0.5 x erfc(-x / sqrt 2):
      erfcf           CUDA's erfcf
      erfc_fit        Numerical Recipes' erfcc Chebyshev fit on the fast
-                     reciprocal and ex2.approx (the form the port ships)
+                     reciprocal and ex2.approx (gelu_fit.cuh: the form the
+                     port ships)
      erff_split      0.5 x (1 + erff(t)) for t = x / sqrt 2 >= -0.5, where
                      nothing cancels, CUDA's erfcf below
      tpu_polynomial  the TPU kernel's rational polynomial erf
@@ -18,7 +19,13 @@ on one NVIDIA GPU, at the training shapes (batch 64, 257 tokens, width 768):
    version (ops/gelu.py::gelu_exact_reference) at every finite bf16 input
    (bf16 ulps of the plain value) and on fp32 draws (error over the output
    scale).
-2. The column sum's grid (csrc/layer_backward.cu::colsum_kernel) at
+2. The GELU backward pass's arithmetic (csrc/layer_backward.cu::
+   gelu_bwd_kernel) at (16448, 3072): the port's layout (the column sum's
+   16-byte rows and grid, colsum_config) built here with the first kernel's
+   erff and expf and with the erfc fit and one more ex2 (the form the port
+   ships), timed in turns beside the port's launch, each held to the plain
+   version (ops/dino_layer_train.py::gelu_bwd_reference).
+3. The column sum's grid (csrc/layer_backward.cu::colsum_kernel) at
    (16448, 2304): the pass and its finishing launch for several part
    counts and warps a block, through the port's own library.
 
@@ -27,11 +34,13 @@ on one NVIDIA GPU, at the training shapes (batch 64, 257 tokens, width 768):
 Times are the kernels' device time from torch.profiler traces
 (chip_smoke.py::kernel_device_ms: CUDA events around back-to-back calls of
 a kernel of a few tens of microseconds read the host's launch rate), the
-variants in turns, there and back. Prints one JSON line per measurement.
-Needs a CUDA device and nvcc.
+variants in turns, there and back; SASS instructions of each built kernel
+from cuobjdump. Prints one JSON line per measurement. Needs a CUDA device
+and nvcc.
 """
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -46,37 +55,14 @@ SOURCE = r"""
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-__device__ __forceinline__ float fast_rcp(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ float fast_exp2(float v) {
-  float r;
-  asm("ex2.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
+#include "gelu_fit.cuh"
+
+using gelu_fit::fast_rcp;
 
 template <int FORM>
 __device__ __forceinline__ float gelu(float x) {
   if (FORM == 0) return 0.5f * x * erfcf(-x * 0.70710678118654752f);
-  if (FORM == 1) {
-    const float z = -x * 0.70710678118654752f;
-    const float a = fabsf(z);
-    const float t = fast_rcp(fmaf(0.5f, a, 1.f));
-    float p = 0.17087277f;
-    p = fmaf(p, t, -0.82215223f);
-    p = fmaf(p, t, 1.48851587f);
-    p = fmaf(p, t, -1.13520398f);
-    p = fmaf(p, t, 0.27886807f);
-    p = fmaf(p, t, -0.18628806f);
-    p = fmaf(p, t, 0.09678418f);
-    p = fmaf(p, t, 0.37409196f);
-    p = fmaf(p, t, 1.00002368f);
-    p = fmaf(p, t, -1.26551223f);
-    const float e = t * fast_exp2(fmaf(-a, a, p) * 1.44269504088896341f);
-    return 0.5f * x * (z < 0.f ? 2.f - e : e);
-  }
+  if (FORM == 1) return gelu_fit::gelu(x);
   if (FORM == 2) {
     const float t = x * 0.70710678118654752f;
     return t >= -0.5f ? 0.5f * x * (1.f + erff(t)) : 0.5f * x * erfcf(-t);
@@ -139,7 +125,95 @@ static int launch(const void* x, void* out, long long n, void* s) {
   return (int)cudaGetLastError();
 }
 
+// The GELU backward pass on the column sum's layout (layer_backward.cu::
+// gelu_bwd_kernel), FORM 0: the first kernel's erff and expf; 1: the erfc
+// fit and one more ex2 (the port's). grid (ceil(cols / 256), parts), 8 warps.
+template <int FORM>
+__global__ void __launch_bounds__(256, 4) gelu_bwd_form(
+    const __nv_bfloat16* __restrict__ hc, const __nv_bfloat16* __restrict__ dh,
+    __nv_bfloat16* __restrict__ h, __nv_bfloat16* __restrict__ dhc,
+    float* __restrict__ part, int rows, int cols) {
+  __shared__ float4 red[8][64];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = blockIdx.y, parts = gridDim.y;
+  const int r0 = (int)((long long)p * rows / parts);
+  const int r1 = (int)((long long)(p + 1) * rows / parts);
+  const int c0 = blockIdx.x * 256 + 8 * lane;
+  float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c0 < cols) {
+    for (int r = r0 + warp; r < r1; r += 2 * 8) {
+      uint4 xr[2], gr[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (r + k * 8 < r1) {
+          const size_t o = (size_t)(r + k * 8) * cols + c0;
+          xr[k] = __ldcs(reinterpret_cast<const uint4*>(hc + o));
+          gr[k] = __ldcs(reinterpret_cast<const uint4*>(dh + o));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (r + k * 8 < r1) {
+          __nv_bfloat16* xv = reinterpret_cast<__nv_bfloat16*>(&xr[k]);
+          __nv_bfloat16* gv = reinterpret_cast<__nv_bfloat16*>(&gr[k]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float x = __bfloat162float(xv[j]);
+            float hx, dg;
+            if (FORM == 0) {
+              const float cdf = 0.5f * (1.f + erff(x * 0.70710678118654752f));
+              const float pdf = expf(-0.5f * x * x) * 0.3989422804014327f;
+              hx = x * cdf;
+              dg = cdf + x * pdf;
+            } else {
+              const float e = gelu_fit::erfc_neg(x);
+              hx = 0.5f * x * e;
+              dg = 0.5f * e + x * gelu_fit::pdf(x);
+            }
+            const float d = __bfloat162float(__float2bfloat16_rn(
+                __bfloat162float(__float2bfloat16_rn(dg))
+                * __bfloat162float(gv[j])));
+            xv[j] = __float2bfloat16_rn(hx);
+            gv[j] = __float2bfloat16_rn(d);
+            sum[j] += d;
+          }
+          const size_t o = (size_t)(r + k * 8) * cols + c0;
+          __stcs(reinterpret_cast<uint4*>(h + o), xr[k]);
+          __stcs(reinterpret_cast<uint4*>(dhc + o), gr[k]);
+        }
+      }
+    }
+  }
+  red[warp][2 * lane] = make_float4(sum[0], sum[1], sum[2], sum[3]);
+  red[warp][2 * lane + 1] = make_float4(sum[4], sum[5], sum[6], sum[7]);
+  __syncthreads();
+  const float* sums = reinterpret_cast<const float*>(red);
+  const int col = blockIdx.x * 256 + threadIdx.x;
+  if (col < cols) {
+    float s = sums[threadIdx.x];
+    for (int w = 1; w < 8; ++w) s += sums[w * 256 + threadIdx.x];
+    part[(size_t)p * cols + col] = s;
+  }
+}
+
 extern "C" {
+// cols % 8 == 0; part is parts x cols fp32
+int gelu_bwd_bf16(const void* hc, const void* dh, void* h, void* dhc,
+                  void* part, int rows, int cols, int parts, int form,
+                  void* s) {
+  const dim3 grid((cols + 255) / 256, parts);
+  if (cols % 8) return (int)cudaErrorInvalidValue;
+  if (form == 0)
+    gelu_bwd_form<0><<<grid, 256, 0, (cudaStream_t)s>>>(
+        (const __nv_bfloat16*)hc, (const __nv_bfloat16*)dh,
+        (__nv_bfloat16*)h, (__nv_bfloat16*)dhc, (float*)part, rows, cols);
+  else
+    gelu_bwd_form<1><<<grid, 256, 0, (cudaStream_t)s>>>(
+        (const __nv_bfloat16*)hc, (const __nv_bfloat16*)dh,
+        (__nv_bfloat16*)h, (__nv_bfloat16*)dhc, (float*)part, rows, cols);
+  return (int)cudaGetLastError();
+}
+
 int gelu_form_bf16(const void* x, void* out, long long n, int form,
                    int vecs, void* s) {
   if (n % 8) return (int)cudaErrorInvalidValue;
@@ -181,14 +255,33 @@ def build():
     out_dir.mkdir(parents=True, exist_ok=True)
     src, lib = out_dir / "gelu_forms.cu", out_dir / "gelu_forms.so"
     src.write_text(SOURCE)
-    subprocess.run([cuda_build._find_nvcc(), *cuda_build.NVCC_FLAGS,
-                    "-o", str(lib), str(src)], check=True)
+    nvcc = cuda_build._find_nvcc()
+    subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-I",
+                    str(ROOT / "hypervla_tpu_torch" / "csrc"), "-o", str(lib),
+                    str(src)], check=True)
+    sass_counts(Path(nvcc).parent / "cuobjdump", lib)
     lib = ctypes.CDLL(str(lib))
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gelu_form_bf16.argtypes = [p, p, n, i, i, p]
     lib.gelu_form_fp32.argtypes = [p, p, n, i, p]
-    lib.gelu_form_bf16.restype = lib.gelu_form_fp32.restype = ctypes.c_int
+    lib.gelu_bwd_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    for fn in (lib.gelu_form_bf16, lib.gelu_form_fp32, lib.gelu_bwd_bf16):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def sass_counts(cuobjdump, lib):
+    """Prints the SASS instructions of each kernel built here."""
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    print(json.dumps({"sass_instructions": counts}), flush=True)
 
 
 def device_ms(fn):
@@ -263,6 +356,53 @@ def gelu_forms(lib, device):
         "bound_ms": 2 * h.numel() * 2 / 3.35e12 * 1e3}}), flush=True)
 
 
+def gelu_bwd_forms(lib, device):
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import layer_norm as ln
+
+    rows, cols = 64 * 257, 3072
+    rng = np.random.default_rng(2)
+    hc, dh = (torch.tensor((rng.standard_normal((rows, cols)) * s).astype(
+        np.float32), device=device).bfloat16() for s in (1.5, 0.1))
+    config = dlt.colsum_config(rows, cols)
+    ref = dlt.gelu_bwd_reference(hc, dh)
+
+    def run(form):
+        h, dhc = torch.empty_like(hc), torch.empty_like(hc)
+        part = torch.empty((config.parts, cols), dtype=torch.float32,
+                           device=device)
+        code = lib.gelu_bwd_bf16(hc.data_ptr(), dh.data_ptr(), h.data_ptr(),
+                                 dhc.data_ptr(), part.data_ptr(), rows, cols,
+                                 config.parts, form, dl._stream())
+        assert code == 0, code
+        return h, dhc, ln.finish_sums(part)
+
+    fns = {"erff_expf": lambda: run(0), "erfc_fit": lambda: run(1),
+           "port": lambda: dlt.gelu_bwd(hc, dh)}
+    errs = {}
+    for key, fn in fns.items():
+        got = fn()
+        errs[key] = [float((a.float() - b.float()).abs().max())
+                     / max(float(b.float().abs().max()), 1.0)
+                     for a, b in zip(got, ref)]
+    order = list(fns)
+    times = {key: [] for key in order}
+    for key in order + order[::-1]:
+        times[key].append(device_ms(fns[key]))
+    for key, runs in times.items():
+        split = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
+        print(json.dumps({"gelu_bwd_form": {
+            "form": key, "device_ms": split, "total_ms": sum(split.values()),
+            "err_over_scale_h_dhc_db1": errs[key],
+            "grid": list(config),
+            "bound_ms": (4 * hc.numel() * 2 + cols * 4) / 3.35e12 * 1e3}}),
+            flush=True)
+
+
 def colsum_grids(device):
     import numpy as np
     import torch
@@ -316,7 +456,9 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     device = torch.device("cuda", 0)
-    gelu_forms(build(), device)
+    lib = build()
+    gelu_forms(lib, device)
+    gelu_bwd_forms(lib, device)
     colsum_grids(device)
     return 0
 
