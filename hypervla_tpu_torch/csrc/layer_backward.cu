@@ -22,7 +22,8 @@
 //                      the residual gradient) and for the training
 //                      LayerNorm (cotangent and dx in x's type)
 //   layer_scale_grad   dy = g * bf16(ls) with the column sums of
-//                      f32(g)*f32(y) (d layer scale) and f32(dy) (d bias)
+//                      f32(g)*f32(y) (d layer scale) and f32(dy) (d bias),
+//                      on the column sum's 16-byte rows
 //   layer_gelu_bwd     h = bf16(gelu(hc)) recomputed, dhc = bf16(gelu'(hc))
 //                      * dh in bf16, the column sums of f32(dhc) (d fc1
 //                      bias), on the column sum's 16-byte rows
@@ -457,36 +458,6 @@ __global__ void __launch_bounds__(LN_THREADS) layer_norm_bwd_kernel(
   }
 }
 
-// ---------------- the LayerScale pass with its column sums ----------------
-// grid (ceil(cols / 256), ceil(rows / rpb)): thread t of block (bx, by) owns
-// column bx * 256 + t over rows [by * rpb, +rpb), so a warp reads 32
-// neighbouring columns of one row. Partials go to part[by][sum][cols].
-
-constexpr int CP_THREADS = 256;
-
-// dy = bf16(g * bf16(ls)); sums: f32(g) * f32(y), f32(dy)
-__global__ void __launch_bounds__(CP_THREADS) scale_grad_kernel(
-    const bf16* __restrict__ g, const bf16* __restrict__ y,
-    const float* __restrict__ ls, bf16* __restrict__ dy,
-    float* __restrict__ part, int rows, int cols, int rpb) {
-  const int c = blockIdx.x * CP_THREADS + threadIdx.x;
-  if (c >= cols) return;
-  const float l = rbf(ls[c]);
-  const int row1 = min(rows, (int)(blockIdx.y + 1) * rpb);
-  float s_ls = 0.f, s_b = 0.f;
-  for (int r = blockIdx.y * rpb; r < row1; ++r) {
-    const size_t o = (size_t)r * cols + c;
-    const float gv = bf(g[o]);
-    const float d = rbf(gv * l);
-    s_ls += gv * bf(y[o]);
-    s_b += d;
-    dy[o] = tobf(d);
-  }
-  float* p = part + (size_t)blockIdx.y * 2 * cols;
-  p[c] = s_ls;
-  p[cols + c] = s_b;
-}
-
 // ------------------ column sums along 16-byte rows ------------------
 // colsum_kernel: part[p][c] = the fp32 sum of a[r][c] over the rows of part
 // p, [p rows / parts, (p + 1) rows / parts): the TPU kernel's dbq / dbk / dbv
@@ -511,9 +482,10 @@ constexpr int COLSUM_MAX_WARPS = 8;
 constexpr int COLSUM_ROWS = 4;
 
 // The block's warps' sums of its 256 columns added in warp order, written
-// as part p's row.
+// to `row` (a partial's row of cols). Two calls in one block need a barrier
+// between them: the second reuses the first's shared memory.
 __device__ __forceinline__ void block_column_partial(
-    const float (&sum)[8], float* __restrict__ part, int p, int cols) {
+    const float (&sum)[8], float* __restrict__ row, int cols) {
   __shared__ float4 red[COLSUM_MAX_WARPS][64];  // a warp's 256 column sums
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -526,7 +498,7 @@ __device__ __forceinline__ void block_column_partial(
     if (col >= cols) break;
     float s = sums[c];
     for (int w = 1; w < warps; ++w) s += sums[w * 256 + c];
-    part[(size_t)p * cols + col] = s;
+    row[col] = s;
   }
 }
 
@@ -559,7 +531,7 @@ __global__ void __launch_bounds__(32 * COLSUM_MAX_WARPS) colsum_kernel(
       }
     }
   }
-  block_column_partial(sum, part, p, cols);
+  block_column_partial(sum, part + (size_t)p * cols, cols);
 }
 
 // gelu_bwd_kernel: the GELU backward of the layer, h = bf16(gelu(hc))
@@ -630,7 +602,82 @@ __global__ void __launch_bounds__(32 * COLSUM_MAX_WARPS, 4) gelu_bwd_kernel(
       }
     }
   }
-  block_column_partial(sum, part, p, cols);
+  block_column_partial(sum, part + (size_t)p * cols, cols);
+}
+
+// scale_grad_kernel: the LayerScale backward of the layer, dy = bf16(g *
+// bf16(ls)) (the product of two bf16 values is exact in fp32, so one
+// rounding gives the plain version's bits), and two column sums over part
+// p's rows: part[p][0][c] = the fp32 sum of f32(g) * f32(y) (d layer scale),
+// part[p][1][c] = that of f32(dy) (d bias of the residual's projection).
+//
+// What bounds it: bytes (g, y read, dy written: 6 bytes an element, 75.8 MB
+// at the training shape, 0.0226 ms). The first kernel took a column a
+// thread with 2-byte loads (a warp-wide load moved 64 bytes) and walked 128
+// rows one after another on a grid of 3 x 129 blocks: 60% of the memory
+// rate. Here the layout and the order of the sums are gelu_bwd_kernel's: a
+// lane owns 8 neighbouring columns and keeps their 8 values of bf16(ls) and
+// two running sums of 8 in registers, SCALE_GRAD_ROWS rows of g and of y in
+// flight as 16-byte streaming loads, dy out as 16-byte streaming stores; the
+// grid is colsum_config's, one wave of four blocks of eight warps a
+// multiprocessor at most 64 registers a thread. The block writes both sums
+// through block_column_partial, and the finishing launch adds the (parts,
+// 2, cols) partials. cols % 8 == 0 and every tensor 16-byte aligned are
+// checked by the wrapper.
+
+constexpr int SCALE_GRAD_ROWS = 2;
+
+__global__ void __launch_bounds__(32 * COLSUM_MAX_WARPS, 4) scale_grad_kernel(
+    const bf16* __restrict__ g, const bf16* __restrict__ y,
+    const float* __restrict__ ls, bf16* __restrict__ dy,
+    float* __restrict__ part, int rows, int cols) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int p = blockIdx.y, parts = gridDim.y;
+  const int r0 = (int)((long long)p * rows / parts);
+  const int r1 = (int)((long long)(p + 1) * rows / parts);
+  const int c0 = blockIdx.x * 256 + 8 * lane;
+  float s_ls[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float s_b[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c0 < cols) {
+    float l[8];
+    row::load8(l, ls + c0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) l[j] = rbf(l[j]);
+    for (int r = r0 + warp; r < r1; r += SCALE_GRAD_ROWS * warps) {
+      uint4 gr[SCALE_GRAD_ROWS], yr[SCALE_GRAD_ROWS];
+#pragma unroll
+      for (int k = 0; k < SCALE_GRAD_ROWS; ++k) {
+        if (r + k * warps < r1) {
+          const size_t o = (size_t)(r + k * warps) * cols + c0;
+          gr[k] = __ldcs(reinterpret_cast<const uint4*>(g + o));
+          yr[k] = __ldcs(reinterpret_cast<const uint4*>(y + o));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < SCALE_GRAD_ROWS; ++k) {
+        if (r + k * warps < r1) {
+          bf16* gv = reinterpret_cast<bf16*>(&gr[k]);
+          const bf16* yv = reinterpret_cast<const bf16*>(&yr[k]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float gf = bf(gv[j]);
+            const float d = rbf(gf * l[j]);
+            s_ls[j] += gf * bf(yv[j]);
+            s_b[j] += d;
+            gv[j] = tobf(d);
+          }
+          __stcs(reinterpret_cast<uint4*>(
+                     dy + (size_t)(r + k * warps) * cols + c0),
+                 gr[k]);
+        }
+      }
+    }
+  }
+  float* pp = part + (size_t)p * 2 * cols;
+  block_column_partial(s_ls, pp, cols);
+  __syncthreads();  // the first sum's shared memory has been read
+  block_column_partial(s_b, pp + cols, cols);
 }
 
 // out[j] = the sum over p of part[p][j], the finishing launch of every
@@ -660,10 +707,6 @@ __global__ void __launch_bounds__(32 * FINISH_WARPS) finish_sums_split_kernel(
 }
 
 // ----------------------------- C interface ------------------------------
-
-static dim3 column_grid(int rows, int cols, int rpb) {
-  return dim3((cols + CP_THREADS - 1) / CP_THREADS, (rows + rpb - 1) / rpb);
-}
 
 // Launches one tile's instantiation; its first launch raises the dynamic
 // shared-memory limit above the 48 KB default.
@@ -770,12 +813,17 @@ int layer_norm_bwd(const void* x, const void* g, const void* scale,
   return (int)cudaGetLastError();
 }
 
+// part is parts x 2 x cols fp32; grid (ceil(cols / 256), parts) of `warps`
+// warps (cols % 8 == 0, every tensor 16-byte aligned, 1 <= warps <= 8).
 int layer_scale_grad(const void* g, const void* y, const void* ls, void* dy,
-                     void* part, int rows, int cols, int rpb, void* stream) {
-  scale_grad_kernel<<<column_grid(rows, cols, rpb), CP_THREADS, 0,
+                     void* part, int rows, int cols, int parts, int warps,
+                     void* stream) {
+  if (cols % 8 != 0 || parts < 1 || warps < 1 || warps > COLSUM_MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  scale_grad_kernel<<<dim3((cols + 255) / 256, parts), 32 * warps, 0,
                       (cudaStream_t)stream>>>(
       (const bf16*)g, (const bf16*)y, (const float*)ls, (bf16*)dy,
-      (float*)part, rows, cols, rpb);
+      (float*)part, rows, cols);
   return (int)cudaGetLastError();
 }
 

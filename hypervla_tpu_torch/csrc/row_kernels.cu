@@ -30,14 +30,14 @@
 //
 // All of them are bound by bytes on this card: every input is read once and
 // every output written once, with a few dozen fp32 operations per element.
-// The residual add + LayerNorm pair holds a row in the registers of one warp
-// (csrc/row_vec.cuh: a lane owns chunks of eight neighbouring values, 16-byte
-// loads, the row's sums by shuffles, no barrier in the row loop) where the
-// width allows it (d a multiple of 8 up to 1024, every tensor 16-byte
-// aligned: the wrapper chooses, ops/add_layer_norm.py); the one-pass
-// LayerNorm, and the pair at other widths, keep a row in the registers of a
-// block (thread t owns columns t, t + 256, ...: d <= 2048). Device memory
-// sees one read and one write either way. The TPU kernels' 128- and
+// The one-pass LayerNorm and the residual add + LayerNorm pair hold a row in
+// the registers of one warp (csrc/row_vec.cuh: a lane owns chunks of eight
+// neighbouring values, 16-byte loads, the row's sums by shuffles, no barrier
+// in the row loop) where the width allows it (d a multiple of 8 up to 1024,
+// every tensor 16-byte aligned: the wrappers choose, ops/layer_norm.py and
+// ops/add_layer_norm.py, by kernel 6's plan); at other widths they keep a
+// row in the registers of a block (thread t owns columns t, t + 256, ...: d
+// <= 2048). Device memory sees one read and one write either way. The TPU kernels' 128- and
 // 1024-row blocks and their sequential grid with a VMEM accumulator are not
 // carried over: the backward's column sums are per-block fp32 partials that
 // a finishing launch adds in a fixed order (layer_backward.cu's
@@ -101,9 +101,90 @@ __device__ __forceinline__ void block_sum2(float& a, float& b,
 }
 
 // --------------------- the one-pass serving LayerNorm ---------------------
-// One block per row. mean = E[x]; var = E[(x - mean)^2] (two passes over the
-// row held in registers); y = ((x - mean) * rsqrt(var + eps)) * scale + bias.
-// scale and bias are fp32, or bf16 as the serving step stores them (TV).
+// mean = E[x]; var = E[(x - mean)^2] (two passes over the row held in
+// registers); y = ((x - mean) * rsqrt(var + eps)) * scale + bias, rounded
+// once. scale and bias are fp32, or bf16 as the serving step stores them
+// (TV).
+//
+// What bounds it: at the serving shape (257 rows of 768) the row is 1.5 KB
+// and the whole call 0.8 MB, so latency, not bytes: the chain of dependent
+// steps from the first load to the last store. The first kernel
+// (layer_norm_two_pass_kernel, kept for the other widths) takes a block of
+// 256 threads a row, three 2-byte loads a thread, two block reductions (four
+// barriers), and loads scale and bias only in its store loop, a second
+// memory round trip at the tail. layer_norm_one_pass_rows_kernel takes a
+// warp a row, CH chunks of eight values a lane (row_vec.cuh): every load of
+// the lane (its x chunks, its chunks of scale and bias) is requested before
+// any is used, so the row costs one round trip; the mean is one shuffle
+// tree, the centred values stay in registers and their squares take a
+// second; the result leaves as 16-byte stores, with no barrier. What is
+// left is the chain of dependent operations, so a lane adds its values as
+// eight running sums over its chunks and then pairwise (CH + 3 adds deep,
+// where one running sum was 8 CH). Warp w of the grid walks rows w, w +
+// (warps of the grid), ... (ops/layer_norm.py::layer_norm_plan: at 257
+// rows, 65 blocks of four warps).
+
+// grid: any number of blocks of 32 * warps threads.
+template <typename T, typename TV, int CH>
+__global__ void __launch_bounds__(256) layer_norm_one_pass_rows_kernel(
+    const T* __restrict__ x, const TV* __restrict__ scale,
+    const TV* __restrict__ bias, T* __restrict__ out, int rows, int d,
+    float eps) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int stride = gridDim.x * warps;
+  const int chunks = d >> 3;
+  for (int r = blockIdx.x * warps + (threadIdx.x >> 5); r < rows;
+       r += stride) {
+    row::Raw<T> xr[CH];
+    row::Raw<TV> sr[CH], br[CH];
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        row::load_raw(xr[i], x + (size_t)r * d + 8 * c);
+        row::load_raw(sr[i], scale + 8 * c);
+        row::load_raw(br[i], bias + 8 * c);
+      }
+    }
+    float v[CH][8], a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+        row::widen(v[i], xr[i]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) a[k] += v[i][k];
+      }
+    }
+    const float mu = row::warp_sum(row::pairwise8(a)) / (float)d;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (lane + 32 * i < chunks) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          v[i][k] -= mu;
+          a[k] += v[i][k] * v[i][k];
+        }
+      }
+    }
+    const float rs = rsqrtf(row::warp_sum(row::pairwise8(a)) / (float)d + eps);
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        float sc[8], bi[8], y[8];
+        row::widen(sc, sr[i]);
+        row::widen(bi, br[i]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) y[k] = (v[i][k] * rs) * sc[k] + bi[k];
+        row::store8(out + (size_t)r * d + 8 * c, y);
+      }
+    }
+  }
+}
+
+// The kernel of the other widths: one block per row.
 
 template <typename T, typename TV>
 __global__ void __launch_bounds__(ROW_THREADS) layer_norm_two_pass_kernel(
@@ -601,14 +682,33 @@ extern "C" {
 int row_max_width() { return ROW_THREADS * ROW_MAXC; }
 
 // is_f32: x and out fp32, else bf16. vec_f32: scale and bias (d,) fp32,
-// else bf16.
+// else bf16. chunks 0: one block per row (d <= row_max_width()). Else the
+// warp-per-row kernel: chunks = the 8-value chunks a lane holds (d % 8 ==
+// 0, d <= 256 * chunks <= 1024; every tensor 16-byte aligned), `blocks`
+// blocks of `warps` warps.
 int row_layer_norm(const void* x, const void* scale, const void* bias,
                    void* out, int rows, int d, float eps, int is_f32,
-                   int vec_f32, void* stream) {
+                   int vec_f32, int chunks, int blocks, int warps,
+                   void* stream) {
+  if (chunks != 0 && (chunks < 0 || chunks > 4 || d % 8 != 0 ||
+                      d > 256 * chunks || warps < 1 || warps > 8 ||
+                      blocks < 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define LAYER_NORM(T, TV)                                               \
-  layer_norm_two_pass_kernel<T, TV><<<rows, ROW_THREADS, 0, s>>>(        \
-      (const T*)x, (const TV*)scale, (const TV*)bias, (T*)out, d, eps)
+#define LAYER_NORM(T, TV)                                                     \
+  do {                                                                        \
+    const T* px = (const T*)x;                                                \
+    const TV *ps = (const TV*)scale, *pb = (const TV*)bias;                   \
+    if (chunks == 0)                                                          \
+      layer_norm_two_pass_kernel<T, TV><<<rows, ROW_THREADS, 0, s>>>(         \
+          px, ps, pb, (T*)out, d, eps);                                       \
+    else if (chunks <= 3)                                                     \
+      layer_norm_one_pass_rows_kernel<T, TV, 3>                               \
+          <<<blocks, 32 * warps, 0, s>>>(px, ps, pb, (T*)out, rows, d, eps);  \
+    else                                                                      \
+      layer_norm_one_pass_rows_kernel<T, TV, 4>                               \
+          <<<blocks, 32 * warps, 0, s>>>(px, ps, pb, (T*)out, rows, d, eps);  \
+  } while (0)
   if (is_f32) {
     if (vec_f32) LAYER_NORM(float, float); else LAYER_NORM(float, bf16);
   } else {

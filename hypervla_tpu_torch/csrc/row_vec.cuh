@@ -76,6 +76,12 @@ __device__ __forceinline__ void store8(float* p, const float (&y)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(y[4], y[5], y[6], y[7]);
 }
 
+// Eight values added pairwise: ((a0 + a1) + (a2 + a3)) + ((a4 + a5) + (a6 +
+// a7)), three adds deep.
+__device__ __forceinline__ float pairwise8(const float (&a)[8]) {
+  return ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

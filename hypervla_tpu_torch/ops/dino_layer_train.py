@@ -52,10 +52,6 @@ from hypervla_tpu_torch.ops import layer_norm as ln
 # pv row indices (fp32 per-layer vectors, packed (11, H))
 (BQ, BK, BV, BO, B2, LN1_S, LN1_B, LN2_S, LN2_B, LS1, LS2) = range(11)
 
-#: rows per block of the LayerScale backward pass (its partials are per
-#: block)
-ROWS_PER_BLOCK = 128
-
 #: launches since the last reset: the composed layer calls, and each kernel
 #: of csrc/layer_backward.cu launched from here
 LAUNCHES: Dict[str, int] = {
@@ -199,19 +195,6 @@ def gemm_tn(a, b, config: Optional[GemmTnConfig] = None):
     return out
 
 
-def _column_pass(name, fn, rows, cols, sums, device, *ptrs_before_part):
-    """Launches one column-sum pass of csrc/layer_backward.cu and finishes
-    its per-block partials: the (sums, cols) fp32 column sums."""
-    blocks = (rows + ROWS_PER_BLOCK - 1) // ROWS_PER_BLOCK
-    part = torch.empty((blocks, sums, cols), dtype=torch.float32,
-                       device=device)
-    code = fn(*ptrs_before_part, part.data_ptr(), rows, cols, ROWS_PER_BLOCK,
-              dl._stream())
-    dl._raise_on_error(name, code)
-    LAUNCHES[name] += 1
-    return ln.finish_sums(part)
-
-
 def _check_rows(*tensors):
     for t in tensors:
         dl._check(t.dim() == 2 and t.dtype == torch.bfloat16
@@ -224,21 +207,6 @@ def scale_grad_reference(g, y, layer_scale):
     f32(g) f32(y); d bias = sum f32(dy). g, y (rows, cols) bf16."""
     dy = g * layer_scale.bfloat16()
     return dy, (g.float() * y.float()).sum(0), dy.float().sum(0)
-
-
-def scale_grad(g, y, layer_scale):
-    if dl._route(g, y, layer_scale) == "cpu":
-        return scale_grad_reference(g, y, layer_scale)
-    _check_rows(g, y)
-    dl._check(layer_scale.dtype == torch.float32
-              and layer_scale.is_contiguous()
-              and layer_scale.shape == (g.shape[1],),
-              "layer_scale must be (cols,) fp32")
-    dy = torch.empty_like(g)
-    sums = _column_pass("layer_scale_grad", ln._lib().layer_scale_grad,
-                        *g.shape, 2, g.device, g.data_ptr(), y.data_ptr(),
-                        layer_scale.data_ptr(), dy.data_ptr())
-    return dy, sums[0], sums[1]
 
 
 def gelu_bwd_reference(hc, dh):
@@ -283,12 +251,13 @@ def colsum_config(rows: int, cols: int) -> ColsumConfig:
     return ColsumConfig(strips, parts, COLSUM_WARPS)
 
 
-def _colsum_pass(name, fn, rows, cols, device, *ptrs_before_part):
+def _colsum_pass(name, fn, rows, cols, device, *ptrs_before_part, sums=1):
     """Launches a pass on the column sum's grid (`colsum_config`) and
-    finishes its partials: the (cols,) fp32 column sums."""
+    finishes its partials: the (cols,) fp32 column sums, or (sums, cols)
+    for a pass with several (its partials (parts, sums, cols))."""
     config = colsum_config(rows, cols)
-    part = torch.empty((config.parts, cols), dtype=torch.float32,
-                       device=device)
+    shape = (config.parts, cols) if sums == 1 else (config.parts, sums, cols)
+    part = torch.empty(shape, dtype=torch.float32, device=device)
     code = fn(*ptrs_before_part, part.data_ptr(), rows, cols, config.parts,
               config.warps, dl._stream())
     dl._raise_on_error(name, code)
@@ -314,6 +283,25 @@ def colsum(a):
     _check_rows16("colsum", a)
     return _colsum_pass("layer_colsum", ln._lib().layer_colsum, *a.shape,
                         a.device, a.data_ptr())
+
+
+def scale_grad(g, y, layer_scale):
+    """The LayerScale backward pass on the column sum's grid: the width a
+    multiple of 8 and every row and layer_scale 16-byte aligned on the
+    card (the layer's always are)."""
+    if dl._route(g, y, layer_scale) == "cpu":
+        return scale_grad_reference(g, y, layer_scale)
+    _check_rows(g, y)
+    dl._check(layer_scale.dtype == torch.float32
+              and layer_scale.is_contiguous()
+              and layer_scale.shape == (g.shape[1],),
+              "layer_scale must be (cols,) fp32")
+    dy = torch.empty_like(g)
+    _check_rows16("scale_grad", g, y, layer_scale, dy)
+    sums = _colsum_pass("layer_scale_grad", ln._lib().layer_scale_grad,
+                        *g.shape, g.device, g.data_ptr(), y.data_ptr(),
+                        layer_scale.data_ptr(), dy.data_ptr(), sums=2)
+    return dy, sums[0], sums[1]
 
 
 def gelu_bwd(hc, dh):

@@ -19,7 +19,9 @@ backward's (ops/dino_layer_train.py): one source for both uses.
 The Pallas TPU kernel `_ln_kernel` of the forward-only serving LayerNorm
 becomes csrc/row_kernels.cu's `row_layer_norm`: fp32 statistics on the
 uncast input with the two-pass variance mean((x - mean)^2), where the
-kernels above take flax's fast variance, and one rounding to x.dtype.
+kernels above take flax's fast variance, and one rounding to x.dtype; a
+warp per row where the width allows it (`layer_norm_plan`), a block per row
+at the other widths.
 
 Beside each kernel is its plain PyTorch version with the same arithmetic. A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -48,6 +50,11 @@ ROWS_PER_BLOCK = 32
 #: wave; each block leaves one partial of the column sums)
 LN_BWD_BLOCKS_PER_SM, LN_BWD_WARPS = 4, 2
 
+#: the one-pass LayerNorm's warp-per-row grid: warps a block (at 257 rows
+#: 65 blocks of four warps took less device time than 257 of one, 129 of
+#: two or 33 of eight: tools/layer_norm_sweep.py)
+LN_ONE_PASS_WARPS = 4
+
 #: launches of each wrapper since the last reset
 LAUNCHES: Dict[str, int] = {"layer_norm_pallas_fwd": 0,
                             "layer_norm_pallas_bwd": 0,
@@ -72,7 +79,7 @@ def _lib():
     lib.layer_norm_bwd_max_width.argtypes = []
     lib.layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, i, i,
                                    p]
-    lib.layer_scale_grad.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.layer_scale_grad.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.layer_gelu_bwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.layer_colsum.argtypes = [p, p, i, i, i, i, p]
     lib.layer_finish_sums.argtypes = [p, p, i, i, p]
@@ -96,7 +103,7 @@ def row_lib():
     p, i, f, n = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
     lib.row_max_width.argtypes = []
-    lib.row_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, p]
+    lib.row_layer_norm.argtypes = [p, p, p, p, i, i, f, i, i, i, i, i, p]
     lib.row_add_ln_fwd.argtypes = [p, p, p, p, p, p, p, i, i, f, i, i, i, i,
                                    p]
     lib.row_add_ln_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i,
@@ -256,6 +263,20 @@ def layer_norm_reference(x, scale, bias, eps: float = 1e-6):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def layer_norm_plan(rows: int, d: int, *tensors) -> dl.RowPlan:
+    """The launch `layer_norm` makes for (rows, d), from the shape and the
+    tensors' alignment alone: a warp per row (`dl.row_chunks`: widths that
+    are multiples of 8 up to 1024, every tensor 16-byte aligned) in blocks
+    of LN_ONE_PASS_WARPS warps, as many as give every warp a row, up to
+    kernel 6's blocks a multiprocessor (the warps then walk several rows
+    each); else a block of 256 threads per row."""
+    chunks = dl.row_chunks(d, *tensors)
+    if chunks == 0:
+        return dl.RowPlan(0, rows, 8)
+    blocks = min(-(-rows // LN_ONE_PASS_WARPS), dl.SMS * dl.LN_BLOCKS_PER_SM)
+    return dl.RowPlan(chunks, max(1, blocks), LN_ONE_PASS_WARPS)
+
+
 def layer_norm(x, scale, bias, eps: float = 1e-6):
     """Forward-only LayerNorm over the last axis. x (..., d) bf16 or fp32;
     scale, bias (d,). Returns x's shape and dtype (the caller casts to its
@@ -280,11 +301,12 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
         scale, bias = scale.float(), bias.float()
     scale, bias = scale.contiguous(), bias.contiguous()
     out = torch.empty_like(rows)
+    plan = layer_norm_plan(*rows.shape, rows, scale, bias, out)
     code = row_lib().row_layer_norm(
         rows.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
         rows.shape[0], rows.shape[1], float(eps),
         int(x.dtype == torch.float32), int(scale.dtype == torch.float32),
-        _stream())
+        plan.chunks, plan.blocks, plan.warps, _stream())
     _raise_on_error("row_layer_norm", code)
     LAUNCHES["layer_norm"] += 1
     return out.view(x.shape)

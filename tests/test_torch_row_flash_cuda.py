@@ -75,6 +75,53 @@ def test_layer_norm_kernel(device, dtype, shape):
            tln.layer_norm_reference(x, s16, b16, 1e-6), x.dtype)
 
 
+# kernel 5 a warp per row: the serving shape, one row, the training rows,
+# four chunks a lane; x and the vectors in both types; rows shifted by +100,
+# where a fast variance would cancel (the kernel keeps the two-pass one)
+@pytest.mark.parametrize("shift", [0.0, 100.0])
+@pytest.mark.parametrize("vec_dtype", list(DTYPES))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(257, 768), (1, 768), (16448, 768),
+                                   (31, 1024)])
+def test_layer_norm_warp_per_row_kernel(device, dtype, vec_dtype, shape,
+                                        shift):
+    rng = np.random.default_rng(shape[0] + shape[1])
+    x = (_t(rng, shape, torch.float32, device, 2.0) + shift).to(DTYPES[dtype])
+    scale = (_t(rng, shape[-1:], torch.float32, device, 0.1) + 1.0).to(
+        DTYPES[vec_dtype])
+    bias = _t(rng, shape[-1:], DTYPES[vec_dtype], device, 0.1)
+    chunks = 3 if shape[1] <= 768 else 4
+    assert tln.layer_norm_plan(*shape, x, scale, bias).chunks == chunks
+    tln.reset_launch_counts()
+    got = tln.layer_norm(x, scale, bias, 1e-6)
+    torch.cuda.synchronize()
+    assert tln.LAUNCHES["layer_norm"] == 1 and got.dtype == x.dtype
+    _close(got, tln.layer_norm_reference(x, scale, bias, 1e-6), x.dtype)
+    assert torch.equal(got, tln.layer_norm(x, scale, bias, 1e-6))
+
+
+# the first kernel keeps rows off a 16-byte boundary, widths over 1024 and
+# widths that are no multiple of 8
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["unaligned", "width 2048", "width 100"])
+def test_layer_norm_first_kernel_takes_the_other_rows(device, dtype, case):
+    shape = {"unaligned": (257, 768), "width 2048": (65, 2048),
+             "width 100": (68, 100)}[case]
+    rng = np.random.default_rng(len(case))
+    dt = DTYPES[dtype]
+    x = (_t(rng, shape, torch.float32, device, 2.0) + 100.0).to(dt)
+    if case == "unaligned":
+        flat = torch.empty(x.numel() + 1, dtype=dt, device=device)
+        x = flat[1:].view(shape).copy_(x)
+    scale = (_t(rng, shape[-1:], torch.float32, device, 0.1) + 1.0).bfloat16()
+    bias = _t(rng, shape[-1:], torch.bfloat16, device, 0.1)
+    assert tln.layer_norm_plan(*shape, x, scale, bias).chunks == 0
+    got = tln.layer_norm(x, scale, bias, 1e-6)
+    torch.cuda.synchronize()
+    _close(got, tln.layer_norm_reference(x, scale, bias, 1e-6), dt)
+    assert torch.equal(got, tln.layer_norm(x, scale, bias, 1e-6))
+
+
 def test_layer_norm_kernel_refuses_wide_rows_and_grads(device):
     x = torch.zeros((2, 2049), device=device)
     ones = torch.ones(2049, device=device)

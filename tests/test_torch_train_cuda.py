@@ -341,6 +341,44 @@ def test_column_sum_passes(device, rows, cols):
                      dh[:, :cols - 4].contiguous())
 
 
+@pytest.mark.parametrize("rows,cols", [(16448, 768), (16485, 768), (99, 768),
+                                       (68, 128)])
+def test_scale_grad_kernel(device, rows, cols):
+    """The LayerScale pass on the column sum's 16-byte rows and grid: dy the
+    plain version's bits (one rounding of an exact product); both column
+    sums within 1e-4 of the plain version and of fp64 (terms in another
+    order); two runs bit-equal; a batch's sums within 1e-4 of its two
+    halves' (another grid, another order); a width that is no multiple of 8
+    raises."""
+    g, y = _randn((rows, cols), device, 1.0, 0), _randn((rows, cols), device,
+                                                         1.0, 1)
+    ls = _randn((cols,), device, 0.05, 2).float() + 0.3
+    dlt.reset_launch_counts()
+    got = dlt.scale_grad(g, y, ls)
+    torch.cuda.synchronize()
+    assert dlt.LAUNCHES["layer_scale_grad"] == 1
+    ref = dlt.scale_grad_reference(g, y, ls)
+    assert torch.equal(got[0], ref[0])
+    exact = ((g.double() * y.double()).sum(0), got[0].double().sum(0))
+    for a, b, c in zip(got[1:], ref[1:], exact):
+        assert a.dtype == torch.float32 and a.shape == (cols,)
+        for want in (b, c):
+            err, scale = _err(a, want)
+            assert err <= 1e-4 * max(scale, 1.0), (err, scale)
+    again = dlt.scale_grad(g, y, ls)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if rows % 2 == 0:
+        half = rows // 2
+        lo, hi = (dlt.scale_grad(g[sl], y[sl], ls)
+                  for sl in (slice(0, half), slice(half, rows)))
+        for full, a, b in zip(got[1:], lo[1:], hi[1:]):
+            err, scale = _err(full, a + b)
+            assert err <= 1e-4 * max(scale, 1.0), (err, scale)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        dlt.scale_grad(g[:, :100].contiguous(), y[:, :100].contiguous(),
+                       ls[:100].contiguous())
+
+
 # the last four: widths the warp-per-row kernel does not take (no multiple
 # of 8; wider than 1024), its 4-chunk instantiation, the training shape
 @pytest.mark.parametrize("mode", ["layer", "bf16", "fp32"])
