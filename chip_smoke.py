@@ -34,6 +34,19 @@
    attention and 25 one-pass LayerNorm launches per step, the actions held
    against the same steps with both kernels' plain versions, timed beside
    the stacked-trunk step.
+   Server phase, on the same flagship: saved with an EMA file into a
+   temporary directory and loaded back by load_hypervla_policy on the card
+   (the EMA params bit for bit); its host path (the JAX package's default
+   path, over the stacked trunk kernel: one launch a step) for 5 steps
+   against the fused kernel step; the fused kernel wrapper that
+   load_hypervla_policy(fused_serving=True) builds behind the PolicyServer
+   on 127.0.0.1, driven by a PolicyClient in this process (ping, reset,
+   50 steps): every served
+   action bit-equal to the in-process step's and one trunk launch per
+   served step, the round trip timed beside the in-process step and
+   traced; the K-tick step (K = 8 over 48 frames: bit-equal to 48 per-tick
+   steps, 48 trunk launches) and the multi-task step (N = 4 tasks: each
+   action bit-equal to its single-task step, 4 trunk launches a tick).
 4. Row and flash kernel phase: the flash attention and the one-pass
    LayerNorm at the serving shapes (the flash attention also at B=64, as
    cross attention with 65 queries on 300 keys and at head dim 128; each
@@ -127,6 +140,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 STEPS = 50
 SEED = 0
+HOST_STEPS = 5        # host-path steps held against the fused step
+SERVE_CKPT_STEP = 1   # the step directory the server phase saves
+SCAN_K = 8            # ticks a call of the K-tick step
+SCAN_FRAMES = 48      # frames through the K-tick step
+TASKS = 4             # tasks a tick of the multi-task step
+MULTI_TICKS = 5
 SOURCES = ("dino_layer.cu", "fused_attention.cu", "layer_backward.cu",
            "row_kernels.cu", "flash_attention.cu")
 TRUNK_SOURCE = "hypervla_tpu_torch/csrc/dino_layer.cu"
@@ -1179,7 +1198,7 @@ def make_wrapper(model, trunk_impl):
 
     return InferenceWrapper(model, policy_setup="google_robot",
                             image_size=224, action_ensemble=True, crop=True,
-                            trunk_impl=trunk_impl)
+                            fused_serving=True, trunk_impl=trunk_impl)
 
 
 def slice_phase(device):
@@ -1379,7 +1398,262 @@ def slice_phase(device):
             f"{count:.0f} device kernels per step, idle share "
             f"{1 - busy / med:.3f} of the {med:.4f} ms step")
     launches.update(got)
-    return launches
+    flagship = dict(model=model, instruction=instruction, frames=frames,
+                    init={k: v.cpu().numpy() for k, v in init.items()})
+    return launches, flagship
+
+
+def server_phase(device, flagship):
+    """Serves the slice phase's flagship as a user would: saved with an EMA
+    file and loaded back through load_hypervla_policy on the card, once as
+    the host path and once as the fused kernel step, which goes behind the
+    PolicyServer on 127.0.0.1 driven by a PolicyClient; then the K-tick and
+    the multi-task steps. Each host, served, scanned and multi-task tick
+    must launch the stacked trunk once per frame, and each served, scanned
+    and multi-task tick equal the in-process per-tick step bit for bit."""
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.eval.inference import InferenceWrapper
+    from hypervla_tpu_torch.eval.model_loading import load_hypervla_policy
+    from hypervla_tpu_torch.eval.policy_server import (
+        PolicyClient,
+        PolicyServer,
+    )
+    from hypervla_tpu_torch.models.hypervla import save_ema_params
+    from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import serving
+
+    model, instruction = flagship["model"], flagship["instruction"]
+    frames, init = flagship["frames"], flagship["init"]
+    task = "pick up the cube"
+    # EMA params that differ from the trained ones wherever a task reads them
+    ema = {k: v * 0.999 if k.startswith("output_head_") else v
+           for k, v in model.params.items()}
+
+    # ---- the checkpoint: save, then load on the card with the EMA swap ----
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        model.save_pretrained(SERVE_CKPT_STEP, root)
+        save_ema_params(root, SERVE_CKPT_STEP, ema)
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, files in os.walk(root) for f in files)
+        t0 = time.perf_counter()
+        policy = load_hypervla_policy(root, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        served_policy = load_hypervla_policy(root, device=device,
+                                             fused_serving=True)
+    loaded = policy.model
+    for p in (policy, served_policy):
+        if set(p.model.params) != set(ema) or not all(
+                torch.equal(p.model.params[k], ema[k]) for k in ema):
+            raise AssertionError("the loaded params are not the saved EMA "
+                                 "params bit for bit")
+    if not (served_policy.fused_serving
+            and served_policy.trunk_impl == "kernel"):
+        raise AssertionError("load_hypervla_policy(fused_serving=True) did "
+                             "not build the fused kernel step")
+    log(f"server checkpoint: save s {save_s:.3f} ({written} bytes: params "
+        f"and EMA params of {len(ema)} tensors), load_hypervla_policy s "
+        f"{load_s:.3f}; the EMA params loaded bit for bit, twice")
+
+    def wrapper(**kwargs):
+        return InferenceWrapper(loaded, policy_setup="google_robot",
+                                image_size=224, action_ensemble=True,
+                                crop=True, **kwargs)
+
+    # ---- the host path (the JAX default) against the fused kernel step ----
+    fused = wrapper(fused_serving=True, trunk_impl="kernel")
+    if policy.fused_serving or policy.trunk_impl != "kernel":
+        raise AssertionError("load_hypervla_policy did not build the host "
+                             "path on the trunk kernel")
+    host_actions, fused_actions, host_ms = [], [], []
+    for w in (policy, fused):
+        w.reset(task, instruction, init)
+    host_launches = 0
+    for f in frames[1:HOST_STEPS + 1]:
+        dl.reset_launch_counts()
+        t0 = time.perf_counter()
+        host_actions.append(policy.step(f)[0])
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        host_launches += dl.LAUNCHES["dino_layers_serving"]
+        fused_actions.append(fused.step(f)[0])
+    if host_launches != HOST_STEPS:
+        raise AssertionError(f"the host path launched the trunk kernel "
+                             f"{host_launches} times in {HOST_STEPS} steps")
+    host_actions, fused_actions = np.stack(host_actions), np.stack(
+        fused_actions)
+    scale = max(np.abs(fused_actions[:, :6]).max(), 1.0)
+    arm_err = float(np.abs(host_actions[:, :6] - fused_actions[:, :6]).max())
+    log(f"server host path ({HOST_STEPS} steps, trunk {policy.trunk_impl}, "
+        f"{host_launches} trunk launches) vs the fused kernel step: arm max_abs_err {arm_err:.6g} (bound "
+        f"{TRUNK_BOUND * scale:.6g}), gripper agreement "
+        f"{float((host_actions[:, 6] == fused_actions[:, 6]).mean()):.3f}; "
+        f"host step ms median {statistics.median(host_ms):.4f}")
+    if not (np.isfinite(host_actions).all() and arm_err < TRUNK_BOUND * scale):
+        raise AssertionError("the host path disagrees with the fused step")
+    # the gripper logits of both trunks on one frame (a thresholded logit
+    # near 0 may flip)
+    image = torch.as_tensor(policy._resize_image(frames[1]), device=device)
+    logits = [loaded.base_net.action_head(w.base_params, loaded.base_net.encode(
+        w.base_params, image[None], w.trunk_impl))[1].flatten()
+        for w in (policy, fused)]
+    err, lscale = max_err(*logits)
+    log(f"server gripper logits host path vs fused kernel step: max_abs_err "
+        f"{err:.6g} (bound {TRUNK_BOUND * max(lscale, 1.0):.6g})")
+    if not err < TRUNK_BOUND * max(lscale, 1.0):
+        raise AssertionError("the host path's gripper logits disagree with "
+                             "the fused step's")
+
+    # ---- the policy server on 127.0.0.1, a client in this process ----
+    server = PolicyServer(served_policy, lambda _: instruction,
+                          host="127.0.0.1", port=0)
+    listener = socket.socket()
+    listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(1)
+
+    def serve_one():
+        conn, _ = listener.accept()
+        server._handle(conn)
+
+    thread = threading.Thread(target=serve_one, daemon=True)
+    thread.start()
+    client = PolicyClient("127.0.0.1", listener.getsockname()[1])
+    local = wrapper(fused_serving=True, trunk_impl="kernel")
+    try:
+        if client.ping() != {"ok": True}:
+            raise AssertionError("ping failed")
+        client.reset(task, initial_state=init)
+        local.reset(task, instruction, init)
+        # the served path, counted: every launch below is a served step's
+        dl.reset_launch_counts()
+        replies, rtt_ms = [], []
+        for f in frames[1:]:
+            t0 = time.perf_counter()
+            replies.append(client.step(f))
+            rtt_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        served = dict(dl.LAUNCHES)
+        local_ms = []
+        for f, reply in zip(frames[1:], replies):
+            t0 = time.perf_counter()
+            raw, action, _, _, _ = local.step(f)
+            local_ms.append((time.perf_counter() - t0) * 1e3)
+            if not (np.array_equal(reply["raw_action"], raw)
+                    and np.array_equal(reply["action"], action)):
+                raise AssertionError("a served action differs from the "
+                                     "in-process step's")
+        log(f"server launches over {STEPS} served steps: {served}")
+        if served["dino_layers_serving"] != STEPS:
+            raise AssertionError("not every served step launched the trunk "
+                                 "kernel once")
+        rtt, step_ms = statistics.median(rtt_ms), statistics.median(local_ms)
+        log(f"server round trip ms per step request (median of {STEPS}) "
+            f"{rtt:.4f}, the in-process fused step {step_ms:.4f} (difference "
+            f"{rtt - step_ms:.4f}); every served action bit-equal to the "
+            "in-process step's")
+        busy, count = device_busy(lambda: client.step(frames[1]), 10)
+        log(f"server step profiled (client round trip): device busy ms "
+            f"{busy:.4f}, {count:.0f} device kernels per request, idle share "
+            f"{1 - busy / rtt:.3f} of the {rtt:.4f} ms round trip")
+    finally:
+        client.close()
+        thread.join(timeout=60)
+        listener.close()
+    if thread.is_alive():
+        raise AssertionError("the server thread did not end")
+
+    # ---- K ticks a call ----
+    stats = policy.unnormalization_statistics
+    kwargs = dict(image_size=224, crop=True, ensemble=True,
+                  trunk_impl="kernel")
+    base, _ = loaded.create_tasks(instruction, init)
+    params = serving.prepare_serving_params(loaded, base)
+    tick, init_history = serving.make_serving_step(loaded, stats, **kwargs)
+    scan, _ = serving.make_scan_serving_step(loaded, stats, SCAN_K, **kwargs)
+    scan_frames = frames[1:SCAN_FRAMES + 1]
+
+    def run_ticks():
+        history, out = init_history(), []
+        for i, f in enumerate(scan_frames):
+            action, history = tick(params, f, history, i)
+            out.append(action)
+        return torch.stack(out), history
+
+    def run_scan():
+        history, out = init_history(), []
+        for c in range(0, SCAN_FRAMES, SCAN_K):
+            actions, history = scan(params, scan_frames[c:c + SCAN_K],
+                                    history, c)
+            out.append(actions)
+        return torch.cat(out), history
+
+    want, want_history = run_ticks()
+    dl.reset_launch_counts()
+    got, got_history = run_scan()
+    torch.cuda.synchronize()
+    scanned = dl.LAUNCHES["dino_layers_serving"]
+    if scanned != SCAN_FRAMES:
+        raise AssertionError(f"the K-tick step launched the trunk {scanned} "
+                             f"times over {SCAN_FRAMES} frames")
+    if not (torch.equal(got, want) and torch.equal(got_history,
+                                                   want_history)):
+        raise AssertionError("the K-tick step differs from the per-tick "
+                             "steps")
+    scan_ms = cuda_ms(run_scan, 2) / SCAN_FRAMES
+    tick_ms = cuda_ms(run_ticks, 2) / SCAN_FRAMES
+    log(f"server K-tick step (K={SCAN_K}, {SCAN_FRAMES} frames): "
+        f"{scanned} trunk launches, bit-equal to {SCAN_FRAMES} per-tick "
+        f"steps; ms per action {scan_ms:.4f} (per-tick {tick_ms:.4f})")
+
+    # ---- N tasks a tick ----
+    rng = np.random.default_rng(SEED + 3)
+    tokens = instruction["language_instruction"]["token_embedding"]
+    per_task = []
+    for _ in range(TASKS):
+        lang = dict(instruction["language_instruction"], token_embedding=(
+            rng.standard_normal(tokens.shape).astype(np.float32)))
+        base, _ = loaded.create_tasks({"language_instruction": lang}, init)
+        per_task.append(serving.prepare_serving_params(loaded, base))
+    multi, _, stack = serving.make_multitask_serving_step(loaded, stats,
+                                                          **kwargs)
+    stacked = stack(per_task)
+    histories = torch.stack([init_history()] * TASKS)
+    singles = [init_history() for _ in range(TASKS)]
+    dl.reset_launch_counts()
+    multi_out = []
+    for t in range(MULTI_TICKS):
+        actions, histories = multi(stacked,
+                                   frames[1 + t * TASKS:1 + (t + 1) * TASKS],
+                                   histories, np.full(TASKS, t))
+        multi_out.append(actions)
+    torch.cuda.synchronize()
+    multi_launches = dl.LAUNCHES["dino_layers_serving"]
+    if multi_launches != TASKS * MULTI_TICKS:
+        raise AssertionError(f"the multi-task step launched the trunk "
+                             f"{multi_launches} times over {MULTI_TICKS} "
+                             f"ticks of {TASKS} tasks")
+    for t, actions in enumerate(multi_out):
+        for i in range(TASKS):
+            action, singles[i] = tick(per_task[i], frames[1 + t * TASKS + i],
+                                      singles[i], t)
+            if not torch.equal(actions[i], action):
+                raise AssertionError(f"task {i} at tick {t} differs from "
+                                     "its single-task step")
+    if torch.equal(multi_out[0][0], multi_out[0][1]):
+        raise AssertionError("two tasks gave the same action")
+    multi_ms = cuda_ms(lambda: multi(stacked, frames[1:TASKS + 1], histories,
+                                     np.full(TASKS, MULTI_TICKS)), 5)
+    log(f"server multi-task step (N={TASKS}): {multi_launches} trunk "
+        f"launches over {MULTI_TICKS} ticks, each task's action bit-equal "
+        f"to its single-task step; ms per tick {multi_ms:.4f}")
 
 
 def train_kernel_phase(device):
@@ -2238,7 +2512,9 @@ def main() -> int:
 
     results = kernel_phase(device)
     redesign_phase(device)
-    launches = slice_phase(device)
+    launches, flagship = slice_phase(device)
+    server_phase(device, flagship)
+    del flagship
     row_results, add_ln_launches = row_flash_kernel_phase(device)
     train_results = train_kernel_phase(device)
     column_pass_phase(device)

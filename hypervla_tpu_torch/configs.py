@@ -69,7 +69,8 @@ def refuse_dropout(section: str, kwargs: Dict[str, Any]) -> None:
         if kwargs.get(key):
             raise NotImplementedError(
                 f"{section} {key}={kwargs[key]!r}: dropout is not ported "
-                "(ROADMAP.md, queue A8); set the rate to 0")
+                "(ROADMAP.md A8, the rest of the train step); set the rate "
+                "to 0")
 
 
 def pretrain_config() -> Dict[str, Any]:

@@ -1,23 +1,40 @@
 """Closed-loop inference runtime (counterpart of
-hypervla_tpu/eval/inference.py::InferenceWrapper, fused-serving path).
+hypervla_tpu/eval/inference.py::InferenceWrapper).
 
 `reset` runs one hypernetwork forward (create_tasks), prepares the params
-for serving (bf16 trunk; stacked layers, or with trunk_impl "layers" the
-per-layer leaves) and clears the action history;
-`step` runs the fused serving step (ops/serving.py) on the model's device
-and applies the per-robot post-processing on the host (google-robot sticky
-gripper, widowx binarisation, libero rescale).
+for serving (bf16 trunk; stacked layers, or with a per-layer trunk_impl the
+per-layer leaves) and clears the histories. `step` takes one of two paths,
+chosen as the JAX wrapper chooses:
 
-The TPU package's per-step host path (multi-frame history, padded resize,
-attention-map capture) is not ported yet: those options raise.
+  * the host path (fused_serving=False, the default): the frame is resized
+    (optionally padded to 256x320 first, and centre-cropped), pushed on the
+    image history, and run through model.sample_actions; the action chunk is
+    unnormalised and ensembled on the host (ActionEnsembler). The trunk runs
+    as trunk_impl says, the stacked trunk kernel (kernel 1,
+    ops/dino_layer.py::dino_layers_serving) by default; the JAX host path
+    runs its layer loop, which trunk_impl "layers" selects;
+  * the fused serving step (fused_serving=True, and no padded resize): one
+    call of ops/serving.py's step on the model's device, the trunk as
+    trunk_impl says.
+
+Either way the per-robot post-processing (google-robot sticky gripper,
+widowx binarisation, libero rescale) runs on the host.
+
+Not ported, and refused: a history window over one frame (horizon > 1; the
+port's base net has window 1, ROADMAP.md A6, SmallStem and the goldens),
+and attention-map capture (save_attention_map; ROADMAP.md A8, the rest of
+the train step, which needs the capture in the trunk).
 """
+import logging
 import time
+from collections import deque
 from enum import Enum
 from typing import Optional
 
 import numpy as np
 import torch
 
+from hypervla_tpu_torch.eval.action_ensemble import ActionEnsembler
 from hypervla_tpu_torch.eval.action_space import euler2axangle
 from hypervla_tpu_torch.models.base_vit import (
     DINO_IMAGE_MEAN,
@@ -44,47 +61,89 @@ _DATASETS = {
     "libero": "libero",
     "metaworld": "metaworld",
 }
+#: the size resize_with_pad pads to before the square resize
+PADDED_SIZE = (256, 320)
 
 
 class InferenceWrapper:
     def __init__(self, model, policy_setup: str = "libero",
-                 horizon: int = 1, image_size: int = 224,
-                 action_ensemble: bool = False, crop: bool = False,
-                 padded_resize: bool = False,
-                 save_attention_map: bool = False,
+                 horizon: int = 1, pred_action_horizon: int = 1,
+                 exec_horizon: int = 1, image_size: int = 224,
+                 init_rng: int = 0, action_ensemble: bool = False,
+                 crop: bool = False, save_attention_map: bool = False,
+                 padded_resize: bool = False, fused_serving: bool = False,
                  trunk_impl: str = "kernel") -> None:
-        if horizon != 1 or padded_resize or save_attention_map:
+        """trunk_impl (the JAX wrapper's trunk_kernel) is one of
+        ops/serving.py::TRUNK_IMPLS, on either path. exec_horizon and
+        init_rng are taken for the JAX signature only: a step returns one
+        action (receding-horizon execution is the environment loop's, so
+        exec_horizon must be 1), and the mix head's argmax decode draws no
+        random numbers, so init_rng changes nothing."""
+        if exec_horizon != 1:
+            raise ValueError(
+                f"exec_horizon={exec_horizon}: a step returns one action; "
+                "execute a chunk in the environment loop")
+        if horizon != 1:
             raise NotImplementedError(
-                "only the fused serving path is ported: horizon=1, no padded "
-                "resize, no attention-map capture (ROADMAP.md)"
-            )
+                f"horizon={horizon}: the port's base net has a window of one "
+                "frame (ROADMAP.md A6, SmallStem, the continuous head and "
+                "the goldens)")
+        if save_attention_map:
+            raise NotImplementedError(
+                "save_attention_map=True: the port's trunk does not capture "
+                "attention maps (ROADMAP.md A8, the rest of the train step)")
         if policy_setup not in _DATASETS:
             raise ValueError(f"Unknown policy setup: {policy_setup}")
         self.model = model
         self.policy_setup = policy_setup
         self.image_size = image_size
+        self.horizon = horizon
+        self.pred_action_horizon = pred_action_horizon
         self.action_ensemble = action_ensemble
         self.action_ensemble_temp = 0.0
         self.crop = crop
+        self.padded_resize = padded_resize
+        self.save_attention_map = save_attention_map
+        # the JAX wrapper's rule (with the refusals above): the fused step
+        # has no padded resize, so that takes the host path
+        self.fused_serving = fused_serving and not padded_resize
+        per_layer_trunk(trunk_impl)  # raises on an unknown value
         self.trunk_impl = trunk_impl
         self.sticky_gripper_num_repeat = {
             "google_robot": 15, "widowx_bridge": 1}.get(policy_setup)
         dataset = _DATASETS[policy_setup]
         stats = model.dataset_statistics
-        if stats is None:
-            raise ValueError("the model carries no dataset statistics")
-        if "action" in stats:
-            self.unnormalization_statistics = stats["action"]
-        elif dataset in stats:
-            self.unnormalization_statistics = stats[dataset]["action"]
-        else:
-            raise ValueError(f"no action statistics for {dataset}")
+        self.unnormalization_statistics = None
+        if stats is not None:
+            if "action" in stats:
+                self.unnormalization_statistics = stats["action"]
+            elif dataset in stats:
+                self.unnormalization_statistics = stats[dataset]["action"]
+            else:
+                fallback = sorted(stats.keys())[0]
+                logging.warning(f"No statistics for {dataset}; falling back "
+                                f"to {fallback} statistics.")
+                self.unnormalization_statistics = stats[fallback]["action"]
         self.normalization_type = _find_normalization_type(model.config,
                                                            dataset)
+        self.image_history = deque(maxlen=self.horizon)
+        self.num_image_history = 0
+        self.action_ensembler = (
+            ActionEnsembler(self.pred_action_horizon,
+                            self.action_ensemble_temp)
+            if self.action_ensemble else None)
         self._serving_step = None
         self.task = None
         self.task_description = None
         self._reset_gripper()
+
+    def _statistics(self) -> dict:
+        if self.unnormalization_statistics is None:
+            raise ValueError(
+                "the model carries no dataset statistics, so its actions "
+                "cannot be unnormalised; load a checkpoint with "
+                "dataset_statistics.json or set model.dataset_statistics")
+        return self.unnormalization_statistics
 
     def _reset_gripper(self):
         self.sticky_action_is_on = False
@@ -92,6 +151,32 @@ class InferenceWrapper:
         self.sticky_gripper_action = 0.0
         self.previous_gripper_action = None
         self.episode_step = 0
+
+    # ------------------------------ images ------------------------------
+
+    def _resize_image(self, image: np.ndarray) -> np.ndarray:
+        size = (self.image_size, self.image_size)
+        x = torch.as_tensor(image, device=self.model.device)
+        if self.padded_resize:
+            x = preprocess.resize_with_pad(x, *PADDED_SIZE)
+        x = preprocess.resize_image(x, size)
+        if self.crop:
+            x = preprocess.center_crop(x, size)
+        return x.cpu().numpy()
+
+    def _add_image_to_history(self, image: np.ndarray) -> None:
+        self.image_history.append(image)
+        self.num_image_history = min(self.num_image_history + 1,
+                                     self.horizon)
+
+    def _obtain_image_history_and_mask(self):
+        images = np.stack(self.image_history, axis=0)
+        horizon = len(self.image_history)
+        pad_mask = np.ones(horizon, dtype=np.float64)
+        pad_mask[: horizon - min(horizon, self.num_image_history)] = 0
+        return images, pad_mask
+
+    # ------------------------------ control ------------------------------
 
     def reset(self, task_description: str, instruction_dict: dict,
               initial_state: Optional[dict] = None) -> None:
@@ -102,30 +187,69 @@ class InferenceWrapper:
             self.model, base_params,
             stack_trunk=not per_layer_trunk(self.trunk_impl))
         self.instruction_dict = instruction_dict
-        if self._serving_step is None:
-            self._serving_step, self._init_history = make_serving_step(
-                self.model,
-                self.unnormalization_statistics,
-                normalization_type=NormalizationType(
-                    self.normalization_type).value,
-                image_size=self.image_size,
-                crop=self.crop,
-                ensemble_temp=self.action_ensemble_temp,
-                ensemble=self.action_ensemble,
-                trunk_impl=self.trunk_impl,
-            )
-        self._serving_history = self._init_history()
+        if self.fused_serving:
+            if self._serving_step is None:
+                self._serving_step, self._init_history = make_serving_step(
+                    self.model,
+                    self._statistics(),
+                    normalization_type=NormalizationType(
+                        self.normalization_type).value,
+                    image_size=self.image_size,
+                    crop=self.crop,
+                    ensemble_temp=self.action_ensemble_temp,
+                    ensemble=self.action_ensemble,
+                    trunk_impl=self.trunk_impl,
+                )
+            self._serving_history = self._init_history()
         self.task_description = task_description
+        self.image_history.clear()
+        if self.action_ensemble:
+            self.action_ensembler.reset()
+        self.num_image_history = 0
         self._reset_gripper()
 
     def step(self, image: np.ndarray, task_description: Optional[str] = None):
         """One control tick: uint8 (H, W, C) frame -> (raw_action, action,
-        image, (task_description, task), seconds)."""
+        image, (task_description, task), seconds); the image is the
+        resized frame on the host path, the frame itself on the fused
+        one."""
         if (task_description is not None
                 and task_description != self.task_description):
             self.reset(task_description, self.instruction_dict)
         if image.dtype != np.uint8:
             raise ValueError(f"frames must be uint8, got {image.dtype}")
+        if self.fused_serving:
+            return self._fused_step(image)
+        image = self._resize_image(image)
+        self._add_image_to_history(image)
+        # the pad mask is all ones at horizon 1, and the window-1 base net
+        # reads none
+        images, _ = self._obtain_image_history_and_mask()
+
+        start = time.perf_counter()
+        raw_actions = self.model.sample_actions(images[None],
+                                                self.base_params,
+                                                self.trunk_impl)
+        raw_actions = raw_actions[0].cpu().numpy()
+        seconds = time.perf_counter() - start
+
+        raw_actions = self._unnormalize(raw_actions)
+        if raw_actions.shape != (self.pred_action_horizon, 7):
+            raise ValueError(
+                f"action chunk {raw_actions.shape}, want "
+                f"({self.pred_action_horizon}, 7): pred_action_horizon must "
+                "be the model's action_horizon")
+        if self.action_ensemble:
+            raw_action = self.action_ensembler.ensemble_action(raw_actions)
+        else:
+            raw_action = np.array(raw_actions[0])
+        action = self._postprocess(raw_action)
+        self.episode_step += 1
+        return raw_action, action, image, (self.task_description,
+                                           self.task), seconds
+
+    def _fused_step(self, image: np.ndarray):
+        """One call of the fused serving step (ops/serving.py)."""
         start = time.perf_counter()
         raw_action, self._serving_history = self._serving_step(
             self.base_params, image, self._serving_history,
@@ -137,6 +261,26 @@ class InferenceWrapper:
         self.episode_step += 1
         return raw_action, action, image, (self.task_description,
                                            self.task), seconds
+
+    # --------------------------- postprocessing ---------------------------
+
+    def _unnormalize(self, raw_actions):
+        stats = self._statistics()
+        kind = NormalizationType(self.normalization_type)
+        key = "mean" if kind == NormalizationType.NORMAL else "p01"
+        mask = np.asarray(
+            stats.get("mask", np.ones_like(stats[key], dtype=bool)))
+        raw_actions = np.asarray(raw_actions)[..., : len(mask)]
+        if kind == NormalizationType.NORMAL:
+            return np.where(
+                mask,
+                raw_actions * np.asarray(stats["std"])
+                + np.asarray(stats["mean"]),
+                raw_actions,
+            )
+        p01, p99 = np.asarray(stats["p01"]), np.asarray(stats["p99"])
+        return np.where(mask, (raw_actions + 1) * (p99 - p01 + 1e-8) / 2
+                        + p01, raw_actions)
 
     def _postprocess(self, raw_action):
         if self.policy_setup == "metaworld":

@@ -2,7 +2,8 @@
 hypervla_tpu/models/action_heads.py::MixActionHead): tanh-squashed
 continuous arm dims plus a binary gripper decoded from the sign of its
 logit, and its training loss. The other heads (continuous, discrete,
-diffusion) are not ported yet (ROADMAP.md, queue A3).
+diffusion) are not ported yet (ROADMAP.md A6, the continuous head; A12.1,
+the other action heads).
 """
 from typing import Dict, Tuple
 
@@ -28,7 +29,7 @@ class MixActionHead:
         if tuple(kw.get("hidden_dims", ())) or kw["token_per_horizon"]:
             raise NotImplementedError(
                 "MixActionHead hidden_dims and token_per_horizon are not "
-                "ported yet (ROADMAP.md)")
+                "ported yet (ROADMAP.md A6)")
         self.action_horizon = action_horizon
         self.action_dim = action_dim
         self.squash = kw["squash_continuous_action"]

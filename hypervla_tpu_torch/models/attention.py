@@ -3,7 +3,8 @@
 Params follow flax's MultiHeadDotProductAttention layout: query/key/value
 kernels (in, heads, head_dim) with biases (heads, head_dim), and an `out`
 kernel (heads, head_dim, out). The non-differential path only; the
-differential attention variant is not ported yet (ROADMAP.md, queue A3).
+differential attention variant is not ported yet (ROADMAP.md A12,
+breadth).
 """
 import math
 from typing import Dict, Optional, Tuple

@@ -5,7 +5,7 @@ at serving time they come from the hypernetwork once per episode, in
 training per sample (a leading batch axis, models/hypernetwork.py::
 per_sample_view).
 """
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,12 +17,17 @@ from hypervla_tpu_torch.models.base_vit import ViT
 class BaseNetwork:
     def __init__(self, model_type: str, action_head_type: str,
                  vit_kwargs: dict, action_head_kwargs: dict,
-                 action_horizon: int = 4, action_dim: int = 7):
+                 action_horizon: int = 4, action_dim: int = 7,
+                 cnn_kwargs: Optional[dict] = None,
+                 octo_kwargs: Optional[dict] = None):
+        """cnn_kwargs and octo_kwargs, which a JAX config carries, are
+        read only by the model types that are not ported."""
         if model_type != "vit" or action_head_type != "mix":
             raise NotImplementedError(
                 f"model_type={model_type!r}, action_head_type="
                 f"{action_head_type!r}: only the vit + mix policy is ported "
-                "(ROADMAP.md, queue A3)"
+                "(ROADMAP.md A6, SmallStem and the continuous head; A12, "
+                "breadth)"
             )
         self.action_head = MixActionHead(action_horizon, action_dim,
                                          action_head_kwargs)

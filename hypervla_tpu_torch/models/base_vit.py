@@ -13,7 +13,8 @@ encoder/Transformer_0).
 
 Other encoder types, language tokens, the class token, positions on the
 action tokens only, and differential attention are not ported yet and
-raise (ROADMAP.md, queue A3), as do the trunk switches with no counterpart
+raise (ROADMAP.md A6, SmallStem, the continuous head and the goldens; A12,
+breadth), as do the trunk switches with no counterpart
 (`check_trunk_switches`).
 """
 from typing import Dict, Tuple
@@ -71,14 +72,14 @@ def check_trunk_switches(vit_kwargs: dict) -> None:
             "vit_kwargs flash_attention_trainable=True is not ported: the "
             "differentiable flash attention is a library kernel in the JAX "
             "package, and its hand-written twin is still to write "
-            "(ROADMAP.md, queue A4)")
+            "(ROADMAP.md A13, the differentiable flash attention)")
     layer_norm_fn(kw.get("fused_layer_norm", False))
     impl = kw.get("dino_layers_impl")
     if impl not in (None, "pallas_train", "pallas_serving"):
         raise NotImplementedError(
             f"vit_kwargs dino_layers_impl={impl!r} is not ported (the XLA "
-            "scan twins of the serving trunk have no counterpart; "
-            "ROADMAP.md A3)")
+            "scan twins of the serving trunk are not carried: the port has "
+            "one plain version, ROADMAP.md queue B's note)")
     remat = kw.get("remat_dino", False) or kw.get("dino_remat_policy")
     if (kw.get("dino_fused_add_ln", False) and remat
             and impl != "pallas_train"
@@ -91,15 +92,15 @@ def check_trunk_switches(vit_kwargs: dict) -> None:
                 f"vit_kwargs {key}={kw[key]!r} is not ported: the trunk "
                 "keeps every layer's activations for the backward, and a "
                 "config that asks for rematerialisation would report "
-                "another peak memory than it set out to (ROADMAP.md, queue "
-                "A8)")
+                "another peak memory than it set out to (ROADMAP.md A8, the "
+                "rest of the train step)")
     if kw.get("scan_dino_layers", False):
         raise NotImplementedError(
             "vit_kwargs scan_dino_layers=True is not ported: it stacks the "
             "trunk's params under encoder/layers/layer, a layout the port "
             "does not read (unstack the tree with the JAX package's "
-            "unstack_layer_params and leave the switch off; ROADMAP.md, "
-            "queue A8)")
+            "unstack_layer_params and leave the switch off; ROADMAP.md A8, "
+            "the rest of the train step)")
     # dino_dot_softmax is accepted and changes nothing: it only re-lays the
     # softmax sums out for the TPU's matrix unit, the same values up to rounding
 
@@ -123,7 +124,8 @@ class ViT:
             if bad:
                 raise NotImplementedError(
                     f"vit_kwargs {name}={kw.get(name)!r} is not ported yet "
-                    "(ROADMAP.md, queue A3)"
+                    "(ROADMAP.md A6, SmallStem, the continuous head and "
+                    "the goldens; A12, breadth)"
                 )
         check_trunk_switches(kw)
         refuse_dropout("vit_kwargs", kw)

@@ -45,7 +45,8 @@ class HyperNetwork:
         for name, bad in unsupported.items():
             if bad:
                 raise NotImplementedError(
-                    f"hypernet_kwargs {name} is not ported yet (ROADMAP.md)")
+                    f"hypernet_kwargs {name} is not ported yet (ROADMAP.md "
+                    "A8, the rest of the train step)")
         refuse_dropout("hypernet_kwargs", hk)
         refuse_dropout("hypernet_kwargs context_encoder_kwargs",
                        hk["context_encoder_kwargs"])

@@ -5,21 +5,51 @@ the hypernetwork, the base network, their params and the weight plan.
     kernels start at zero and their biases hold a fresh base-net init, so
     at step 0 the hypernetwork emits exactly that base net for any task;
   * `create_tasks`: one hypernetwork forward per episode -> base params;
-  * `sample_actions`: the base net alone, the per-step path.
+  * `sample_actions`: the base net alone, the per-step path;
+  * `save_pretrained` / `load_pretrained`: the port's checkpoint, in the
+    JAX package's layout with torch-native files:
 
-Checkpoints are not ported yet (ROADMAP.md, queue A2): a model is built
-from a config and a seed, or takes JAX params through utils/convert.py.
+        <dir>/config.json              the config, tuples as lists
+        <dir>/example_batch.npz        the example batch, "/"-joined keys
+        <dir>/dataset_statistics.json  the statistics, arrays as lists
+        <dir>/<step>/params.pt         the flat params (utils/convert.py keys)
+        <dir>/<step>/EMA_params.pt     {"EMA_<decay>": flat params}
+
+    flax msgpack and orbax need JAX, which the GPU host lacks, so the
+    example batch is an .npz and the params a torch.save'd dict, read back
+    with weights_only=True. tools/convert_checkpoint_to_torch.py writes this
+    layout from a JAX checkpoint.
 """
+import copy
+import json
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from hypervla_tpu_torch.models.base_network import BaseNetwork
 from hypervla_tpu_torch.models.hypernetwork import HyperNetwork
-from hypervla_tpu_torch.models.weight_plan import WeightPlan, init_base_net
+from hypervla_tpu_torch.models.weight_plan import (
+    WeightPlan,
+    build_weight_plan,
+    init_base_net,
+)
+from hypervla_tpu_torch.utils.convert import flatten_tree
 from hypervla_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
+
+
+#: the action head's settings a checkpoint from before they were configured
+#: is read with (hypervla_tpu/models/hypervla.py::load_pretrained)
+DEFAULT_ACTION_HEAD_KWARGS = dict(token_per_horizon=False,
+                                  squash_continuous_action=True,
+                                  clip_target=False, max_action=5.0)
+#: the token width a checkpoint without a token embedding is read with
+DEFAULT_TOKEN_DIM = 768
+PARAMS_FILE = "params.pt"
+EMA_FILE = "EMA_params.pt"
 
 
 def _as_tensor(x, device):
@@ -28,10 +58,70 @@ def _as_tensor(x, device):
     return torch.as_tensor(np.asarray(x), device=device)
 
 
+def _map_tree(fn, tree):
+    """fn over the leaves of nested dicts (every non-dict is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unflatten(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> nested dicts (utils/convert.py::flatten_tree's
+    inverse)."""
+    tree = {}
+    for path, leaf in flat.items():
+        *parents, last = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def _param_specs(hypernet: HyperNetwork, config: dict, example_batch: dict):
+    """The hypernetwork's param specs for the shapes of example_batch: the
+    instruction's token embedding (B, L, token_dim) and, with
+    initial-image conditioning, its patch embeddings (B, T, dim)."""
+    tokens = example_batch["task"]["language_instruction"]["token_embedding"]
+    patches = (example_batch.get("initial_state") or {}).get(
+        "patch_embeddings")
+    image_tokens = (patches.shape[1] if config["hypernet_kwargs"].get(
+        "use_all_image_tokens", False) else 1)
+    return hypernet.specs(
+        instr_len=tokens.shape[1], token_dim=tokens.shape[-1],
+        image_tokens=image_tokens,
+        patch_dim=patches.shape[-1] if patches is not None else 0,
+    )
+
+
+def latest_step(checkpoint_path: str, filename: str = PARAMS_FILE):
+    """The largest step directory of checkpoint_path holding `filename`,
+    or None."""
+    steps = [int(d) for d in os.listdir(checkpoint_path) if d.isdigit()
+             and os.path.exists(os.path.join(checkpoint_path, d, filename))]
+    return max(steps) if steps else None
+
+
+def _host_tensors(params: Params) -> Params:
+    return {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+
+
+def save_ema_params(checkpoint_path: str, step: int, params: Params,
+                    decay: float = 0.999) -> None:
+    """Writes <step>/EMA_params.pt, {"EMA_<decay>": params}: the file the
+    JAX trainer pickles as EMA_params.pkl (train/callbacks.py) and
+    eval/model_loading.py::load_hypervla_policy swaps in."""
+    step_dir = os.path.join(os.path.abspath(checkpoint_path), str(step))
+    os.makedirs(step_dir, exist_ok=True)
+    torch.save({f"EMA_{decay}": _host_tensors(params)},
+               os.path.join(step_dir, EMA_FILE))
+
+
 class HyperVLA:
     def __init__(self, hypernet: HyperNetwork, base_net, config: dict,
                  params: Params, plan: WeightPlan,
-                 dataset_statistics: Optional[dict], device: torch.device):
+                 dataset_statistics: Optional[dict], device: torch.device,
+                 example_batch: Optional[dict] = None):
         self.hypernet = hypernet
         self.base_net = base_net
         self.config = config
@@ -39,6 +129,18 @@ class HyperVLA:
         self.plan = plan
         self.dataset_statistics = dataset_statistics
         self.device = device
+        # numpy, batch 1: the shapes the params were built for
+        self.example_batch = example_batch
+
+    def replace(self, **changes) -> "HyperVLA":
+        """A copy with the given fields replaced (the JAX model's
+        struct.dataclass replace), e.g. replace(params=ema_params)."""
+        new = copy.copy(self)
+        for name, value in changes.items():
+            if not hasattr(self, name):
+                raise AttributeError(f"HyperVLA has no field {name!r}")
+            setattr(new, name, value)
+        return new
 
     @classmethod
     def from_config(cls, config: dict, example_batch: dict, seed: int = 0,
@@ -51,17 +153,8 @@ class HyperVLA:
         gen = torch.Generator().manual_seed(seed)
         base_net, init_params, plan = init_base_net(config, gen)
         hypernet = HyperNetwork(plan, config["hypernet_kwargs"])
-        tokens = example_batch["task"]["language_instruction"][
-            "token_embedding"]
-        patches = (example_batch.get("initial_state") or {}).get(
-            "patch_embeddings")
-        image_tokens = (patches.shape[1] if config["hypernet_kwargs"].get(
-            "use_all_image_tokens", False) else 1)
-        specs = hypernet.specs(
-            instr_len=tokens.shape[1], token_dim=tokens.shape[-1],
-            image_tokens=image_tokens,
-            patch_dim=patches.shape[-1] if patches is not None else 0,
-        )
+        example_batch = _map_tree(lambda x: np.asarray(x)[:1], example_batch)
+        specs = _param_specs(hypernet, config, example_batch)
         params = {n: init(shape, gen).float()
                   for n, (shape, init) in specs.items()}
         # bias-init protocol (hypervla_tpu/models/hypervla.py:211-231)
@@ -74,7 +167,73 @@ class HyperVLA:
                 params[flat] = value
         params = {k: v.to(device) for k, v in params.items()}
         return cls(hypernet, base_net, config, params, plan,
-                   dataset_statistics, device)
+                   dataset_statistics, device, example_batch)
+
+    # ------------------------- checkpoint contract -------------------------
+
+    def save_pretrained(self, step: int, checkpoint_path: str) -> None:
+        """Writes <checkpoint_path>/<step>/params.pt, and config.json,
+        example_batch.npz and dataset_statistics.json where they are not
+        there yet (the JAX package's save_pretrained writes them once per
+        directory too)."""
+        path = os.path.abspath(checkpoint_path)
+        step_dir = os.path.join(path, str(step))
+        os.makedirs(step_dir, exist_ok=True)
+        torch.save(_host_tensors(self.params),
+                   os.path.join(step_dir, PARAMS_FILE))
+        config_path = os.path.join(path, "config.json")
+        if not os.path.exists(config_path):
+            with open(config_path, "w") as f:
+                json.dump(_jsonable(self.config), f)
+        batch_path = os.path.join(path, "example_batch.npz")
+        if not os.path.exists(batch_path) and self.example_batch is not None:
+            np.savez(batch_path, **flatten_tree(self.example_batch))
+        stats_path = os.path.join(path, "dataset_statistics.json")
+        if (not os.path.exists(stats_path)
+                and self.dataset_statistics is not None):
+            with open(stats_path, "w") as f:
+                json.dump(_map_tree(lambda x: np.asarray(x).tolist(),
+                                    self.dataset_statistics), f)
+
+    @classmethod
+    def load_pretrained(cls, checkpoint_path: str, step: Optional[int] = None,
+                        device=None) -> "HyperVLA":
+        """The model saved under checkpoint_path at `step` (None: the
+        latest step), on `device` (None: the CUDA card). Fills in what the
+        JAX package's load_pretrained fills in for older checkpoints: the
+        default action_head_kwargs and, where the example batch has no
+        token embedding, a zero one of width 768."""
+        device = resolve_device(device)
+        path = os.path.abspath(checkpoint_path)
+        with open(os.path.join(path, "config.json")) as f:
+            config = json.load(f)
+        config["base_net_kwargs"].setdefault(
+            "action_head_kwargs", dict(DEFAULT_ACTION_HEAD_KWARGS))
+        with np.load(os.path.join(path, "example_batch.npz"),
+                     allow_pickle=False) as data:
+            example_batch = _unflatten({k: data[k] for k in data.files})
+        instr = example_batch["task"]["language_instruction"]
+        if "token_embedding" not in instr:
+            instr["token_embedding"] = np.zeros(
+                (*instr["input_ids"].shape, DEFAULT_TOKEN_DIM))
+        stats_path = os.path.join(path, "dataset_statistics.json")
+        dataset_statistics = None
+        if os.path.exists(stats_path):
+            with open(stats_path) as f:
+                dataset_statistics = _map_tree(np.array, json.load(f))
+
+        base_net = BaseNetwork(**config["base_net_kwargs"])
+        plan = build_weight_plan(config, base_net)
+        hypernet = HyperNetwork(plan, config["hypernet_kwargs"])
+        specs = _param_specs(hypernet, config, example_batch)
+        step = latest_step(path) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no <step>/{PARAMS_FILE} under {path}")
+        params = torch.load(os.path.join(path, str(step), PARAMS_FILE),
+                            map_location=device, weights_only=True)
+        check_params(params, specs)
+        return cls(hypernet, base_net, config, params, plan,
+                   dataset_statistics, device, example_batch)
 
     @torch.no_grad()
     def create_tasks(self, instruction_dict: dict,
@@ -133,3 +292,34 @@ class HyperVLA:
         random numbers."""
         images = _as_tensor(images, self.device)
         return self.base_net.predict_action(base_params, images, trunk_impl)
+
+
+def check_params(params: Params, specs: dict) -> None:
+    """Raises ValueError unless params hold exactly the spec'd names at
+    their shapes."""
+    missing, extra = set(specs) - set(params), set(params) - set(specs)
+    if missing or extra:
+        raise ValueError(f"checkpoint params do not fit the config: missing "
+                         f"{sorted(missing)[:5]}, unexpected "
+                         f"{sorted(extra)[:5]}")
+    for name, (shape, _) in specs.items():
+        if tuple(params[name].shape) != tuple(shape):
+            raise ValueError(f"checkpoint param {name} has shape "
+                             f"{tuple(params[name].shape)}, the config "
+                             f"{tuple(shape)}")
+
+
+def _jsonable(obj):
+    """A config tree as JSON builtins (hypervla_tpu/models/hypervla.py::
+    _jsonable): tuples become lists."""
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return obj

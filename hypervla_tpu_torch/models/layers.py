@@ -104,3 +104,11 @@ def xavier_uniform(flat_shape=None) -> Init:
         u = torch.rand(tuple(shape), generator=gen)
         return (2.0 * u - 1.0) * limit
     return init
+
+
+def init_params(specs, seed: int, device=None):
+    """{name: (shape, init)} -> fp32 params on `device`, drawn in the
+    specs' order from one generator seeded with `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    return {name: init(shape, gen).float().to(device)
+            for name, (shape, init) in specs.items()}

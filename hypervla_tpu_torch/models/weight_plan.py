@@ -70,10 +70,12 @@ def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
     hk = config["hypernet_kwargs"]
     if hk.get("share_TF_output_head", False):
         raise NotImplementedError(
-            "share_TF_output_head is not ported yet (ROADMAP.md)")
+            "share_TF_output_head is not ported yet (ROADMAP.md A8, the "
+            "rest of the train step)")
     if int(hk.get("init_strategy", BIAS_INIT)) != BIAS_INIT:
         raise NotImplementedError(
-            "init_strategy VARIANCE_INIT is not ported yet (ROADMAP.md)")
+            "init_strategy VARIANCE_INIT is not ported yet (ROADMAP.md A8, "
+            "the rest of the train step)")
     specs = base_net.specs()
     names = sorted(specs, key=lambda n: tuple(n.split("/")))
     shapes = {n: tuple(specs[n][0]) for n in names}

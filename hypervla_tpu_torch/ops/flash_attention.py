@@ -16,7 +16,7 @@ in place through strides, where the TPU wrapper transposes to
 Forward only, like the TPU kernel (it has no VJP): an input that requires a
 gradient raises. `mha_flash_trainable` of the JAX package is not a kernel
 of that package (on a TPU it calls jax's library kernel) and is not ported
-(ROADMAP.md, queue A).
+(ROADMAP.md A13, the differentiable flash attention).
 
 Beside the kernel is its plain PyTorch version. A wrapper takes it only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises. Each
@@ -84,7 +84,7 @@ def _forward_only(*tensors):
         raise RuntimeError(
             "flash_attention is forward only (the TPU kernel has no VJP): "
             "run it under torch.no_grad(); the differentiable twin is not "
-            "ported (ROADMAP.md, queue A)")
+            "ported (ROADMAP.md A13, the differentiable flash attention)")
 
 
 #: multiprocessors of the card the block size is chosen for (H100)

@@ -1,8 +1,9 @@
 """Frame preprocessing for serving (counterpart of
 hypervla_tpu/ops/preprocess.py::resize_image and
-hypervla_tpu/eval/inference.py::_crop_and_resize_bilinear).
+hypervla_tpu/eval/inference.py::_crop_and_resize_bilinear and
+_resize_with_pad).
 
-Both are separable resamplings: one fp32 weight matrix per spatial axis,
+Each is a separable resampling: one fp32 weight matrix per spatial axis,
 built as jax.image builds them (models/encoders/dinov2.py::
 scale_translate_weights), applied as two matmuls. torch has no lanczos,
 hence the explicit matrices.
@@ -27,22 +28,40 @@ def _to_uint8(x):
     return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
 
 
+def _resize_weights(n_in: int, n_out: int, method: str, device):
+    """One axis of jax.image.resize (antialiased): the identity where the
+    size does not change, as jax resizes only the axes that change."""
+    if n_in == n_out:
+        return torch.eye(n_in, device=device)
+    return scale_translate_weights(n_in, n_out, n_out / n_in, 0.0, method,
+                                   True, device, f32_scale=False)
+
+
 def resize_image(image, size: Tuple[int, int]):
     """Lanczos3 with antialiasing, as jax.image.resize computes it.
     (..., H, W, C) -> uint8 (..., *size, C); same size returns early."""
     h, w = image.shape[-3], image.shape[-2]
     if (h, w) == tuple(size):
         return image.to(torch.uint8)
-    x = image.float()
     dev = image.device
+    return _to_uint8(_resample(
+        image.float(), _resize_weights(h, size[0], "lanczos3", dev),
+        _resize_weights(w, size[1], "lanczos3", dev)))
 
-    def weights(n_in, n_out):
-        if n_in == n_out:  # jax resizes only the axes whose size changes
-            return torch.eye(n_in, device=dev)
-        return scale_translate_weights(n_in, n_out, n_out / n_in, 0.0,
-                                       "lanczos3", True, dev, f32_scale=False)
 
-    return _to_uint8(_resample(x, weights(h, size[0]), weights(w, size[1])))
+def resize_with_pad(image, height: int, width: int):
+    """tf.image.resize_with_pad as the JAX package computes it: a bilinear
+    jax.image.resize that keeps the aspect ratio, zero-padded to (height,
+    width) around the centre. (..., H, W, C) -> fp32, not rounded."""
+    h, w = image.shape[-3], image.shape[-2]
+    scale = min(height / h, width / w)
+    new_h, new_w = int(round(h * scale)), int(round(w * scale))
+    dev = image.device
+    x = _resample(image.float(), _resize_weights(h, new_h, "bilinear", dev),
+                  _resize_weights(w, new_w, "bilinear", dev))
+    top, left = (height - new_h) // 2, (width - new_w) // 2
+    return torch.nn.functional.pad(
+        x, (0, 0, left, width - new_w - left, top, height - new_h - top))
 
 
 def crop_and_resize_bilinear(image, box, size: Tuple[int, int]):

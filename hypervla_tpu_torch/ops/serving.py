@@ -147,3 +147,79 @@ def make_serving_step(model, unnorm_stats: dict,
         return action, history
 
     return step_fn, init_history
+
+
+def make_scan_serving_step(model, unnorm_stats: dict, k: int, **kwargs):
+    """K control ticks in one call (the JAX package's
+    make_scan_serving_step, a lax.scan over the per-tick step): the host
+    hands in K frames at once, the receding-horizon regime where the camera
+    ticks slower than the control loop, or offline replay.
+
+    step_fn(params, frames_u8 (K, H, W, C), history, step_idx)
+        -> (actions (K, action_dim), new_history)
+    history and step_idx thread through the K ticks exactly as K calls of
+    make_serving_step's step would. The port's step is a thin loop over
+    that step, kept for the JAX package's API: it saves nothing over K
+    calls (a K-tick step in one CUDA graph waits for ROADMAP.md A3, the
+    host's share of the serving step).
+    kwargs are make_serving_step's (its argument packer is a TPU dispatch
+    workaround and is not carried)."""
+    tick, init_history = make_serving_step(model, unnorm_stats, **kwargs)
+
+    def step_fn(params, frames, history, step_idx: int):
+        if frames.shape[0] != k:
+            raise ValueError(f"scan step built for k={k}, got "
+                             f"{frames.shape[0]} frames")
+        actions = []
+        for i, frame in enumerate(frames):
+            action, history = tick(params, frame, history, step_idx + i)
+            actions.append(action)
+        return torch.stack(actions), history
+
+    return step_fn, init_history
+
+
+def make_multitask_serving_step(model, unnorm_stats: dict, **kwargs):
+    """N different tasks a tick (the JAX package's
+    make_multitask_serving_step). The JAX step vmaps the per-tick step over
+    the generated leaves only, so its batched trunk reads the shared
+    weights once a tick. The port's trunk kernel takes one image, so the
+    port runs the per-tick step once per task: N trunk launches a tick over
+    the one copy of the shared weights. Widening kernel 1 to N images is
+    queue B's.
+
+    Returns (step_fn, init_history, stack_task_params):
+      step_fn(stacked_params, frames (N, H, W, C), histories (N, ...),
+              step_idx (N,)) -> (actions (N, action_dim), new_histories)
+      stack_task_params([params_task0, ...]) stacks the per-task leaves on
+      a new leading axis and keeps the shared leaves of task 0 once. The
+      per-task leaves are the generated ones and, where the image encoder
+      is generated (not in shared_modules), the stacked trunk's (w, b, p),
+      which prepare_serving_params built from each task's own layers.
+    kwargs are make_serving_step's."""
+    tick, init_history = make_serving_step(model, unnorm_stats, **kwargs)
+    generated = {name for name, flag in model.plan.generation_flag.items()
+                 if flag}
+    trunk_generated = any(name.startswith(_ENCODER) for name in generated)
+
+    def per_task(name):
+        return name in generated or (
+            trunk_generated and name.startswith(_ENCODER + "trunk/"))
+
+    def stack_task_params(per_task_params):
+        return {name: (torch.stack([p[name] for p in per_task_params])
+                       if per_task(name) else value)
+                for name, value in per_task_params[0].items()}
+
+    def step_fn(stacked_params, frames, histories, step_idx):
+        actions, new_histories = [], []
+        for i, frame in enumerate(frames):
+            params = {name: value[i] if per_task(name) else value
+                      for name, value in stacked_params.items()}
+            action, history = tick(params, frame, histories[i],
+                                   int(step_idx[i]))
+            actions.append(action)
+            new_histories.append(history)
+        return torch.stack(actions), torch.stack(new_histories)
+
+    return step_fn, init_history, stack_task_params

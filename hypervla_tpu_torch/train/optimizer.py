@@ -184,15 +184,17 @@ def create_optimizer(params: Params, hn_param_type: Dict[str, str],
     the JAX package's create_optimizer does. hn_param_type labels every
     param "generated" or "shared" (`hn_param_type_tree`)."""
     unported = {
-        "grad_accumulation_steps > 1 (optax.MultiSteps)":
-            kwargs.get("grad_accumulation_steps", 1) > 1,
-        "packed": kwargs.get("packed", False),
-        "frozen_keys": bool(kwargs.get("frozen_keys")),
+        "grad_accumulation_steps > 1 (optax.MultiSteps)": (
+            "A8, the rest of the train step",
+            kwargs.get("grad_accumulation_steps", 1) > 1),
+        "packed": ("A2.1, packed AdamW", kwargs.get("packed", False)),
+        "frozen_keys": ("A8, the rest of the train step",
+                        bool(kwargs.get("frozen_keys"))),
     }
-    for name, bad in unported.items():
+    for name, (item, bad) in unported.items():
         if bad:
             raise NotImplementedError(
-                f"optimizer {name} is not ported yet (ROADMAP.md A2.1)")
+                f"optimizer {name} is not ported yet (ROADMAP.md {item})")
 
     def schedule(value):
         if isinstance(value, dict):

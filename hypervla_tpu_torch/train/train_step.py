@@ -8,9 +8,10 @@ the sample axis written out, its batch mean, backward, the optimizer, and
 the EMA of the params.
 
 The configured paths that the flagship fast preset does not take raise
-NotImplementedError (ROADMAP.md A2.1): delta-decay, the v4 weight decay,
-the attention aux losses, device augmentation, embedding noise and per-task
-loss masks, and the trunk switches with no counterpart
+NotImplementedError: delta-decay, the v4 weight decay, the attention aux
+losses, embedding noise and per-task loss masks (ROADMAP.md A8, the rest of
+the train step), device augmentation (A9, device-side augmentation), and
+the trunk switches with no counterpart
 (models/base_vit.py::check_trunk_switches). The layer-kernel trunk
 (vit_kwargs dino_layers_impl="pallas_train") needs
 config["hoist_shared_trunk"], as in the JAX package. vit_kwargs
@@ -79,26 +80,28 @@ def _unported(config: Dict[str, Any], pretrained_params) -> None:
     refuse_dropout("vit_kwargs", vk)
     aux = config["auxiliary_loss"]
     opt = config["optimizer"]
+    rest = "A8, the rest of the train step"
     checks = {
-        "delta-decay toward pretrained params": (
+        "delta-decay toward pretrained params": (rest, 
             pretrained_params is not None
             and vk.get("fine_tune_pretrained_image_encoder", False)
             and opt.get("base_weight_decay", 0.0) > 0),
-        "weight_decay_strategy v4":
-            opt.get("weight_decay_strategy", "v1") == "v4",
-        "auxiliary_loss attention_entropy":
-            aux.get("attention_entropy", 0.0) > 0.0,
-        "auxiliary_loss attention_map_alignment":
-            aux.get("attention_map_alignment", 0.0) > 0.0,
-        "dataset_kwargs device_augment":
-            config.get("dataset_kwargs", {}).get("device_augment", False),
-        "vit_kwargs image_embedding_noise":
-            float(vk.get("image_embedding_noise", 0.0)) > 0.0,
+        "weight_decay_strategy v4": (
+            rest, opt.get("weight_decay_strategy", "v1") == "v4"),
+        "auxiliary_loss attention_entropy": (
+            rest, aux.get("attention_entropy", 0.0) > 0.0),
+        "auxiliary_loss attention_map_alignment": (
+            rest, aux.get("attention_map_alignment", 0.0) > 0.0),
+        "dataset_kwargs device_augment": (
+            "A9, device-side augmentation",
+            config.get("dataset_kwargs", {}).get("device_augment", False)),
+        "vit_kwargs image_embedding_noise": (
+            rest, float(vk.get("image_embedding_noise", 0.0)) > 0.0),
     }
-    for name, bad in checks.items():
+    for name, (item, bad) in checks.items():
         if bad:
             raise NotImplementedError(
-                f"train step: {name} is not ported yet (ROADMAP.md A2.1)")
+                f"train step: {name} is not ported yet (ROADMAP.md {item})")
 
 
 def make_train_step(model, config: Dict[str, Any], tx,
@@ -133,7 +136,7 @@ def make_train_step(model, config: Dict[str, Any], tx,
         if task_index is not None:
             raise NotImplementedError(
                 "train step: per-task loss masks (task_index) are not "
-                "ported yet (ROADMAP.md A2.1)")
+                "ported yet (ROADMAP.md A8, the rest of the train step)")
         encoder_params = encoder_params or {}
         batch = to_tensors(batch, model.device)
         instr = dict(batch["task"]["language_instruction"])

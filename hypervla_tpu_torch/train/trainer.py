@@ -5,7 +5,8 @@ Pretrained T5 and DINOv2 weights are not in the repository, so both
 encoders are drawn from a seed of their own, as the JAX trainer inits them
 when no weights load; the DINOv2 conditioning encoder's params are separate
 from the (fine-tuned) trunk's. The data pipeline, `train()`'s loop,
-callbacks and checkpoints are not ported (ROADMAP.md A2).
+callbacks are not ported (ROADMAP.md A10, the input pipeline and the
+trainer loop); checkpoints are models/hypervla.py's (A7).
 """
 from typing import Any, Dict
 
@@ -23,13 +24,8 @@ from hypervla_tpu_torch.models.encoders.t5 import (
     t5_encode,
     t5_specs,
 )
+from hypervla_tpu_torch.models.layers import init_params
 from hypervla_tpu_torch.utils.device import resolve_device
-
-
-def _init(specs, seed: int, device):
-    gen = torch.Generator().manual_seed(seed)
-    return {name: init(shape, gen).float().to(device)
-            for name, (shape, init) in specs.items()}
 
 
 def frozen_layer_kernel(config: Dict[str, Any]) -> bool:
@@ -60,7 +56,7 @@ def build_frozen_encoders(config: Dict[str, Any], device=None,
     device = resolve_device(device)
     tok = config["dataset_kwargs"].get("text_tokenizer", "t5-base")
     t5 = t5_config(tok)
-    t5_params = _init(t5_specs(t5), seed, device)
+    t5_params = init_params(t5_specs(t5), seed, device)
 
     def text_apply(params, input_ids, attention_mask):
         return t5_encode(t5, params, input_ids, attention_mask)
@@ -71,7 +67,7 @@ def build_frozen_encoders(config: Dict[str, Any], device=None,
     dino = dinov2_config(vk.get("pretrained_encoder_name", "dinov2-base"))
     specs = dinov2_specs(dino, "dino")
     dino_params = {k[len("dino/"):]: v
-                   for k, v in _init(specs, seed + 1, device).items()}
+                   for k, v in init_params(specs, seed + 1, device).items()}
     dtype = (torch.bfloat16 if vk.get("encoder_dtype") == "bfloat16"
              else torch.float32)
     layer_kernel = frozen_layer_kernel(config)

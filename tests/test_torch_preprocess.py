@@ -1,14 +1,18 @@
 """The port's frame preprocessing (hypervla_tpu_torch/ops/preprocess.py)
 against the JAX package's on the same frames, on the CPU: lanczos3 resize
-with antialiasing, and the sqrt(0.9) centre crop. Outputs are uint8: the
-two may round a value that sits at .5 differently, so the bound is at most
-one level on at most 0.1% of the pixels."""
+with antialiasing, the sqrt(0.9) centre crop and the padded resize. The
+first two output uint8: the two may round a value that sits at .5
+differently, so the bound is at most one level on at most 0.1% of the
+pixels."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from hypervla_tpu.eval.inference import _crop_and_resize_bilinear
+from hypervla_tpu.eval.inference import (
+    _crop_and_resize_bilinear,
+    _resize_with_pad,
+)
 from hypervla_tpu.ops.preprocess import resize_image
 from hypervla_tpu_torch.ops import preprocess
 
@@ -42,3 +46,20 @@ def test_center_crop_matches():
     ref = np.asarray(jnp.clip(jnp.round(ref), 0, 255).astype(jnp.uint8))
     got = preprocess.center_crop(torch.from_numpy(frame), (224, 224))
     _assert_close_u8(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape", [(200, 300, 3), (480, 640, 3),
+                                   (256, 320, 3), (120, 90, 3)])
+def test_resize_with_pad_matches(shape):
+    """The host path's padded resize to 256x320 (bilinear, antialiased,
+    zero-padded around the centre; fp32, not rounded), from a downsample,
+    an identity and an upsample. Both packages place each sample in fp32,
+    where XLA may fuse the position's arithmetic: one ulp of a position up
+    to 320 moves a bilinear weight by 320 * 2^-23, a pixel by 255 times
+    that."""
+    frame = np.random.default_rng(sum(shape)).integers(
+        0, 256, shape, dtype=np.uint8)
+    ref = np.asarray(_resize_with_pad(jnp.asarray(frame), 256, 320))
+    got = preprocess.resize_with_pad(torch.from_numpy(frame), 256, 320)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=255 * 320 * 2.0 ** -23)

@@ -181,7 +181,7 @@ def test_inference_wrapper_steps_and_postprocess(bf16):
     raws[:, 6] = rng.random(12) > 0.5
     for setup in ("google_robot", "widowx_bridge", "libero"):
         policy = InferenceWrapper(model, policy_setup=setup, crop=True,
-                                  action_ensemble=True)
+                                  action_ensemble=True, fused_serving=True)
         policy.reset("task", instruction, init)
         for frame in frames[:2]:
             raw, action, _, _, _ = policy.step(frame)
@@ -196,9 +196,13 @@ def test_inference_wrapper_steps_and_postprocess(bf16):
 
 
 def test_inference_wrapper_rejects_unported_options(fp32):
+    """A history window (horizon > 1) and attention-map capture are not
+    ported; the padded resize is, on the host path (as in the JAX wrapper,
+    it turns the fused step off)."""
     model = fp32[2]
     model.dataset_statistics = {"action": STATS}
-    for kwargs in (dict(horizon=2), dict(padded_resize=True),
-                   dict(save_attention_map=True)):
-        with pytest.raises(NotImplementedError):
-            InferenceWrapper(model, **kwargs)
+    for kwargs in (dict(horizon=2), dict(save_attention_map=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            InferenceWrapper(model, fused_serving=True, **kwargs)
+    assert not InferenceWrapper(model, fused_serving=True,
+                                padded_resize=True).fused_serving
