@@ -90,6 +90,28 @@
    every step's launches, a finite and falling loss, and the first step
    against the plain path (the same step with the kernel switches off);
    all four timed in turns.
+6. Trainer phase: the port's training command line on data, as a user
+   runs it. Two datasets of 8 trajectories x 20 frames (256x256 uint8 RGB
+   from a seed, JPEG where PIL is installed, else raw; half of the
+   instructions drawer tasks) are written to a temporary directory and
+   registered as an OXE named mix (data/oxe/fixture_mix.py). Run A:
+   `main(["--config", "vit_t,oxe,fast", ...])` through the named-mix path at
+   batch 64, resize 224, 6 steps, a checkpoint at steps 3 and 6: every step
+   launches the fused training attention forward and backward (12 + 12)
+   and the frozen encoder's no-residual layer forward (12), its loss is
+   finite, and its first step's training_loss and grad_norm equal, bit for
+   bit, make_train_step called directly on the same batch from the same
+   state. Run B resumes to step 8: its first state is run A's last, bit for
+   bit. Run C, 2 steps over a dataset_kwargs_list with a validation
+   dataset and device_augment (random_resized_crop 0.8-1.0, brightness,
+   contrast, saturation, hue on the card): a finite validation MSE, and the
+   augmentation of a batch repeats bit for bit under its seed and step and
+   differs from the frames it was given. Then run A's checkpoint is served
+   through load_hypervla_policy(fused_serving=True) for 5 steps, one
+   stacked-trunk launch each. Prints the trainer's median ms/step, its
+   timer's dataset and train shares, samples/s, and one traced step's
+   device busy, kernel count and idle share, beside the train phase's
+   hand-fed fast-preset step.
 
 The kernels redesigned for Hopper, the training attention (forward and
 backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
@@ -226,6 +248,25 @@ FIRST_VERSION_DEVICE_MS = {"layer_colsum (16448, 2304)": 0.0455,
                            "fused_add_ln_bwd (16448, 768)": 0.1868,
                            "layer_scale_grad (16448, 768)": 0.0379}
 TRAIN_WARMUP, TRAIN_STEPS = 2, 6
+#: the trainer phase: the command line's config and data, and its runs
+TRAINER_CONFIG = "vit_t,oxe,fast"
+TRAINER_BATCH = 64
+TRAINER_FRAME = 256
+TRAINER_DATASETS = 2
+TRAINER_TRAJS, TRAINER_TRAJ_LEN = 8, 20
+TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_RESUME_TO = 6, 3, 8
+TRAINER_AUG_STEPS = 2
+TRAINER_SHUFFLE = 256
+TRAINER_SERVED = 5
+#: half of them the drawer tasks whose losses the trainer logs apart
+TRAINER_TASKS = (b"close top drawer", b"pick up the coke can",
+                 b"close bottom drawer", b"move the sponge near the apple")
+TRAINER_AUGMENT = dict(
+    augment_order=["random_resized_crop", "random_brightness",
+                   "random_contrast", "random_saturation", "random_hue"],
+    random_resized_crop=dict(scale=[0.8, 1.0], ratio=[0.9, 1.1]),
+    random_brightness=[0.1], random_contrast=[0.9, 1.1],
+    random_saturation=[0.9, 1.1], random_hue=[0.05])
 # the layer backward: cosine per output against the plain version (the JAX
 # package holds its kernel to 0.99 per leaf, tests/test_dino_layer_train.py)
 GRAD_COSINE_BOUND = 0.999
@@ -2467,6 +2508,7 @@ def train_phase(device):
             f"{peaks[name] / 2 ** 30:.3f} GiB")
     # where the step's time is: one profiled step of each configuration,
     # its device busy time against the unprofiled median above
+    hand_fed = {}
     for name in configs:
         def one_step(name=name):
             with fused_gelu_env(name == "fused_add_ln"):
@@ -2478,7 +2520,402 @@ def train_phase(device):
         log(f"train {name} step profiled: device busy ms {busy:.3f}, "
             f"{count:.0f} device kernels, idle share {1 - busy / med:.3f} "
             f"of the {med:.4f} ms step")
-    return {name: totals[name] for name in kernel_configs}
+        hand_fed[name] = {"ms": med, "busy_ms": busy, "kernels": count}
+    return ({name: totals[name] for name in kernel_configs},
+            hand_fed["fast_preset"])
+
+
+def write_trainer_fixture(root, seed=SEED):
+    """TRAINER_DATASETS datasets of TRAINER_TRAJS npz trajectories of
+    TRAINER_TRAJ_LEN frames each under root, registered as an OXE named mix
+    in the port's registry; returns (mix name, dataset names, encoding).
+    The frames are uint8 RGB from a seed, JPEG where PIL is installed and
+    raw arrays otherwise (obs_transforms.decode_image passes arrays
+    through); the instructions alternate between drawer tasks and others."""
+    import io
+
+    import numpy as np
+
+    from hypervla_tpu_torch.data.oxe.fixture_mix import (
+        dataset_name,
+        register_fixture_mix,
+    )
+    from hypervla_tpu_torch.data.sources import NpzTrajectorySource
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+
+    def encoded(frame):
+        if Image is None:
+            return frame
+        buf = io.BytesIO()
+        Image.fromarray(frame).save(buf, format="JPEG")
+        return buf.getvalue()
+
+    rng = np.random.default_rng(seed)
+    mix, _ = register_fixture_mix(TRAINER_DATASETS)
+    names = [dataset_name(i) for i in range(TRAINER_DATASETS)]
+    for d, name in enumerate(names):
+        os.makedirs(os.path.join(root, name))
+        for ep in range(TRAINER_TRAJS):
+            n = TRAINER_TRAJ_LEN
+            frames = rng.integers(0, 256, (n, TRAINER_FRAME, TRAINER_FRAME,
+                                           3), dtype=np.uint8)
+            images = (frames if Image is None else
+                      np.array([encoded(f) for f in frames], dtype=object))
+            task = TRAINER_TASKS[(d + ep) % len(TRAINER_TASKS)]
+            NpzTrajectorySource.write_trajectory(
+                os.path.join(root, name, f"ep_{ep:03d}.npz"),
+                {"observation": {"image": images},
+                 "action": rng.standard_normal((n, 7)).astype(np.float32),
+                 "language_instruction": np.array([task] * n, dtype=object)})
+    return mix, names, "raw" if Image is None else "JPEG"
+
+
+class TrainerSteps:
+    """Stands in for the trainer's make_train_step while in a `with`
+    block: builds the real step and wraps it to hold every call to the
+    launches `per_step` wants of the counted wrappers (read with `counts`),
+    and to keep the first call's arguments and info; `rebuild()` makes the
+    step again from the trainer's own arguments."""
+
+    def __init__(self, trainer_module, counts, per_step):
+        self.trainer = trainer_module
+        self.counts = counts
+        self.per_step = per_step
+        self.first = None
+        self.calls = 0
+
+    def __enter__(self):
+        self.real = self.trainer.make_train_step
+        self.trainer.make_train_step = self.make
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.make_train_step = self.real
+        return False
+
+    def make(self, *args, **kwargs):
+        self.args = (args, kwargs)
+        step_fn = self.real(*args, **kwargs)
+
+        def counted(state, batch, task_index=None, encoder_params=None,
+                    with_metrics=True):
+            before = self.counts()
+            new_state, info = step_fn(state, batch, task_index,
+                                      encoder_params, with_metrics)
+            after = self.counts()
+            got = {k: after[k] - before[k] for k in self.per_step}
+            if got != self.per_step:
+                raise AssertionError(f"trainer step {self.calls + 1} "
+                                     f"launches {got}, want {self.per_step}")
+            if self.first is None:
+                self.first = dict(state=state, batch=batch,
+                                  task_index=task_index,
+                                  encoder_params=encoder_params,
+                                  with_metrics=with_metrics, info=info)
+            self.calls += 1
+            return new_state, info
+
+        return counted
+
+    def rebuild(self):
+        args, kwargs = self.args
+        return self.real(*args, **kwargs)
+
+
+class LogRecorder:
+    """The trainer's wandb_run: the logged dicts by step."""
+
+    def __init__(self):
+        self.logs = {}
+
+    def log(self, metrics, step):
+        self.logs.setdefault(step, {}).update(metrics)
+
+
+def _same_state(a, b):
+    """Whether two TrainStates are equal bit for bit (step, params,
+    optimizer state, EMA)."""
+    import torch
+
+    def same(x, y):
+        return set(x) == set(y) and all(
+            x[k].dtype == y[k].dtype and torch.equal(x[k].detach(),
+                                                     y[k].detach())
+            for k in x)
+
+    return (a.step == b.step and same(a.params, b.params)
+            and same(a.ema_params, b.ema_params)
+            and a.opt_state["count"] == b.opt_state["count"]
+            and same(a.opt_state["mu"], b.opt_state["mu"])
+            and same(a.opt_state["nu"], b.opt_state["nu"]))
+
+
+def trainer_counts():
+    """The launches so far of the wrappers the trainer phase counts."""
+    from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import fused_attention as fa
+
+    return {**fa.LAUNCHES, **dlt.LAUNCHES, **dl.LAUNCHES}
+
+
+def trainer_phase(device, card, hand_fed):
+    """The port's trainer on data at full width through its command line
+    (module docstring, phase 6). Returns the launches of run A, counted
+    from zero before it and read after it."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.configs import dinov2_config
+    from hypervla_tpu_torch.eval.model_loading import (
+        build_text_encoder,
+        load_hypervla_policy,
+    )
+    from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.train import main as cli
+    from hypervla_tpu_torch.train import trainer
+    from hypervla_tpu_torch.train.callbacks import SaveCallback
+    from hypervla_tpu_torch.train.train_step import (
+        augment_generator,
+        augment_specs,
+        device_augment,
+    )
+
+    def counts():
+        return trainer_counts()
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="hypervla_trainer_")
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        mix, names, encoding = write_trainer_fixture(data)
+        log(f"trainer data: {TRAINER_DATASETS} datasets x {TRAINER_TRAJS} "
+            f"trajectories x {TRAINER_TRAJ_LEN} frames of {TRAINER_FRAME}x"
+            f"{TRAINER_FRAME} ({encoding}), mix {mix}, written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        layers = dinov2_config(cli.load_config(TRAINER_CONFIG)[
+            "base_net_kwargs"]["vit_kwargs"].get(
+                "pretrained_encoder_name", "dinov2-base")).num_hidden_layers
+        per_step = {"mha_fused_train_fwd": layers,
+                    "mha_fused_train_bwd": layers,
+                    "dino_layer_train_fwd": layers}
+        save_dir = os.path.join(root, "run")
+
+        def argv(steps):
+            return ["--config", TRAINER_CONFIG, "--save_dir", save_dir,
+                    f"--config.dataset_kwargs.oxe_mix={mix!r}",
+                    f"--config.dataset_kwargs.data_dir={data!r}",
+                    f"--config.dataset_kwargs.batch_size={TRAINER_BATCH}",
+                    "--config.dataset_kwargs.shuffle_buffer_size="
+                    f"{TRAINER_SHUFFLE}",
+                    "--config.dataset_kwargs.resize_size="
+                    "{'primary': (224, 224)}",
+                    f"--config.num_steps={steps}", "--config.log_interval=1",
+                    f"--config.save_interval={TRAINER_SAVE_EVERY}",
+                    *(["--cpu"] if device.type == "cpu" else [])]
+
+        # ---- run A: the main path, counted from zero ----
+        for module in (fa, dlt, dl):
+            module.reset_launch_counts()
+        recorder = LogRecorder()
+        t0 = time.perf_counter()
+        # the command line's wandb run is the recorder
+        real_wandb = cli._wandb_run
+        cli._wandb_run = lambda args, config: recorder
+        try:
+            with TrainerSteps(trainer, counts, per_step) as steps_a:
+                state_a = cli.main(argv(TRAINER_STEPS))
+        finally:
+            cli._wandb_run = real_wandb
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+        launches = {k: v for k, v in counts().items() if k in per_step}
+        if (state_a.step != TRAINER_STEPS or steps_a.calls != TRAINER_STEPS
+                or launches != {k: v * TRAINER_STEPS
+                                for k, v in per_step.items()}):
+            raise AssertionError(f"run A: step {state_a.step}, "
+                                 f"{steps_a.calls} steps, launches "
+                                 f"{launches}")
+        losses = [recorder.logs[s]["training_loss"]
+                  for s in range(1, TRAINER_STEPS + 1)]
+        drawer = [recorder.logs[s]["task_loss_close top drawer"]
+                  for s in range(1, TRAINER_STEPS + 1)]
+        if not all(map(math.isfinite, losses + drawer)):
+            raise AssertionError(f"run A losses {losses}, drawer {drawer}")
+        for step in (TRAINER_SAVE_EVERY, TRAINER_STEPS):
+            for name in ("params.pt", "EMA_params.pt"):
+                if not os.path.exists(os.path.join(save_dir, str(step),
+                                                   name)):
+                    raise AssertionError(f"run A wrote no {step}/{name}")
+        log(f"trainer run A: {TRAINER_STEPS} steps in {run_a_s:.2f} s, "
+            f"launches {launches} ({per_step} every step), losses "
+            f"{[round(x, 4) for x in losses]}, close-top-drawer losses "
+            f"{[round(x, 4) for x in drawer]}")
+
+        # the first step, again, from make_train_step called directly
+        first = steps_a.first
+        step_fn = steps_a.rebuild()
+        _, info = step_fn(first["state"], first["batch"],
+                          first["task_index"], first["encoder_params"],
+                          with_metrics=True)
+        for key in ("training_loss", "grad_norm"):
+            a, b = first["info"][key], info[key]
+            log(f"trainer first step {key}: trainer {float(a)!r}, "
+                f"make_train_step {float(b)!r}")
+            if not torch.equal(a, b):
+                raise AssertionError(f"trainer first step {key} is not the "
+                                     "hand-fed step's bit for bit")
+
+        # where a trainer step's time goes
+        totals = [recorder.logs[s]["timer/total"]
+                  for s in range(2, TRAINER_STEPS + 1)]
+        wait = [recorder.logs[s]["timer/dataset"]
+                for s in range(2, TRAINER_STEPS + 1)]
+        train_s = [recorder.logs[s]["timer/train"]
+                   for s in range(2, TRAINER_STEPS + 1)]
+        med_ms = statistics.median(totals) * 1e3
+
+        def one_step():
+            step_fn(first["state"], first["batch"], first["task_index"],
+                    first["encoder_params"], with_metrics=False)
+
+        busy, kernels = device_busy(one_step)
+
+        def alone_ms(with_metrics, n=3):
+            out = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step_fn(first["state"], first["batch"], first["task_index"],
+                        first["encoder_params"], with_metrics=with_metrics)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t1) * 1e3)
+            return statistics.median(out)
+
+        log(f"trainer step alone (make_train_step on run A's first batch, "
+            f"median of 3, host clock): with metrics "
+            f"{alone_ms(True):.4f} ms, without {alone_ms(False):.4f} ms; "
+            f"card {card}")
+        log(f"trainer ms/step {med_ms:.4f} (median of the timer's total over "
+            f"steps 2-{TRAINER_STEPS}: {[round(t * 1e3, 2) for t in totals]}"
+            f"), samples/s {TRAINER_BATCH * 1e3 / med_ms:.1f}; dataset share "
+            f"{sum(wait) / sum(totals):.3f}, train share "
+            f"{sum(train_s) / sum(totals):.3f}; card {card}")
+        log(f"trainer step profiled: device busy ms {busy:.3f}, "
+            f"{kernels:.0f} device kernels, idle share "
+            f"{1 - busy / med_ms:.3f} of the {med_ms:.4f} ms trainer step; "
+            f"the train phase's hand-fed fast preset step: "
+            f"{hand_fed['ms']:.4f} ms, device busy {hand_fed['busy_ms']:.3f}"
+            f" ms, {hand_fed['kernels']:.0f} kernels; card {card}")
+        del step_fn, first, steps_a
+
+        # ---- run B: resume from state/latest.pt to TRAINER_RESUME_TO ----
+        restored, restored_step = SaveCallback(save_dir).restore(state_a)
+        if restored_step != TRAINER_STEPS or not _same_state(restored,
+                                                             state_a):
+            raise AssertionError("state/latest.pt is not run A's last state "
+                                 "bit for bit")
+        del restored
+        t0 = time.perf_counter()
+        with TrainerSteps(trainer, counts, per_step) as steps_b:
+            state_b = cli.main(argv(TRAINER_RESUME_TO))
+        if (state_b.step != TRAINER_RESUME_TO
+                or steps_b.calls != TRAINER_RESUME_TO - TRAINER_STEPS
+                or not _same_state(steps_b.first["state"], state_a)):
+            raise AssertionError("run B did not resume from run A's last "
+                                 "state bit for bit")
+        log(f"trainer run B: resumed at step {TRAINER_STEPS} from run A's "
+            f"last state (params, optimizer state and EMA bit for bit), "
+            f"{steps_b.calls} steps to {state_b.step} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del state_b, steps_b
+
+        # ---- run C: a dataset list, validation and device augmentation ----
+        config = cli.load_config(TRAINER_CONFIG)
+        dk = config["dataset_kwargs"]
+        dk.update(oxe_mix=None, batch_size=TRAINER_BATCH,
+                  shuffle_buffer_size=TRAINER_SHUFFLE, device_augment=True,
+                  image_augment_kwargs=copy.deepcopy(TRAINER_AUGMENT),
+                  dataset_kwargs_list=[dict(
+                      name=name, data_dir=data,
+                      image_obs_keys={"primary": "image"},
+                      language_key="language_instruction",
+                      action_proprio_normalization_type="normal",
+                      add_initial_image=True) for name in names])
+        config.update(eval_datasets=[names[0]],
+                      eval_interval=TRAINER_AUG_STEPS, log_interval=1)
+        recorder_c = LogRecorder()
+        t0 = time.perf_counter()
+        with TrainerSteps(trainer, counts, per_step) as steps_c:
+            trainer.train(config, num_steps=TRAINER_AUG_STEPS,
+                          wandb_run=recorder_c, device=device)
+        mse = recorder_c.logs[TRAINER_AUG_STEPS][
+            f"validation/{names[0]}/mse"]
+        if not math.isfinite(mse):
+            raise AssertionError(f"run C validation MSE {mse}")
+        specs = augment_specs(config)
+        frames = steps_c.first["batch"]["observation"]["image_primary"]
+
+        def augmented():
+            batch = {"observation": {"image_primary": frames}}
+            device_augment(batch, specs, augment_generator(
+                config["seed"], 0, device))
+            return batch["observation"]["image_primary"]
+
+        once, twice = augmented(), augmented()
+        if not torch.equal(once, twice) or torch.equal(once, frames):
+            raise AssertionError("device augmentation does not repeat under "
+                                 "its seed, or is the identity")
+        changed = float((once != frames).float().mean())
+        log(f"trainer run C: {steps_c.calls} steps over a dataset list with "
+            f"device augmentation in {time.perf_counter() - t0:.2f} s, "
+            f"validation MSE {mse:.6g}; the augmentation of a "
+            f"{tuple(frames.shape)} batch repeats bit for bit and changes "
+            f"{changed:.3f} of its values")
+        del steps_c, frames, once, twice
+
+        # ---- serve run A's checkpoint on kernel 1 ----
+        policy = load_hypervla_policy(save_dir, step=TRAINER_STEPS,
+                                      device=device, fused_serving=True)
+        encode = build_text_encoder(policy.model)
+        _, dino_apply, _, dino_params = trainer.build_frozen_encoders(
+            policy.model.config, device=device)
+        rng = np.random.default_rng(SEED)
+        served_frames = rng.integers(0, 256, (TRAINER_SERVED, 256, 256, 3),
+                                     dtype=np.uint8)
+        with torch.no_grad():
+            patches = dino_apply(dino_params, torch.as_tensor(
+                served_frames[:1, 16:240, 16:240], device=device))
+        task = TRAINER_TASKS[0].decode()
+        policy.reset(task, encode(task), {"patch_embeddings": patches})
+        for i, frame in enumerate(served_frames):
+            before = counts()["dino_layers_serving"]
+            _, action, *_ = policy.step(frame)
+            if (counts()["dino_layers_serving"] - before != 1
+                    or action.shape != (7,)
+                    or not np.isfinite(action).all()):
+                raise AssertionError(f"served step {i}: action {action}")
+        log(f"trainer checkpoint served: {TRAINER_SERVED} fused serving "
+            f"steps of run A's step-{TRAINER_STEPS} EMA params through "
+            "load_hypervla_policy(fused_serving=True), one stacked-trunk "
+            "launch and a finite (7,) action each")
+        del policy, state_a
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2518,7 +2955,8 @@ def main() -> int:
     row_results, add_ln_launches = row_flash_kernel_phase(device)
     train_results = train_kernel_phase(device)
     column_pass_phase(device)
-    train_launches = train_phase(device)
+    train_launches, hand_fed = train_phase(device)
+    trainer_launches = trainer_phase(device, card, hand_fed)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")
@@ -2532,7 +2970,8 @@ def main() -> int:
     ] + [
         {"name": name, "route": "cuda", "source": TRAIN_KERNELS[name][0],
          "replaces": TRAIN_KERNELS[name][1],
-         "launches": train_launches[path_of[name]][name], **r}
+         "launches": trainer_launches.get(
+             name, train_launches[path_of[name]][name]), **r}
         for name, r in train_results.items()
     ]
     # the kernels of the per-layer serving step and of the fused-add-LN train
@@ -2556,7 +2995,8 @@ def main() -> int:
         "12-layer trunk for dino_layers_serving, per launch at B=64 for the "
         "training kernels, where dino_gemm_train and layer_gemm_tn add up "
         "one layer's launches (8 and 4 shapes); launches: over the serving "
-        "steps for the first four, over the fast preset's train steps for "
+        "steps for the first four, over the trainer's run A (the command "
+        "line's 6 steps, fast preset) for "
         "mha_fused_train_* and dino_layer_train_fwd (mha_fused_train_fwd "
         "counts the trunk's attention forward; a layer call also launches "
         "the attention kernels, counted under the layer), over the "

@@ -2,10 +2,12 @@
 
 Plain-dict copies of hypervla_tpu/configs/defaults.py (`pretrain_config`,
 `flagship_pretrain_config`, `tiny_test_config`, `apply_fast_training_preset`,
-`disable_unused_attention_capture`), keeping the keys the serving path and
-the training step read, and of the DINOv2 geometries in
-hypervla_tpu/models/encoders/dinov2.py. The JAX configs module imports
-flax, so the port keeps its own copy.
+`disable_unused_attention_capture`), keeping the keys the serving path, the
+training step and the trainer read, of the DINOv2 geometries in
+hypervla_tpu/models/encoders/dinov2.py, and of the command line's built-in
+config, scripts/configs/hypervla_pretrain_config.py::get_config
+(`hypervla_pretrain_config`). The JAX configs module imports flax and the
+command line's config ml_collections, so the port keeps its own copy.
 """
 import copy
 import dataclasses
@@ -74,15 +76,22 @@ def refuse_dropout(section: str, kwargs: Dict[str, Any]) -> None:
 
 
 def pretrain_config() -> Dict[str, Any]:
-    """The reference defaults, cut to the keys the serving path and the
-    training step read (the data pipeline's, dropout and octo keys are not
-    copied)."""
+    """The reference defaults, cut to the keys the serving path, the
+    training step and the trainer read (the dropout, CNN and octo keys are
+    not copied)."""
     def schedule(peak):
         return {"name": "rsqrt", "init_value": 0.0, "peak_value": peak,
                 "warmup_steps": 2000, "timescale": 10000}
 
     return {
+        "seed": 42,
         "num_steps": 300000,
+        "window_size": 1,
+        "save_interval": 10000,
+        "eval_interval": 5000,
+        "log_interval": 100,
+        "pretrained_checkpoint_path": None,
+        "pretrained_checkpoint_step": None,
         "save_param_EMA": False,
         "EMA_start_step": 5000,
         "EMA_decay": 0.999,
@@ -154,7 +163,14 @@ def pretrain_config() -> Dict[str, Any]:
             "rephrase_strategy": None,
             "rephrase_alignment_coef": 1.0,
         },
-        "dataset_kwargs": {"text_tokenizer": "t5-base"},
+        "dataset_kwargs": {
+            "batch_size": 256,
+            "shuffle_buffer_size": 250000,
+            "oxe_mix": "oxe_magic_soup",
+            "text_tokenizer": "t5-base",
+            "tokenizer_max_length": 32,
+            "resize_size": {"primary": (224, 224)},
+        },
     }
 
 
@@ -200,6 +216,7 @@ def flagship_pretrain_config() -> Dict[str, Any]:
     )
     config["auxiliary_loss"]["rephrase_strategy"] = "replace"
     config["save_param_EMA"] = True
+    config["seed"] = 2025
     return config
 
 
@@ -271,4 +288,36 @@ def apply_fast_training_preset(config):
     vk["dino_fused_attention"] = True
     config["frozen_encoder_layer_kernel"] = True
     disable_unused_attention_capture(config)
+    return config
+
+
+def hypervla_pretrain_config(config_string: str = "vit_t,oxe"
+                             ) -> Dict[str, Any]:
+    """The training command line's built-in config, "<size>,<dataset>
+    [,fast]": vit_t,oxe is the flagship recipe, over the oxe_magic_soup mix
+    unless dataset_kwargs say otherwise; another dataset name leaves the
+    mix off for a dataset_kwargs_list; "fast" applies the training fast
+    preset. The size names the octo transformer of the JAX config, whose
+    keys the port does not carry, so any size other than vit_t gives the
+    reference defaults."""
+    tokens = config_string.split(",")
+    fast = "fast" in tokens
+    tokens = [t for t in tokens if t != "fast"]
+    model_size, dataset = (tokens + ["oxe"])[:2]
+    if model_size == "vit_t" and dataset == "oxe":
+        config = flagship_pretrain_config()
+    else:
+        config = pretrain_config()
+    dk = config["dataset_kwargs"]
+    dk["dataset"] = dataset
+    if dataset == "oxe":
+        dk.setdefault("oxe_mix", "oxe_magic_soup")
+        dk.setdefault("data_dir", "")
+        dk.setdefault("skip_unlabeled", True)
+    else:
+        dk["oxe_mix"] = None
+        dk.setdefault("data_dir", "")
+        dk.setdefault("dataset_kwargs_list", [])
+    if fast:
+        apply_fast_training_preset(config)
     return config

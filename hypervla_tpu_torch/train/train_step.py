@@ -7,11 +7,14 @@ its per-sample vmap), the hypernetwork and the per-sample base-net loss with
 the sample axis written out, its batch mean, backward, the optimizer, and
 the EMA of the params.
 
-The configured paths that the flagship fast preset does not take raise
+The per-task losses of the trainer's drawer tasks (`task_index`) and
+device augmentation (dataset_kwargs device_augment: ops/preprocess.py::
+fused_resize_augment over each camera's frames on the card, drawn from a
+generator seeded by the state's seed and step) are the JAX step's. The
+configured paths that the flagship fast preset does not take raise
 NotImplementedError: delta-decay, the v4 weight decay, the attention aux
-losses, embedding noise and per-task loss masks (ROADMAP.md A8, the rest of
-the train step), device augmentation (A9, device-side augmentation), and
-the trunk switches with no counterpart
+losses and embedding noise (ROADMAP.md A8, the rest of the train step),
+and the trunk switches with no counterpart
 (models/base_vit.py::check_trunk_switches). The layer-kernel trunk
 (vit_kwargs dino_layers_impl="pallas_train") needs
 config["hoist_shared_trunk"], as in the JAX package. vit_kwargs
@@ -27,6 +30,7 @@ import torch
 from hypervla_tpu_torch.configs import refuse_dropout
 from hypervla_tpu_torch.models.base_vit import check_trunk_switches
 from hypervla_tpu_torch.models.hypernetwork import per_sample_view
+from hypervla_tpu_torch.ops.preprocess import fused_resize_augment
 from hypervla_tpu_torch.train.optimizer import global_norm
 from hypervla_tpu_torch.train.train_state import TrainState
 
@@ -92,9 +96,6 @@ def _unported(config: Dict[str, Any], pretrained_params) -> None:
             rest, aux.get("attention_entropy", 0.0) > 0.0),
         "auxiliary_loss attention_map_alignment": (
             rest, aux.get("attention_map_alignment", 0.0) > 0.0),
-        "dataset_kwargs device_augment": (
-            "A9, device-side augmentation",
-            config.get("dataset_kwargs", {}).get("device_augment", False)),
         "vit_kwargs image_embedding_noise": (
             rest, float(vk.get("image_embedding_noise", 0.0)) > 0.0),
     }
@@ -104,6 +105,40 @@ def _unported(config: Dict[str, Any], pretrained_params) -> None:
                 f"train step: {name} is not ported yet (ROADMAP.md {item})")
 
 
+def augment_specs(config: Dict[str, Any]) -> Dict[str, dict]:
+    """{camera: augment kwargs} that the step applies on the card: empty
+    unless dataset_kwargs device_augment is set (then the host pipeline
+    only decodes and resizes, train/trainer.py::make_train_datasets)."""
+    dk = config.get("dataset_kwargs", {})
+    ak = dk.get("image_augment_kwargs") or {}
+    if not (dk.get("device_augment", False) and ak):
+        return {}
+    return {"primary": ak} if "augment_order" in ak else dict(ak)
+
+
+def augment_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of a step's device augmentation: one stream for each
+    (seed, step), so that a run repeats bit for bit and a resumed run draws
+    what the uninterrupted one would have."""
+    gen = torch.Generator(device=device)
+    return gen.manual_seed(int(seed) * 1_000_003 + int(step))
+
+
+def device_augment(batch, specs: Dict[str, dict], generator) -> None:
+    """Runs fused_resize_augment over each camera's flattened (B * window)
+    frames of batch["observation"], in place, drawing from `generator`."""
+    obs = batch["observation"]
+    for cam, kw in specs.items():
+        key = f"image_{cam}"
+        if key not in obs:
+            continue
+        imgs = obs[key]
+        flat = imgs.reshape((-1,) + tuple(imgs.shape[2:]))
+        flat = fused_resize_augment(flat, tuple(flat.shape[1:3]), dict(kw),
+                                    train=True, generator=generator)
+        obs[key] = flat.reshape(imgs.shape)
+
+
 def make_train_step(model, config: Dict[str, Any], tx,
                     lr_callable: Callable, base_lr_callable: Callable,
                     param_norm_callable: Callable,
@@ -111,7 +146,9 @@ def make_train_step(model, config: Dict[str, Any], tx,
                     dino_encode: Optional[Callable] = None,
                     pretrained_params=None):
     """Returns train_step(state, batch, task_index=None, encoder_params=None,
-    with_metrics=True) -> (new_state, info).
+    with_metrics=True) -> (new_state, info). task_index {task: (B,) 0/1
+    mask} adds info["task_loss_<task>"], the mean loss of the masked
+    samples (0 where none is).
 
     text_encode(t5_params, input_ids, attention_mask) and
     dino_encode(dino_params, images) are the frozen encoders of
@@ -130,15 +167,15 @@ def make_train_step(model, config: Dict[str, Any], tx,
     ema_start = config.get("EMA_start_step", 0)
     plan = model.plan
     encoder = model.base_net.encoder
+    aug_specs = augment_specs(config)
 
     def train_step(state: TrainState, batch, task_index=None,
                    encoder_params=None, with_metrics: bool = True):
-        if task_index is not None:
-            raise NotImplementedError(
-                "train step: per-task loss masks (task_index) are not "
-                "ported yet (ROADMAP.md A8, the rest of the train step)")
         encoder_params = encoder_params or {}
         batch = to_tensors(batch, model.device)
+        if aug_specs:  # to_tensors made the batch's dicts anew
+            device_augment(batch, aug_specs, augment_generator(
+                state.seed, state.step, model.device))
         instr = dict(batch["task"]["language_instruction"])
         patches = (batch.get("initial_state") or {}).get("patch_embeddings")
         with torch.no_grad():
@@ -195,6 +232,10 @@ def make_train_step(model, config: Dict[str, Any], tx,
                 info.update(grad_norm=global_norm(grads),
                             update_norm=global_norm(updates),
                             param_norm=param_norm_callable(params))
+            for name, mask in (task_index or {}).items():
+                mask = torch.as_tensor(mask, device=losses.device).float()
+                info[f"task_loss_{name}"] = (
+                    (losses.detach() * mask).sum() / mask.sum().clamp(min=1))
             info.update({k: v.detach().mean() for k, v in metrics.items()})
             info["base_params_norm"] = _base_params_norm(plan, generated)
             new_params = {k: (p.detach() + updates[k]).requires_grad_(True)
@@ -207,7 +248,8 @@ def make_train_step(model, config: Dict[str, Any], tx,
                        else new_params[k].detach().clone()
                        for k, e in ema.items()}
         return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=opt_state, ema_params=ema), info
+                          opt_state=opt_state, ema_params=ema,
+                          seed=state.seed), info
 
     return train_step
 

@@ -166,7 +166,9 @@ def test_build_frozen_encoders_shapes():
         image_embedding_noise=0.1),
     lambda c: c["base_net_kwargs"]["vit_kwargs"].update(
         flash_attention_trainable=True),
-    lambda c: c["dataset_kwargs"].update(device_augment=True),
+    # dropout: device_augment, the case here before it was ported, now
+    # runs (tests/test_torch_trainer.py)
+    lambda c: c["base_net_kwargs"]["vit_kwargs"].update(dropout_rate=0.1),
 ])
 def test_unported_train_options_raise(change):
     model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None,
