@@ -112,6 +112,25 @@
    timer's dataset and train shares, samples/s, and one traced step's
    device busy, kernel count and idle share, beside the train phase's
    hand-fed fast-preset step.
+7. SmallStem phase: the SmallStem HyperVLA at vit_t width, the published
+   `vit_t,<dataset>` config with the two command-line overrides
+   model_type=vit and action_head_type=continuous (a generated,
+   weight-standardized conv stem (32, 96, 192, 384) at 224 px, the "full"
+   generation strategy: one output head over ~1.03 M base-net params a
+   task; no shared trunk, so no kernel of the port runs on this path).
+   Built from a seed with a random (1, 32, 768) instruction embedding and
+   random fan-out kernels: 50 fused serving steps and 5 host-path steps on
+   256x256 frames (resize and crop to 224 on the card), timed and traced,
+   against the same model and steps on the CPU in fp32 (TF32 off on the
+   card): the card's resized pixels within one level of the CPU's on at
+   most 0.1% of them (a value at .5 rounds either way), then, from the
+   card's pixels, each action within 1e-4 of the CPU's.
+   Then `main([...])` of the training command line on the trainer phase's
+   fixture mix at batch 64 for 4 steps: finite losses, the first step's
+   loss and grad_norm within 1e-4 and 1e-3 (relative) of the same step on
+   the CPU, ms/step, samples/s, one traced step's device busy and idle
+   share, and the peak memory; the checkpoint it saves is then served for
+   5 fused steps.
 
 The kernels redesigned for Hopper, the training attention (forward and
 backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
@@ -2918,6 +2937,282 @@ def trainer_phase(device, card, hand_fed):
     return launches
 
 
+#: the SmallStem phase's config: the published vit_t config for a dataset
+#: other than oxe, with the command-line overrides that make its base net
+#: the SmallStem ViT with the continuous head
+SMALLSTEM_CONFIG = "vit_t,fixture"
+SMALLSTEM_OVERRIDES = ("--config.base_net_kwargs.model_type=vit",
+                       "--config.base_net_kwargs.action_head_type=continuous")
+SMALLSTEM_HOST_STEPS, SMALLSTEM_TRAIN_STEPS, SMALLSTEM_SERVED = 5, 4, 5
+#: the bounds of the SmallStem phase's checks against the CPU
+SMALLSTEM_ACTION_TOL = 1e-4
+SMALLSTEM_LOSS_RTOL, SMALLSTEM_GRAD_NORM_RTOL = 1e-4, 1e-3
+
+
+def _to(tree, device):
+    """A nested dict (or TrainState field) of tensors moved to device;
+    other leaves as they are."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    return tree
+
+
+def _pixels(frame, device):
+    """A frame's resize and centre crop to 224 on device, as the serving
+    steps of the SmallStem phase compute it, back on the host."""
+    import torch
+
+    from hypervla_tpu_torch.ops import preprocess
+
+    image = preprocess.resize_image(torch.as_tensor(frame, device=device),
+                                    (224, 224))
+    return preprocess.center_crop(image, (224, 224)).cpu().numpy()
+
+
+def _serve(wrapper, instruction, frames, card_sync=True):
+    """Resets wrapper and steps it over frames; returns (raw actions,
+    actions, host ms of each step)."""
+    import numpy as np
+    import torch
+
+    wrapper.reset("pick up the cube", instruction)
+    raws, actions, ms = [], [], []
+    for frame in frames:
+        t0 = time.perf_counter()
+        raw, action, *_ = wrapper.step(frame)
+        if card_sync:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        raws.append(raw)
+        actions.append(action)
+    return np.stack(raws), np.stack(actions), ms
+
+
+def smallstem_phase(device, card):
+    """The SmallStem HyperVLA at vit_t width through the serving and the
+    training entry points (module docstring, phase 7)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.eval.inference import InferenceWrapper
+    from hypervla_tpu_torch.eval.model_loading import (
+        build_text_encoder,
+        load_hypervla_policy,
+    )
+    from hypervla_tpu_torch.models.hypervla import HyperVLA
+    from hypervla_tpu_torch.train import main as cli
+    from hypervla_tpu_torch.train import trainer
+    from hypervla_tpu_torch.train.train_state import TrainState
+
+    config = cli.load_config(SMALLSTEM_CONFIG)
+    cli.apply_overrides(config, list(SMALLSTEM_OVERRIDES))
+    vk = config["base_net_kwargs"]["vit_kwargs"]
+    rng = np.random.default_rng(SEED + 13)
+    stats = {"action": {
+        "mean": rng.standard_normal(7).astype(np.float32) * 0.1,
+        "std": (1 + rng.random(7)).astype(np.float32),
+        "mask": np.array([True] * 6 + [False]),
+    }}
+    length = config["dataset_kwargs"]["tokenizer_max_length"]
+    ids = np.arange(length, dtype=np.int32)[None]
+    batch = {
+        "observation": {"image_primary": np.zeros((1, 1, 224, 224, 3),
+                                                  np.uint8)},
+        "task": {"language_instruction": {
+            "input_ids": ids, "attention_mask": np.ones_like(ids),
+            "token_embedding": rng.standard_normal(
+                (1, length, 768)).astype(np.float32)}},
+    }
+    t0 = time.perf_counter()
+    model = HyperVLA.from_config(config, batch, seed=SEED, device=device,
+                                 dataset_statistics=stats)
+    # random fan-out kernels make the generated weights depend on the task
+    gen = torch.Generator().manual_seed(SEED + 14)
+    kernel = model.params["output_head/kernel"]
+    kernel += (torch.randn(kernel.shape, generator=gen) * 0.02).to(device)
+    torch.cuda.synchronize()
+    plan = model.plan
+    log(f"smallstem build: {vk['encoder_type']} {tuple(vk['cnn_channels'])}"
+        f", hidden {vk['hidden_dim']} x {vk['num_layers']} layers, "
+        f"{config['hypernet_kwargs']['generation_strategy']} generation of "
+        f"{plan.total_param_num} base-net params a task "
+        f"({len(plan.names)} blocks), hypernet "
+        f"{sum(v.numel() for v in model.params.values())} params, "
+        f"{config['base_net_kwargs']['action_head_type']} head; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- serving: the fused step and the host path, against the CPU ----
+    frames = rng.integers(0, 256, (STEPS, 256, 256, 3), dtype=np.uint8)
+    instruction = {"language_instruction":
+                   batch["task"]["language_instruction"]}
+    kwargs = dict(policy_setup="google_robot", image_size=224,
+                  action_ensemble=True, pred_action_horizon=4)
+    cpu_model = model.replace(params=_to(model.params, "cpu"),
+                              device=torch.device("cpu"))
+    # the card's pixels against the CPU's; the CPU's steps then start from
+    # the card's (224 in: the resize returns them as they are, no crop)
+    pixels = np.stack([_pixels(f, device) for f in frames])
+    cpu_pixels = np.stack([_pixels(f, "cpu") for f in frames])
+    flips = pixels != cpu_pixels
+    levels = int(np.abs(pixels.astype(np.int16)
+                        - cpu_pixels.astype(np.int16)).max())
+    if levels > 1 or flips.mean() > 1e-3:
+        raise AssertionError(f"smallstem resize: {flips.sum()} pixels off "
+                             f"the CPU's, by up to {levels} levels")
+    worst = 0.0
+    timed = {}
+    for fused, n in ((True, STEPS), (False, SMALLSTEM_HOST_STEPS)):
+        card_w = InferenceWrapper(model, fused_serving=fused, crop=True,
+                                  **kwargs)
+        cpu_w = InferenceWrapper(cpu_model, fused_serving=fused, crop=False,
+                                 **kwargs)
+        raw, act, ms = _serve(card_w, instruction, frames[:n])
+        ref_raw, ref_act, _ = _serve(cpu_w, instruction, pixels[:n],
+                                     card_sync=False)
+        err = max(float(np.abs(raw - ref_raw).max()),
+                  float(np.abs(act - ref_act).max()))
+        if not np.isfinite(raw).all() or err > SMALLSTEM_ACTION_TOL:
+            raise AssertionError(f"smallstem {'fused' if fused else 'host'}"
+                                 f" actions: max abs error {err} against "
+                                 f"the CPU (bound {SMALLSTEM_ACTION_TOL})")
+        worst = max(worst, err)
+        timed[fused] = (card_w, statistics.median(ms[1:]))
+    fused_w, fused_ms = timed[True]
+    step_fn, history = fused_w._serving_step, fused_w._serving_history
+    busy, kernels = device_busy(lambda: step_fn(
+        fused_w.base_params, frames[0], history, STEPS))
+    log(f"smallstem serving: {STEPS} fused steps and "
+        f"{SMALLSTEM_HOST_STEPS} host-path steps; the card's resized pixels "
+        f"off the CPU's on {int(flips.sum())} of {flips.size} by up to "
+        f"{levels} level; from the card's pixels, actions within "
+        f"{worst:.3g} of the CPU's in fp32 (bound {SMALLSTEM_ACTION_TOL}, "
+        f"TF32 off); fused ms/step {fused_ms:.4f} (median, host clock), "
+        f"actions/s {1e3 / fused_ms:.1f}; host path ms/step "
+        f"{timed[False][1]:.4f}; fused step device busy {busy:.4f} ms in "
+        f"{kernels:.0f} kernels, idle share {1 - busy / fused_ms:.3f}; "
+        f"card {card}")
+    del timed, fused_w, step_fn, cpu_model, model
+    torch.cuda.empty_cache()
+
+    # ---- training: the command line on the fixture mix ----
+    root = tempfile.mkdtemp(prefix="hypervla_smallstem_")
+    try:
+        data = os.path.join(root, "data")
+        mix, _, _ = write_trainer_fixture(data)
+        save_dir = os.path.join(root, "run")
+        argv = ["--config", SMALLSTEM_CONFIG, "--save_dir", save_dir,
+                *SMALLSTEM_OVERRIDES,
+                f"--config.dataset_kwargs.oxe_mix={mix!r}",
+                f"--config.dataset_kwargs.data_dir={data!r}",
+                f"--config.dataset_kwargs.batch_size={TRAINER_BATCH}",
+                "--config.dataset_kwargs.shuffle_buffer_size="
+                f"{TRAINER_SHUFFLE}",
+                f"--config.num_steps={SMALLSTEM_TRAIN_STEPS}",
+                "--config.log_interval=1", "--config.save_param_EMA=True",
+                *(["--cpu"] if device.type == "cpu" else [])]
+        recorder = LogRecorder()
+        real_wandb = cli._wandb_run
+        cli._wandb_run = lambda args, config: recorder
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with TrainerSteps(trainer, dict, {}) as steps:
+                state = cli.main(argv)
+        finally:
+            cli._wandb_run = real_wandb
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [recorder.logs[s]["training_loss"]
+                  for s in range(1, SMALLSTEM_TRAIN_STEPS + 1)]
+        if (state.step != SMALLSTEM_TRAIN_STEPS
+                or steps.calls != SMALLSTEM_TRAIN_STEPS
+                or not all(map(math.isfinite, losses))):
+            raise AssertionError(f"smallstem trainer: step {state.step}, "
+                                 f"{steps.calls} steps, losses {losses}")
+
+        # the first step again, on the CPU, from the same state and batch
+        first = steps.first
+        args, kwargs = steps.args
+        card_model = args[0]
+        cpu_params = {k: v.detach().cpu().requires_grad_(True)
+                      for k, v in first["state"].params.items()}
+        cpu_state = TrainState(
+            step=first["state"].step, params=cpu_params,
+            opt_state=_to(first["state"].opt_state, "cpu"),
+            ema_params=_to(first["state"].ema_params, "cpu"),
+            seed=first["state"].seed)
+        cpu_step = steps.real(card_model.replace(
+            params=cpu_params, device=torch.device("cpu")), *args[1:],
+            **kwargs)
+        _, cpu_info = cpu_step(cpu_state, _to(first["batch"], "cpu"),
+                               _to(first["task_index"], "cpu"),
+                               _to(first["encoder_params"], "cpu"),
+                               with_metrics=True)
+        for key, bound in (("training_loss", SMALLSTEM_LOSS_RTOL),
+                           ("grad_norm", SMALLSTEM_GRAD_NORM_RTOL)):
+            a, b = float(first["info"][key]), float(cpu_info[key])
+            log(f"smallstem trainer first step {key}: card {a!r}, CPU "
+                f"{b!r}, relative difference {abs(a - b) / abs(b):.3g} "
+                f"(bound {bound})")
+            if not abs(a - b) <= bound * abs(b):
+                raise AssertionError(f"smallstem first step {key}: card {a}"
+                                     f", CPU {b}")
+        del cpu_step, cpu_state, cpu_params, cpu_info
+
+        step_fn = steps.rebuild()
+
+        def one_step():
+            step_fn(first["state"], first["batch"], first["task_index"],
+                    first["encoder_params"], with_metrics=False)
+
+        per_kernel = _device_trace(one_step, 1)
+        busy = sum(us * n for us, n in per_kernel.values()) / 1e3
+        kernels = sum(n for _, n in per_kernel.values())
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0] * kv[1][1])
+        log("smallstem trainer step's largest device kernels (ms a step, "
+            "launches): " + "; ".join(
+                f"{k.removeprefix('void ').split('(')[0][:60]} "
+                f"{us * n / 1e3:.3f} x{n}" for k, (us, n) in top[:8]))
+        totals = [recorder.logs[s]["timer/total"]
+                  for s in range(2, SMALLSTEM_TRAIN_STEPS + 1)]
+        med_ms = statistics.median(totals) * 1e3
+        log(f"smallstem trainer: {SMALLSTEM_TRAIN_STEPS} steps at batch "
+            f"{TRAINER_BATCH} in {run_s:.2f} s, losses "
+            f"{[round(x, 4) for x in losses]}; ms/step {med_ms:.4f} (median "
+            f"of the timer's total over steps 2-{SMALLSTEM_TRAIN_STEPS}), "
+            f"samples/s {TRAINER_BATCH * 1e3 / med_ms:.1f}; one step traced: "
+            f"device busy {busy:.3f} ms in {kernels:.0f} kernels, idle share "
+            f"{1 - busy / med_ms:.3f}; peak {peak:.2f} GiB; card {card}")
+        del step_fn, first, steps, state
+
+        # ---- the saved checkpoint, served ----
+        policy = load_hypervla_policy(save_dir, device=device,
+                                      fused_serving=True)
+        encode = build_text_encoder(policy.model)
+        policy.reset("pick up the cube", encode("pick up the cube"))
+        for i, frame in enumerate(frames[:SMALLSTEM_SERVED]):
+            _, action, *_ = policy.step(frame)
+            if action.shape != (7,) or not np.isfinite(action).all():
+                raise AssertionError(f"smallstem served step {i}: {action}")
+        log(f"smallstem checkpoint served: {SMALLSTEM_SERVED} fused steps of "
+            f"the step-{SMALLSTEM_TRAIN_STEPS} EMA params through "
+            "load_hypervla_policy(fused_serving=True), a finite (7,) action "
+            "each")
+        del policy
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2957,6 +3252,7 @@ def main() -> int:
     column_pass_phase(device)
     train_launches, hand_fed = train_phase(device)
     trainer_launches = trainer_phase(device, card, hand_fed)
+    smallstem_phase(device, card)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")

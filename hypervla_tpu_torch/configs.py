@@ -134,10 +134,12 @@ def pretrain_config() -> Dict[str, Any]:
             "action_dim": 7,
             "vit_kwargs": {
                 "encoder_type": "SmallStem",
+                "patch_size": 16,
                 "hidden_dim": 64,
                 "num_layers": 4,
                 "num_heads": 4,
                 "mlp_dim": 128,
+                "cnn_channels": (32, 96, 192, 384),
                 "use_language_token": False,
                 "use_differential_transformer": False,
                 "add_positional_embedding": True,
@@ -153,6 +155,7 @@ def pretrain_config() -> Dict[str, Any]:
                 "clip_target": False,
                 "max_action": 5.0,
                 "hidden_dims": tuple(),
+                "loss_type": "mse",
             },
         },
         "auxiliary_loss": {
@@ -220,10 +223,15 @@ def flagship_pretrain_config() -> Dict[str, Any]:
     return config
 
 
-def tiny_test_config(**overrides) -> Dict[str, Any]:
+def tiny_test_config(encoder_type: str = "DINOv2",
+                     action_head_type: str = "mix",
+                     **overrides) -> Dict[str, Any]:
     """A shrunken config for CPU tests: tiny context encoder, tiny base net,
-    tiny DINOv2 (`dinov2-test`); the JAX twin is
-    `tiny_test_config(encoder_type="DINOv2")`."""
+    and with encoder_type "DINOv2" the tiny DINOv2 (`dinov2-test`), shared,
+    conditioning the hypernetwork on the initial image. The JAX twin is
+    `tiny_test_config(encoder_type, action_head_type)`; unlike it, the
+    port's default encoder is DINOv2 (the JAX default is SmallStem, a
+    generated conv stem over 64-px frames in the JAX package's tests)."""
     config = pretrain_config()
     config["hypernet_kwargs"].update(
         context_embedding_dim=16,
@@ -236,25 +244,27 @@ def tiny_test_config(**overrides) -> Dict[str, Any]:
         generation_strategy="block",
     )
     config["base_net_kwargs"].update(
-        model_type="vit", action_head_type="mix", action_horizon=2,
-        action_dim=7,
+        model_type="vit", action_head_type=action_head_type,
+        action_horizon=2, action_dim=7,
     )
     config["base_net_kwargs"]["vit_kwargs"].update(
-        encoder_type="DINOv2",
+        encoder_type=encoder_type,
         hidden_dim=16,
         num_layers=2,
         num_heads=2,
         mlp_dim=32,
+        cnn_channels=(32, 32, 32, 32),
     )
-    config["hypernet_kwargs"].update(
-        shared_modules=("image_encoder",),
-        share_layer_index=True,
-        use_initial_image=True,
-        scale_context_embedding=True,
-    )
-    config["base_net_kwargs"]["vit_kwargs"][
-        "pretrained_encoder_name"
-    ] = "dinov2-test"
+    if encoder_type == "DINOv2":
+        config["hypernet_kwargs"].update(
+            shared_modules=("image_encoder",),
+            share_layer_index=True,
+            use_initial_image=True,
+            scale_context_embedding=True,
+        )
+        config["base_net_kwargs"]["vit_kwargs"][
+            "pretrained_encoder_name"
+        ] = "dinov2-test"
     hk_overrides = overrides.pop("hypernet_kwargs", {})
     config["hypernet_kwargs"].update(hk_overrides)
     config.update(copy.deepcopy(overrides))

@@ -20,10 +20,13 @@ chosen as the JAX wrapper chooses:
 Either way the per-robot post-processing (google-robot sticky gripper,
 widowx binarisation, libero rescale) runs on the host.
 
-Not ported, and refused: a history window over one frame (horizon > 1; the
-port's base net has window 1, ROADMAP.md A6, SmallStem and the goldens),
-and attention-map capture (save_attention_map; ROADMAP.md A8, the rest of
-the train step, which needs the capture in the trunk).
+A history window over one frame (horizon > 1) is the JAX wrapper's: the
+host path keeps the last `horizon` frames and hands them to the base net,
+whose ViT reads one frame, so the first step (one frame in the history)
+runs and the second raises ValueError, in both packages; the fused step
+takes no history, and horizon > 1 takes the host path. Refused:
+attention-map capture (save_attention_map; ROADMAP.md A8, the rest of the
+train step, which needs the capture in the trunk).
 """
 import logging
 import time
@@ -47,6 +50,7 @@ from hypervla_tpu_torch.ops.serving import (
     make_serving_step,
     per_layer_trunk,
     prepare_serving_params,
+    resolve_trunk_impl,
 )
 
 
@@ -72,9 +76,12 @@ class InferenceWrapper:
                  init_rng: int = 0, action_ensemble: bool = False,
                  crop: bool = False, save_attention_map: bool = False,
                  padded_resize: bool = False, fused_serving: bool = False,
-                 trunk_impl: str = "kernel") -> None:
+                 trunk_impl=None) -> None:
         """trunk_impl (the JAX wrapper's trunk_kernel) is one of
-        ops/serving.py::TRUNK_IMPLS, on either path. exec_horizon and
+        ops/serving.py::TRUNK_IMPLS, on either path, or None
+        (ops/serving.py::resolve_trunk_impl: the stacked trunk kernel for
+        a DINOv2 model, nothing for a model with a generated conv stem,
+        which takes no other value). exec_horizon and
         init_rng are taken for the JAX signature only: a step returns one
         action (receding-horizon execution is the environment loop's, so
         exec_horizon must be 1), and the mix head's argmax decode draws no
@@ -83,11 +90,6 @@ class InferenceWrapper:
             raise ValueError(
                 f"exec_horizon={exec_horizon}: a step returns one action; "
                 "execute a chunk in the environment loop")
-        if horizon != 1:
-            raise NotImplementedError(
-                f"horizon={horizon}: the port's base net has a window of one "
-                "frame (ROADMAP.md A6, SmallStem, the continuous head and "
-                "the goldens)")
         if save_attention_map:
             raise NotImplementedError(
                 "save_attention_map=True: the port's trunk does not capture "
@@ -105,10 +107,11 @@ class InferenceWrapper:
         self.padded_resize = padded_resize
         self.save_attention_map = save_attention_map
         # the JAX wrapper's rule (with the refusals above): the fused step
-        # has no padded resize, so that takes the host path
-        self.fused_serving = fused_serving and not padded_resize
-        per_layer_trunk(trunk_impl)  # raises on an unknown value
-        self.trunk_impl = trunk_impl
+        # has no padded resize and no image history, so those take the host
+        # path
+        self.fused_serving = (fused_serving and horizon == 1
+                              and not padded_resize)
+        self.trunk_impl = resolve_trunk_impl(model, trunk_impl)
         self.sticky_gripper_num_repeat = {
             "google_robot": 15, "widowx_bridge": 1}.get(policy_setup)
         dataset = _DATASETS[policy_setup]
@@ -201,6 +204,9 @@ class InferenceWrapper:
                     trunk_impl=self.trunk_impl,
                 )
             self._serving_history = self._init_history()
+        self._token_embedding = (
+            instruction_dict["language_instruction"]["token_embedding"]
+            if self.model.base_net.encoder.use_language_token else None)
         self.task_description = task_description
         self.image_history.clear()
         if self.action_ensemble:
@@ -222,14 +228,14 @@ class InferenceWrapper:
             return self._fused_step(image)
         image = self._resize_image(image)
         self._add_image_to_history(image)
-        # the pad mask is all ones at horizon 1, and the window-1 base net
-        # reads none
+        # the ViT base net reads no pad mask (and one frame: a longer
+        # history raises there, as in the JAX package)
         images, _ = self._obtain_image_history_and_mask()
 
         start = time.perf_counter()
         raw_actions = self.model.sample_actions(images[None],
                                                 self.base_params,
-                                                self.trunk_impl)
+                                                self.trunk_impl, self.task)
         raw_actions = raw_actions[0].cpu().numpy()
         seconds = time.perf_counter() - start
 
@@ -253,7 +259,7 @@ class InferenceWrapper:
         start = time.perf_counter()
         raw_action, self._serving_history = self._serving_step(
             self.base_params, image, self._serving_history,
-            self.episode_step,
+            self.episode_step, self._token_embedding,
         )
         raw_action = raw_action.cpu().numpy()
         seconds = time.perf_counter() - start
@@ -335,6 +341,10 @@ def initial_state(model, frame: np.ndarray) -> dict:
     last hidden state (CLS + patches) from the model's shared image encoder
     (hypervla_tpu/eval/simpler.py::_initial_state does this in JAX)."""
     vit = model.base_net.encoder
+    if not vit.has_trunk:
+        raise ValueError("initial_state encodes with the model's DINOv2 "
+                         f"trunk, and its image encoder is "
+                         f"{vit.encoder_type}")
     image = torch.as_tensor(frame, device=model.device)
     image = preprocess.resize_image(image, (RESOLUTION, RESOLUTION))[None]
     mean = torch.tensor(DINO_IMAGE_MEAN, device=model.device)

@@ -46,12 +46,14 @@ def load_hypervla_policy(
     horizon: int = 1,
     device=None,
     fused_serving: bool = False,
-    trunk_impl: str = "kernel",
+    trunk_impl=None,
 ):
     """Loads a checkpoint into a closed-loop InferenceWrapper on `device`
     (None: the CUDA card): by default the host path, as the JAX function
     builds it, or with fused_serving the fused serving step; either runs
-    the trunk as trunk_impl says (eval/inference.py). With ema_decay set,
+    the trunk as trunk_impl says (eval/inference.py; None: the stacked
+    trunk kernel for a DINOv2 model, nothing for a generated conv stem).
+    With ema_decay set,
     the params of <step>/EMA_params.pt under the key "EMA_<ema_decay>"
     replace the trained ones; step None reads the latest step directory
     that has an EMA file."""

@@ -156,10 +156,12 @@ def main():
                         help="serve each step as one call of the fused "
                              "serving step (ops/serving.py) instead of the "
                              "host path")
-    parser.add_argument("--trunk_impl", default="kernel",
+    parser.add_argument("--trunk_impl", default=None,
                         choices=TRUNK_IMPLS,
-                        help="the DINOv2 trunk: the stacked trunk kernel, "
-                             "its plain version, or the layer loop")
+                        help="the DINOv2 trunk: the stacked trunk kernel "
+                             "(the default for a DINOv2 model), its plain "
+                             "version, or the layer loop; a model with a "
+                             "generated conv stem takes none")
     parser.add_argument("--cpu", action="store_true",
                         help="serve on the CPU instead of the CUDA card")
     args = parser.parse_args()

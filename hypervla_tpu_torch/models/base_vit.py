@@ -1,23 +1,30 @@
-"""The generated policy ViT, DINOv2 path (counterpart of
+"""The generated policy ViT (counterpart of
 hypervla_tpu/models/base_vit.py).
 
-Flow: ImageNet-normalise the frame -> shared DINOv2 trunk -> drop the CLS
-token -> project to hidden_dim -> append zero action tokens -> learned
-positions -> tiny transformer under the segment mask -> the last
-`action_token_num` embeddings. In training the trunk runs once over the
-whole batch (`train_image_embeddings`) and the per-sample policy consumes
-its patch embeddings, detached unless fine_tune_pretrained_image_encoder.
-Params live under the JAX package's names (encoder/image_encoder,
-encoder/image_embedding_projection, encoder/pos_embedding,
-encoder/Transformer_0).
+Flow: encode the frame to patch tokens -> (optionally) prepend projected
+language tokens -> append zero action tokens -> learned positions -> tiny
+transformer under the segment mask -> the last `action_token_num`
+embeddings. The encoders:
 
-Other encoder types, language tokens, the class token, positions on the
-action tokens only, and differential attention are not ported yet and
-raise (ROADMAP.md A6, SmallStem, the continuous head and the goldens; A12,
-breadth), as do the trunk switches with no counterpart
-(`check_trunk_switches`).
+  * "DINOv2": ImageNet-normalise, the shared DINOv2 trunk, drop the CLS
+    token unless include_class_token, project to hidden_dim. In training
+    the trunk runs once over the whole batch (`train_image_embeddings`) and
+    the per-sample policy consumes its patch embeddings, detached unless
+    fine_tune_pretrained_image_encoder;
+  * "SmallStem" and "PatchEncoder" (models/vit_encoders.py): convolutions
+    whose kernels the hypernetwork generates like any other block.
+
+Params live under the JAX package's names (encoder/image_encoder,
+encoder/image_embedding_projection, encoder/SmallStem_0,
+encoder/PatchEncoder_0, encoder/language_token_projection,
+encoder/pos_embedding, encoder/Transformer_0).
+
+The CLIP, EfficientNet and Siglip encoders and differential attention are
+not ported yet and raise (ROADMAP.md A12.2, other encoders and
+topologies), as do the trunk switches with no counterpart
+(`check_trunk_switches`) and attention-map capture (A8).
 """
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,22 +37,29 @@ from hypervla_tpu_torch.models.encoders.dinov2 import (
     layer_norm_fn,
 )
 from hypervla_tpu_torch.models.transformer import transformer, transformer_specs
+from hypervla_tpu_torch.models.vit_encoders import PatchEncoder, SmallStem
 from hypervla_tpu_torch.utils.convert import subtree
 
 DINO_IMAGE_MEAN = (0.485, 0.456, 0.406)
 DINO_IMAGE_STD = (0.229, 0.224, 0.225)
 RESOLUTION = 224
+#: the encoders the port carries, and the param subtree each lives under
+ENCODER_PREFIX = {"DINOv2": "encoder/image_encoder",
+                  "SmallStem": "encoder/SmallStem_0",
+                  "PatchEncoder": "encoder/PatchEncoder_0"}
 
 
-def segment_attention_mask(batch, n_patch, n_action, device=None):
-    """Boolean (B, 1, L, L) mask over [patches | action] segments: full
-    attention, except that no patch row may look at the trailing action
-    tokens (hypervla_tpu/models/base_vit.py::_segment_attention_mask
-    without language tokens)."""
-    total = n_patch + n_action
+def segment_attention_mask(batch, n_lang, n_patch, n_action, device=None):
+    """Boolean (B, 1, L, L) mask over [lang | patches | action] segments:
+    full attention, except that language rows only see language columns
+    and no row may look at the trailing action tokens
+    (hypervla_tpu/models/base_vit.py::_segment_attention_mask)."""
+    total = n_lang + n_patch + n_action
     mask = torch.ones((batch, 1, total, total), dtype=torch.bool,
                       device=device)
-    mask[:, :, :n_patch, n_patch:] = False
+    if n_lang:
+        mask[:, :, :n_lang, n_lang:] = False
+    mask[:, :, :total - n_action, total - n_action:] = False
     return mask
 
 
@@ -106,33 +120,69 @@ def check_trunk_switches(vit_kwargs: dict) -> None:
 
 
 class ViT:
-    """Config holder + forward of the DINOv2 policy ViT."""
+    """Config holder + forward of the policy ViT.
 
-    def __init__(self, vit_kwargs: dict, action_token_num: int):
+    input_shapes give the shapes the param table depends on:
+    "image" (H, W) of the frames (DINOv2 takes 224 x 224 only) and, with
+    use_language_token, "instruction" (L, token_dim) of the instruction's
+    token embedding."""
+
+    def __init__(self, vit_kwargs: dict, action_token_num: int,
+                 input_shapes: Optional[dict] = None):
         kw = vit_kwargs
+        self.encoder_type = kw.get("encoder_type", "SmallStem")
         unsupported = {
-            "encoder_type": kw.get("encoder_type") != "DINOv2",
-            "use_language_token": kw.get("use_language_token", False),
+            "encoder_type": self.encoder_type not in ENCODER_PREFIX,
             "use_differential_transformer": kw.get(
                 "use_differential_transformer", False),
-            "include_class_token": kw.get("include_class_token", False),
-            "return_attention_map": kw.get("return_attention_map", False),
-            "add_positional_embedding": not kw.get(
-                "add_positional_embedding", True),
         }
         for name, bad in unsupported.items():
             if bad:
                 raise NotImplementedError(
                     f"vit_kwargs {name}={kw.get(name)!r} is not ported yet "
-                    "(ROADMAP.md A6, SmallStem, the continuous head and "
-                    "the goldens; A12, breadth)"
-                )
+                    "(ROADMAP.md A12.2, other encoders and topologies)")
+        if kw.get("return_attention_map", False):
+            raise NotImplementedError(
+                "vit_kwargs return_attention_map=True is not ported yet: the "
+                "port captures no attention maps (ROADMAP.md A8, the rest of "
+                "the train step)")
         check_trunk_switches(kw)
         refuse_dropout("vit_kwargs", kw)
-        self.dino = dinov2_config(kw.get("pretrained_encoder_name",
-                                         "dinov2-base"))
+        self.prefix = ENCODER_PREFIX[self.encoder_type]
+        self.hidden_dim = kw["hidden_dim"]
+        self.num_layers = kw["num_layers"]
+        self.num_heads = kw["num_heads"]
+        self.mlp_dim = kw["mlp_dim"]
+        self.action_token_num = action_token_num
+        self.use_language_token = kw.get("use_language_token", False)
+        self.add_positional_embedding = kw.get("add_positional_embedding",
+                                               True)
+        self.include_class_token = kw.get("include_class_token", False)
+        shapes = dict(input_shapes or {})
+        self.image_shape = tuple(shapes.get("image",
+                                            (RESOLUTION, RESOLUTION)))
+        self.instruction_shape = (tuple(shapes["instruction"])
+                                  if "instruction" in shapes else None)
         self.encoder_dtype = str(kw.get("encoder_dtype", "float32"))
         self.fine_tune = kw.get("fine_tune_pretrained_image_encoder", False)
+        self.stem = None
+        self.dino = None
+        if self.encoder_type == "SmallStem":
+            self.stem = SmallStem(patch_size=kw.get("patch_size", 16),
+                                  num_features=self.hidden_dim,
+                                  features=tuple(kw.get(
+                                      "cnn_channels", (32, 96, 192, 384))))
+        elif self.encoder_type == "PatchEncoder":
+            self.stem = PatchEncoder(patch_size=kw.get("patch_size", 16),
+                                     num_features=self.hidden_dim)
+        else:
+            self._init_trunk(kw)
+        self.n_patch = self._num_patches()
+
+    def _init_trunk(self, kw: dict) -> None:
+        """The DINOv2 trunk's geometry and switches."""
+        self.dino = dinov2_config(kw.get("pretrained_encoder_name",
+                                         "dinov2-base"))
         # the JAX trunk takes the fused attention, the forward-only flash
         # attention (ops/flash_attention.py) and the fused residual
         # boundaries (ops/add_layer_norm.py) only when it does not capture
@@ -150,21 +200,38 @@ class ViT:
         if self.layer_kernel and not self.bf16_trunk:
             raise ValueError("dino_layers_impl='pallas_train' is a bf16 "
                              "kernel: set encoder_dtype='bfloat16'")
-        self.hidden_dim = kw["hidden_dim"]
-        self.num_layers = kw["num_layers"]
-        self.num_heads = kw["num_heads"]
-        self.mlp_dim = kw["mlp_dim"]
-        self.action_token_num = action_token_num
-        self.n_patch = (RESOLUTION // self.dino.patch_size) ** 2
+
+    def _num_patches(self) -> int:
+        if self.stem is not None:
+            return self.stem.num_tokens(*self.image_shape)
+        return ((RESOLUTION // self.dino.patch_size) ** 2
+                + int(self.include_class_token))
+
+    @property
+    def has_trunk(self) -> bool:
+        """Whether the image encoder is the shared DINOv2 trunk."""
+        return self.dino is not None
 
     @property
     def bf16_trunk(self) -> bool:
-        return self.encoder_dtype in ("bfloat16", "bf16")
+        return self.has_trunk and self.encoder_dtype in ("bfloat16", "bf16")
+
+    @property
+    def n_lang(self) -> int:
+        if not self.use_language_token:
+            return 0
+        if self.instruction_shape is None:
+            raise ValueError("use_language_token needs the instruction's "
+                             "shape: pass input_shapes['instruction']")
+        return self.instruction_shape[0]
 
     def _trunk_switches(self) -> dict:
         return dict(fused_attention=self.fused_attention,
                     layer_kernel=self.layer_kernel, fused_ln=self.fused_ln,
                     use_flash=self.use_flash, fused_add_ln=self.fused_add_ln)
+
+    def _drop_class_token(self, emb):
+        return emb if self.include_class_token else emb[:, 1:]
 
     def image_embeddings(self, params: Dict[str, torch.Tensor], images,
                          trunk_impl: str = "kernel"):
@@ -185,7 +252,7 @@ class ViT:
             emb = dinov2_forward(self.dino, enc, pixels, dtype,
                                  plain=trunk_impl == "layers_reference",
                                  **self._trunk_switches())
-        return emb[:, 1:]  # drop the CLS token
+        return self._drop_class_token(emb)
 
     def train_image_embeddings(self, trunk_params: Dict[str, torch.Tensor],
                                images):
@@ -199,45 +266,87 @@ class ViT:
         dtype = torch.bfloat16 if self.bf16_trunk else torch.float32
         emb = dinov2_forward(self.dino, trunk_params, normalize_pixels(images),
                              dtype, **self._trunk_switches())
-        return emb[:, 1:]
+        return self._drop_class_token(emb)
 
-    def __call__(self, params: Dict[str, torch.Tensor], images=None,
-                 trunk_impl: str = "kernel", image_embeddings=None):
-        """Readout embeddings (B, action_token_num, hidden_dim) from uint8
-        images, or from patch embeddings computed outside (the training
-        step's batched trunk). params may carry a leading per-sample axis
-        (models/hypernetwork.py::per_sample_view)."""
+    def _patches(self, params, images, trunk_impl, image_embeddings):
+        """(B, n_patch, hidden_dim) patch tokens."""
+        if self.stem is not None:
+            return self.stem(params, self.prefix, images)
         emb = image_embeddings
         if emb is None:
             _check_resolution(images)
             emb = self.image_embeddings(params, images, trunk_impl)
         if not self.fine_tune:
             emb = emb.detach()
-        batch = emb.shape[0]
-        patches = layers.dense(emb,
-                               params["encoder/image_embedding_projection/kernel"],
-                               params["encoder/image_embedding_projection/bias"])
-        x = torch.cat([patches, patches.new_zeros(
-            batch, self.action_token_num, self.hidden_dim)], dim=1)
-        x = x + params["encoder/pos_embedding"]
-        mask = segment_attention_mask(batch, patches.shape[1],
-                                      self.action_token_num, emb.device)
+        return layers.dense(
+            emb, params["encoder/image_embedding_projection/kernel"],
+            params["encoder/image_embedding_projection/bias"])
+
+    def __call__(self, params: Dict[str, torch.Tensor], images=None,
+                 trunk_impl: str = "kernel", image_embeddings=None,
+                 instruction_embeddings=None):
+        """Readout embeddings (B, action_token_num, hidden_dim) from uint8
+        images (B, H, W, 3), or, on the DINOv2 path, from patch embeddings
+        computed outside (the training step's batched trunk).
+        instruction_embeddings (B, L, token_dim) feed the language tokens.
+        params may carry a leading per-sample axis
+        (models/hypernetwork.py::per_sample_view)."""
+        patches = self._patches(params, images, trunk_impl, image_embeddings)
+        batch = patches.shape[0]
+        n_lang = 0
+        if self.use_language_token:
+            if instruction_embeddings is None:
+                raise ValueError("use_language_token: pass the "
+                                 "instruction's token embeddings")
+            lang = layers.dense(
+                instruction_embeddings.float(),
+                params["encoder/language_token_projection/kernel"],
+                params["encoder/language_token_projection/bias"])
+            n_lang = lang.shape[1]
+            patches = torch.cat([lang, patches], dim=1)
+        pos = params["encoder/pos_embedding"]
+        if self.add_positional_embedding:
+            x = torch.cat([patches, patches.new_zeros(
+                batch, self.action_token_num, self.hidden_dim)], dim=1)
+            x = x + pos
+        else:
+            # only the action tokens get (learned) positions; the others
+            # get zeros, which leave them as they are
+            x = torch.cat([patches, pos.expand(
+                batch, self.action_token_num, self.hidden_dim)], dim=1)
+        mask = segment_attention_mask(batch, n_lang,
+                                      patches.shape[1] - n_lang,
+                                      self.action_token_num, x.device)
         x = transformer(params, "encoder/Transformer_0", x, mask,
                         self.num_layers, self.num_heads)
         return x[:, -self.action_token_num:]
 
     def specs(self) -> Dict[str, Tuple[tuple, layers.Init]]:
         """Param shapes and initializers under encoder/."""
-        n_pos = self.n_patch + self.action_token_num
-        specs = {
-            "encoder/image_embedding_projection/bias": (
-                (self.hidden_dim,), layers.zeros),
-            "encoder/image_embedding_projection/kernel": (
-                (self.dino.hidden_size, self.hidden_dim), layers.lecun_normal),
-            "encoder/pos_embedding": (
-                (1, n_pos, self.hidden_dim), layers.normal(0.02)),
-        }
-        specs.update(dinov2_specs(self.dino, "encoder/image_encoder"))
+        n_pos = self.action_token_num
+        if self.add_positional_embedding:
+            n_pos += self.n_lang + self.n_patch
+        specs = {"encoder/pos_embedding": (
+            (1, n_pos, self.hidden_dim), layers.normal(0.02))}
+        if self.stem is not None:
+            specs.update(self.stem.specs(self.prefix))
+        else:
+            specs.update({
+                "encoder/image_embedding_projection/bias": (
+                    (self.hidden_dim,), layers.zeros),
+                "encoder/image_embedding_projection/kernel": (
+                    (self.dino.hidden_size, self.hidden_dim),
+                    layers.lecun_normal),
+            })
+            specs.update(dinov2_specs(self.dino, "encoder/image_encoder"))
+        if self.use_language_token:
+            specs.update({
+                "encoder/language_token_projection/bias": (
+                    (self.hidden_dim,), layers.zeros),
+                "encoder/language_token_projection/kernel": (
+                    (self.instruction_shape[1], self.hidden_dim),
+                    layers.lecun_normal),
+            })
         specs.update(transformer_specs(
             "encoder/Transformer_0", self.hidden_dim, self.num_layers,
             self.mlp_dim, self.num_heads))

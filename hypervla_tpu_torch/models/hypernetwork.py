@@ -1,13 +1,21 @@
 """HyperNetwork: task -> base-network weights (counterpart of
-hypervla_tpu/models/hypernetwork.py, block generation strategy).
+hypervla_tpu/models/hypernetwork.py).
 
 The context encoder runs over [task tokens | initial-image CLS token |
 layer tokens] under the JAX package's attention mask; the layer-token
-outputs, optionally scaled by 1/sqrt(context_dim), feed the fan-out. Every
-generated block keeps its own output head (kernel, bias); the heads sharing
-a context token are concatenated into one [context_dim, sum(dims)] matrix
-and applied as one matmul per token group. Shared blocks (the DINOv2 trunk)
-are flat params copied into the base-net tree unchanged.
+outputs, optionally scaled by 1/sqrt(context_dim), feed the fan-out. Two
+generation strategies:
+
+  * "block": one layer token per context-token group of the plan; every
+    generated block keeps its own output head (kernel, bias); the heads
+    sharing a context token are concatenated into one
+    [context_dim, sum(dims)] matrix and applied as one matmul per group;
+  * "full": one layer token and one output head (`output_head`) over the
+    flat vector of every base-net param, shared blocks included, walked in
+    the plan's block order (the JAX package's block_entries order).
+
+Shared blocks (the DINOv2 trunk) are flat params copied into the base-net
+tree unchanged.
 
 In training the hypernetwork runs over the whole batch; `per_sample_view`
 lays each sample's generated blocks out so that the base net's ops
@@ -16,7 +24,8 @@ broadcast over the sample axis (the JAX package vmaps a per-sample loss).
 Param names follow the JAX package: task_token_projection,
 task_pos_embedding, initial_image_projection, initial_image_pos_embedding,
 layer_pos_embedding, context_encoder/..., output_head_<block>/{kernel,bias}
-and <block> for each shared block (block = its path joined by "_").
+and <block> for each shared block (block = its path joined by "_"); under
+"full" one output_head/{kernel,bias}.
 """
 import math
 from typing import Dict, Optional, Tuple
@@ -34,8 +43,11 @@ Params = Dict[str, torch.Tensor]
 class HyperNetwork:
     def __init__(self, plan: WeightPlan, hypernet_kwargs: dict):
         hk = hypernet_kwargs
+        self.strategy = hk.get("generation_strategy", "full")
+        if self.strategy not in ("block", "full"):
+            raise ValueError(
+                f"unknown generation_strategy {self.strategy}")
         unsupported = {
-            "generation_strategy": hk.get("generation_strategy") != "block",
             "include_goal_image": hk.get("include_goal_image", False),
             "output_head_bias": not hk.get("output_head_bias", True),
             "context_encoder_kwargs.add_position_embedding":
@@ -53,11 +65,12 @@ class HyperNetwork:
         self.plan = plan
         self.hk = hk
         self.context_dim = hk["context_embedding_dim"]
-        self.layer_token_num = plan.block_num
+        self.layer_token_num = (plan.block_num if self.strategy == "block"
+                                else 1)
         self.use_initial_image = hk.get("use_initial_image", False)
         groups: Dict[int, list] = {}
         for name in plan.names:
-            if plan.generation_flag[name]:
+            if plan.generation_flag[name] and self.strategy == "block":
                 groups.setdefault(plan.token_index[name], []).append(name)
         self.packed_groups = tuple(sorted(groups.items()))
 
@@ -87,9 +100,15 @@ class HyperNetwork:
         specs.update(transformer_specs(
             "context_encoder", c, ce["num_layers"], ce["mlp_dim"],
             ce["num_attention_heads"]))
+        if self.strategy == "full":
+            total = self.plan.total_param_num
+            specs["output_head/kernel"] = ((c, total), layers.zeros)
+            specs["output_head/bias"] = ((total,), layers.zeros)
         for name in self.plan.names:
             flat = WeightPlan.flat_name(name)
             dim = self.plan.output_head_info[flat]["output_dim"]
+            if self.strategy == "full" and self.plan.generation_flag[name]:
+                continue
             if self.plan.generation_flag[name]:
                 specs[f"output_head_{flat}/kernel"] = ((c, dim), layers.zeros)
                 specs[f"output_head_{flat}/bias"] = ((dim,), layers.zeros)
@@ -139,7 +158,10 @@ class HyperNetwork:
         if n_image:
             masks.append(torch.ones((batch, 1, ctx_len, n_image),
                                     dtype=torch.bool, device=dev))
-        layer = rows(torch.tensor(self.plan.layer_token_mask, device=dev)
+        # "full": one layer token whatever the block count, attended freely
+        token_mask = ((True,) if self.strategy == "full"
+                      else self.plan.layer_token_mask)
+        layer = rows(torch.tensor(token_mask, device=dev)
                      .expand(batch, n_layer)).clone()
         if not hk["task_attend_to_layer"]:
             layer[:, :, :-n_layer, :] = False
@@ -159,6 +181,18 @@ class HyperNetwork:
         plan = self.plan
         batch = context_embedding.shape[0]
         out = {}
+        if self.strategy == "full":
+            flat = layers.dense(context_embedding[:, 0],
+                                params["output_head/kernel"],
+                                params["output_head/bias"])
+            offset = 0
+            for name in plan.names:
+                dim = plan.output_head_info[WeightPlan.flat_name(name)][
+                    "output_dim"]
+                if plan.generation_flag[name]:
+                    out[name] = flat[:, offset:offset + dim].reshape(
+                        batch, *plan.param_shape[name])
+                offset += dim
         for token, names in self.packed_groups:
             flats = [WeightPlan.flat_name(n) for n in names]
             kernel = torch.cat([params[f"output_head_{f}/kernel"]

@@ -34,6 +34,7 @@ from hypervla_tpu_torch.models.weight_plan import (
     WeightPlan,
     build_weight_plan,
     init_base_net,
+    input_shapes,
 )
 from hypervla_tpu_torch.utils.convert import flatten_tree
 from hypervla_tpu_torch.utils.device import resolve_device
@@ -147,24 +148,32 @@ class HyperVLA:
                     dataset_statistics: Optional[dict] = None,
                     device=None) -> "HyperVLA":
         """example_batch gives the shapes the params depend on: the
-        instruction's token embedding (B, L, token_dim) and, with
-        initial-image conditioning, its patch embeddings (B, T, dim)."""
+        instruction's token embedding (B, L, token_dim), the frames
+        (observation image_primary, B, window, H, W, 3; 224 x 224 where it
+        has none) and, with initial-image conditioning, the initial image's
+        patch embeddings (B, T, dim)."""
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
-        base_net, init_params, plan = init_base_net(config, gen)
-        hypernet = HyperNetwork(plan, config["hypernet_kwargs"])
         example_batch = _map_tree(lambda x: np.asarray(x)[:1], example_batch)
+        base_net, init_params, plan = init_base_net(config, gen,
+                                                    example_batch)
+        hypernet = HyperNetwork(plan, config["hypernet_kwargs"])
         specs = _param_specs(hypernet, config, example_batch)
         params = {n: init(shape, gen).float()
                   for n, (shape, init) in specs.items()}
-        # bias-init protocol (hypervla_tpu/models/hypervla.py:211-231)
+        # bias-init protocol (hypervla_tpu/models/hypervla.py:211-231): the
+        # output heads' biases hold the fresh base net ("full": one flat
+        # vector of every block), the shared blocks their own init
+        if hypernet.strategy == "full":
+            params["output_head/bias"] = torch.cat(
+                [init_params[n].reshape(-1) for n in plan.names])
         for name in plan.names:
             flat = WeightPlan.flat_name(name)
             value = init_params[name].reshape(-1)
-            if plan.generation_flag[name]:
-                params[f"output_head_{flat}/bias"] = value
-            else:
+            if not plan.generation_flag[name]:
                 params[flat] = value
+            elif hypernet.strategy == "block":
+                params[f"output_head_{flat}/bias"] = value
         params = {k: v.to(device) for k, v in params.items()}
         return cls(hypernet, base_net, config, params, plan,
                    dataset_statistics, device, example_batch)
@@ -222,7 +231,8 @@ class HyperVLA:
             with open(stats_path) as f:
                 dataset_statistics = _map_tree(np.array, json.load(f))
 
-        base_net = BaseNetwork(**config["base_net_kwargs"])
+        base_net = BaseNetwork(**config["base_net_kwargs"],
+                               input_shapes=input_shapes(example_batch))
         plan = build_weight_plan(config, base_net)
         hypernet = HyperNetwork(plan, config["hypernet_kwargs"])
         specs = _param_specs(hypernet, config, example_batch)
@@ -286,12 +296,23 @@ class HyperVLA:
 
     @torch.no_grad()
     def sample_actions(self, images, base_params: Params,
-                       trunk_impl: str = "kernel"):
+                       trunk_impl: str = "kernel",
+                       tasks: Optional[dict] = None):
         """images (B, 1, H, W, C) or (B, H, W, C) uint8 -> action chunks
-        (B, horizon, action_dim); the mix head's argmax decode needs no
-        random numbers."""
+        (B, horizon, action_dim); the regression heads' decode needs no
+        random numbers. tasks (create_tasks' second result) give the
+        instruction's token embedding to a policy with language tokens."""
         images = _as_tensor(images, self.device)
-        return self.base_net.predict_action(base_params, images, trunk_impl)
+        instruction = None
+        if self.base_net.encoder.use_language_token:
+            if tasks is None:
+                raise ValueError("this policy reads language tokens: pass "
+                                 "the tasks that create_tasks returned")
+            instruction = _as_tensor(
+                tasks["language_instruction"]["token_embedding"],
+                self.device).float()
+        return self.base_net.predict_action(base_params, images, trunk_impl,
+                                            instruction)
 
 
 def check_params(params: Params, specs: dict) -> None:

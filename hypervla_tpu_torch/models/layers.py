@@ -112,3 +112,64 @@ def init_params(specs, seed: int, device=None):
     gen = torch.Generator().manual_seed(seed)
     return {name: init(shape, gen).float().to(device)
             for name, (shape, init) in specs.items()}
+
+
+# ------------------------------ convolutions ------------------------------
+
+
+def _per_channel(v, channels: int):
+    """A bias or scale of `channels` entries, shared (C,) or per sample
+    ((B, C), or (B, 1, C) from models/hypernetwork.py::per_sample_view) ->
+    (1 or B, C, 1, 1), to broadcast over NCHW activations."""
+    return v.reshape(-1, channels)[:, :, None, None]
+
+
+def conv2d(x, kernel, bias=None, stride: int = 1, padding: int = 0):
+    """flax's NHWC convolution on NCHW activations: x (B, C, H, W); kernel
+    in the JAX HWIO layout, (kh, kw, in, out) shared by the batch or
+    (B, kh, kw, in, out) per sample, as the hypernetwork generates it (the
+    counterpart of the JAX train step's vmap over generated params: one
+    grouped convolution with a group per sample). padding p is
+    [(p, p), (p, p)]; 0 is "VALID"."""
+    if kernel.dim() == 4:
+        y = F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=stride,
+                     padding=padding)
+    else:
+        batch, _, _, c_in, c_out = kernel.shape
+        if x.shape[0] != batch:
+            raise ValueError(f"{batch} per-sample kernels for a batch of "
+                             f"{x.shape[0]}")
+        w = kernel.permute(0, 4, 3, 1, 2).reshape(batch * c_out, c_in,
+                                                  *kernel.shape[1:3])
+        y = F.conv2d(x.reshape(1, batch * c_in, *x.shape[2:]), w,
+                     stride=stride, padding=padding, groups=batch)
+        y = y.reshape(batch, c_out, *y.shape[2:])
+    if bias is not None:
+        y = y + _per_channel(bias, y.shape[1])
+    return y
+
+
+def standardize_kernel(kernel, eps: float = 1e-5):
+    """StdConv's weight standardization of an HWIO kernel, each sample's
+    own for a per-sample (B, kh, kw, in, out) one: re-centred and divided
+    by the population std over (h, w, in) plus eps."""
+    dims = (-4, -3, -2)
+    kernel = kernel - kernel.mean(dims, keepdim=True)
+    return kernel / (kernel.std(dims, correction=0, keepdim=True) + eps)
+
+
+def group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
+    """flax nn.GroupNorm over NCHW activations: statistics per sample and
+    group over (h, w, channels of the group) in fp32 with the fast variance
+    E[x^2] - E[x]^2 (clipped at 0), then (x - mu) * (rsqrt(var + eps) *
+    scale) + bias. scale and bias are (C,) or per sample."""
+    b, c, h, w = x.shape
+    g = x.float().reshape(b, num_groups, c // num_groups, h, w)
+    mu = g.mean((2, 3, 4), keepdim=True)
+    var = torch.clamp((g * g).mean((2, 3, 4), keepdim=True) - mu * mu,
+                      min=0.0)
+    mul = torch.rsqrt(var + eps).expand(b, num_groups, c // num_groups, 1, 1)
+    mul = mul.reshape(b, c, 1, 1) * _per_channel(scale, c)
+    y = (x.float() - mu.repeat_interleave(c // num_groups, 1).reshape(
+        b, c, 1, 1)) * mul
+    return y + _per_channel(bias, c)

@@ -12,7 +12,7 @@ generate weights.
 """
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -40,30 +40,57 @@ class WeightPlan:
         return path.replace("/", "_")
 
 
-def _token_indices(names, hk):
-    """Context-token index per block and the layer-token mask."""
+def _token_indices(names, hk, encoder_type):
+    """Context-token index per block and the layer-token mask, in the JAX
+    plan's order: each SmallStem module (its own token, generated unless
+    the stem is shared) or the shared DINOv2 image encoder, each
+    Transformer_0 child, the other encoder children, the action head."""
     if hk.get("share_layer_index", False):
         return {n: 0 for n in names}, (True,)
-    if "image_encoder" not in tuple(hk.get("shared_modules", ())):
-        raise ValueError("Pretrained image encoders must be shared")
-    # module groups in the JAX plan's order: the image encoder, each
-    # Transformer_0 child, the other encoder children, the action head
-    groups, mask = ["encoder/image_encoder"], [False]
-    enc_children = sorted({n.split("/")[1] for n in names
-                           if n.startswith("encoder/")})
+    shared_modules = tuple(hk.get("shared_modules", ()))
+    groups, mask = [], []
+    if encoder_type == "SmallStem":
+        stem = sorted({n.split("/")[2] for n in names
+                       if n.startswith("encoder/SmallStem_0/")})
+        groups += [f"encoder/SmallStem_0/{m}" for m in stem]
+        mask += [("SmallStem_0" not in shared_modules)] * len(stem)
+    elif encoder_type == "DINOv2":
+        if "image_encoder" not in shared_modules:
+            raise ValueError("Pretrained image encoders must be shared")
+        groups.append("encoder/image_encoder")
+        mask.append(False)
     tf = sorted({n.split("/")[2] for n in names
                  if n.startswith("encoder/Transformer_0/")})
+    n_fixed = len(groups)
     groups += [f"encoder/Transformer_0/{m}" for m in tf]
+    enc_children = sorted({n.split("/")[1] for n in names
+                           if n.startswith("encoder/")})
     groups += [f"encoder/{m}" for m in enc_children
-               if m not in ("Transformer_0", "image_encoder")]
+               if m not in ("Transformer_0", "image_encoder", "SmallStem_0")]
     groups.append("action_head")
-    mask += [True] * (len(groups) - 1)
+    mask += [True] * (len(groups) - n_fixed)
     index = {}
     for n in names:
         matches = [i for i, g in enumerate(groups)
                    if n == g or n.startswith(g + "/")]
         index[n] = matches[0]
     return index, tuple(mask)
+
+
+def input_shapes(example_batch: Optional[dict]) -> dict:
+    """The shapes the base net's params depend on, read off an example
+    batch: "image" (H, W) of its primary camera, where it has one, and
+    "instruction" (L, token_dim) of its instruction's token embedding."""
+    shapes = {}
+    batch = example_batch or {}
+    image = (batch.get("observation") or {}).get("image_primary")
+    if image is not None:
+        shapes["image"] = tuple(image.shape[-3:-1])
+    tokens = ((batch.get("task") or {}).get("language_instruction")
+              or {}).get("token_embedding")
+    if tokens is not None:
+        shapes["instruction"] = tuple(tokens.shape[-2:])
+    return shapes
 
 
 def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
@@ -85,7 +112,8 @@ def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
     else:
         flags = {n: not any(m in key for m in shared_modules
                             for key in n.split("/")) for n in names}
-    token_index, layer_token_mask = _token_indices(names, hk)
+    token_index, layer_token_mask = _token_indices(
+        names, hk, base_net.encoder.encoder_type)
     info = {
         WeightPlan.flat_name(n): {
             "output_dim": math.prod(shapes[n]) if shapes[n] else 1,
@@ -99,13 +127,16 @@ def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
                       len(layer_token_mask), info)
 
 
-def init_base_net(config: dict, generator: torch.Generator):
-    """Builds the base network and a fresh init of its params.
+def init_base_net(config: dict, generator: torch.Generator,
+                  example_batch: Optional[dict] = None):
+    """Builds the base network for the shapes of example_batch (None: 224
+    x 224 frames, `input_shapes`) and a fresh init of its params.
 
     Returns (base_net, init_params, plan); init_params is a flat dict of
     fp32 CPU tensors keyed by block path. Pretrained DINOv2 weights are not
     in the repository, so the shared trunk keeps its random init."""
-    base_net = BaseNetwork(**config["base_net_kwargs"])
+    base_net = BaseNetwork(**config["base_net_kwargs"],
+                           input_shapes=input_shapes(example_batch))
     plan = build_weight_plan(config, base_net)
     specs = base_net.specs()
     # draw in the plan's order so a seed fixes every value

@@ -1,11 +1,14 @@
-"""The training step (counterpart of hypervla_tpu/train/train_step.py) for
-the flagship path: in-step frozen T5 embed of the instruction (with the
-"replace" rephrase strategy) and frozen DINOv2 encode of the initial image,
-the shared DINOv2 trunk run once over the whole batch (the JAX package's
-`hoist_shared_trunk` layout, which tests/test_hoist_trunk.py pins equal to
-its per-sample vmap), the hypernetwork and the per-sample base-net loss with
-the sample axis written out, its batch mean, backward, the optimizer, and
-the EMA of the params.
+"""The training step (counterpart of hypervla_tpu/train/train_step.py):
+in-step frozen T5 embed of the instruction (with the "replace" rephrase
+strategy) and frozen DINOv2 encode of the initial image, the hypernetwork
+and the per-sample base-net loss with the sample axis written out (the JAX
+step vmaps it over the per-sample generated params), its batch mean,
+backward, the optimizer, and the EMA of the params. A shared DINOv2 trunk
+runs once over the whole batch (the JAX package's `hoist_shared_trunk`
+layout, which tests/test_hoist_trunk.py pins equal to its per-sample vmap);
+a generated image encoder (SmallStem, PatchEncoder) runs per sample inside
+the loss, its convolutions grouped by sample (models/layers.py::conv2d),
+as the JAX step does without the hoist.
 
 The per-task losses of the trainer's drawer tasks (`task_index`) and
 device augmentation (dataset_kwargs device_augment: ops/preprocess.py::
@@ -205,11 +208,13 @@ def make_train_step(model, config: Dict[str, Any], tx,
         params = state.params
         for p in params.values():
             p.grad = None
-        # the shared trunk, batched over the whole batch (hoisted)
-        with torch.set_grad_enabled(encoder.fine_tune):
-            emb = encoder.train_image_embeddings(
-                model.shared_params(params=params),
-                batch["observation"]["image_primary"].squeeze(1))
+        emb = None
+        if encoder.has_trunk:
+            # the shared trunk, batched over the whole batch (hoisted)
+            with torch.set_grad_enabled(encoder.fine_tune):
+                emb = encoder.train_image_embeddings(
+                    model.shared_params(params=params),
+                    batch["observation"]["image_primary"].squeeze(1))
         # the hypernetwork and the per-sample loss, sample axis written out
         ctx = model.hypernet.context_embedding(
             params, instr["token_embedding"].float(),
@@ -218,7 +223,8 @@ def make_train_step(model, config: Dict[str, Any], tx,
             None if patches is None else patches.float())
         generated = model.hypernet.generate(params, ctx)
         losses, metrics = model.base_net.loss(
-            per_sample_view(plan, generated), batch, emb)
+            per_sample_view(plan, generated), batch, emb,
+            instr["token_embedding"].float())
         loss = losses.mean()
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)

@@ -66,6 +66,8 @@ DRAWER_TASKS = (b"close top drawer", b"close middle drawer",
 T5_DIM = 768
 #: batches the pipeline keeps ready, and batches kept ahead on the card
 PREFETCH = 2
+#: seconds the trainer waits for the pipeline's next item before it fails
+BATCH_TIMEOUT = 1800.0
 
 
 def frozen_layer_kernel(config: Dict[str, Any]) -> bool:
@@ -228,37 +230,37 @@ def make_train_datasets(config: Dict[str, Any], train: bool = True):
     return make_interleaved_dataset(kwargs_list, weights, **kwargs)
 
 
-def _pipeline_worker(kwargs_list, weights, kwargs, out, stop) -> None:
-    """A PipelineProcess's worker: builds the pipeline and puts
-    ("statistics", ...), then ("batch", batch) items on `out` until `stop`
-    is set; ("error", traceback) if anything raises. The frame transforms
-    run on the pipeline's own thread pool, each op on one CPU thread."""
+def _pipeline_worker(kwargs_list, weights, kwargs, conn, slots, stop) -> None:
+    """A PipelineProcess's worker: builds the pipeline and sends
+    ("statistics", ...), then ("batch", batch) items down `conn`, each
+    once a slot of `slots` is free, until `stop` is set; ("error",
+    traceback) if anything raises. The frame transforms run on the
+    pipeline's own thread pool, each op on one CPU thread."""
     import traceback
 
     from hypervla_tpu_torch.data.dataset import make_interleaved_dataset
 
     torch.set_num_threads(1)
 
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                out.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
+    def send(item) -> bool:
+        while not slots.acquire(timeout=0.1):
+            if stop.is_set():
+                return False
+        if stop.is_set():
+            return False
+        conn.send(item)
+        return True
 
     try:
         dataset = make_interleaved_dataset(kwargs_list, weights, **kwargs)
-        if put(("statistics", dataset.dataset_statistics)):
+        if send(("statistics", dataset.dataset_statistics)):
             for batch in dataset:
-                if not put(("batch", batch)):
+                if not send(("batch", batch)):
                     break
     except BaseException:  # reported to the trainer, which raises it
-        put(("error", traceback.format_exc()))
-    if stop.is_set():
-        # the trainer reads no more: exit without flushing the queue
-        out.cancel_join_thread()
+        send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
 
 
 class PipelineProcess:
@@ -271,38 +273,55 @@ class PipelineProcess:
     H100 host of 8 cores).
     The batches are the same: the worker runs the same pipeline. Iterating
     yields the batches; `dataset_statistics` are the pipeline's; `close()`
-    stops the worker."""
+    stops the worker.
+
+    The worker sends whole items down a one-way pipe, PREFETCH ahead of
+    what this side has taken (a semaphore of PREFETCH slots). This side
+    holds only the pipe's read end, so a worker that ends, however it
+    ends, is an end of file here and never a read that waits for bytes no
+    one will write; and a wait for an item ends after BATCH_TIMEOUT seconds
+    with a RuntimeError."""
 
     def __init__(self, config: Dict[str, Any]):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
-        self._queue = ctx.Queue(maxsize=PREFETCH)
+        self._conn, writer = ctx.Pipe(duplex=False)
+        self._slots = ctx.Semaphore(PREFETCH)
         self._stop = ctx.Event()
         self._proc = ctx.Process(
             target=_pipeline_worker,
-            args=(*train_dataset_args(config), self._queue, self._stop),
+            args=(*train_dataset_args(config), writer, self._slots,
+                  self._stop),
             daemon=True, name="input_pipeline")
         self._proc.start()
+        writer.close()
         try:
             self.dataset_statistics = self._get()
         except BaseException:
             self.close()
             raise
 
+    def _recv(self):
+        try:
+            item = self._conn.recv()
+        except EOFError:
+            self._proc.join(timeout=10)
+            raise RuntimeError(
+                "the input pipeline's worker process exited (code "
+                f"{self._proc.exitcode})") from None
+        self._slots.release()
+        return item
+
     def _get(self):
-        while True:
-            try:
-                kind, value = self._queue.get(timeout=1.0)
-            except queue.Empty:
-                if not self._proc.is_alive():
-                    raise RuntimeError(
-                        "the input pipeline's worker process exited (code "
-                        f"{self._proc.exitcode})") from None
-                continue
-            if kind == "error":
-                raise RuntimeError(f"input pipeline worker:\n{value}")
-            return value
+        if not self._conn.poll(BATCH_TIMEOUT):
+            raise RuntimeError(
+                f"the input pipeline's worker sent nothing in {BATCH_TIMEOUT}"
+                " s")
+        kind, value = self._recv()
+        if kind == "error":
+            raise RuntimeError(f"input pipeline worker:\n{value}")
+        return value
 
     def __iter__(self):
         while True:
@@ -310,17 +329,18 @@ class PipelineProcess:
 
     def close(self) -> None:
         self._stop.set()
-        # drain what the worker put, so that it can exit
+        # take what the worker is sending, so that it can exit
         deadline = time.monotonic() + 30
         while self._proc.is_alive() and time.monotonic() < deadline:
             try:
-                self._queue.get(timeout=0.1)
-            except queue.Empty:
-                continue
+                if self._conn.poll(0.1):
+                    self._recv()
+            except RuntimeError:  # the worker has ended
+                break
         if self._proc.is_alive():
             self._proc.terminate()
         self._proc.join(timeout=10)
-        self._queue.close()
+        self._conn.close()
 
 
 def _to_device(tree, device):

@@ -3,9 +3,11 @@
 A flax param tree (nested dicts of arrays) becomes a flat dict keyed by the
 JAX key path joined with "/", for example
 "encoder/image_encoder/encoder/layer/3/mlp/fc1/kernel". Dense kernels keep
-flax's (in, out) layout and the port applies them as `x @ W`, so the
-generated weights, which arrive as flat slices reshaped to JAX shapes, are
-never transposed.
+flax's (in, out) layout and the port applies them as `x @ W`, and conv
+kernels (SmallStem's StdConv_<i>, embedding) keep flax's HWIO layout and
+are laid out for torch's convolution at the conv
+(models/layers.py::conv2d), so the generated weights, which arrive as flat
+slices reshaped to JAX shapes, are never transposed in the param dict.
 
 The trunk switches change no key: the JAX package's fused modules
 (`_FusedLayerNorm`, `_PallasTrainLayerNorm`, `_FusedAddLayerNorm`,

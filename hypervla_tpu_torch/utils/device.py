@@ -9,12 +9,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device an entry point builds on. None means the CUDA card, and
     raises where there is none: nothing falls back to the CPU silently. A
-    caller that wants the CPU (the tests do) says `device="cpu"`."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available (torch.cuda.is_available() is "
-            "False): the port runs on the card by default; pass "
-            'device="cpu" to build on the CPU')
-    return torch.device("cuda")
+    caller that wants the CPU (the tests do) says `device="cpu"`.
+
+    On the card the port computes fp32 in fp32: torch leaves matmuls so,
+    but runs cuDNN's fp32 convolutions (the SmallStem's) as TF32 unless
+    told otherwise, so this turns that off."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available (torch.cuda.is_available() is "
+                "False): the port runs on the card by default; pass "
+                'device="cpu" to build on the CPU')
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+    return device

@@ -25,6 +25,7 @@ from hypervla_tpu.ops.add_layer_norm import (
     fused_add_scale_ln as jax_add_scale_ln,
 )
 from hypervla_tpu_torch.ops import add_layer_norm as aln
+from test_torch_harness import torch_threads  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

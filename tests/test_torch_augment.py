@@ -21,6 +21,7 @@ import torch
 
 from hypervla_tpu.ops import preprocess as jpre
 from hypervla_tpu_torch.ops import preprocess as pre
+from test_torch_harness import torch_threads  # noqa: F401
 
 CHAIN = dict(
     augment_order=["random_resized_crop", "random_brightness",

@@ -32,6 +32,7 @@ from hypervla_tpu_torch.models.hypervla import (
 from hypervla_tpu_torch.utils.convert import from_jax_params
 from test_torch_host_path import step_both
 from tools.convert_checkpoint_to_torch import convert
+from test_torch_harness import torch_threads  # noqa: F401
 
 STATS = {"fractal20220817_data": {"action": {
     "mean": np.arange(7, dtype=np.float32) / 10,

@@ -18,6 +18,7 @@ import torch
 from hypervla_tpu_torch.ops import dino_layer as dl
 from hypervla_tpu_torch.ops import dino_layer_train as dlt
 from hypervla_tpu_torch.ops import gelu as tg
+from test_torch_harness import torch_threads  # noqa: F401
 
 _SOURCE = (Path(dlt.__file__).resolve().parent.parent / "csrc"
            / "layer_backward.cu")

@@ -32,6 +32,7 @@ from hypervla_tpu_torch.data import tfrecord, tfrecord_native
 from hypervla_tpu_torch.data.oxe.fixture_mix import register_fixture_mix
 from hypervla_tpu_torch.train import trainer
 from hypervla_tpu_torch.utils.spec import ModuleSpec
+from test_torch_harness import torch_threads  # noqa: F401
 
 INSTRUCTIONS = [b"close top drawer", b"pick up the block",
                 b"close bottom drawer", b"open the gripper"]

@@ -12,6 +12,7 @@ import torch
 from hypervla_tpu.ops import dino_layer as jdl
 from hypervla_tpu_torch.ops import dino_layer as tdl
 from hypervla_tpu_torch.utils.convert import from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 def _layer_tree(rng, layers, hidden):

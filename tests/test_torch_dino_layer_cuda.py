@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from hypervla_tpu_torch.ops import dino_layer as dl
+from test_torch_harness import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

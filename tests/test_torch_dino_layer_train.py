@@ -16,6 +16,7 @@ from hypervla_tpu_torch import configs
 from hypervla_tpu_torch.models.encoders import dinov2 as td
 from hypervla_tpu_torch.ops import dino_layer_train as tdl
 from hypervla_tpu_torch.utils.convert import from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 HIDDEN, HEADS, MLP = 128, 2, 512
 

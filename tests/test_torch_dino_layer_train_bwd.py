@@ -21,6 +21,7 @@ import torch
 from hypervla_tpu.ops import dino_layer_train as jdl
 from hypervla_tpu_torch.ops import dino_layer_train as tdl
 from test_torch_dino_layer_train import HEADS, _operands
+from test_torch_harness import torch_threads  # noqa: F401
 
 EPS = 1e-6
 BOUND = 2 ** -6

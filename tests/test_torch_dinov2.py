@@ -13,6 +13,7 @@ from hypervla_tpu.models.encoders import dinov2 as jd
 from hypervla_tpu_torch import configs
 from hypervla_tpu_torch.models.encoders import dinov2 as td
 from hypervla_tpu_torch.utils.convert import from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 TOL = 1e-5
 

@@ -14,6 +14,7 @@ from hypervla_tpu_torch.flagship import make_flagship_batch
 from hypervla_tpu_torch.models.hypervla import HyperVLA
 from hypervla_tpu_torch.train import optimizer as topt
 from hypervla_tpu_torch.train.train_step import make_train_step
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 def _section(config, name):

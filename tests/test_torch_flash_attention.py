@@ -17,6 +17,7 @@ import torch
 from hypervla_tpu.ops.flash_attention import flash_attention as jax_flash
 from hypervla_tpu.ops.flash_attention import mha_flash as jax_mha_flash
 from hypervla_tpu_torch.ops import flash_attention as tfa
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 def _qkv(shape_q, shape_kv, seed=0):

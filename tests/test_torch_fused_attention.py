@@ -11,6 +11,7 @@ import torch
 
 from hypervla_tpu.ops import fused_attention as jfa
 from hypervla_tpu_torch.ops import fused_attention as tfa
+from test_torch_harness import torch_threads  # noqa: F401
 
 S, H, D = 33, 4, 64
 SCALE = 1.0 / np.sqrt(D)

@@ -17,6 +17,7 @@ import torch
 from hypervla_tpu.ops.gelu import gelu_exact_fused as jax_gelu
 from hypervla_tpu_torch.models.encoders import dinov2 as td
 from hypervla_tpu_torch.ops import gelu as tg
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("shape", [(3, 257, 128), (7, 3072)])

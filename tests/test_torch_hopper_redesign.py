@@ -22,6 +22,7 @@ from hypervla_tpu_torch.ops import flash_attention as tfl
 from hypervla_tpu_torch.ops import fused_attention as tfa
 from hypervla_tpu_torch.train.trainer import build_frozen_encoders
 from hypervla_tpu_torch.utils.device import resolve_device
+from test_torch_harness import torch_threads  # noqa: F401
 
 # ------------------------------ the device ------------------------------
 
@@ -49,8 +50,13 @@ def test_resolve_device_names_the_missing_card(monkeypatch):
 
 
 def test_resolve_device_defaults_to_the_card(monkeypatch):
+    """... and turns cuDNN's TF32 convolutions off there, not on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device("cpu").type == "cpu"
+    assert torch.backends.cudnn.allow_tf32
     assert resolve_device(None).type == "cuda"
+    assert not torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))

@@ -24,6 +24,7 @@ from hypervla_tpu_torch.flagship import make_flagship_batch
 from hypervla_tpu_torch.models.hypervla import HyperVLA
 from test_torch_preprocess import _assert_close_u8
 from test_torch_serving import STATS, _build
+from test_torch_harness import torch_threads  # noqa: F401
 
 TICKS = 3
 TRUNK = "encoder/image_encoder/trunk/"
@@ -180,8 +181,7 @@ def test_exec_horizon_is_refused(fp32):
     np.testing.assert_array_equal(*actions)
 
 
-@pytest.mark.parametrize("kwargs,item", [(dict(horizon=2), "A6"),
-                                         (dict(save_attention_map=True),
+@pytest.mark.parametrize("kwargs,item", [(dict(save_attention_map=True),
                                           "A8")])
 def test_unported_options_raise(fp32, kwargs, item):
     _, model, _, _, _ = fp32
@@ -189,6 +189,29 @@ def test_unported_options_raise(fp32, kwargs, item):
     for fused in (False, True):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             InferenceWrapper(model, fused_serving=fused, **kwargs)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_history_window_fails_as_in_jax(fp32, fused):
+    """horizon=2, as the JAX wrapper runs it: the host path (the fused step
+    takes no history), whose first step sees one frame and runs, and whose
+    second hands the ViT base net a window of two frames, which raises
+    ValueError in both packages."""
+    jmodel, model, instruction, init, frames = fp32
+    jmodel, model = _with_stats(jmodel, model, {"action": STATS})
+    kwargs = dict(policy_setup="libero", pred_action_horizon=2, horizon=2,
+                  image_size=224, fused_serving=fused)
+    jwrapper = JaxWrapper(model=jmodel, **kwargs)
+    wrapper = InferenceWrapper(model, **kwargs)
+    assert not wrapper.fused_serving and not jwrapper.fused_serving
+    for w in (jwrapper, wrapper):
+        w.reset("pick up the cube", instruction, init)
+    ref, got = step_both(jwrapper, wrapper, frames[0])
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    for w in (jwrapper, wrapper):
+        with pytest.raises(ValueError):
+            w.step(frames[1])
 
 
 def test_statistics_fall_back_to_the_first_dataset(fp32, caplog):

@@ -14,6 +14,7 @@ from hypervla_tpu_torch.flagship import make_flagship_batch
 from hypervla_tpu_torch.models.hypervla import HyperVLA
 from hypervla_tpu_torch.models.weight_plan import init_base_net
 from hypervla_tpu_torch.utils.convert import from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 def _instruction(batch):

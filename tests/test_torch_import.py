@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from test_torch_harness import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -26,6 +26,7 @@ from hypervla_tpu_torch import configs
 from hypervla_tpu_torch.models.encoders import dinov2 as td
 from hypervla_tpu_torch.ops import layer_norm as tln
 from hypervla_tpu_torch.utils.convert import from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

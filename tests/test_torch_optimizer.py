@@ -13,6 +13,7 @@ from hypervla_tpu.flagship import build_flagship as jax_build
 from hypervla_tpu.train import optimizer as jopt
 from hypervla_tpu_torch.train import optimizer as topt
 from hypervla_tpu_torch.utils.convert import flatten_tree, from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 STEPS = (0, 1, 1999, 2000, 2500, 50000)
 SCHEDULES = {

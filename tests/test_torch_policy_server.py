@@ -16,8 +16,11 @@ from hypervla_tpu_torch.eval import policy_server as port_ps
 from hypervla_tpu_torch.eval.inference import InferenceWrapper
 from hypervla_tpu_torch.flagship import build_flagship
 from test_torch_serving import STATS
+from test_torch_harness import torch_threads  # noqa: F401
 
 TICKS = 3
+#: seconds any socket of these tests waits before it fails the test
+DEADLINE = 120
 WRAPPER = dict(policy_setup="libero", pred_action_horizon=2, image_size=224,
                action_ensemble=True, crop=True)
 
@@ -36,15 +39,18 @@ def tiny():
 
 def serve_one_connection(server):
     """Binds an ephemeral port on 127.0.0.1 and serves one connection in a
-    daemon thread (as tests/test_eval.py serves the JAX server). Returns
+    daemon thread (as tests/test_eval.py serves the JAX server), each wait
+    of the listening and the served socket bounded by DEADLINE. Returns
     (port, thread, listening socket)."""
     sock = socket.socket()
     sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.settimeout(DEADLINE)
     sock.bind(("127.0.0.1", 0))
     sock.listen(1)
 
     def serve():
         conn, _ = sock.accept()
+        conn.settimeout(DEADLINE)
         server._handle(conn)
 
     thread = threading.Thread(target=serve, daemon=True)
@@ -63,6 +69,7 @@ def test_client_drives_the_port_server(tiny, client, fused_serving):
                                   host="127.0.0.1", port=0)
     port, thread, sock = serve_one_connection(server)
     policy = client.PolicyClient("127.0.0.1", port)
+    policy.sock.settimeout(DEADLINE)
     try:
         assert policy.ping() == {"ok": True}
         assert policy.reset("pick up the cube", initial_state=init) == {
@@ -80,7 +87,7 @@ def test_client_drives_the_port_server(tiny, client, fused_serving):
             policy._call({"cmd": "jump"})
     finally:
         policy.close()
-        thread.join(timeout=30)
+        thread.join(timeout=DEADLINE)
         sock.close()
     assert not thread.is_alive()
 
@@ -90,12 +97,14 @@ def test_unknown_command_comes_back_as_an_error(tiny):
     server = port_ps.PolicyServer(InferenceWrapper(model, **WRAPPER),
                                   lambda _: instruction)
     port, thread, sock = serve_one_connection(server)
-    with socket.create_connection(("127.0.0.1", port)) as conn:
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=DEADLINE) as conn:
         port_ps._send_msg(conn, {"cmd": "jump"})
         assert port_ps._recv_msg(conn) == {
             "error": "ValueError('unknown command jump')"}
-    thread.join(timeout=30)
+    thread.join(timeout=DEADLINE)
     sock.close()
+    assert not thread.is_alive()
 
 
 def test_wire_format_is_the_jax_packages():

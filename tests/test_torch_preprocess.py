@@ -15,6 +15,7 @@ from hypervla_tpu.eval.inference import (
 )
 from hypervla_tpu.ops.preprocess import resize_image
 from hypervla_tpu_torch.ops import preprocess
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 def _assert_close_u8(got, ref):

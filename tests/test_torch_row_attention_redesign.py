@@ -14,6 +14,7 @@ import torch
 from hypervla_tpu_torch.ops import dino_layer as dl
 from hypervla_tpu_torch.ops import layer_norm as tln
 from test_torch_column_gelu_redesign import emulated_finish
+from test_torch_harness import torch_threads  # noqa: F401
 
 # ------------------ which rows take the warp-per-row kernels ------------------
 

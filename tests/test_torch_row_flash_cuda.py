@@ -23,6 +23,7 @@ from hypervla_tpu_torch.ops import flash_attention as fa
 from hypervla_tpu_torch.ops import gelu as tg
 from hypervla_tpu_torch.ops import layer_norm as tln
 from test_torch_column_gelu_redesign import bf16_ulps
+from test_torch_harness import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

@@ -23,6 +23,7 @@ from test_torch_column_gelu_redesign import (
     emulated_colsum_parts,
     emulated_finish,
 )
+from test_torch_harness import torch_threads  # noqa: F401
 
 EPS = 1e-6
 TRAIN_ROWS = 64 * 257

@@ -17,6 +17,7 @@ from hypervla_tpu.ops import serving as jserving
 from hypervla_tpu_torch.ops import serving
 from test_torch_host_path import TRUNK, build_bf16
 from test_torch_serving import STATS, _build
+from test_torch_harness import torch_threads  # noqa: F401
 
 K = 4
 CALLS = 2

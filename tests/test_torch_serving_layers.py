@@ -23,6 +23,7 @@ from hypervla_tpu_torch.ops import flash_attention as tfa
 from hypervla_tpu_torch.ops import layer_norm as tln
 from hypervla_tpu_torch.ops import serving
 from test_torch_serving import BF16_BOUND, STATS, _build, _run_jax
+from test_torch_harness import torch_threads  # noqa: F401
 
 SWITCHES = dict(use_flash_attention=True, fused_layer_norm=True,
                 sow_dino_attention=False)

@@ -10,6 +10,7 @@ import torch
 from hypervla_tpu.models.encoders import t5 as jt5
 from hypervla_tpu_torch.models.encoders import t5 as tt5
 from hypervla_tpu_torch.utils.convert import from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 SMALL = dict(vocab_size=97, d_model=64, d_kv=16, d_ff=128, num_layers=2,
              num_heads=4)

@@ -26,6 +26,7 @@ from hypervla_tpu_torch.data import text_processing as text
 from hypervla_tpu_torch.eval import model_loading
 from hypervla_tpu_torch.models.encoders.pretrained import load_t5_weights
 from hypervla_tpu_torch.utils.convert import from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 STRINGS = ["pick up the coke can", b"open the TOP drawer",
            "put the spoon on the towel and then close the drawer slowly"]

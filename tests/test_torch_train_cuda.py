@@ -26,6 +26,7 @@ from test_torch_column_gelu_redesign import (
     emulated_finish,
     finish_warps,
 )
+from test_torch_harness import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

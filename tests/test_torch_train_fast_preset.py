@@ -34,6 +34,7 @@ from hypervla_tpu_torch.models.hypervla import HyperVLA
 from hypervla_tpu_torch.train.trainer import frozen_layer_kernel
 from hypervla_tpu_torch.utils.convert import from_jax_params
 from test_torch_train_step import BATCH, _cosine, _jax_step, _torch_step
+from test_torch_harness import torch_threads  # noqa: F401
 
 T5_SMALL = dict(vocab_size=1000, d_model=768, d_kv=16, d_ff=64,
                 num_layers=1, num_heads=2)

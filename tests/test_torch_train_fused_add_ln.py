@@ -38,6 +38,7 @@ from hypervla_tpu_torch.ops import add_layer_norm as aln
 from hypervla_tpu_torch.utils.convert import flatten_tree, from_jax_params
 from test_torch_train_fast_preset import T5_SMALL, _jax_encoders
 from test_torch_train_step import BATCH, _cosine, _jax_step, _torch_step
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 def _slice_config(config, preset):

@@ -47,6 +47,7 @@ from hypervla_tpu_torch.train.trainer import frozen_layer_kernel
 from hypervla_tpu_torch.utils.convert import from_jax_params
 from test_torch_train_fast_preset import T5_SMALL
 from test_torch_train_step import BATCH, _cosine, _jax_step, _torch_step
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 def _slice_config(config, preset):

@@ -38,6 +38,7 @@ from hypervla_tpu_torch.train.trainer import (
     frozen_layer_kernel,
 )
 from hypervla_tpu_torch.utils.convert import flatten_tree, from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 STEP0 = 1000
 BATCH = dict(batch_size=8, instr_len=8, action_horizon=2)
@@ -50,12 +51,14 @@ def _with_count(opt_state, count):
         if getattr(path[-1], "name", None) == "count" else x, opt_state)
 
 
-def _jax_step(model, config, batch, encoders=None):
+def _jax_step(model, config, batch, encoders=None, mesh=None):
+    """One JAX step on `mesh` (None: every device, the 8 CPU devices of
+    tests/conftest.py)."""
     text_apply, dino_apply, enc_params = encoders or (None, None, None)
     tx, lr_fn, base_lr_fn, pnorm_fn = jopt.create_optimizer(
         model.params, jopt.hn_param_type_tree(model.params),
         **config["optimizer"])
-    mesh = create_mesh()
+    mesh = mesh or create_mesh()
     step_fn = jax_make_step(model, config, tx, lr_fn, base_lr_fn, pnorm_fn,
                             text_encode=text_apply, dino_encode=dino_apply,
                             mesh=mesh, donate=False)

@@ -2,20 +2,27 @@
 (hypervla_tpu/models/base_vit.py::ViT) against the port's
 (hypervla_tpu_torch/models/base_vit.py::ViT): a config that sets a field
 either builds a model that reads it, or raises naming it, or (where the
-field only re-lays a computation out for the TPU, or belongs to an encoder
-the port refuses) builds the same model as without it. A field that the
-tables below do not name fails: a switch of the JAX package must not be
-taken without a word.
+field only re-lays a computation out for the TPU) builds the same model as
+without it. A field that the tables below do not name fails: a switch of
+the JAX package must not be taken without a word. Each switch that a slice
+lifts from the refused table is also held to the JAX ViT's forward
+(`test_lifted_switch_matches_jax`).
 """
 import copy
 import dataclasses
 
+import jax
+import numpy as np
 import pytest
+import torch
 
+from hypervla_tpu.configs import tiny_test_config as jax_tiny_config
 from hypervla_tpu.models.base_vit import ViT as JaxViT
 from hypervla_tpu_torch.configs import tiny_test_config
 from hypervla_tpu_torch.models.base_vit import ViT, check_trunk_switches
 from hypervla_tpu_torch.train.train_step import _unported
+from hypervla_tpu_torch.utils.convert import from_jax_params
+from test_torch_harness import torch_threads  # noqa: F401
 
 # flax's own bookkeeping fields of every nn.Module
 FLAX_FIELDS = ("parent", "name")
@@ -37,17 +44,19 @@ HONOURED = {
     "dino_layers_impl": ("pallas_train", {"encoder_dtype": "bfloat16"}),
     "dino_fused_attention": (True, {"sow_dino_attention": False}),
     "dino_fused_add_ln": (True, {"sow_dino_attention": False}),
+    "use_language_token": (True, {}),
+    "include_class_token": (True, {}),
+    "add_positional_embedding": (False, {}),
+    "patch_size": (32, {"encoder_type": "SmallStem"}),
+    "cnn_channels": ((32, 64, 96, 128), {"encoder_type": "SmallStem"}),
 }
 
 # field -> a non-default value that the constructor refuses
 REFUSED = {
     "encoder_type": "CLIP",
     "dropout_rate": 0.1,
-    "use_language_token": True,
     "use_differential_transformer": True,
     "return_attention_map": True,
-    "add_positional_embedding": False,
-    "include_class_token": True,
     "flash_attention_trainable": True,
     "scan_dino_layers": True,
     "remat_dino": True,
@@ -59,13 +68,9 @@ REFUSED = {
 REFUSED_BY_THE_TRAIN_STEP = {"image_embedding_noise": 0.1}
 
 # field -> a non-default value that is accepted and changes nothing:
-# patch_size and cnn_channels belong to the SmallStem and patchify encoders
-# (DINOv2 takes its patch size from the encoder's config);
 # dino_dot_softmax re-lays the softmax sums out for the TPU's matrix unit
 # (the same values up to rounding)
 ACCEPTED = {
-    "patch_size": 8,
-    "cnn_channels": (8, 16),
     "dino_dot_softmax": True,
 }
 
@@ -147,3 +152,47 @@ def test_from_jax_params_refuses_a_scanned_trunk():
         "layer": {"mlp": {"fc1": {"kernel": leaf}}}}}}}}
     with pytest.raises(NotImplementedError, match="scan_dino_layers"):
         from_jax_params(scanned, device="cpu")
+
+
+#: the switches lifted from REFUSED (and encoder_type's ported values):
+#: field -> (the JAX tiny config's encoder_type, value, frame size)
+LIFTED = {
+    "use_language_token": ("SmallStem", True, 64),
+    "add_positional_embedding": ("SmallStem", False, 64),
+    "include_class_token": ("DINOv2", True, 224),
+    "patch_size": ("SmallStem", 32, 64),
+    "cnn_channels": ("SmallStem", (32, 64, 96, 128), 64),
+    "encoder_type": ("SmallStem", "PatchEncoder", 64),
+}
+
+
+@pytest.mark.parametrize("field", sorted(LIFTED))
+def test_lifted_switch_matches_jax(field):
+    """The JAX ViT and the port's with the switch set, on the same params
+    (the JAX init, perturbed, through from_jax_params) and inputs: the
+    readout embeddings to 1e-5."""
+    encoder, value, size = LIFTED[field]
+    kw = jax_tiny_config(encoder)["base_net_kwargs"]["vit_kwargs"]
+    kw = dict(kw, **{field: value})
+    if encoder == "DINOv2":
+        kw["pretrained_encoder_name"] = "dinov2-test"
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, size, size, 3)).astype(np.uint8)
+    instruction = rng.randn(2, 5, 12).astype(np.float32)
+    jvit = JaxViT(**kw, action_token_num=2)
+    variables = jvit.init(jax.random.PRNGKey(0), images, instruction,
+                          train=False)
+    variables = jax.tree_util.tree_map(
+        lambda v: (v + rng.randn(*v.shape) * 0.05).astype(np.float32),
+        variables)
+    ref, _ = jvit.apply(variables, images, instruction, train=False)
+    params = {f"encoder/{k}": v for k, v in from_jax_params(
+        jax.tree_util.tree_map(np.asarray, variables["params"])).items()}
+    vit = ViT(kw, 2, {"image": (size, size), "instruction": (5, 12)})
+    assert set(params) == set(vit.specs())
+    for name, (shape, _) in vit.specs().items():
+        assert tuple(params[name].shape) == tuple(shape), name
+    got = vit(params, torch.tensor(images),
+              instruction_embeddings=torch.tensor(instruction))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)

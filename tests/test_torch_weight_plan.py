@@ -12,6 +12,7 @@ from hypervla_tpu.configs import tiny_test_config as jax_tiny_config
 from hypervla_tpu.models.hypervla import HyperVLA as JaxHyperVLA
 from hypervla_tpu_torch.configs import tiny_test_config
 from hypervla_tpu_torch.models.weight_plan import init_base_net
+from test_torch_harness import torch_threads  # noqa: F401
 
 
 def _leaves(tree):
