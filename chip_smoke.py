@@ -89,7 +89,14 @@
    forward through the fused kernel. For each:
    every step's launches, a finite and falling loss, and the first step
    against the plain path (the same step with the kernel switches off);
-   all four timed in turns.
+   all four timed in turns. Then, from the fast preset's starting state:
+   the step with optimizer.packed=True (AdamW over one flat buffer per
+   label and decay flag) beside the per-leaf step, the new params bit for
+   bit, both traced for their kernels a step and timed in turns; and the
+   step with delta-decay toward the trunk's initial params (base weight
+   decay 0.25) beside the same step without it: every other leaf bit for
+   bit, each trunk leaf moved by base_lr * 0.25 * its pretrained value
+   (rtol 2e-4, atol 1e-6).
 6. Trainer phase: the port's training command line on data, as a user
    runs it. Two datasets of 8 trajectories x 20 frames (256x256 uint8 RGB
    from a seed, JPEG where PIL is installed, else raw; half of the
@@ -112,6 +119,18 @@
    timer's dataset and train shares, samples/s, and one traced step's
    device busy, kernel count and idle share, beside the train phase's
    hand-fed fast-preset step.
+   Fine-tuning, on the same data: a config file whose get_config returns
+   the port's copy of the JAX fine-tune config
+   (configs.py::finetune_config, "vit_t,fixture,head_only") with the fast
+   preset, through `main([...])`, warm-started from run A's step-6 EMA
+   params, with gradient accumulation 2 at batch 64 and the LR at its peak
+   from the first applied update (warmup_steps=0), for 4 steps: 12 + 12 +
+   12 launches of kernels 2 and 3 every step, every frozen leaf bit-equal
+   to the warm start, every trainable leaf unchanged by steps 1 and 3 and
+   moved by steps 2 and 4; ms/step, samples/s, peak memory, and an
+   accumulating and an applying step traced without the logged step's
+   norms (as the other phases trace a step), the applying one also with
+   them.
 7. SmallStem phase: the SmallStem HyperVLA at vit_t width, the published
    `vit_t,<dataset>` config with the two command-line overrides
    model_type=vit and action_head_type=continuous (a generated,
@@ -286,6 +305,13 @@ TRAINER_AUGMENT = dict(
     random_resized_crop=dict(scale=[0.8, 1.0], ratio=[0.9, 1.1]),
     random_brightness=[0.1], random_contrast=[0.9, 1.1],
     random_saturation=[0.9, 1.1], random_hue=[0.05])
+#: the fine-tune phase: the JAX package's fine-tune config (as a user's
+#: config file returns it, with the fast preset) warm-started from the
+#: trainer phase's step-TRAINER_STEPS EMA params, on the same fixture mix
+FINETUNE_MODE = "head_only"
+FINETUNE_STEPS, FINETUNE_ACCUMULATION = 4, 2
+#: the delta-decay check's base_weight_decay (the JAX package's test's)
+DELTA_DECAY = 0.25
 # the layer backward: cosine per output against the plain version (the JAX
 # package holds its kernel to 0.99 per leaf, tests/test_dino_layer_train.py)
 GRAD_COSINE_BOUND = 0.999
@@ -2326,7 +2352,7 @@ def train_phase(device):
     warmup = fast["optimizer"]["learning_rate"]["warmup_steps"]
     state0.step = warmup
     state0.opt_state["count"] = warmup
-    steps, encoders, dino_applies = {}, {}, {}
+    steps, encoders, dino_applies, applies = {}, {}, {}, {}
     t5_params = None
     for name, config in configs.items():
         variant = model if config is fast else HyperVLA(
@@ -2343,6 +2369,7 @@ def train_phase(device):
                                       dino_encode=dino_apply)
         encoders[name] = {"t5": t5_params, "dino": dino_params}
         dino_applies[name] = dino_apply
+        applies[name] = (text_apply, dino_apply)
     batch = make_flagship_batch(batch_size=TRAIN_BATCH, seed=SEED)
     # the step embeds the instruction and the initial image itself
     del batch["task"]["language_instruction"]["token_embedding"]
@@ -2540,8 +2567,162 @@ def train_phase(device):
             f"{count:.0f} device kernels, idle share {1 - busy / med:.3f} "
             f"of the {med:.4f} ms step")
         hand_fed[name] = {"ms": med, "busy_ms": busy, "kernels": count}
+    fast_args = (model, fast, applies["fast_preset"],
+                 encoders["fast_preset"], state0, batch)
+    packed_check(steps["fast_preset"], *fast_args)
+    delta_decay_check(*fast_args)
     return ({name: totals[name] for name in kernel_configs},
             hand_fed["fast_preset"])
+
+
+def _opt_counts(opt_state, count):
+    """Sets every AdamW update count of an optimizer state (per-leaf:
+    {"count", ...}; packed: {group: {"count", ...}}), in place."""
+    if "count" in opt_state:
+        opt_state["count"] = count
+    else:
+        for group in opt_state.values():
+            group["count"] = count
+
+
+def _fast_step(model, config, applies, **kwargs):
+    """(make_train_step for config over the frozen encoders `applies`, the
+    optimizer it was given)."""
+    from hypervla_tpu_torch.train.optimizer import (
+        create_optimizer,
+        hn_param_type_tree,
+    )
+    from hypervla_tpu_torch.train.train_step import make_train_step
+
+    tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
+        model.params, hn_param_type_tree(model.params), **config["optimizer"])
+    return make_train_step(model, config, tx, lr_fn, base_lr_fn, pnorm_fn,
+                           text_encode=applies[0], dino_encode=applies[1],
+                           **kwargs), tx
+
+
+def packed_check(per_leaf_step, model, config, applies, encoder_params,
+                 state0, batch):
+    """The hand-fed fast-preset step with optimizer.packed=True (AdamW over
+    one flat buffer per (label, decayed) group) beside the per-leaf step,
+    from the same state at the peak LR: the new params bit-equal, each
+    step's kernels from a trace, both timed in turns."""
+    import copy
+
+    import torch
+
+    from hypervla_tpu_torch.train.train_state import TrainState
+
+    packed = copy.deepcopy(config)
+    packed["optimizer"]["packed"] = True
+    packed_step, tx = _fast_step(model, packed, applies)
+    state = TrainState(step=state0.step, params=state0.params,
+                       opt_state=tx.init(state0.params),
+                       ema_params=state0.ema_params, seed=state0.seed)
+    _opt_counts(state.opt_state, state0.step)
+    runs = {"per-leaf": (per_leaf_step, state0), "packed": (packed_step,
+                                                            state)}
+
+    def call(name):
+        step_fn, start = runs[name]
+        return step_fn(start, batch, encoder_params=encoder_params,
+                       with_metrics=False)[0]
+
+    new = {name: {k: v.detach() for k, v in call(name).params.items()}
+           for name in runs}
+    differ = [k for k in new["per-leaf"]
+              if not torch.equal(new["per-leaf"][k], new["packed"][k])]
+    worst = max(float((new["per-leaf"][k] - new["packed"][k]).abs().max())
+                for k in new["per-leaf"])
+    groups = {k: v["mu"].numel() for k, v in state.opt_state.items()}
+    log(f"train packed AdamW ({len(groups)} groups: {groups}) against the "
+        f"per-leaf AdamW, one fast-preset step from the same state: "
+        f"{len(differ)} of {len(new['packed'])} leaves differ, max abs "
+        f"{worst!r} (bound: bit-equal)")
+    if differ:
+        raise AssertionError(f"packed AdamW: the params differ from the "
+                             f"per-leaf step's in {differ[:5]}")
+    del new
+    times = {name: [] for name in runs}
+    for name in ("per-leaf", "packed", "packed", "per-leaf"):
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call(name)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    for name in runs:
+        busy, kernels = device_busy(lambda name=name: call(name))
+        log(f"train fast preset, {name} AdamW: {kernels:.0f} device kernels "
+            f"a step, device busy ms {busy:.3f}, ms/step (median of 4, CUDA "
+            f"events, in turns) {statistics.median(times[name]):.4f}")
+
+
+def delta_decay_check(model, config, applies, encoder_params, state0,
+                      batch):
+    """One hand-fed fast-preset step with delta-decay toward "pretrained"
+    params, the trunk's initial ones (its whole tree in the JAX nesting),
+    beside the same step without them, from the same state: every other
+    leaf bit-equal, each trunk leaf moved by base_lr * base_weight_decay *
+    its pretrained value (tests/test_train_step_numerics.py's rule: rtol
+    2e-4, atol 1e-6)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.models.weight_plan import WeightPlan
+    from hypervla_tpu_torch.train.optimizer import create_lr_schedule
+    from hypervla_tpu_torch.train.train_state import TrainState
+
+    decay = copy.deepcopy(config)
+    decay["optimizer"]["base_weight_decay"] = DELTA_DECAY
+    prefix = "encoder/image_encoder/"
+    trunk = {k: v.detach().clone()
+             for k, v in model.shared_params(prefix, state0.params).items()}
+    pretrained = {}
+    for path, value in trunk.items():
+        *parents, last = path.split("/")
+        node = pretrained
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = value
+    plain_step, tx = _fast_step(model, decay, applies)
+    decay_step, _ = _fast_step(model, decay, applies,
+                               pretrained_params=pretrained)
+    state = TrainState(step=state0.step, params=state0.params,
+                       opt_state=tx.init(state0.params), seed=state0.seed)
+    _opt_counts(state.opt_state, state0.step)
+    plain, decayed = ({k: v.detach() for k, v in step_fn(
+        state, batch, encoder_params=encoder_params,
+        with_metrics=False)[0].params.items()}
+        for step_fn in (plain_step, decay_step))
+    lr = decay["optimizer"]["base_learning_rate"]
+    coef = float(np.float32(create_lr_schedule(**lr)(state.step))
+                 * np.float32(DELTA_DECAY))
+    names = {WeightPlan.flat_name(prefix + k): k for k in trunk}
+    bad, worst, largest = [], 0.0, 0.0
+    for name, value in plain.items():
+        if name not in names:
+            if not torch.equal(value, decayed[name]):
+                bad.append(name)
+            continue
+        want = coef * trunk[names[name]].reshape(-1)
+        err = ((decayed[name] - value) - want).abs()
+        worst = max(worst, float(err.max()))
+        largest = max(largest, float(want.abs().max()))
+        if not bool((err <= 1e-6 + 2e-4 * want.abs()).all()):
+            bad.append(name)
+    log(f"train delta-decay step (base_weight_decay {DELTA_DECAY}, coef "
+        f"{coef:.6g}, the trunk's {len(names)} leaves as pretrained): the "
+        f"{len(plain) - len(names)} other leaves bit-equal to the plain "
+        f"step's; each trunk leaf's move beside coef * p_pretrained: max "
+        f"abs error {worst!r} (largest term {largest!r}; bound 1e-6 + "
+        "2e-4 |term|)")
+    if bad:
+        raise AssertionError(f"delta-decay step: {bad[:5]}")
 
 
 def write_trainer_fixture(root, seed=SEED):
@@ -2597,13 +2778,19 @@ class TrainerSteps:
     """Stands in for the trainer's make_train_step while in a `with`
     block: builds the real step and wraps it to hold every call to the
     launches `per_step` wants of the counted wrappers (read with `counts`),
-    and to keep the first call's arguments and info; `rebuild()` makes the
-    step again from the trainer's own arguments."""
+    to keep the first `keep` calls' arguments and info (`kept`; `first`
+    the first's) and `record(new state)` of every call (`records`);
+    `rebuild()` makes the step again from the trainer's own arguments."""
 
-    def __init__(self, trainer_module, counts, per_step):
+    def __init__(self, trainer_module, counts, per_step, keep=1,
+                 record=None):
         self.trainer = trainer_module
         self.counts = counts
         self.per_step = per_step
+        self.keep = keep
+        self.record = record
+        self.kept = []
+        self.records = []
         self.first = None
         self.calls = 0
 
@@ -2630,11 +2817,14 @@ class TrainerSteps:
             if got != self.per_step:
                 raise AssertionError(f"trainer step {self.calls + 1} "
                                      f"launches {got}, want {self.per_step}")
-            if self.first is None:
-                self.first = dict(state=state, batch=batch,
-                                  task_index=task_index,
-                                  encoder_params=encoder_params,
-                                  with_metrics=with_metrics, info=info)
+            if len(self.kept) < self.keep:
+                self.kept.append(dict(state=state, batch=batch,
+                                      task_index=task_index,
+                                      encoder_params=encoder_params,
+                                      with_metrics=with_metrics, info=info))
+                self.first = self.kept[0]
+            if self.record is not None:
+                self.records.append(self.record(new_state))
             self.calls += 1
             return new_state, info
 
@@ -2929,12 +3119,147 @@ def trainer_phase(device, card, hand_fed):
             "load_hypervla_policy(fused_serving=True), one stacked-trunk "
             "launch and a finite (7,) action each")
         del policy, state_a
+        torch.cuda.empty_cache()
+        finetune_phase(device, card, root, data, mix, save_dir, per_step)
     finally:
         import shutil
 
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches
+
+
+FINETUNE_CONFIG_FILE = """from hypervla_tpu_torch.configs import (
+    apply_fast_training_preset,
+    finetune_config,
+)
+
+
+def get_config(string):
+    config = apply_fast_training_preset(finetune_config(string))
+    config["dataset_kwargs"].update(oxe_mix={mix!r}, data_dir={data!r})
+    return config
+"""
+
+
+def finetune_phase(device, card, root, data, mix, pretrained, per_step):
+    """Fine-tuning through the command line as a user runs it (module
+    docstring, phase 6): a config file whose get_config returns the JAX
+    package's fine-tune config for the fixture mix with the fast preset,
+    FINETUNE_MODE, gradient accumulation FINETUNE_ACCUMULATION at batch
+    TRAINER_BATCH, warm-started from `pretrained`'s step-TRAINER_STEPS EMA
+    params, for FINETUNE_STEPS steps."""
+    import torch
+
+    from hypervla_tpu_torch.configs import FROZEN_KEYS_BY_MODE
+    from hypervla_tpu_torch.models.hypervla import EMA_FILE
+    from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.train import main as cli
+    from hypervla_tpu_torch.train import trainer
+    from hypervla_tpu_torch.train.optimizer import frozen_names
+
+    config_path = os.path.join(root, "finetune_fixture.py")
+    with open(config_path, "w") as f:
+        f.write(FINETUNE_CONFIG_FILE.format(mix=mix, data=data))
+    warm = torch.load(os.path.join(pretrained, str(TRAINER_STEPS), EMA_FILE),
+                      map_location=device, weights_only=True)["EMA_0.999"]
+    frozen = frozen_names(warm, FROZEN_KEYS_BY_MODE[FINETUNE_MODE])
+    trainable = sorted(set(warm) - frozen)
+    argv = ["--config", f"{config_path}:vit_t,fixture,{FINETUNE_MODE}",
+            "--save_dir", os.path.join(root, "finetune"),
+            f"--config.pretrained_checkpoint_path={pretrained!r}",
+            f"--config.pretrained_checkpoint_step={TRAINER_STEPS}",
+            "--config.optimizer.grad_accumulation_steps="
+            f"{FINETUNE_ACCUMULATION}",
+            # the LR at its peak from the first applied update
+            "--config.optimizer.learning_rate.warmup_steps=0",
+            f"--config.dataset_kwargs.batch_size={TRAINER_BATCH}",
+            f"--config.dataset_kwargs.shuffle_buffer_size={TRAINER_SHUFFLE}",
+            f"--config.num_steps={FINETUNE_STEPS}", "--config.log_interval=1"]
+    for module in (fa, dlt, dl):
+        module.reset_launch_counts()
+    recorder = LogRecorder()
+    real_wandb = cli._wandb_run
+    cli._wandb_run = lambda args, config: recorder
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with TrainerSteps(trainer, trainer_counts, per_step, keep=2,
+                          record=lambda s: {k: s.params[k].detach().clone()
+                                            for k in trainable}) as steps:
+            state = cli.main(argv)
+    finally:
+        cli._wandb_run = real_wandb
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in trainer_counts().items() if k in per_step}
+    if (state.step != FINETUNE_STEPS or steps.calls != FINETUNE_STEPS
+            or launches != {k: v * FINETUNE_STEPS
+                            for k, v in per_step.items()}):
+        raise AssertionError(f"fine-tune: step {state.step}, {steps.calls} "
+                             f"steps, launches {launches}")
+    tx = steps.args[0][2]
+    if tx.frozen != frozen or tx.k != FINETUNE_ACCUMULATION:
+        raise AssertionError("fine-tune: the trainer's optimizer is not the "
+                             "config's")
+    moved_frozen = [k for k in frozen if not torch.equal(
+        state.params[k].detach(), warm[k])]
+    if moved_frozen:
+        raise AssertionError(f"fine-tune: frozen leaves moved: "
+                             f"{moved_frozen[:5]}")
+    # each call's trainable leaves against the call before (the warm start
+    # before the first): still on the calls that accumulate, moved on every
+    # leaf on the calls that apply
+    before = {k: warm[k] for k in trainable}
+    for call, now in enumerate(steps.records, 1):
+        applies = call % FINETUNE_ACCUMULATION == 0
+        moved = [k for k in trainable if not torch.equal(now[k], before[k])]
+        if moved != (trainable if applies else []):
+            raise AssertionError(f"fine-tune step {call}: {len(moved)} of "
+                                 f"{len(trainable)} trainable leaves moved")
+        before = now
+    losses = [recorder.logs[s]["training_loss"]
+              for s in range(1, FINETUNE_STEPS + 1)]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"fine-tune losses {losses}")
+    n_frozen = sum(warm[k].numel() for k in frozen)
+    n_trainable = sum(warm[k].numel() for k in trainable)
+    log(f"finetune: {FINETUNE_MODE} from the trainer's step-{TRAINER_STEPS} "
+        f"EMA params, accumulation {FINETUNE_ACCUMULATION}, batch "
+        f"{TRAINER_BATCH}: {FINETUNE_STEPS} steps in {run_s:.2f} s; "
+        f"{len(frozen)} leaves ({n_frozen} params) frozen and bit-equal to "
+        f"the warm start, the {len(trainable)} trainable ({n_trainable} "
+        "params) still on the accumulating steps and all moved on the "
+        f"applying ones; launches {launches} ({per_step} every step); "
+        f"losses {[round(x, 4) for x in losses]}")
+    totals = [recorder.logs[s]["timer/total"]
+              for s in range(2, FINETUNE_STEPS + 1)]
+    med_ms = statistics.median(totals) * 1e3
+    step_fn = steps.rebuild()
+    traced = []
+    # without the logged step's norms, as the other phases trace a step,
+    # and the applying step with them, as this run logged every step
+    for kind, kept, with_metrics in (("accumulating", steps.kept[0], False),
+                                     ("applying", steps.kept[1], False),
+                                     ("applying, with metrics",
+                                      steps.kept[1], True)):
+        def one_step(kept=kept, with_metrics=with_metrics):
+            step_fn(kept["state"], kept["batch"], kept["task_index"],
+                    kept["encoder_params"], with_metrics=with_metrics)
+
+        busy, kernels = device_busy(one_step)
+        traced.append(f"{kind}: device busy ms {busy:.3f}, {kernels:.0f} "
+                      f"device kernels, idle share {1 - busy / med_ms:.3f}")
+    log(f"finetune ms/step {med_ms:.4f} (median of the timer's total over "
+        f"steps 2-{FINETUNE_STEPS}: {[round(t * 1e3, 2) for t in totals]}, "
+        f"logged every step), samples/s {TRAINER_BATCH * 1e3 / med_ms:.1f}; "
+        f"peak memory (max_memory_allocated) {peak / 2 ** 30:.3f} GiB; "
+        f"traced steps: {'; '.join(traced)}; card {card}")
+    del steps, step_fn, state, warm
+    torch.cuda.empty_cache()
 
 
 #: the SmallStem phase's config: the published vit_t config for a dataset

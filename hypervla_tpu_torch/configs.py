@@ -6,8 +6,10 @@ Plain-dict copies of hypervla_tpu/configs/defaults.py (`pretrain_config`,
 training step and the trainer read, of the DINOv2 geometries in
 hypervla_tpu/models/encoders/dinov2.py, and of the command line's built-in
 config, scripts/configs/hypervla_pretrain_config.py::get_config
-(`hypervla_pretrain_config`). The JAX configs module imports flax and the
-command line's config ml_collections, so the port keeps its own copy.
+(`hypervla_pretrain_config`), and of its fine-tuning config,
+scripts/configs/finetune_config.py (`finetune_config`). The JAX configs
+module imports flax and the command line's configs ml_collections, so the
+port keeps its own copy.
 """
 import copy
 import dataclasses
@@ -330,4 +332,68 @@ def hypervla_pretrain_config(config_string: str = "vit_t,oxe"
         dk.setdefault("dataset_kwargs_list", [])
     if fast:
         apply_fast_training_preset(config)
+    return config
+
+
+#: the params each fine-tuning mode freezes (fnmatch patterns over the
+#: param path joined with "."): full trains everything, head_only the
+#: action head's output blocks, head_mlp_only those and the policy ViT's
+FROZEN_KEYS_BY_MODE = {
+    "full": tuple(),
+    "head_only": (
+        "*task_token_projection*",
+        "*initial_image_projection*",
+        "*context_encoder*",
+        "*encoder_Transformer*",
+        "*encoder_image_*",
+        "*pos_embedding*",
+    ),
+    "head_mlp_only": (
+        "*task_token_projection*",
+        "*initial_image_projection*",
+        "*context_encoder*",
+        "*encoder_image_*",
+        "*pos_embedding*",
+    ),
+}
+
+
+def finetune_config(config_string: str = "vit_t,libero") -> Dict[str, Any]:
+    """The fine-tuning config, "<size>,<dataset>[,<mode>]" with mode one
+    of FROZEN_KEYS_BY_MODE (default full): the flagship recipe with a
+    cosine LR (peak 1e-4 after 500 warmup steps, over 10000 steps), batch
+    64, EMA from step 1000, the mode's frozen keys, and a warm start from
+    the pretrained EMA checkpoint that pretrained_checkpoint_path and
+    pretrained_checkpoint_step name."""
+    parts = config_string.split(",")
+    dataset = parts[1] if len(parts) > 1 else "libero"
+    mode = parts[2] if len(parts) > 2 else "full"
+    if mode not in FROZEN_KEYS_BY_MODE:
+        raise ValueError(f"unknown finetune mode {mode}")
+    config = flagship_pretrain_config()
+    config["num_steps"] = 10000
+    config["save_interval"] = 2000
+    config["eval_interval"] = 2000
+    config["EMA_start_step"] = 1000
+    config["optimizer"].update(
+        learning_rate={
+            "name": "cosine",
+            "init_value": 0.0,
+            "peak_value": 1e-4,
+            "warmup_steps": 500,
+            "decay_steps": 10000,
+        },
+        frozen_keys=FROZEN_KEYS_BY_MODE[mode],
+        grad_accumulation_steps=1,
+    )
+    config["dataset_kwargs"].update(
+        dataset=dataset,
+        oxe_mix=None,
+        batch_size=64,
+        shuffle_buffer_size=10000,
+        dataset_kwargs_list=[],
+    )
+    config["pretrained_checkpoint_path"] = None
+    config["pretrained_checkpoint_step"] = None
+    config["finetune_mode"] = mode
     return config

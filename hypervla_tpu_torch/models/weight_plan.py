@@ -30,6 +30,9 @@ class WeightPlan:
     layer_token_mask: Tuple[bool, ...]
     block_num: int
     output_head_info: Dict[str, dict]     # keyed by flat name
+    # where the shared pretrained image encoder's subtree sits in the
+    # base-net tree (None without one): delta-decay walks it
+    pretrained_block_path: Optional[Tuple[str, ...]] = None
 
     @property
     def total_param_num(self) -> int:
@@ -38,6 +41,18 @@ class WeightPlan:
     @staticmethod
     def flat_name(path: str) -> str:
         return path.replace("/", "_")
+
+    def flat_name_table(self) -> dict:
+        """The block paths nested as the base-net tree, each leaf its flat
+        name (the JAX plan's metadata "flat_name")."""
+        table: dict = {}
+        for name in self.names:
+            *parents, last = name.split("/")
+            node = table
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[last] = self.flat_name(name)
+        return table
 
 
 def _token_indices(names, hk, encoder_type):
@@ -112,8 +127,8 @@ def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
     else:
         flags = {n: not any(m in key for m in shared_modules
                             for key in n.split("/")) for n in names}
-    token_index, layer_token_mask = _token_indices(
-        names, hk, base_net.encoder.encoder_type)
+    encoder_type = base_net.encoder.encoder_type
+    token_index, layer_token_mask = _token_indices(names, hk, encoder_type)
     info = {
         WeightPlan.flat_name(n): {
             "output_dim": math.prod(shapes[n]) if shapes[n] else 1,
@@ -124,7 +139,9 @@ def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
         for n in names
     }
     return WeightPlan(names, shapes, flags, token_index, layer_token_mask,
-                      len(layer_token_mask), info)
+                      len(layer_token_mask), info,
+                      ("encoder", "image_encoder")
+                      if encoder_type in ("DINOv2", "CLIP") else None)
 
 
 def init_base_net(config: dict, generator: torch.Generator,

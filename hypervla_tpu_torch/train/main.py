@@ -4,10 +4,14 @@
         --config.dataset_kwargs.data_dir=<dir> --save_dir <dir> [--cpu]
 
 `--config` is `<file.py>:<string>`, whose `get_config(string)` returns a
-dict or anything with `.to_dict()`, or the built-in config:
-`<size>,<dataset>[,fast]` alone or after `hypervla_pretrain_config:` (or
-the JAX command line's path to that file, whose copy it is:
-configs.py::hypervla_pretrain_config). Every `--config.<dotted.field>=
+dict or anything with `.to_dict()`, or a built-in config:
+`<size>,<dataset>[,fast]` alone or after `hypervla_pretrain_config:`, or
+`<size>,<dataset>[,full|head_only|head_mlp_only]` after
+`finetune_config:` (or the JAX command line's path to either file, whose
+copies they are: configs.py::hypervla_pretrain_config, finetune_config).
+A fine-tune warm-starts from `--config.pretrained_checkpoint_path=<dir>
+--config.pretrained_checkpoint_step=<step>`, the EMA params a run of the
+port's trainer saved there. Every `--config.<dotted.field>=
 <value>` overrides an existing field; the value is parsed with
 ast.literal_eval and kept as a string where that fails. The trainer runs on
 the card unless `--cpu` is given. argparse stands in for absl and
@@ -20,26 +24,32 @@ import logging
 import os
 from typing import Any, Dict, List, Optional
 
-from hypervla_tpu_torch.configs import hypervla_pretrain_config
+from hypervla_tpu_torch.configs import (
+    finetune_config,
+    hypervla_pretrain_config,
+)
 
-#: the built-in config's name: the JAX command line's config file, whose
-#: copy the port holds
-BUILTIN_CONFIG = "hypervla_pretrain_config"
+#: the built-in configs by name: the JAX command line's config files,
+#: whose copies the port holds
+BUILTIN_CONFIGS = {"hypervla_pretrain_config": hypervla_pretrain_config,
+                   "finetune_config": finetune_config}
 DEFAULT_CONFIG = "vit_t,oxe"
 OVERRIDE_PREFIX = "--config."
 
 
 def load_config(spec: str) -> Dict[str, Any]:
-    """The config that `--config` names: `<file.py>:<string>` or the
-    built-in config string."""
+    """The config that `--config` names: `<file.py>:<string>`, a built-in
+    config by name (or by the path of the JAX file it copies) and its
+    string, or the pretraining config's string alone."""
     path, sep, string = spec.partition(":")
     if not sep:
         return hypervla_pretrain_config(spec)
-    if os.path.splitext(os.path.basename(path))[0] == BUILTIN_CONFIG:
-        return hypervla_pretrain_config(string)
+    builtin = BUILTIN_CONFIGS.get(os.path.splitext(os.path.basename(path))[0])
+    if builtin is not None:
+        return builtin(string)
     if not path.endswith(".py"):
         raise ValueError(f"--config {spec}: {path} is neither a .py file "
-                         f"nor {BUILTIN_CONFIG}")
+                         f"nor one of {sorted(BUILTIN_CONFIGS)}")
     module_spec = importlib.util.spec_from_file_location(
         "hypervla_train_config", path)
     module = importlib.util.module_from_spec(module_spec)
@@ -95,7 +105,8 @@ def main(argv: Optional[List[str]] = None):
     parser = argparse.ArgumentParser(
         description="Train HyperVLA with the PyTorch port.")
     parser.add_argument("--config", default=DEFAULT_CONFIG,
-                        help="<file.py>:<string> or <size>,<dataset>[,fast]")
+                        help="<file.py>:<string>, <size>,<dataset>[,fast] "
+                        "or finetune_config:<size>,<dataset>,<mode>")
     parser.add_argument("--name", default="hypervla",
                         help="experiment name")
     parser.add_argument("--save_dir", default=None,

@@ -2,7 +2,10 @@
 schedules, the weight-decay masks, the generated/shared labels and AdamW
 with global-norm clipping, split into a `generated` and a `shared` group
 that each have their own LR schedule and weight decay, the first moment
-stored in bf16.
+stored in bf16; per leaf, or packed into one flat buffer per group and
+decay flag (`packed`); with gradient accumulation
+(`grad_accumulation_steps`, optax.MultiSteps) and frozen params
+(`frozen_keys`) around it (`Optimizer`).
 
 Written out in plain PyTorch to reproduce optax's arithmetic step for step
 (`clip_by_global_norm`, then per group `scale_by_adam(mu_dtype=bf16)`,
@@ -15,7 +18,9 @@ the optimizer's own update count, as optax's do. Params, grads and
 updates are flat dicts keyed like the port's params (the JAX key path
 joined with "/").
 """
+import logging
 import math
+from fnmatch import fnmatch
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -122,22 +127,55 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tree.values()))
 
 
+def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+    """optax.clip_by_global_norm: the grads as they are where their global
+    norm is below max_norm, else each scaled to (g / norm) * max_norm."""
+    g_norm = global_norm(grads)
+    if bool(g_norm < max_norm):
+        return grads
+    return {k: (g / g_norm) * max_norm for k, g in grads.items()}
+
+
+def _adamw(g, mu, nu, p, c1, c2, step_size, wd, b1, b1_bf16, b2, eps):
+    """One AdamW update of one tensor: (update, new bf16 mu, new nu). The
+    per-leaf and the packed optimizer both run this, so their updates are
+    equal bit for bit."""
+    mu = (1 - b1) * g + b1_bf16 * mu
+    nu = (1 - b2) * g * g + b2 * nu
+    u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+    if wd:
+        u = u + wd * p
+    return step_size * u, mu.bfloat16(), nu
+
+
 class AdamW:
-    """Global-norm clipping, then AdamW per label group. State: the update
+    """AdamW per label group, one op chain per leaf. State: the update
     count (which also drives the LR schedules, as optax's own count does),
-    the bf16 first moment and the fp32 second moment."""
+    the bf16 first moment and the fp32 second moment of every leaf it is
+    given."""
 
     def __init__(self, labels: Dict[str, str], decay_mask: Dict[str, bool],
                  schedules: Dict[str, Schedule],
-                 weight_decays: Dict[str, float],
-                 clip_gradient: Optional[float] = None, b1: float = 0.9,
+                 weight_decays: Dict[str, float], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
         self.labels = labels
         self.decay_mask = decay_mask
         self.schedules = schedules
         self.weight_decays = weight_decays
-        self.clip_gradient = clip_gradient
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.b1_bf16 = torch.tensor(b1, dtype=torch.bfloat16)
+
+    def _scalars(self, count: int):
+        """(c1, c2, {group: -lr}) of the update after `count` updates."""
+        count_inc = count + 1
+        c1 = float(_F(1) - _F(self.b1) ** _F(count_inc))
+        c2 = float(_F(1) - _F(self.b2) ** _F(count_inc))
+        step_size = {group: float(-_F(fn(count)))
+                     for group, fn in self.schedules.items()}
+        return c1, c2, step_size
+
+    def _decay(self, label: str, decayed: bool) -> float:
+        return self.weight_decays[label] if decayed else 0.0
 
     def init(self, params: Params) -> dict:
         return {
@@ -151,50 +189,157 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Params, state: dict, params: Params):
         """Returns (updates, new_state); the updates are added to params."""
-        if self.clip_gradient is not None:
-            g_norm = global_norm(grads)
-            if not bool(g_norm < self.clip_gradient):
-                grads = {k: (g / g_norm) * self.clip_gradient
-                         for k, g in grads.items()}
-        count = state["count"]
-        count_inc = count + 1
-        c1 = float(_F(1) - _F(self.b1) ** _F(count_inc))
-        c2 = float(_F(1) - _F(self.b2) ** _F(count_inc))
-        step_size = {group: -_F(fn(count))
-                     for group, fn in self.schedules.items()}
-        b1_bf16 = torch.tensor(self.b1, dtype=torch.bfloat16)
+        c1, c2, step_size = self._scalars(state["count"])
         updates, mu_new, nu_new = {}, {}, {}
         for name, g in grads.items():
-            group = self.labels[name]
-            mu = (1 - self.b1) * g + b1_bf16 * state["mu"][name]
-            nu = (1 - self.b2) * g * g + self.b2 * state["nu"][name]
-            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            wd = self.weight_decays[group]
-            if self.decay_mask[name] and wd:
-                u = u + wd * params[name]
-            updates[name] = float(step_size[group]) * u
-            mu_new[name] = mu.bfloat16()
-            nu_new[name] = nu
-        return updates, {"count": count_inc, "mu": mu_new, "nu": nu_new}
+            label = self.labels[name]
+            updates[name], mu_new[name], nu_new[name] = _adamw(
+                g, state["mu"][name], state["nu"][name], params[name], c1,
+                c2, step_size[label],
+                self._decay(label, self.decay_mask[name]), self.b1,
+                self.b1_bf16, self.b2, self.eps)
+        return updates, {"count": state["count"] + 1, "mu": mu_new,
+                         "nu": nu_new}
+
+
+class PackedAdamW(AdamW):
+    """AdamW over one flat buffer per (label, decayed) group
+    (hypervla_tpu/train/optimizer.py::_packed_adamw, optimizer.packed=True):
+    within a group the LR schedule and the weight decay are one, so the
+    elementwise AdamW over the concatenated leaves is the per-leaf one, bf16
+    first moment included, in one op chain per group instead of one per
+    leaf. State: {str((label, decayed)): {"count", "mu", "nu"}}, the
+    moments flat, as the JAX package's {group: adamw state}."""
+
+    def __init__(self, names, labels, decay_mask, schedules, weight_decays,
+                 **adam_kwargs):
+        super().__init__(labels, decay_mask, schedules, weight_decays,
+                         **adam_kwargs)
+        members: Dict[tuple, list] = {}
+        for name in names:
+            members.setdefault((labels[name], bool(decay_mask[name])),
+                               []).append(name)
+        self.members = {str(g): (g, members[g]) for g in sorted(members)}
+
+    def init(self, params: Params) -> dict:
+        state = {}
+        for key, (_, names) in self.members.items():
+            size = sum(params[n].numel() for n in names)
+            device = params[names[0]].device
+            state[key] = {
+                "count": 0,
+                "mu": torch.zeros(size, dtype=torch.bfloat16, device=device),
+                "nu": torch.zeros(size, dtype=torch.float32, device=device),
+            }
+        return state
+
+    @torch.no_grad()
+    def update(self, grads: Params, state: dict, params: Params):
+        out, new_state = {}, {}
+        for key, ((label, decayed), names) in self.members.items():
+            s = state[key]
+            c1, c2, step_size = self._scalars(s["count"])
+            wd = self._decay(label, decayed)
+            flat_p = (torch.cat([params[n].reshape(-1) for n in names])
+                      if wd else None)
+            u, mu, nu = _adamw(
+                torch.cat([grads[n].reshape(-1) for n in names]), s["mu"],
+                s["nu"], flat_p, c1, c2, step_size[label], wd, self.b1,
+                self.b1_bf16, self.b2, self.eps)
+            new_state[key] = {"count": s["count"] + 1, "mu": mu, "nu": nu}
+            sizes = [grads[n].numel() for n in names]
+            for n, part in zip(names, torch.split(u, sizes)):
+                out[n] = part.view(grads[n].shape)
+        return {n: out[n] for n in grads}, new_state
+
+
+class Optimizer:
+    """The chain around an inner AdamW, as the JAX package composes it:
+    `frozen_keys` partition the params (optax.multi_transform: the frozen
+    get zero updates and no state), the trainable go through global-norm
+    clipping, then gradient accumulation (optax.MultiSteps: the running
+    mean of the clipped micro-gradients, the inner AdamW applied to it
+    every k-th call and zero updates on the others; the inner update count,
+    which drives the LR schedules, advances only when it applies), then the
+    inner AdamW. State: the inner state where k is 1, else {"mini_step",
+    "gradient_step", "acc_grads", "inner"}."""
+
+    def __init__(self, inner: AdamW, clip_gradient: Optional[float] = None,
+                 accumulation_steps: int = 1, frozen=frozenset()):
+        if accumulation_steps < 1:
+            raise ValueError("grad_accumulation_steps must be at least 1")
+        self.inner = inner
+        self.clip_gradient = clip_gradient
+        self.k = int(accumulation_steps)
+        self.frozen = frozenset(frozen)
+
+    def trainable(self, tree: Params) -> Params:
+        return {k: v for k, v in tree.items() if k not in self.frozen}
+
+    def init(self, params: Params) -> dict:
+        params = self.trainable(params)
+        inner = self.inner.init(params)
+        if self.k == 1:
+            return inner
+        return {"mini_step": 0, "gradient_step": 0,
+                "acc_grads": {k: torch.zeros_like(v)
+                              for k, v in params.items()},
+                "inner": inner}
+
+    @torch.no_grad()
+    def update(self, grads: Params, state: dict, params: Params):
+        """Returns (updates, new_state): an update for every leaf of grads,
+        zeros for the frozen ones."""
+        g = self.trainable(grads)
+        if self.clip_gradient is not None:
+            g = clip_by_global_norm(g, self.clip_gradient)
+        p = self.trainable(params)
+        if self.k == 1:
+            updates, state = self.inner.update(g, state, p)
+        else:
+            mini = state["mini_step"]
+            acc = {k: a + (g[k] - a) / float(mini + 1)
+                   for k, a in state["acc_grads"].items()}
+            if mini == self.k - 1:
+                updates, inner = self.inner.update(acc, state["inner"], p)
+                state = {"mini_step": 0,
+                         "gradient_step": state["gradient_step"] + 1,
+                         "acc_grads": {k: torch.zeros_like(a)
+                                       for k, a in acc.items()},
+                         "inner": inner}
+            else:
+                updates = {k: torch.zeros_like(v) for k, v in g.items()}
+                state = {"mini_step": mini + 1,
+                         "gradient_step": state["gradient_step"],
+                         "acc_grads": acc, "inner": state["inner"]}
+        return {k: updates[k] if k in updates else torch.zeros_like(v)
+                for k, v in grads.items()}, state
+
+
+def frozen_names(params: Params, frozen_keys) -> set:
+    """The params whose path, joined with ".", fnmatches any of frozen_keys
+    (hypervla_tpu/train/optimizer.py::freeze_weights; the port joins paths
+    with "/")."""
+    return {name for name in params
+            if any(fnmatch(name.replace("/", "."), key)
+                   for key in frozen_keys or ())}
 
 
 def create_optimizer(params: Params, hn_param_type: Dict[str, str],
                      weight_decay_strategy: str = "v1", **kwargs):
     """Returns (tx, lr_callable, base_lr_callable, param_norm_callable), as
     the JAX package's create_optimizer does. hn_param_type labels every
-    param "generated" or "shared" (`hn_param_type_tree`)."""
-    unported = {
-        "grad_accumulation_steps > 1 (optax.MultiSteps)": (
-            "A8, the rest of the train step",
-            kwargs.get("grad_accumulation_steps", 1) > 1),
-        "packed": ("A2.1, packed AdamW", kwargs.get("packed", False)),
-        "frozen_keys": ("A8, the rest of the train step",
-                        bool(kwargs.get("frozen_keys"))),
-    }
-    for name, (item, bad) in unported.items():
-        if bad:
-            raise NotImplementedError(
-                f"optimizer {name} is not ported yet (ROADMAP.md {item})")
+    param "generated" or "shared" (`hn_param_type_tree`). With frozen_keys
+    the param norm leaves the frozen params out, as there."""
+    frozen_keys = kwargs.get("frozen_keys")
+    packed = kwargs.get("packed", False)
+    if packed and frozen_keys:
+        raise ValueError(
+            "optimizer.packed=True cannot be combined with frozen_keys: "
+            "the freeze wrapper changes the leaf structure the packing "
+            "spec is built from. Use per-leaf mode for frozen runs.")
+    if frozen_keys:
+        logging.info(f"Freezing parameters matching: {frozen_keys}.")
 
     def schedule(value):
         if isinstance(value, dict):
@@ -205,14 +350,23 @@ def create_optimizer(params: Params, hn_param_type: Dict[str, str],
     base_lr_callable = (schedule(kwargs["base_learning_rate"])
                         if kwargs.get("base_learning_rate") is not None
                         else lr_callable)
-    tx = AdamW(
+    adam = dict(
         labels=hn_param_type,
         decay_mask=wd_mask(weight_decay_strategy, params),
         schedules={"generated": lr_callable, "shared": base_lr_callable},
         weight_decays={
             "generated": kwargs.get("weight_decay") or 0.0,
             "shared": kwargs.get("base_weight_decay") or 0.0,
-        },
-        clip_gradient=kwargs.get("clip_gradient"),
-    )
-    return tx, lr_callable, base_lr_callable, global_norm
+        })
+    inner = PackedAdamW(list(params), **adam) if packed else AdamW(**adam)
+    frozen = frozen_names(params, frozen_keys)
+    tx = Optimizer(inner, clip_gradient=kwargs.get("clip_gradient"),
+                   accumulation_steps=kwargs.get("grad_accumulation_steps",
+                                                 1),
+                   frozen=frozen)
+    if frozen:
+        def param_norm_callable(tree):
+            return global_norm(tx.trainable(tree))
+    else:
+        param_norm_callable = global_norm
+    return tx, lr_callable, base_lr_callable, param_norm_callable

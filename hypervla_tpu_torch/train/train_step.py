@@ -13,11 +13,13 @@ as the JAX step does without the hoist.
 The per-task losses of the trainer's drawer tasks (`task_index`) and
 device augmentation (dataset_kwargs device_augment: ops/preprocess.py::
 fused_resize_augment over each camera's frames on the card, drawn from a
-generator seeded by the state's seed and step) are the JAX step's. The
-configured paths that the flagship fast preset does not take raise
-NotImplementedError: delta-decay, the v4 weight decay, the attention aux
-losses and embedding noise (ROADMAP.md A8, the rest of the train step),
-and the trunk switches with no counterpart
+generator seeded by the state's seed and step) are the JAX step's, and so
+are the two extra weight-decay terms: delta-decay of the fine-tuned trunk
+toward `pretrained_params` and the v4 weight decay (the clipped gradient
+of 0.5 * sum(kernel ** 2) over the generated base-net params). The
+configured paths still to port raise NotImplementedError: the attention
+aux losses and embedding noise (ROADMAP.md A8, the rest of the train
+step), and the trunk switches with no counterpart
 (models/base_vit.py::check_trunk_switches). The layer-kernel trunk
 (vit_kwargs dino_layers_impl="pallas_train") needs
 config["hoist_shared_trunk"], as in the JAX package. vit_kwargs
@@ -36,6 +38,8 @@ from hypervla_tpu_torch.models.hypernetwork import per_sample_view
 from hypervla_tpu_torch.ops.preprocess import fused_resize_augment
 from hypervla_tpu_torch.train.optimizer import global_norm
 from hypervla_tpu_torch.train.train_state import TrainState
+
+_F = np.float32
 
 
 def to_tensors(tree, device):
@@ -77,7 +81,7 @@ def _check_layer_kernel_hoist(config: Dict[str, Any]) -> None:
             "image_encoder shared)")
 
 
-def _unported(config: Dict[str, Any], pretrained_params) -> None:
+def _unported(config: Dict[str, Any]) -> None:
     vk = config["base_net_kwargs"]["vit_kwargs"]
     check_trunk_switches(vk)
     hk = config["hypernet_kwargs"]
@@ -86,15 +90,8 @@ def _unported(config: Dict[str, Any], pretrained_params) -> None:
                    hk.get("context_encoder_kwargs", {}))
     refuse_dropout("vit_kwargs", vk)
     aux = config["auxiliary_loss"]
-    opt = config["optimizer"]
     rest = "A8, the rest of the train step"
     checks = {
-        "delta-decay toward pretrained params": (rest, 
-            pretrained_params is not None
-            and vk.get("fine_tune_pretrained_image_encoder", False)
-            and opt.get("base_weight_decay", 0.0) > 0),
-        "weight_decay_strategy v4": (
-            rest, opt.get("weight_decay_strategy", "v1") == "v4"),
         "auxiliary_loss attention_entropy": (
             rest, aux.get("attention_entropy", 0.0) > 0.0),
         "auxiliary_loss attention_map_alignment": (
@@ -159,18 +156,43 @@ def make_train_step(model, config: Dict[str, Any], tx,
     encoder_params["t5"] and ["dino"]. Without them the batch must carry
     the instruction's token_embedding and the initial image's
     patch_embeddings. The new state's params are new tensors; the old
-    state is left as it was."""
-    del base_lr_callable  # only delta-decay reads it, which is not ported
+    state is left as it was.
+
+    pretrained_params: a (partial) tree of the pretrained image encoder's
+    params in the JAX nesting; where vit_kwargs
+    fine_tune_pretrained_image_encoder and optimizer base_weight_decay > 0
+    hold, every step adds base_lr(step) * base_weight_decay * the
+    pretrained value to the matching shared param's update (delta-decay),
+    optimizer update or not. weight_decay_strategy "v4" reads
+    auxiliary_loss base_weight_decay (a KeyError without it) and logs
+    info["base_weight_decay_grad_norm"]."""
     _check_layer_kernel_hoist(config)
-    _unported(config, pretrained_params)
+    _unported(config)
     hk = config["hypernet_kwargs"]
+    vk = config["base_net_kwargs"]["vit_kwargs"]
+    opt_cfg = config["optimizer"]
+    aux = config["auxiliary_loss"]
     use_initial_image = hk.get("use_initial_image", False)
-    rephrase = config["auxiliary_loss"].get("rephrase_strategy")
+    rephrase = aux.get("rephrase_strategy")
     ema_decay = config.get("EMA_decay", 0.999)
     ema_start = config.get("EMA_start_step", 0)
     plan = model.plan
     encoder = model.base_net.encoder
     aug_specs = augment_specs(config)
+    delta_decay = None
+    if pretrained_params is not None:
+        targets = _delta_decay_targets(plan, pretrained_params, model.device)
+        if (vk.get("fine_tune_pretrained_image_encoder", False)
+                and opt_cfg.get("base_weight_decay", 0.0) > 0):
+            delta_decay = targets
+    v4 = opt_cfg.get("weight_decay_strategy", "v1") == "v4"
+    if v4:
+        if "base_weight_decay" not in aux:
+            raise KeyError(
+                "weight_decay_strategy v4 reads auxiliary_loss."
+                "base_weight_decay, which the config does not set")
+        wd_clip = opt_cfg["clip_gradient"]
+        wd_coef = aux["base_weight_decay"]
 
     def train_step(state: TrainState, batch, task_index=None,
                    encoder_params=None, with_metrics: bool = True):
@@ -226,14 +248,33 @@ def make_train_step(model, config: Dict[str, Any], tx,
             per_sample_view(plan, generated), batch, emb,
             instr["token_embedding"].float())
         loss = losses.mean()
+        wd_grads = None
+        if v4:
+            # a second backward over the same generated params, into its
+            # own gradients, before the loss's frees the graph
+            wd_grads = _weight_decay_grads(plan, generated, params)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
 
         with torch.no_grad():
             updates, opt_state = tx.update(grads, state.opt_state, params)
-            info = {"training_loss": loss.detach(),
-                    "learning_rate": lr_callable(state.step)}
+            info = {}
+            if delta_decay is not None:
+                # pull the fine-tuned trunk toward its pretrained values
+                coef = float(_F(base_lr_callable(state.step))
+                             * _F(opt_cfg["base_weight_decay"]))
+                for name, value in delta_decay:
+                    updates[name] = updates[name] + coef * value
+            if v4:
+                wd_norm = global_norm(wd_grads)
+                scale = torch.clamp(wd_norm, max=wd_clip)
+                coef = float(_F(lr_callable(state.step)) * _F(wd_coef))
+                updates = {k: u - coef * (wd_grads[k] / wd_norm * scale)
+                           for k, u in updates.items()}
+                info["base_weight_decay_grad_norm"] = wd_norm
+            info.update(training_loss=loss.detach(),
+                        learning_rate=lr_callable(state.step))
             if with_metrics:
                 info.update(grad_norm=global_norm(grads),
                             update_norm=global_norm(updates),
@@ -258,6 +299,53 @@ def make_train_step(model, config: Dict[str, Any], tx,
                           seed=state.seed), info
 
     return train_step
+
+
+def _delta_decay_targets(plan, pretrained_params, device):
+    """[(hypernet param name, flat fp32 pretrained value)] of a (partial)
+    pretrained image-encoder tree in the JAX nesting, e.g. {"embeddings":
+    {"cls_token": array}}, each leaf mapped through the plan's flat-name
+    table under its pretrained block path."""
+    if plan.pretrained_block_path is None:
+        raise ValueError(
+            "pretrained_params given but the WeightPlan has no pretrained "
+            "image-encoder block (encoder_type must be DINOv2 or CLIP for "
+            "delta-decay)")
+    names = plan.flat_name_table()
+    for key in plan.pretrained_block_path:
+        names = names[key]
+    out = []
+
+    def walk(tree, table):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, table[key])
+            else:
+                if not isinstance(value, torch.Tensor):
+                    value = torch.tensor(np.asarray(value))
+                out.append((table[key],
+                            value.to(device, torch.float32).reshape(-1)))
+
+    walk(pretrained_params, names)
+    return out
+
+
+def _weight_decay_grads(plan, generated, params):
+    """The v4 weight decay's gradient: of the batch mean of each sample's
+    0.5 * sum(kernel ** 2) over the base-net params whose path holds
+    "kernel" (generated ones per sample, shared ones whole), with respect
+    to every hypernetwork param (zeros where it does not reach)."""
+    per_sample = sum((v.float() ** 2).flatten(1).sum(1)
+                     for n, v in generated.items()
+                     if "kernel" in n and plan.generation_flag[n])
+    shared = sum((v.float() ** 2).sum() for n, v in generated.items()
+                 if "kernel" in n and not plan.generation_flag[n])
+    wd_loss = 0.5 * (per_sample + shared).mean()
+    names = list(params)
+    grads = torch.autograd.grad(wd_loss, [params[n] for n in names],
+                                retain_graph=True, allow_unused=True)
+    return {n: g if g is not None else torch.zeros_like(params[n])
+            for n, g in zip(names, grads)}
 
 
 def _base_params_norm(plan, generated):

@@ -7,7 +7,9 @@ two batches ahead on the card, the train
 step (train/train_step.py) with the frozen T5 and DINOv2 encoders inside
 it, per-task losses for the drawer tasks, wandb-style logging, the save
 and validation callbacks (train/callbacks.py), resume from
-`<save_dir>/state/latest.pt` and a warm start from a pretrained EMA file.
+`<save_dir>/state/latest.pt` and a warm start from a pretrained EMA file,
+which with configs.py::finetune_config's frozen keys and the optimizer's
+gradient accumulation is the JAX package's fine-tuning.
 
 Without pretrained weights (`$HYPERVLA_PRETRAINED_DIR/<name>.pt`,
 models/encoders/pretrained.py) T5 and DINOv2 are drawn from seeds of their
@@ -493,6 +495,9 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
 
     tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
         model.params, hn_param_type_tree(model.params), **config["optimizer"])
+    if config.get("finetune_mode"):
+        logging.info(f"Fine-tuning, mode {config['finetune_mode']}: "
+                     f"{len(tx.frozen)} of {len(model.params)} params frozen")
     state = TrainState.create(model.params, tx,
                               track_ema=config.get("save_param_EMA", False),
                               seed=seed)

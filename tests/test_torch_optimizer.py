@@ -101,11 +101,3 @@ def test_two_adamw_updates_match_optax(tiny_params):
     assert tstate["count"] == 2502
     assert all(m.dtype == torch.bfloat16 for m in tstate["mu"].values())
 
-
-def test_unported_options_raise(tiny_params):
-    flat = from_jax_params(tiny_params)
-    labels = topt.hn_param_type_tree(flat)
-    for extra in (dict(grad_accumulation_steps=2), dict(packed=True),
-                  dict(frozen_keys=("*image_encoder*",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            topt.create_optimizer(flat, labels, learning_rate=1e-3, **extra)

@@ -162,7 +162,6 @@ def test_build_frozen_encoders_shapes():
 
 
 @pytest.mark.parametrize("change", [
-    lambda c: c["optimizer"].update(weight_decay_strategy="v4"),
     lambda c: c["auxiliary_loss"].update(attention_entropy=0.1),
     lambda c: c["auxiliary_loss"].update(attention_map_alignment=0.1),
     lambda c: c["base_net_kwargs"]["vit_kwargs"].update(

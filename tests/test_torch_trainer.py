@@ -42,12 +42,13 @@ import torch
 from hypervla_tpu.configs import tiny_test_config as jax_tiny_config
 from hypervla_tpu.data.sources import NpzTrajectorySource
 from hypervla_tpu.train import trainer as jtrainer
-from hypervla_tpu_torch.configs import tiny_test_config
+from hypervla_tpu_torch.configs import FROZEN_KEYS_BY_MODE, tiny_test_config
 from hypervla_tpu_torch.eval.model_loading import (
     build_text_encoder,
     load_hypervla_policy,
 )
 from hypervla_tpu_torch.models.hypervla import EMA_FILE, PARAMS_FILE
+from hypervla_tpu_torch.train import optimizer as topt
 from hypervla_tpu_torch.train import trainer
 from hypervla_tpu_torch.train.callbacks import STATE_FILE, SaveCallback
 from hypervla_tpu_torch.train.main import apply_overrides, load_config, main
@@ -361,16 +362,27 @@ def test_trainer_matches_jax(setup, pretrained_dir, tmp_path, monkeypatch):
     assert action.shape == (7,) and np.isfinite(action).all()
 
 
+def _assert_tree_equal(got, want, path=""):
+    """Nested dicts of tensors and ints, equal bit for bit."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), path
+        for k in want:
+            _assert_tree_equal(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(
+            got.detach(), want.detach()), path
+    else:
+        assert got == want, path
+
+
 def _assert_state_equal(got, want):
+    """Step, seed, params, EMA and the whole optimizer state (moments,
+    counts, and an accumulation's running mean and counters), bit for
+    bit."""
     assert got.step == want.step and got.seed == want.seed
-    for a, b in ((got.params, want.params), (got.ema_params, want.ema_params),
-                 (got.opt_state["mu"], want.opt_state["mu"]),
-                 (got.opt_state["nu"], want.opt_state["nu"])):
-        assert set(a) == set(b)
-        for k in b:
-            assert a[k].dtype == b[k].dtype and torch.equal(
-                a[k].detach(), b[k].detach()), k
-    assert got.opt_state["count"] == want.opt_state["count"]
+    _assert_tree_equal(got.params, want.params, "params")
+    _assert_tree_equal(got.ema_params, want.ema_params, "ema")
+    _assert_tree_equal(got.opt_state, want.opt_state, "opt_state")
 
 
 def test_save_and_resume_bit_for_bit(setup, pretrained_dir, tmp_path):
@@ -397,6 +409,117 @@ def test_save_and_resume_bit_for_bit(setup, pretrained_dir, tmp_path):
                     save_dir=save_dir, num_steps=2, device="cpu")
     assert second.step == 2 and second.opt_state["count"] == 2
     _assert_state_equal(SaveCallback(save_dir).restore(blank)[0], second)
+
+
+def _first_states(monkeypatch):
+    """Patches the trainer's make_train_step to keep the state each run's
+    first step is given; returns the list they go to."""
+    firsts = []
+    make = trainer.make_train_step
+
+    def keeping(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+        calls = []
+
+        def step(state, *a, **kw):
+            if not calls:
+                firsts.append(copy.deepcopy(state))
+            calls.append(1)
+            return step_fn(state, *a, **kw)
+
+        return step
+
+    monkeypatch.setattr(trainer, "make_train_step", keeping)
+    return firsts
+
+
+def _tiny_overrides(setup):
+    """The tiny model and the fixture data as command-line overrides of
+    whole fields of a full-size config."""
+    tiny = tiny_test_config()
+    return [f"--config.{key}={tiny[key]!r}"
+            for key in ("base_net_kwargs", "hypernet_kwargs")] + [
+        f"--config.dataset_kwargs={_dataset_kwargs(setup['data'])!r}"]
+
+
+def test_finetune_command_line(setup, pretrained_dir, tmp_path,
+                               monkeypatch):
+    """The JAX package's fine-tune config through the command line,
+    head_only with gradient accumulation over 2 steps, warm-started from a
+    checkpoint of the port's own trainer: the frozen params stay the warm
+    start's bit for bit, the trainable ones hold still at step 1 and move
+    at step 2; a run resumed from the save at step 3, in the middle of an
+    accumulation, starts from that state bit for bit (the running mean
+    and its counters included)."""
+    pretrained = str(tmp_path / "pretrained_run")
+    within(DEADLINE, trainer.train, _port_config(setup), save_dir=pretrained,
+           num_steps=1, device="cpu")
+    warm = torch.load(os.path.join(pretrained, "1", EMA_FILE),
+                      weights_only=True)["EMA_0.999"]
+    save_dir = str(tmp_path / "finetune")
+
+    def argv(steps):
+        return ["--config",
+                "scripts/configs/finetune_config.py:vit_t,fixture,head_only",
+                "--save_dir", save_dir, "--cpu",
+                f"--config.pretrained_checkpoint_path={pretrained!r}",
+                "--config.pretrained_checkpoint_step=1",
+                "--config.optimizer.grad_accumulation_steps=2",
+                # the LR at its peak from the first applied update
+                "--config.optimizer.learning_rate.warmup_steps=0",
+                f"--config.num_steps={steps}", "--config.save_interval=1",
+                "--config.log_interval=1", *_tiny_overrides(setup)]
+
+    firsts = _first_states(monkeypatch)
+    state = within(DEADLINE, main, argv(3))
+    assert state.step == 3 and state.opt_state["mini_step"] == 1
+    frozen = topt.frozen_names(warm, FROZEN_KEYS_BY_MODE["head_only"])
+    assert frozen and set(warm) - frozen
+    assert set(state.opt_state["inner"]["mu"]) == set(warm) - frozen
+    _assert_tree_equal(firsts[0].params, warm, "warm start")
+    by_step = {step: torch.load(os.path.join(save_dir, str(step),
+                                             PARAMS_FILE),
+                                weights_only=True) for step in (1, 2, 3)}
+    for name, value in warm.items():
+        assert torch.equal(state.params[name].detach(), value) == (
+            name in frozen), name
+        assert torch.equal(by_step[1][name], value), name
+        assert torch.equal(by_step[2][name], value) == (name in frozen), name
+        assert torch.equal(by_step[3][name], by_step[2][name]), name
+
+    # resume from the save at step 3, mid-accumulation
+    blank = copy.deepcopy(state)
+    blank.step = 0
+    restored, step = SaveCallback(save_dir).restore(blank)
+    assert step == 3
+    _assert_state_equal(restored, state)
+    resumed = within(DEADLINE, main, argv(4))
+    _assert_state_equal(firsts[1], state)
+    assert resumed.step == 4 and resumed.opt_state["mini_step"] == 0
+    assert resumed.opt_state["inner"]["count"] == 2
+
+
+def test_packed_run_resumes_bit_for_bit(setup, pretrained_dir, tmp_path,
+                                        monkeypatch):
+    """optimizer.packed=True in the trainer: state/latest.pt holds the
+    packed optimizer state ({group: flat moments}), and a run resumed from
+    it starts from the saved state bit for bit."""
+    save_dir = str(tmp_path / "packed")
+    config = _port_config(setup, save_interval=1)
+    config["optimizer"]["packed"] = True
+    firsts = _first_states(monkeypatch)
+    first = within(DEADLINE, trainer.train, copy.deepcopy(config),
+                   save_dir=save_dir, num_steps=1, device="cpu")
+    assert all(k.startswith("(") and v["mu"].dim() == 1
+               for k, v in first.opt_state.items())
+    blank = copy.deepcopy(first)
+    blank.step = 0
+    _assert_state_equal(SaveCallback(save_dir).restore(blank)[0], first)
+    second = within(DEADLINE, trainer.train, copy.deepcopy(config),
+                    save_dir=save_dir, num_steps=2, device="cpu")
+    _assert_state_equal(firsts[1], first)
+    assert second.step == 2 and all(v["count"] == 2
+                                    for v in second.opt_state.values())
 
 
 def test_command_line_runs_a_config_file(setup, pretrained_dir, tmp_path):

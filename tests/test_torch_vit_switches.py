@@ -117,7 +117,7 @@ def test_every_jax_vit_field_is_honoured_or_refused(field):
         config["base_net_kwargs"]["vit_kwargs"][field] = (
             REFUSED_BY_THE_TRAIN_STEP[field])
         with pytest.raises(NotImplementedError, match=field):
-            _unported(config, None)
+            _unported(config)
     elif field in ACCEPTED:
         assert _build(**{field: ACCEPTED[field]}) == _build()
     else:

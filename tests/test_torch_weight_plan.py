@@ -1,7 +1,8 @@
 """The port's weight plan (hypervla_tpu_torch/models/weight_plan.py),
 derived from the config, against the JAX package's base_net_metadata,
 derived from a flax init: block names in order, shapes, generation flags,
-context-token indices, layer_token_mask and output-head info, exactly."""
+context-token indices, layer_token_mask, output-head info and the
+delta-decay name table (flat names, pretrained block path), exactly."""
 import jax
 import numpy as np
 import pytest
@@ -18,6 +19,15 @@ from test_torch_harness import torch_threads  # noqa: F401
 def _leaves(tree):
     return [("/".join(k.key for k in path), leaf)
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+def _leaves_of(table, prefix=""):
+    """A nested dict's leaves as ("a/b", leaf)."""
+    for key, value in table.items():
+        if isinstance(value, dict):
+            yield from _leaves_of(value, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", value
 
 
 @pytest.mark.parametrize("hk", [
@@ -46,5 +56,9 @@ def test_plan_matches_jax(hk):
     assert md["block_num"] == plan.block_num
     assert md["total_param_num"] == plan.total_param_num
     assert md["output_head_info"] == plan.output_head_info
+    # delta-decay's name table and where the pretrained trunk sits
+    assert dict(_leaves(md["flat_name"])) == dict(
+        _leaves_of(plan.flat_name_table()))
+    assert md["pretrained_block_path"] == plan.pretrained_block_path
     assert {n: tuple(v.shape) for n, v in init.items()} == plan.param_shape
     assert all(np.isfinite(v.numpy()).all() for v in init.values())
