@@ -348,16 +348,20 @@ def interleaved(kernel_fn, plain_fn, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def _trace(fn, calls):
+def _trace(fn, calls, host=True):
     """{device kernel: (mean device us a launch, launches a call)} from one
-    torch.profiler trace of `calls` identical calls of fn."""
+    torch.profiler trace of `calls` identical calls of fn; host=False
+    records the device's activity alone (the trace of a step's ~18,000
+    kernels is then read in a fraction of the time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -370,11 +374,11 @@ def _trace(fn, calls):
             if e.device_type == DeviceType.CUDA and e.count > 0}
 
 
-def _device_trace(fn, calls):
+def _device_trace(fn, calls, host=True):
     """_trace, taken again where it comes back without its device records
     (now and then one does); only a third empty one fails the run."""
     for attempt in range(3):
-        per_call = _trace(fn, calls)
+        per_call = _trace(fn, calls, host)
         if sum(mean_us * n for mean_us, n in per_call.values()) > 0:
             return per_call
         log(f"profiler: trace {attempt + 1} of {calls} calls held no device "
@@ -382,11 +386,11 @@ def _device_trace(fn, calls):
     raise AssertionError("the profiler saw no device time")
 
 
-def device_busy(fn, calls=1):
+def device_busy(fn, calls=1, host=True):
     """(device busy ms, device kernels) per call of fn, from a
     torch.profiler trace of `calls` identical calls: the sum of the kernels'
     own device time (one stream, so they do not overlap)."""
-    per_call = _device_trace(fn, calls).values()
+    per_call = _device_trace(fn, calls, host).values()
     return (sum(mean_us * n for mean_us, n in per_call) / 1e3,
             sum(n for _, n in per_call))
 
@@ -2110,13 +2114,23 @@ def train_kernel_phase(device):
                    PEAK_FP32), library)
 
     dn = t(rng.standard_normal((m, hidden)) * 0.1, torch.float32)
+    # the library's LayerNorm backward over the same rows: one aten call
+    # (the bf16 cotangent: it takes the input's type), its statistics taken
+    # outside the timed call
+    ln_w = pv[dlt.LN2_S].bfloat16()
+    _, ln_mean, ln_rstd = torch.ops.aten.native_layer_norm(
+        rows, [hidden], ln_w, torch.zeros_like(ln_w), 1e-6)
+    dn16 = dn.bfloat16()
     # fp32 column sums: 16448 terms in another order, and one-ulp flips of
     # single bf16 terms
     pass_case("layer_norm_bwd_rows", "(16448, 768), fp32 cotangent, added "
               "to the residual gradient", tln.layer_norm_bwd_rows,
               tln.layer_norm_bwd_rows_reference,
               (rows, dn, pv[dlt.LN2_S], 1e-6, g_rows),
-              (ULP_BOUND, 1e-4, 1e-4), 14)
+              (ULP_BOUND, 1e-4, 1e-4), 14,
+              lambda: torch.ops.aten.native_layer_norm_backward(
+                  dn16, rows, [hidden], ln_mean, ln_rstd, ln_w,
+                  torch.zeros_like(ln_w), [True, True, True]))
     pass_case("layer_scale_grad", "(16448, 768)", dlt.scale_grad,
               dlt.scale_grad_reference, (g_rows, y2, pv[dlt.LS2]),
               (ULP_BOUND, 1e-4, 2 ** -9), 4)
@@ -3262,6 +3276,308 @@ def finetune_phase(device, card, root, data, mix, pretrained, per_step):
     torch.cuda.empty_cache()
 
 
+#: the regularised phase: every dropout rate and the embedding noise, the
+#: aux-loss coefficients, its timed steps, the remat settings in turns
+REG_RATE = 0.1
+REG_ENTROPY, REG_ALIGNMENT = 0.1, 0.2
+REG_STEPS = 3
+REMAT_SETTINGS = {"off": {}, "remat_dino": {"remat_dino": True},
+                  "dots": {"dino_remat_policy": "dots"},
+                  "nothing": {"dino_remat_policy": "nothing"}}
+ROW_SUM_BOUND = 1e-3
+
+
+def regularised_phase(device, card):
+    """Drives the flagship's regularised training step (full width and
+    depth, the fast preset, batch 64): (a) the six dropout rates and the
+    trunk's embedding noise at REG_RATE on kernels 2 and 3, the step
+    repeated from one state and (seed, step) bit for bit, each site's kept
+    fraction, the loss beside the same step without them, ms/step, and
+    device busy and kernels beside that step's; (b) the trunk's layer
+    remat off, remat_dino, "dots" and "nothing" from one state with the
+    same draws: the gradients against the step without remat, peak
+    memory, device busy and kernel 2's launches; (c) both attention aux
+    losses on the trunk's capture route, then one served
+    InferenceWrapper(save_attention_map=True) step from the trained
+    model's checkpoint: the maps' shapes and row sums.
+    Returns the regularised step's launches."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.configs import apply_fast_training_preset
+    from hypervla_tpu_torch.eval.inference import (
+        InferenceWrapper,
+        initial_state,
+    )
+    from hypervla_tpu_torch.flagship import build_flagship, make_flagship_batch
+    from hypervla_tpu_torch.models.base_network import BaseNetwork
+    from hypervla_tpu_torch.models.draws import Draws, draws_generator
+    from hypervla_tpu_torch.models.hypernetwork import HyperNetwork
+    from hypervla_tpu_torch.models.hypervla import HyperVLA
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.train.optimizer import (
+        create_optimizer,
+        hn_param_type_tree,
+    )
+    from hypervla_tpu_torch.train.train_state import TrainState
+    from hypervla_tpu_torch.train.train_step import (
+        REFERENCE_MAP,
+        make_train_step,
+        to_tensors,
+    )
+    from hypervla_tpu_torch.train.trainer import build_frozen_encoders
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+    stats = {"action": {
+        "mean": rng.standard_normal(7).astype(np.float32) * 0.1,
+        "std": (1 + rng.random(7)).astype(np.float32),
+        "mask": np.array([True] * 6 + [False]),
+    }}
+    base, _ = build_flagship(seed=SEED, device=device, training=True)
+    fast = apply_fast_training_preset(copy.deepcopy(base.config))
+    del base
+    reg = copy.deepcopy(fast)
+    hk = reg["hypernet_kwargs"]
+    hk.update(image_dropout=REG_RATE, embedding_dropout_rate=REG_RATE,
+              final_dropout_rate=REG_RATE)
+    hk["context_encoder_kwargs"].update(dropout_rate=REG_RATE,
+                                        attention_dropout_rate=REG_RATE)
+    reg["base_net_kwargs"]["vit_kwargs"].update(
+        dropout_rate=REG_RATE, image_embedding_noise=REG_RATE)
+    model = HyperVLA.from_config(reg, make_flagship_batch(seed=SEED),
+                                 seed=SEED, device=device,
+                                 dataset_statistics=stats)
+    capture = copy.deepcopy(reg)
+    capture["auxiliary_loss"].update(attention_entropy=REG_ENTROPY,
+                                     attention_map_alignment=REG_ALIGNMENT)
+    capture["base_net_kwargs"]["vit_kwargs"].update(
+        return_attention_map=True, sow_dino_attention=True)
+    configs = {"zero": fast, "dropout": reg, "capture": capture}
+    for name, change in REMAT_SETTINGS.items():
+        configs[f"remat_{name}"] = copy.deepcopy(reg)
+        configs[f"remat_{name}"]["base_net_kwargs"]["vit_kwargs"].update(
+            change)
+
+    def variant(config):
+        return HyperVLA(HyperNetwork(model.plan, config["hypernet_kwargs"]),
+                        BaseNetwork(**config["base_net_kwargs"]), config,
+                        model.params, model.plan, stats, device,
+                        model.example_batch)
+
+    tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
+        model.params, hn_param_type_tree(model.params), **reg["optimizer"])
+    text_apply, dino_apply, t5, dino_params = build_frozen_encoders(
+        reg, device=device, seed=SEED + 1)
+    encoders = {"t5": t5, "dino": dino_params}
+    models = {name: variant(config) for name, config in configs.items()}
+    steps = {name: make_train_step(models[name], config, tx, lr_fn,
+                                   base_lr_fn, pnorm_fn,
+                                   text_encode=text_apply,
+                                   dino_encode=dino_apply)
+             for name, config in configs.items()}
+    state0 = TrainState.create(model.params, tx, seed=SEED)
+    warmup = reg["optimizer"]["learning_rate"]["warmup_steps"]
+    state0.step = warmup
+    state0.opt_state["count"] = warmup
+    batch = make_flagship_batch(batch_size=TRAIN_BATCH, seed=SEED)
+    del batch["task"]["language_instruction"]["token_embedding"]
+    del batch["initial_state"]["patch_embeddings"]
+    reference = rng.random((TRAIN_BATCH, 12, 1, 257)).astype(np.float32)
+    batch["observation"][REFERENCE_MAP] = reference / reference.sum(
+        -1, keepdims=True)
+    batch = to_tensors(batch, device)
+    torch.cuda.synchronize()
+    log(f"regularised build s {time.perf_counter() - t0:.3f}; batch "
+        f"{TRAIN_BATCH}, every dropout rate and image_embedding_noise "
+        f"{REG_RATE}; {card}")
+
+    def counts():
+        return {**fa.LAUNCHES, **dlt.LAUNCHES}
+
+    def reset():
+        for module in (fa, dlt):
+            module.reset_launch_counts()
+
+    def run(name, state=state0, draws=None):
+        return steps[name](state, batch, encoder_params=encoders,
+                           with_metrics=False, draws=draws)
+
+    # ---- (a) dropout and noise, on kernels 2 and 3: the main path ----
+    reset()
+    first, info = run("dropout")
+    torch.cuda.synchronize()
+    launches = counts()
+    log(f"regularised step launches: {launches}; {card}")
+    for kernel in ("mha_fused_train_fwd", "mha_fused_train_bwd",
+                   "dino_layer_train_fwd"):
+        if not launches.get(kernel):
+            raise AssertionError(f"the regularised step did not launch "
+                                 f"{kernel}")
+    again, _ = run("dropout")
+    same = all(torch.equal(first.params[k], again.params[k])
+               for k in first.params)
+    log(f"regularised step repeated from one state and (seed, step): "
+        f"new params bit-equal {same}; {card}")
+    if not same:
+        raise AssertionError("the regularised step does not repeat bit for "
+                             "bit")
+    del again
+    draws = Draws(draws_generator(state0.seed, state0.step, device),
+                  record=True)
+    replayed, _ = run("dropout", draws=draws)
+    if not all(torch.equal(first.params[k], replayed.params[k])
+               for k in first.params):
+        raise AssertionError("the step's own draws are not those of "
+                             "draws_generator(seed, step)")
+    del replayed
+    kept = {}
+    for site, value in sorted(draws.drawn.items()):
+        if value.dtype == torch.bool:
+            kept[site] = float(value.float().mean())
+            sigma = (REG_RATE * (1 - REG_RATE) / value.numel()) ** 0.5
+            if abs(kept[site] - (1 - REG_RATE)) > 6 * sigma:
+                raise AssertionError(f"{site} keeps {kept[site]}")
+        else:
+            log(f"regularised embedding noise {tuple(value.shape)}: mean "
+                f"{float(value.mean()):.6g}, std {float(value.std()):.6g}")
+    del draws
+    log(f"regularised kept fraction per site ({len(kept)} sites, rate "
+        f"{REG_RATE}): " + ", ".join(f"{k} {v:.6f}" for k, v in kept.items())
+        + f"; {card}")
+    _, zero_info = run("zero")
+    log(f"regularised loss {float(info['training_loss']):.6g}, the same step "
+        f"without dropout and noise {float(zero_info['training_loss']):.6g}"
+        f"; {card}")
+    if not math.isfinite(float(info["training_loss"])):
+        raise AssertionError("the regularised loss is not finite")
+    times, state = [], first
+    for _ in range(REG_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = run("dropout", state)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del state, first
+    busy, kernels = device_busy(lambda: run("dropout"), host=False)
+    zero_busy, zero_kernels = device_busy(lambda: run("zero"), host=False)
+    med = statistics.median(times)
+    log(f"regularised ms/step (median of CUDA events, {REG_STEPS} steps) "
+        f"{med:.4f}; step profiled: device busy ms {busy:.3f}, "
+        f"{kernels:.0f} device kernels, idle share {1 - busy / med:.3f}; "
+        f"the same step without dropout and noise: device busy ms "
+        f"{zero_busy:.3f}, {zero_kernels:.0f} device kernels; {card}")
+
+    # ---- (b) layer remat: the same state and draws, in turns ----
+    def grads_of(name):
+        for p in state0.params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        run(name)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        fwd = fa.LAUNCHES["mha_fused_train_fwd"]
+        bwd = fa.LAUNCHES["mha_fused_train_bwd"]
+        return peak, fwd, bwd
+
+    grads_off = None
+    remat = {}
+    for name in REMAT_SETTINGS:
+        peak, fwd, bwd = grads_of(f"remat_{name}")
+        if grads_off is None:
+            grads_off = {k: p.grad.clone() for k, p in state0.params.items()
+                         if p.grad is not None}
+            diff = 0.0
+        else:
+            diff = max(float((state0.params[k].grad - g).abs().max())
+                       for k, g in grads_off.items())
+        remat[name] = {"peak": peak, "fwd": fwd, "bwd": bwd, "diff": diff}
+    del grads_off
+    for p in state0.params.values():
+        p.grad = None
+    for name in REMAT_SETTINGS:
+        remat[name]["busy"], remat[name]["kernels"] = device_busy(
+            lambda: run(f"remat_{name}"), host=False)
+    for name, r in remat.items():
+        log(f"regularised remat {name}: gradients against remat off max abs "
+            f"diff {r['diff']:.6g}, peak memory (max_memory_allocated) "
+            f"{r['peak'] / 2 ** 30:.3f} GiB, device busy ms {r['busy']:.3f} "
+            f"({r['kernels']:.0f} device kernels), kernel 2 launches forward "
+            f"{r['fwd']} backward {r['bwd']}; {card}")
+        if r["diff"] != 0.0:
+            raise AssertionError(f"remat {name} changes the gradients")
+
+    # ---- (c) attention capture, both aux losses, save_attention_map ----
+    reset()
+    trained, info = run("capture")
+    torch.cuda.synchronize()
+    log("regularised capture step: loss "
+        f"{float(info['training_loss']):.6g}, attention_entropy_loss "
+        f"{float(info['attention_entropy_loss']):.6g}, "
+        f"attention_alignment_loss "
+        f"{float(info['attention_alignment_loss']):.6g}, launches "
+        f"{ {k: v for k, v in counts().items() if v} }; {card}")
+    for key in ("training_loss", "attention_entropy_loss",
+                "attention_alignment_loss"):
+        if not math.isfinite(float(info[key])):
+            raise AssertionError(f"capture step {key} is not finite")
+    served = models["capture"].replace(params={
+        k: v.detach() for k, v in trained.params.items()})
+    del trained
+    frame = np.random.default_rng(SEED + 16).integers(
+        0, 256, (256, 320, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as root:
+        served.save_pretrained(1, root)
+        loaded = HyperVLA.load_pretrained(root, device=device)
+    wrapper = InferenceWrapper(
+        loaded, policy_setup="google_robot", image_size=224, crop=True,
+        fused_serving=True, save_attention_map=True,
+        pred_action_horizon=capture["base_net_kwargs"]["action_horizon"])
+    if wrapper.fused_serving or wrapper.trunk_impl != "layers":
+        raise AssertionError("save_attention_map did not take the host "
+                             "path's layer loop")
+    full = {}
+    extract = wrapper._extract_attention_maps
+    wrapper._extract_attention_maps = lambda maps: (full.update(maps),
+                                                    extract(maps))
+    instruction = {"language_instruction": {
+        k: v[:1] for k, v in make_flagship_batch(seed=SEED)["task"][
+            "language_instruction"].items()}}
+    wrapper.reset("pick up the cube", instruction,
+                  initial_state(loaded, frame))
+    raw, _, _, _, _ = wrapper.step(frame)
+    sums = {name: max(float((torch.stack(full[name]).float().sum(-1) - 1
+                             ).abs().max()), 0.0)
+            for name in ("dino", "policy")}
+    log(f"regularised served step: dino_attention_map "
+        f"{wrapper.dino_attention_map.shape}, head_attention_map "
+        f"{wrapper.head_attention_map.shape}; full rows: trunk "
+        f"{tuple(torch.stack(full['dino']).shape)}, policy "
+        f"{tuple(torch.stack(full['policy']).shape)}, largest |row sum - 1| "
+        f"trunk {sums['dino']:.6g} policy {sums['policy']:.6g} (bound "
+        f"{ROW_SUM_BOUND}); action finite {bool(np.isfinite(raw).all())}; "
+        f"{card}")
+    vit = loaded.base_net.encoder
+    want = ((vit.dino.num_hidden_layers, vit.dino.num_attention_heads,
+             vit.n_patch), (vit.num_layers, vit.num_heads, vit.n_patch))
+    if ((wrapper.dino_attention_map.shape,
+         wrapper.head_attention_map.shape) != want
+            or max(sums.values()) > ROW_SUM_BOUND
+            or not np.isfinite(raw).all()):
+        raise AssertionError("the captured maps are not the expected shape "
+                             "or their rows do not sum to 1")
+    log(f"regularised phase s {time.perf_counter() - t0:.3f}")
+    return launches
+
+
 #: the SmallStem phase's config: the published vit_t config for a dataset
 #: other than oxe, with the command-line overrides that make its base net
 #: the SmallStem ViT with the continuous head
@@ -3578,6 +3894,7 @@ def main() -> int:
     train_launches, hand_fed = train_phase(device)
     trainer_launches = trainer_phase(device, card, hand_fed)
     smallstem_phase(device, card)
+    regularised_phase(device, card)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")

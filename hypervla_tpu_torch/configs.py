@@ -54,7 +54,8 @@ def dinov2_config(name: str) -> DINOv2Config:
 
 
 #: the dropout rates the JAX package reads, by the config section that holds
-#: them (hypervla_tpu/models/hypernetwork.py, models/base_vit.py)
+#: them (hypervla_tpu/models/hypernetwork.py, models/base_vit.py); the
+#: port's models read the same keys (models/draws.py)
 DROPOUT_KEYS = {
     "hypernet_kwargs": ("image_dropout", "embedding_dropout_rate",
                         "final_dropout_rate"),
@@ -64,23 +65,10 @@ DROPOUT_KEYS = {
 }
 
 
-def refuse_dropout(section: str, kwargs: Dict[str, Any]) -> None:
-    """Raises NotImplementedError for a nonzero dropout rate among the keys
-    of `section` (a key of DROPOUT_KEYS): the port has no dropout, and a
-    rate it dropped without a word would train another model than the JAX
-    package does. A rate of 0, None or an absent key passes."""
-    for key in DROPOUT_KEYS[section]:
-        if kwargs.get(key):
-            raise NotImplementedError(
-                f"{section} {key}={kwargs[key]!r}: dropout is not ported "
-                "(ROADMAP.md A8, the rest of the train step); set the rate "
-                "to 0")
-
-
 def pretrain_config() -> Dict[str, Any]:
     """The reference defaults, cut to the keys the serving path, the
-    training step and the trainer read (the dropout, CNN and octo keys are
-    not copied)."""
+    training step and the trainer read (the CNN and octo keys are not
+    copied)."""
     def schedule(peak):
         return {"name": "rsqrt", "init_value": 0.0, "peak_value": peak,
                 "warmup_steps": 2000, "timescale": 10000}
@@ -113,10 +101,13 @@ def pretrain_config() -> Dict[str, Any]:
                 "num_layers": 1,
                 "mlp_dim": 256,
                 "num_attention_heads": 4,
+                "dropout_rate": 0.0,
+                "attention_dropout_rate": 0.0,
                 "add_position_embedding": False,
             },
             "attend_to_padding": False,
             "task_attend_to_layer": False,
+            "embedding_dropout_rate": 0.0,
             "scale_context_embedding": False,
             "output_head_bias": True,
             "generation_strategy": "full",
@@ -128,6 +119,7 @@ def pretrain_config() -> Dict[str, Any]:
             "init_strategy": 0,
             "share_all_params": False,
             "share_layer_index": False,
+            "image_dropout": 0.0,
         },
         "base_net_kwargs": {
             "model_type": "cnn",
@@ -141,6 +133,7 @@ def pretrain_config() -> Dict[str, Any]:
                 "num_layers": 4,
                 "num_heads": 4,
                 "mlp_dim": 128,
+                "dropout_rate": 0.0,
                 "cnn_channels": (32, 96, 192, 384),
                 "use_language_token": False,
                 "use_differential_transformer": False,
@@ -193,11 +186,14 @@ def flagship_pretrain_config() -> Dict[str, Any]:
             "num_layers": 6,
             "mlp_dim": 512,
             "num_attention_heads": 4,
+            "dropout_rate": 0.0,
+            "attention_dropout_rate": 0.0,
             "add_position_embedding": False,
         },
         scale_context_embedding=True,
         generation_strategy="block",
         attend_to_padding=False,
+        embedding_dropout_rate=0.0,
         share_layer_index=True,
         shared_modules=("image_encoder",),
         use_initial_image=True,
@@ -210,6 +206,7 @@ def flagship_pretrain_config() -> Dict[str, Any]:
         hidden_dim=64,
         num_heads=4,
         mlp_dim=128,
+        dropout_rate=0.0,
         use_differential_transformer=False,
         add_positional_embedding=True,
         use_language_token=False,
@@ -241,6 +238,8 @@ def tiny_test_config(encoder_type: str = "DINOv2",
             "num_layers": 1,
             "mlp_dim": 32,
             "num_attention_heads": 2,
+            "dropout_rate": 0.0,
+            "attention_dropout_rate": 0.0,
             "add_position_embedding": False,
         },
         generation_strategy="block",

@@ -24,9 +24,15 @@ A history window over one frame (horizon > 1) is the JAX wrapper's: the
 host path keeps the last `horizon` frames and hands them to the base net,
 whose ViT reads one frame, so the first step (one frame in the history)
 runs and the second raises ValueError, in both packages; the fused step
-takes no history, and horizon > 1 takes the host path. Refused:
-attention-map capture (save_attention_map; ROADMAP.md A8, the rest of the
-train step, which needs the capture in the trunk).
+takes no history, and horizon > 1 takes the host path.
+
+save_attention_map=True leaves the fused step, as the JAX wrapper does,
+and runs the host path with the trunk's layer loop (trunk_impl "layers"
+for a bf16 trunk: the stacked trunk captures nothing); each step keeps
+`dino_attention_map` (trunk layers, heads, patches), every trunk layer's
+class-token row without itself, where the config captures the trunk's
+maps (sow_dino_attention), and `head_attention_map` (policy layers, heads,
+tokens - 1), every policy ViT layer's last row without itself.
 """
 import logging
 import time
@@ -90,10 +96,6 @@ class InferenceWrapper:
             raise ValueError(
                 f"exec_horizon={exec_horizon}: a step returns one action; "
                 "execute a chunk in the environment loop")
-        if save_attention_map:
-            raise NotImplementedError(
-                "save_attention_map=True: the port's trunk does not capture "
-                "attention maps (ROADMAP.md A8, the rest of the train step)")
         if policy_setup not in _DATASETS:
             raise ValueError(f"Unknown policy setup: {policy_setup}")
         self.model = model
@@ -106,12 +108,19 @@ class InferenceWrapper:
         self.crop = crop
         self.padded_resize = padded_resize
         self.save_attention_map = save_attention_map
-        # the JAX wrapper's rule (with the refusals above): the fused step
-        # has no padded resize and no image history, so those take the host
-        # path
+        # the JAX wrapper's rule (with the refusal above): the fused step
+        # has no padded resize, no image history and no attention capture,
+        # so those take the host path
         self.fused_serving = (fused_serving and horizon == 1
-                              and not padded_resize)
+                              and not padded_resize
+                              and not save_attention_map)
         self.trunk_impl = resolve_trunk_impl(model, trunk_impl)
+        if save_attention_map and self.trunk_impl is not None and (
+                not per_layer_trunk(self.trunk_impl)):
+            # the capture runs the trunk's layer loop
+            self.trunk_impl = "layers"
+        self.dino_attention_map = None
+        self.head_attention_map = None
         self.sticky_gripper_num_repeat = {
             "google_robot": 15, "widowx_bridge": 1}.get(policy_setup)
         dataset = _DATASETS[policy_setup]
@@ -233,11 +242,15 @@ class InferenceWrapper:
         images, _ = self._obtain_image_history_and_mask()
 
         start = time.perf_counter()
+        maps = {} if self.save_attention_map else None
         raw_actions = self.model.sample_actions(images[None],
                                                 self.base_params,
-                                                self.trunk_impl, self.task)
+                                                self.trunk_impl, self.task,
+                                                maps)
         raw_actions = raw_actions[0].cpu().numpy()
         seconds = time.perf_counter() - start
+        if maps is not None:
+            self._extract_attention_maps(maps)
 
         raw_actions = self._unnormalize(raw_actions)
         if raw_actions.shape != (self.pred_action_horizon, 7):
@@ -267,6 +280,17 @@ class InferenceWrapper:
         self.episode_step += 1
         return raw_action, action, image, (self.task_description,
                                            self.task), seconds
+
+    def _extract_attention_maps(self, maps: dict) -> None:
+        """The JAX wrapper's _extract_attention_maps over the maps of one
+        step (batch 1)."""
+        def rows(probs, row, cols):
+            return torch.stack([p[0, :, row, cols] for p in probs]
+                               ).float().cpu().numpy()
+
+        if maps.get("dino"):
+            self.dino_attention_map = rows(maps["dino"], 0, slice(1, None))
+        self.head_attention_map = rows(maps["policy"], -1, slice(None, -1))
 
     # --------------------------- postprocessing ---------------------------
 

@@ -2,9 +2,10 @@
 
 Params follow flax's MultiHeadDotProductAttention layout: query/key/value
 kernels (in, heads, head_dim) with biases (heads, head_dim), and an `out`
-kernel (heads, head_dim, out). The non-differential path only; the
-differential attention variant is not ported yet (ROADMAP.md A12,
-breadth).
+kernel (heads, head_dim, out). The attention weights take the JAX module's
+dropout (models/draws.py) at the module's own path. The non-differential
+path only; the differential attention variant is not ported yet
+(ROADMAP.md A12, breadth).
 """
 import math
 from typing import Dict, Optional, Tuple
@@ -12,6 +13,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from hypervla_tpu_torch.models import layers
+from hypervla_tpu_torch.models.draws import Draws, attention_dropout
 
 
 def dot_product_attention_weights(query, key, mask: Optional[torch.Tensor]):
@@ -25,10 +27,15 @@ def dot_product_attention_weights(query, key, mask: Optional[torch.Tensor]):
 
 
 def multi_head_attention(params: Dict[str, torch.Tensor], prefix: str,
-                         inputs_q, inputs_kv, mask, num_heads: int):
-    """Self or cross attention; `prefix` names the module's param subtree.
-    The params may carry a leading per-sample axis in the broadcast layout
-    of models/hypernetwork.py::per_sample_view."""
+                         inputs_q, inputs_kv, mask, num_heads: int,
+                         dropout_rate: float = 0.0,
+                         draws: Optional[Draws] = None,
+                         return_weights: bool = False):
+    """Self or cross attention; `prefix` names the module's param subtree
+    (and the site of the weights' dropout). The params may carry a leading
+    per-sample axis in the broadcast layout of
+    models/hypernetwork.py::per_sample_view. return_weights: (output, the
+    attention weights after their dropout)."""
     def proj(name, x):
         kernel = params[f"{prefix}/{name}/kernel"]  # ([B,] in, h, d)
         y = x @ kernel.flatten(-2)
@@ -37,11 +44,13 @@ def multi_head_attention(params: Dict[str, torch.Tensor], prefix: str,
 
     q, k, v = proj("query", inputs_q), proj("key", inputs_kv), \
         proj("value", inputs_kv)
-    weights = dot_product_attention_weights(q, k, mask)
+    weights = attention_dropout(dot_product_attention_weights(q, k, mask),
+                                dropout_rate, draws, prefix)
     x = torch.einsum("...hqk,...khd->...qhd", weights, v)
     out = params[f"{prefix}/out/kernel"]  # ([B,] h, d, out)
-    return layers.dense(x.reshape(*x.shape[:-2], -1), out.flatten(-3, -2),
-                        params[f"{prefix}/out/bias"])
+    out = layers.dense(x.reshape(*x.shape[:-2], -1), out.flatten(-3, -2),
+                       params[f"{prefix}/out/bias"])
+    return (out, weights) if return_weights else out
 
 
 def multi_head_attention_specs(prefix: str, features: int, num_heads: int

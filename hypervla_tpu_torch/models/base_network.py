@@ -66,23 +66,29 @@ class BaseNetwork:
             action_head_kwargs, action_horizon), input_shapes)
 
     def encode(self, params, images, trunk_impl: str = "kernel",
-               image_embeddings=None, instruction_embeddings=None):
-        """(B, H, W, C) uint8 -> readout tokens (B, window=1, n, emb)."""
+               image_embeddings=None, instruction_embeddings=None,
+               draws=None, maps=None):
+        """(B, H, W, C) uint8 -> readout tokens (B, window=1, n, emb);
+        draws and maps as models/base_vit.py::ViT.__call__ takes them."""
         return self.encoder(params, images, trunk_impl, image_embeddings,
-                            instruction_embeddings)[:, None]
+                            instruction_embeddings, draws, maps)[:, None]
 
     def loss(self, params: Dict[str, torch.Tensor], batch: dict,
-             image_embeddings=None, instruction_embeddings=None):
+             image_embeddings=None, instruction_embeddings=None,
+             draws=None, maps=None):
         """Per-sample loss (B,) and metrics of the policy on a training
         batch: the head's loss on the batch's actions and masks. The
         encoder reads the batch's frames, or on the DINOv2 path the batched
         trunk's patch embeddings (B, patches, dim); instruction_embeddings
-        (B, L, token_dim) feed its language tokens."""
+        (B, L, token_dim) feed its language tokens. draws: the training
+        forward's dropout; maps (a dict) receives the policy
+        transformer's attention maps (ViT.__call__)."""
         images = None
         if image_embeddings is None:
             images = _one_frame(batch["observation"]["image_primary"])
         tokens = self.encode(params, images, image_embeddings=image_embeddings,
-                             instruction_embeddings=instruction_embeddings)
+                             instruction_embeddings=instruction_embeddings,
+                             draws=draws, maps=maps)
         return self.action_head.loss(
             params, tokens, batch["action"],
             batch["observation"]["timestep_pad_mask"],
@@ -90,13 +96,15 @@ class BaseNetwork:
 
     def predict_action(self, params: Dict[str, torch.Tensor], images,
                        trunk_impl: str = "kernel",
-                       instruction_embeddings=None):
+                       instruction_embeddings=None, maps=None):
         """images (B, H, W, C) or (B, 1, H, W, C) uint8 -> action chunk
-        (B, horizon, action_dim)."""
+        (B, horizon, action_dim); maps (a dict) receives the attention
+        maps (ViT.__call__)."""
         images = _one_frame(images)
         return self.action_head.predict_action(
             params, self.encode(params, images, trunk_impl,
-                                instruction_embeddings=instruction_embeddings))
+                                instruction_embeddings=instruction_embeddings,
+                                maps=maps))
 
     def specs(self) -> Dict[str, Tuple[tuple, layers.Init]]:
         specs = self.encoder.specs()

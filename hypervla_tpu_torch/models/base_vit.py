@@ -19,18 +19,37 @@ encoder/image_embedding_projection, encoder/SmallStem_0,
 encoder/PatchEncoder_0, encoder/language_token_projection,
 encoder/pos_embedding, encoder/Transformer_0).
 
+In training (given a models/draws.py::Draws) the JAX ViT's dropout runs on
+the tokens after the position table ("encoder/Dropout_0") and in the
+transformer's attention outputs and MLPs (dropout_rate; its attention
+weights take none), and image_embedding_noise adds noise * N(0, 1) to the
+trunk's embeddings ("embedding_noise"), per sample after the batched
+trunk. The trunk switches: sow_dino_attention (default on) runs the trunk
+on the einsum attention, the fused attention, flash and fused residual
+boundaries off, as the JAX trunk does for output_attentions, and
+`image_embeddings` can then return its maps; remat_dino and
+dino_remat_policy checkpoint the trunk's layers (models/encoders/
+dinov2.py::remat_context); scan_dino_layers reads the trunk converted
+from the JAX package's stacked layout into per-layer keys
+(utils/convert.py) and runs the same layer loop with the routes the JAX
+scanned stack takes (no fused attention, no fused residual boundaries, no
+remat). return_attention_map surfaces the transformer's attention maps
+(`__call__`'s maps).
+
 The CLIP, EfficientNet and Siglip encoders and differential attention are
 not ported yet and raise (ROADMAP.md A12.2, other encoders and
 topologies), as do the trunk switches with no counterpart
-(`check_trunk_switches`) and attention-map capture (A8).
+(`check_trunk_switches`).
 """
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from hypervla_tpu_torch.configs import dinov2_config, refuse_dropout
+from hypervla_tpu_torch.configs import dinov2_config
 from hypervla_tpu_torch.models import layers
+from hypervla_tpu_torch.models.draws import Draws, dropout
 from hypervla_tpu_torch.models.encoders.dinov2 import (
+    REMAT_SAVED,
     dinov2_forward,
     dinov2_serving_forward,
     dinov2_specs,
@@ -75,11 +94,24 @@ def _check_resolution(images):
         raise ValueError(f"DINOv2 input must be {RESOLUTION}x{RESOLUTION}")
 
 
+def trunk_remat(vit_kwargs: dict):
+    """The trunk's layer remat: False, True (only layer inputs kept) or a
+    policy name of REMAT_SAVED, which overrides remat_dino as in the JAX
+    package; an unknown name raises KeyError, as the JAX policy dict does."""
+    policy = vit_kwargs.get("dino_remat_policy")
+    if policy is not None:
+        REMAT_SAVED[policy]  # noqa: B018 (raises KeyError on a bad name)
+        return policy
+    return bool(vit_kwargs.get("remat_dino", False))
+
+
 def check_trunk_switches(vit_kwargs: dict) -> None:
     """Raises NotImplementedError for a trunk switch of the JAX package
     (hypervla_tpu/models/base_vit.py) that the port has no counterpart for,
-    rather than run the plain trunk without a word, and ValueError for a
-    combination the JAX package refuses."""
+    rather than run the plain trunk without a word, and the JAX package's
+    exception for a combination it refuses: ValueError for the fused
+    residual boundaries under remat, AssertionError for the scanned trunk
+    with attention capture, KeyError for an unknown remat policy."""
     kw = vit_kwargs
     if kw.get("flash_attention_trainable", False):
         raise NotImplementedError(
@@ -94,27 +126,17 @@ def check_trunk_switches(vit_kwargs: dict) -> None:
             f"vit_kwargs dino_layers_impl={impl!r} is not ported (the XLA "
             "scan twins of the serving trunk are not carried: the port has "
             "one plain version, ROADMAP.md queue B's note)")
-    remat = kw.get("remat_dino", False) or kw.get("dino_remat_policy")
-    if (kw.get("dino_fused_add_ln", False) and remat
+    remat = trunk_remat(kw)
+    scan = kw.get("scan_dino_layers", False)
+    if (kw.get("dino_fused_add_ln", False) and remat and not scan
             and impl != "pallas_train"
             and not kw.get("sow_dino_attention", True)):
         raise ValueError("dino_fused_add_ln is incompatible with layer remat "
                          "(remat_dino, dino_remat_policy)")
-    for key in ("remat_dino", "dino_remat_policy"):
-        if kw.get(key):
-            raise NotImplementedError(
-                f"vit_kwargs {key}={kw[key]!r} is not ported: the trunk "
-                "keeps every layer's activations for the backward, and a "
-                "config that asks for rematerialisation would report "
-                "another peak memory than it set out to (ROADMAP.md A8, the "
-                "rest of the train step)")
-    if kw.get("scan_dino_layers", False):
-        raise NotImplementedError(
-            "vit_kwargs scan_dino_layers=True is not ported: it stacks the "
-            "trunk's params under encoder/layers/layer, a layout the port "
-            "does not read (unstack the tree with the JAX package's "
-            "unstack_layer_params and leave the switch off; ROADMAP.md A8, "
-            "the rest of the train step)")
+    if (kw.get("encoder_type") == "DINOv2" and scan
+            and kw.get("sow_dino_attention", True)):
+        raise AssertionError("scan_dino_layers cannot capture attention "
+                             "maps: set sow_dino_attention=False")
     # dino_dot_softmax is accepted and changes nothing: it only re-lays the
     # softmax sums out for the TPU's matrix unit, the same values up to rounding
 
@@ -141,14 +163,12 @@ class ViT:
                 raise NotImplementedError(
                     f"vit_kwargs {name}={kw.get(name)!r} is not ported yet "
                     "(ROADMAP.md A12.2, other encoders and topologies)")
-        if kw.get("return_attention_map", False):
-            raise NotImplementedError(
-                "vit_kwargs return_attention_map=True is not ported yet: the "
-                "port captures no attention maps (ROADMAP.md A8, the rest of "
-                "the train step)")
         check_trunk_switches(kw)
-        refuse_dropout("vit_kwargs", kw)
         self.prefix = ENCODER_PREFIX[self.encoder_type]
+        self.dropout_rate = kw.get("dropout_rate", 0.0) or 0.0
+        self.image_embedding_noise = float(kw.get("image_embedding_noise",
+                                                  0.0))
+        self.return_attention_map = kw.get("return_attention_map", False)
         self.hidden_dim = kw["hidden_dim"]
         self.num_layers = kw["num_layers"]
         self.num_heads = kw["num_heads"]
@@ -188,10 +208,16 @@ class ViT:
         # boundaries (ops/add_layer_norm.py) only when it does not capture
         # attention maps (sow_dino_attention defaults to on)
         capture = kw.get("sow_dino_attention", True)
+        self.capture = capture
+        # the JAX scanned stack builds its layers without the fused
+        # attention, the fused residual boundaries and remat
+        self.scan = kw.get("scan_dino_layers", False)
         self.fused_attention = (kw.get("dino_fused_attention", False)
-                                and not capture)
+                                and not capture and not self.scan)
         self.use_flash = kw.get("use_flash_attention", False) and not capture
-        self.fused_add_ln = kw.get("dino_fused_add_ln", False) and not capture
+        self.fused_add_ln = (kw.get("dino_fused_add_ln", False)
+                             and not capture and not self.scan)
+        self.remat = False if self.scan else trunk_remat(kw)
         # the trunk's layers as the differentiable layer kernel
         # (ops/dino_layer_train.py; it wins over fused_add_ln), and the
         # LayerNorm choice
@@ -234,7 +260,8 @@ class ViT:
         return emb if self.include_class_token else emb[:, 1:]
 
     def image_embeddings(self, params: Dict[str, torch.Tensor], images,
-                         trunk_impl: str = "kernel"):
+                         trunk_impl: str = "kernel",
+                         attentions: Optional[list] = None):
         """uint8 (B, 224, 224, 3) -> DINOv2 patch embeddings (fp32). A bf16
         trunk runs over params prepared by ops/serving.py: the stacked trunk
         (trunk_impl "kernel", or "reference" for its plain version), or,
@@ -242,31 +269,44 @@ class ViT:
         under the trunk switches of the config, as the JAX serving step does
         without its trunk kernel ("layers_reference": the same with the
         plain versions of the forward-only serving kernels). An fp32 trunk
-        always runs the layer loop."""
+        always runs the layer loop. attentions (a list; the layer loop,
+        with sow_dino_attention) receives each layer's attention
+        probabilities."""
         pixels = normalize_pixels(images)
         enc = subtree(params, "encoder/image_encoder/")
-        if self.bf16_trunk and trunk_impl in ("kernel", "reference"):
+        if attentions is not None and not self.capture:
+            raise ValueError("the trunk captures attention maps only with "
+                             "vit_kwargs sow_dino_attention")
+        if (self.bf16_trunk and trunk_impl in ("kernel", "reference")
+                and attentions is None):
             emb = dinov2_serving_forward(self.dino, enc, pixels, trunk_impl)
         else:
             dtype = torch.bfloat16 if self.bf16_trunk else torch.float32
             emb = dinov2_forward(self.dino, enc, pixels, dtype,
                                  plain=trunk_impl == "layers_reference",
+                                 attentions=attentions,
                                  **self._trunk_switches())
         return self._drop_class_token(emb)
 
     def train_image_embeddings(self, trunk_params: Dict[str, torch.Tensor],
-                               images):
+                               images, draws: Optional[Draws] = None):
         """uint8 (B, 224, 224, 3) -> patch embeddings (fp32) from the
         differentiable training trunk over per-layer params (keys under
         encoder/image_encoder/, prefix removed), in the encoder dtype, under
         the trunk switches of the config (the fused training attention, the
-        layer kernel, the LayerNorm choice, the fused residual
-        boundaries)."""
+        layer kernel, the LayerNorm choice, the fused residual boundaries,
+        layer remat). With draws (a training forward), image_embedding_noise
+        adds noise * N(0, 1) to each sample's embeddings."""
         _check_resolution(images)
         dtype = torch.bfloat16 if self.bf16_trunk else torch.float32
         emb = dinov2_forward(self.dino, trunk_params, normalize_pixels(images),
-                             dtype, **self._trunk_switches())
-        return self._drop_class_token(emb)
+                             dtype, remat=self.remat,
+                             **self._trunk_switches())
+        emb = self._drop_class_token(emb)
+        if draws is not None and self.image_embedding_noise > 0:
+            emb = emb + self.image_embedding_noise * draws.normal(
+                "embedding_noise", emb.shape, emb.device)
+        return emb
 
     def _patches(self, params, images, trunk_impl, image_embeddings):
         """(B, n_patch, hidden_dim) patch tokens."""
@@ -284,14 +324,27 @@ class ViT:
 
     def __call__(self, params: Dict[str, torch.Tensor], images=None,
                  trunk_impl: str = "kernel", image_embeddings=None,
-                 instruction_embeddings=None):
+                 instruction_embeddings=None, draws: Optional[Draws] = None,
+                 maps: Optional[dict] = None):
         """Readout embeddings (B, action_token_num, hidden_dim) from uint8
         images (B, H, W, 3), or, on the DINOv2 path, from patch embeddings
         computed outside (the training step's batched trunk).
         instruction_embeddings (B, L, token_dim) feed the language tokens.
         params may carry a leading per-sample axis
-        (models/hypernetwork.py::per_sample_view)."""
-        patches = self._patches(params, images, trunk_impl, image_embeddings)
+        (models/hypernetwork.py::per_sample_view). draws: the training
+        forward's dropout. maps (a dict) receives "policy", every
+        transformer block's attention probabilities (B, heads, L, L), and,
+        where the trunk runs here and captures, "dino", its layers'."""
+        if (maps is not None and self.stem is None and self.capture
+                and image_embeddings is None):
+            _check_resolution(images)
+            maps["dino"] = []
+            emb = self.image_embeddings(params, images, trunk_impl,
+                                        maps["dino"])
+            patches = self._patches(params, images, trunk_impl, emb)
+        else:
+            patches = self._patches(params, images, trunk_impl,
+                                    image_embeddings)
         batch = patches.shape[0]
         n_lang = 0
         if self.use_language_token:
@@ -314,11 +367,16 @@ class ViT:
             # get zeros, which leave them as they are
             x = torch.cat([patches, pos.expand(
                 batch, self.action_token_num, self.hidden_dim)], dim=1)
+        x = dropout(x, self.dropout_rate, draws, "encoder/Dropout_0")
         mask = segment_attention_mask(batch, n_lang,
                                       patches.shape[1] - n_lang,
                                       self.action_token_num, x.device)
+        if maps is not None:
+            maps["policy"] = []
         x = transformer(params, "encoder/Transformer_0", x, mask,
-                        self.num_layers, self.num_heads)
+                        self.num_layers, self.num_heads, self.dropout_rate,
+                        0.0, draws=draws,
+                        maps=None if maps is None else maps["policy"])
         return x[:, -self.action_token_num:]
 
     def specs(self) -> Dict[str, Tuple[tuple, layers.Init]]:

@@ -1,0 +1,106 @@
+"""The random draws of a training forward: dropout keep masks and the
+trunk's embedding noise, each drawn at a named site.
+
+A `Draws` either generates each draw from one torch.Generator, in the order
+the forward asks for them, or replays the draws it was given by site (the
+CPU tests feed the JAX package's draws in this way). The train step makes
+its generator from the state's (seed, step) (`draws_generator`), so a run
+repeats bit for bit, a resumed run draws what the uninterrupted one would
+have, and every micro-step of gradient accumulation draws its own. No
+module calls the global RNG, and a forward given no Draws (serving,
+create_tasks, validation: flax's deterministic=not train) draws nothing.
+
+Sites are named by the module path of the JAX package's draw where that
+path is fixed: "context_encoder/encoderblock_0/MlpBlock_0/Dropout_1",
+"context_encoder/encoderblock_0/MultiHeadAttention_0" (the attention
+weights), "encoder/Dropout_0" (the policy ViT's tokens),
+"encoder/Transformer_0/encoderblock_0/Dropout_0"; and by the config key
+where flax numbers the module by what else the config builds:
+"image_dropout", "embedding_dropout", "final_dropout/<group>" (one per
+context-token group, in group order) and "embedding_noise".
+"""
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+#: the stream of `draws_generator`, apart from the device augmentation's
+#: (train/train_step.py::augment_generator)
+STREAM = 2
+
+
+def draws_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of a training step's draws: one stream for each
+    (seed, step)."""
+    words = np.random.SeedSequence([int(seed), int(step), STREAM]
+                                   ).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    return gen.manual_seed((int(words[0]) << 32 | int(words[1])) >> 1)
+
+
+class Draws:
+    """Draws by site, generated from `generator` or replayed from
+    `replay` ({site: array}, a site missing there raises KeyError). With
+    record, every draw is kept in `drawn` ({site: tensor})."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 replay: Optional[Dict[str, object]] = None,
+                 record: bool = False):
+        if (generator is None) == (replay is None):
+            raise ValueError("give Draws a generator or the draws to replay")
+        self.generator = generator
+        self.replay = replay
+        self.record = record
+        self.drawn: Dict[str, torch.Tensor] = {}
+
+    def _take(self, site: str, shape, device, draw):
+        if self.replay is not None:
+            if site not in self.replay:
+                raise KeyError(f"no draw to replay at {site}")
+            value = torch.as_tensor(np.array(self.replay[site]),
+                                    device=device)
+            if tuple(value.shape) != tuple(shape):
+                raise ValueError(f"{site}: replayed draw of shape "
+                                 f"{tuple(value.shape)}, the forward's "
+                                 f"{tuple(shape)}")
+        else:
+            value = draw()
+        if self.record:
+            if site in self.drawn:
+                raise ValueError(f"{site} drawn twice in one forward")
+            self.drawn[site] = value
+        return value
+
+    def keep_mask(self, site: str, shape, keep: float, device):
+        """A bool mask, each element True with probability `keep` (the
+        draw of jax.random.bernoulli)."""
+        return self._take(site, shape, device, lambda: torch.rand(
+            shape, generator=self.generator, device=device) < keep).bool()
+
+    def normal(self, site: str, shape, device):
+        """Standard-normal fp32 draws."""
+        return self._take(site, shape, device, lambda: torch.randn(
+            shape, generator=self.generator, device=device)).float()
+
+
+def dropout(x, rate: float, draws: Optional[Draws], site: str):
+    """flax's nn.Dropout: the identity without draws or at rate 0, else
+    x / (1 - rate) where the keep mask (shaped like x) holds and 0 where it
+    does not."""
+    if draws is None or not rate:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = draws.keep_mask(site, x.shape, keep, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def attention_dropout(weights, rate: float, draws: Optional[Draws],
+                      site: str):
+    """The attention-weight dropout of hypervla_tpu/models/attention.py:
+    weights * keep / (1 - rate)."""
+    if draws is None or not rate:
+        return weights
+    mask = draws.keep_mask(site, weights.shape, 1.0 - rate, weights.device)
+    return weights * mask / (1.0 - rate)

@@ -20,16 +20,22 @@ Two layer paths, as in the JAX package:
     ops/flash_attention.py; `fused_add_ln` runs every residual boundary
     (LayerScale multiply, add, the next LayerNorm) through
     ops/add_layer_norm.py; with HYPERVLA_FUSED_GELU=1 in the environment a
-    large bf16 GELU goes through ops/gelu.py;
+    large bf16 GELU goes through ops/gelu.py. `attentions` returns every
+    layer's attention probabilities (the JAX trunk's output_attentions,
+    on the einsum route only); `remat` recomputes each layer's activations
+    in the backward (torch.utils.checkpoint, as the JAX package's nn.remat
+    with its `_remat_policy`);
   * `dinov2_serving_forward` runs the bf16 embeddings, the stacked serving
     trunk (ops/dino_layer.py: the CUDA kernels on the card) and the final
     LayerNorm, over params prepared by ops/serving.py.
 """
+import functools
 import math
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from hypervla_tpu_torch.configs import DINOv2Config
 from hypervla_tpu_torch.models import layers
@@ -204,8 +210,40 @@ def layer_norm_fn(fused_ln, plain: bool = False):
     raise ValueError(f"unknown fused_layer_norm {fused_ln!r}")
 
 
+#: the aten matrix products each dino_remat_policy saves (the JAX
+#: checkpoint_dots / checkpoint_dots_with_no_batch_dims / nothing_saveable)
+REMAT_SAVED = {
+    "dots": ("mm", "addmm", "bmm"),
+    "dots_no_batch": ("mm", "addmm"),
+    "nothing": (),
+}
+
+
+def remat_context(policy: Optional[str]):
+    """The context_fn of torch.utils.checkpoint for a named policy: the
+    saved matrix products kept, the rest recomputed in the backward (None:
+    plain checkpoint, only the layer input saved). An unknown name raises
+    KeyError, as the JAX dict does."""
+    names = REMAT_SAVED[policy] if policy is not None else ()
+    if not names:
+        return torch.utils.checkpoint.noop_context_fn
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    aten = torch.ops.aten
+    saved = {getattr(aten, name).default for name in names}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
 def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm,
-           flash=None, fused_add_ln=False, pending=None):
+           flash=None, fused_add_ln=False, pending=None, capture=False):
     """One layer as flax's `_Layer` runs it in `dtype`: Dense layers as
     native-`dtype` matmuls with the cast bias added after, LayerNorm with
     fp32 statistics and one rounding, LayerScale cast to `dtype` before the
@@ -216,7 +254,11 @@ def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm,
     residual boundaries go through ops/add_layer_norm.py, it takes the
     previous layer's un-added residual as `pending` (delta, ls), or None in
     the first layer, and returns (x, (delta, ls)) with its own last residual
-    un-added, for the next layer's norm1 (or the caller) to add."""
+    un-added, for the next layer's norm1 (or the caller) to add.
+
+    capture returns (x, the attention probabilities (B, heads, S, S) in
+    `dtype`), on the einsum route (the caller turns the fused routes off,
+    as the JAX trunk does for output_attentions)."""
     c = config
     heads = c.num_attention_heads
     head_dim = c.hidden_size // heads
@@ -254,6 +296,8 @@ def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm,
         q = q.reshape(shape) / torch.tensor(math.sqrt(head_dim), dtype=dtype)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k.reshape(shape))
         probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+        if capture:
+            captured.append(probs)
         a = torch.einsum("bhqk,bkhd->bqhd", probs, v.reshape(shape))
         return a.reshape(n.shape)
 
@@ -263,6 +307,7 @@ def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm,
              else GeluExact.apply(h))
         return lin("mlp/fc2", h)
 
+    captured = []
     if fused_add_ln:
         if pending is None:
             n = ln("norm1", x)
@@ -274,14 +319,16 @@ def _layer(config, params, prefix, x, dtype, fused_attention, layer_norm,
     a = attention(ln("norm1", x))
     x = ls_vector("layer_scale1").to(dtype) * lin("attention/output/dense",
                                                   a) + x
-    return ls_vector("layer_scale2").to(dtype) * mlp(ln("norm2", x)) + x
+    x = ls_vector("layer_scale2").to(dtype) * mlp(ln("norm2", x)) + x
+    return (x, captured[0]) if capture else x
 
 
 def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
                    pixel_values, dtype: torch.dtype = torch.float32,
                    fused_attention: bool = False, layer_kernel: bool = False,
                    fused_ln=False, use_flash: bool = False,
-                   fused_add_ln: bool = False, plain: bool = False):
+                   fused_add_ln: bool = False, plain: bool = False,
+                   remat=False, attentions: Optional[list] = None):
     """DINOv2 -> last_hidden_state (B, 1 + patches, hidden), fp32.
 
     dtype is the compute dtype (the params stay fp32). fused_attention runs
@@ -300,7 +347,15 @@ def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
     here, plainly, with the per-op roundings of LayerScale and add. plain
     puts the plain versions of the two forward-only serving kernels (flash
     attention, the one-pass LayerNorm) in their place whatever the device,
-    for a caller that holds the kernels against them."""
+    for a caller that holds the kernels against them.
+
+    remat (True, or a name of REMAT_SAVED) checkpoints each layer of the
+    layer loop: True and "nothing" keep only the layer inputs, "dots" and
+    "dots_no_batch" the matrix products of `remat_context`; the layer
+    kernel (which keeps its own) and the delayed-residual form (which the
+    JAX package refuses under remat) take no remat. attentions, a list,
+    receives each layer's attention probabilities (B, heads, S, S) in the
+    compute dtype; the layers then run the einsum attention."""
     layer_norm = layer_norm_fn(fused_ln, plain)
     flash = None
     if use_flash:
@@ -322,13 +377,27 @@ def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
                 x, *dino_layer_train.layer_operands(
                     params, prefix, config.layerscale_value),
                 config.num_attention_heads, config.layer_norm_eps)
-        elif fused_add_ln:
+        elif fused_add_ln and attentions is None:
             x, pending = _layer(config, params, prefix, x, dtype,
                                 fused_attention, layer_norm, flash, True,
                                 pending)
         else:
-            x = _layer(config, params, prefix, x, dtype, fused_attention,
-                       layer_norm, flash)
+            capture = attentions is not None
+            run = functools.partial(
+                _layer, config, params, prefix, dtype=dtype,
+                fused_attention=fused_attention and not capture,
+                layer_norm=layer_norm, flash=None if capture else flash,
+                capture=capture)
+            if remat:
+                context_fn = remat_context(
+                    None if remat is True else remat)
+                x = torch.utils.checkpoint.checkpoint(
+                    run, x, use_reentrant=False, context_fn=context_fn)
+            else:
+                x = run(x)
+            if capture:
+                x, probs = x
+                attentions.append(probs)
     if pending is not None:
         delta, ls = pending
         x = (x + ls.to(x.dtype) * delta).to(x.dtype)

@@ -1,21 +1,37 @@
 """HyperNetwork: task -> base-network weights (counterpart of
 hypervla_tpu/models/hypernetwork.py).
 
-The context encoder runs over [task tokens | initial-image CLS token |
-layer tokens] under the JAX package's attention mask; the layer-token
-outputs, optionally scaled by 1/sqrt(context_dim), feed the fan-out. Two
-generation strategies:
+The context encoder runs over [task tokens | initial-image token(s) |
+goal-image tokens | layer tokens] under the JAX package's attention mask;
+the layer-token outputs, optionally scaled by 1/sqrt(context_dim), feed the
+fan-out. Two generation strategies:
 
   * "block": one layer token per context-token group of the plan; every
-    generated block keeps its own output head (kernel, bias); the heads
-    sharing a context token are concatenated into one
-    [context_dim, sum(dims)] matrix and applied as one matmul per group;
+    generated block keeps its own output head (kernel, bias), or with
+    share_TF_output_head the policy ViT's layers share encoderblock_0's
+    (models/weight_plan.py::WeightPlan.head_name); the heads sharing a
+    context token are concatenated into one [context_dim, sum(dims)]
+    matrix and applied as one matmul per group;
   * "full": one layer token and one output head (`output_head`) over the
     flat vector of every base-net param, shared blocks included, walked in
     the plan's block order (the JAX package's block_entries order).
 
-Shared blocks (the DINOv2 trunk) are flat params copied into the base-net
-tree unchanged.
+output_head_bias=False drops the output heads' biases. Shared blocks (the
+DINOv2 trunk) are flat params copied into the base-net tree unchanged.
+
+Goal images (include_goal_image): the task's image_primary through a
+SmallStem16 whose GroupNorms have no scale or bias
+(models/vit_encoders.py::SmallStem), projected to the context width
+(goal_image_token_projection) with a learned position table, attended
+where the task's pad_mask_dict image_primary holds.
+
+In training (given a models/draws.py::Draws) the JAX module's dropout
+runs: image_dropout on the initial image's patch embeddings, the context
+encoder's dropout_rate (after its position table, in every block's
+attention output and MLP) and attention_dropout_rate (on its attention
+weights), embedding_dropout_rate on the context embedding, and in "block"
+generation final_dropout_rate on each group's packed params. Absent
+context-encoder rates are the JAX Transformer's defaults (0.1).
 
 In training the hypernetwork runs over the whole batch; `per_sample_view`
 lays each sample's generated blocks out so that the base net's ops
@@ -23,7 +39,8 @@ broadcast over the sample axis (the JAX package vmaps a per-sample loss).
 
 Param names follow the JAX package: task_token_projection,
 task_pos_embedding, initial_image_projection, initial_image_pos_embedding,
-layer_pos_embedding, context_encoder/..., output_head_<block>/{kernel,bias}
+SmallStem16_0/..., goal_image_token_projection, goal_image_pos_embedding,
+layer_pos_embedding, context_encoder/..., output_head_<head>/{kernel,bias}
 and <block> for each shared block (block = its path joined by "_"); under
 "full" one output_head/{kernel,bias}.
 """
@@ -32,12 +49,20 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from hypervla_tpu_torch.configs import refuse_dropout
 from hypervla_tpu_torch.models import layers
+from hypervla_tpu_torch.models.draws import Draws, dropout
 from hypervla_tpu_torch.models.transformer import transformer, transformer_specs
-from hypervla_tpu_torch.models.weight_plan import WeightPlan
+from hypervla_tpu_torch.models.vit_encoders import SmallStem
+from hypervla_tpu_torch.models.weight_plan import VARIANCE_INIT, WeightPlan
 
 Params = Dict[str, torch.Tensor]
+
+#: the JAX Transformer's dropout rates where the config leaves them out
+CONTEXT_ENCODER_DROPOUT = 0.1
+#: the goal-image stem (hypervla_tpu/models/vit_encoders.py::SmallStem16
+#: with learnable_norm=False) and its param prefix
+GOAL_STEM = SmallStem(patch_size=16, learnable_norm=False)
+GOAL_PREFIX = "SmallStem16_0"
 
 
 class HyperNetwork:
@@ -47,27 +72,18 @@ class HyperNetwork:
         if self.strategy not in ("block", "full"):
             raise ValueError(
                 f"unknown generation_strategy {self.strategy}")
-        unsupported = {
-            "include_goal_image": hk.get("include_goal_image", False),
-            "output_head_bias": not hk.get("output_head_bias", True),
-            "context_encoder_kwargs.add_position_embedding":
-                hk["context_encoder_kwargs"].get("add_position_embedding",
-                                                 False),
-        }
-        for name, bad in unsupported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"hypernet_kwargs {name} is not ported yet (ROADMAP.md "
-                    "A8, the rest of the train step)")
-        refuse_dropout("hypernet_kwargs", hk)
-        refuse_dropout("hypernet_kwargs context_encoder_kwargs",
-                       hk["context_encoder_kwargs"])
         self.plan = plan
         self.hk = hk
         self.context_dim = hk["context_embedding_dim"]
         self.layer_token_num = (plan.block_num if self.strategy == "block"
                                 else 1)
         self.use_initial_image = hk.get("use_initial_image", False)
+        self.include_goal_image = hk.get("include_goal_image", False)
+        self.output_head_bias = hk.get("output_head_bias", True)
+        ce = hk["context_encoder_kwargs"]
+        self.ce_dropout = ce.get("dropout_rate", CONTEXT_ENCODER_DROPOUT)
+        self.ce_attention_dropout = ce.get("attention_dropout_rate",
+                                           CONTEXT_ENCODER_DROPOUT)
         groups: Dict[int, list] = {}
         for name in plan.names:
             if plan.generation_flag[name] and self.strategy == "block":
@@ -75,10 +91,13 @@ class HyperNetwork:
         self.packed_groups = tuple(sorted(groups.items()))
 
     def specs(self, instr_len: int, token_dim: int, image_tokens: int,
-              patch_dim: int) -> Dict[str, Tuple[tuple, layers.Init]]:
-        """Param shapes and initializers (output-head kernels start at zero;
-        biases and shared blocks are overwritten by the bias-init protocol
-        in HyperVLA.from_config)."""
+              patch_dim: int, goal_shape: Optional[tuple] = None
+              ) -> Dict[str, Tuple[tuple, layers.Init]]:
+        """Param shapes and initializers (output-head kernels start at zero,
+        or with VARIANCE_INIT from their head's variance; biases and shared
+        blocks are overwritten by the bias-init protocol in
+        HyperVLA.from_config). goal_shape: the (H, W) of the task's goal
+        images, with include_goal_image."""
         c = self.context_dim
         ce = self.hk["context_encoder_kwargs"]
         specs = {
@@ -89,6 +108,7 @@ class HyperNetwork:
             "layer_pos_embedding": ((1, self.layer_token_num, c),
                                     layers.normal(0.02)),
         }
+        ctx_len = instr_len + self.layer_token_num
         if self.use_initial_image:
             specs.update({
                 "initial_image_projection/kernel": ((patch_dim, c),
@@ -97,29 +117,63 @@ class HyperNetwork:
                 "initial_image_pos_embedding": ((1, image_tokens, c),
                                                 layers.normal(0.02)),
             })
+            ctx_len += image_tokens
+        if self.include_goal_image:
+            if goal_shape is None:
+                raise ValueError("include_goal_image: the example batch's "
+                                 "task needs its image_primary")
+            n_goal = GOAL_STEM.num_tokens(*goal_shape)
+            specs.update(GOAL_STEM.specs(GOAL_PREFIX))
+            specs.update({
+                "goal_image_token_projection/kernel": (
+                    (GOAL_STEM.num_features, c), layers.lecun_normal),
+                "goal_image_token_projection/bias": ((c,), layers.zeros),
+                "goal_image_pos_embedding": ((1, n_goal, c),
+                                             layers.normal(0.02)),
+            })
+            ctx_len += n_goal
         specs.update(transformer_specs(
             "context_encoder", c, ce["num_layers"], ce["mlp_dim"],
-            ce["num_attention_heads"]))
+            ce["num_attention_heads"],
+            ctx_len if ce.get("add_position_embedding", False) else 0))
+        plan = self.plan
         if self.strategy == "full":
-            total = self.plan.total_param_num
-            specs["output_head/kernel"] = ((c, total), layers.zeros)
-            specs["output_head/bias"] = ((total,), layers.zeros)
-        for name in self.plan.names:
-            flat = WeightPlan.flat_name(name)
-            dim = self.plan.output_head_info[flat]["output_dim"]
-            if self.strategy == "full" and self.plan.generation_flag[name]:
-                continue
-            if self.plan.generation_flag[name]:
-                specs[f"output_head_{flat}/kernel"] = ((c, dim), layers.zeros)
-                specs[f"output_head_{flat}/bias"] = ((dim,), layers.zeros)
+            specs["output_head/kernel"] = ((c, plan.total_param_num),
+                                           layers.zeros)
+            if self.output_head_bias:
+                specs["output_head/bias"] = ((plan.total_param_num,),
+                                             layers.zeros)
+        for name in plan.names:
+            if plan.generation_flag[name]:
+                if self.strategy == "full":
+                    continue
+                head = plan.head_name(name)
+                info = plan.output_head_info[head]
+                init = layers.zeros
+                if (info["init_strategy"] == VARIANCE_INIT
+                        and info["init_variance"] > 0):
+                    init = layers.truncated_normal(
+                        float(info["init_variance"]) ** 0.5)
+                specs[f"output_head_{head}/kernel"] = (
+                    (c, info["output_dim"]), init)
+                if self.output_head_bias:
+                    specs[f"output_head_{head}/bias"] = (
+                        (info["output_dim"],), layers.zeros)
             else:
-                specs[flat] = ((dim,), layers.truncated_normal(0.02))
+                specs[WeightPlan.flat_name(name)] = (
+                    (plan.dim(name),), layers.truncated_normal(0.02))
         return specs
 
     def context_embedding(self, params: Params, token_embedding,
                           token_mask, pad_mask,
-                          initial_patch_embeddings: Optional[torch.Tensor]):
-        """(B, layer_token_num, context_dim) layer-token embeddings."""
+                          initial_patch_embeddings: Optional[torch.Tensor],
+                          goal_images: Optional[torch.Tensor] = None,
+                          goal_pad_mask: Optional[torch.Tensor] = None,
+                          draws: Optional[Draws] = None):
+        """(B, layer_token_num, context_dim) layer-token embeddings.
+        goal_images (B, H, W, 3) uint8 and goal_pad_mask (B,) are the
+        task's image_primary and its pad mask, with include_goal_image.
+        draws: the training forward's dropout (None: no dropout)."""
         hk = self.hk
         batch, instr_len = token_embedding.shape[:2]
         dev = token_embedding.device
@@ -130,7 +184,9 @@ class HyperNetwork:
         parts = [tokens]
         n_image = 0
         if self.use_initial_image:
-            image = initial_patch_embeddings
+            image = dropout(initial_patch_embeddings,
+                            hk.get("image_dropout", 0.0), draws,
+                            "image_dropout")
             if not hk.get("use_all_image_tokens", False):
                 image = image[:, :1]
             image = layers.dense(image,
@@ -138,6 +194,17 @@ class HyperNetwork:
                                  params["initial_image_projection/bias"])
             parts.append(image + params["initial_image_pos_embedding"])
             n_image = image.shape[1]
+        n_goal = 0
+        if self.include_goal_image:
+            if goal_images is None or goal_pad_mask is None:
+                raise ValueError("include_goal_image: pass the task's "
+                                 "image_primary and its pad mask")
+            goal = GOAL_STEM(params, GOAL_PREFIX, goal_images)
+            goal = layers.dense(goal,
+                                params["goal_image_token_projection/kernel"],
+                                params["goal_image_token_projection/bias"])
+            parts.append(goal + params["goal_image_pos_embedding"])
+            n_goal = goal.shape[1]
         n_layer = self.layer_token_num
         parts.append(tokens.new_zeros(batch, n_layer, self.context_dim)
                      + params["layer_pos_embedding"])
@@ -158,6 +225,9 @@ class HyperNetwork:
         if n_image:
             masks.append(torch.ones((batch, 1, ctx_len, n_image),
                                     dtype=torch.bool, device=dev))
+        if n_goal:
+            masks.append(goal_pad_mask.bool()[:, None, None, None].expand(
+                batch, 1, ctx_len, n_goal))
         # "full": one layer token whatever the block count, attended freely
         token_mask = ((True,) if self.strategy == "full"
                       else self.plan.layer_token_mask)
@@ -169,40 +239,64 @@ class HyperNetwork:
         ce = hk["context_encoder_kwargs"]
         out = transformer(params, "context_encoder", context,
                           torch.cat(masks, dim=-1), ce["num_layers"],
-                          ce["num_attention_heads"])
+                          ce["num_attention_heads"], self.ce_dropout,
+                          self.ce_attention_dropout,
+                          ce.get("add_position_embedding", False), draws)
         emb = out[:, -n_layer:]
         if hk.get("scale_context_embedding", False):
             emb = emb / math.sqrt(self.context_dim)
-        return emb
+        return dropout(emb, hk.get("embedding_dropout_rate", 0.0), draws,
+                       "embedding_dropout")
 
-    def generate(self, params: Params, context_embedding) -> Params:
+    def task_context(self, params: Params, task: dict, token_embedding,
+                     initial_patch_embeddings=None,
+                     draws: Optional[Draws] = None):
+        """context_embedding of a batch's task dict (language_instruction
+        attention_mask, pad_mask_dict, and with include_goal_image the goal
+        frames image_primary) with the instruction's token_embedding."""
+        goal = goal_mask = None
+        if self.include_goal_image:
+            goal = task["image_primary"]
+            goal_mask = task["pad_mask_dict"]["image_primary"]
+        return self.context_embedding(
+            params, token_embedding.float(),
+            task["language_instruction"]["attention_mask"],
+            task["pad_mask_dict"]["language_instruction"],
+            None if initial_patch_embeddings is None
+            else initial_patch_embeddings.float(), goal, goal_mask, draws)
+
+    def generate(self, params: Params, context_embedding,
+                 draws: Optional[Draws] = None) -> Params:
         """Base-net params: generated blocks (B, *shape), shared blocks
-        (*shape) without the batch dim."""
+        (*shape) without the batch dim. draws: the training forward's
+        final dropout ("block" only, as in the JAX package)."""
         plan = self.plan
         batch = context_embedding.shape[0]
         out = {}
         if self.strategy == "full":
             flat = layers.dense(context_embedding[:, 0],
                                 params["output_head/kernel"],
-                                params["output_head/bias"])
+                                params.get("output_head/bias"))
             offset = 0
             for name in plan.names:
-                dim = plan.output_head_info[WeightPlan.flat_name(name)][
-                    "output_dim"]
+                dim = plan.dim(name)
                 if plan.generation_flag[name]:
                     out[name] = flat[:, offset:offset + dim].reshape(
                         batch, *plan.param_shape[name])
                 offset += dim
-        for token, names in self.packed_groups:
-            flats = [WeightPlan.flat_name(n) for n in names]
-            kernel = torch.cat([params[f"output_head_{f}/kernel"]
-                                for f in flats], dim=1)
-            bias = torch.cat([params[f"output_head_{f}/bias"]
-                              for f in flats])
-            packed = context_embedding[:, token] @ kernel + bias
+        final_rate = self.hk.get("final_dropout_rate")
+        for i, (token, names) in enumerate(self.packed_groups):
+            heads = [plan.head_name(n) for n in names]
+            kernel = torch.cat([params[f"output_head_{h}/kernel"]
+                                for h in heads], dim=1)
+            packed = context_embedding[:, token] @ kernel
+            if self.output_head_bias:
+                packed = packed + torch.cat(
+                    [params[f"output_head_{h}/bias"] for h in heads])
+            packed = dropout(packed, final_rate, draws, f"final_dropout/{i}")
             offset = 0
-            for name, flat in zip(names, flats):
-                dim = plan.output_head_info[flat]["output_dim"]
+            for name in names:
+                dim = plan.dim(name)
                 out[name] = packed[:, offset:offset + dim].reshape(
                     batch, *plan.param_shape[name])
                 offset += dim

@@ -31,6 +31,7 @@ import torch
 from hypervla_tpu_torch.models.base_network import BaseNetwork
 from hypervla_tpu_torch.models.hypernetwork import HyperNetwork
 from hypervla_tpu_torch.models.weight_plan import (
+    VARIANCE_INIT,
     WeightPlan,
     build_weight_plan,
     init_base_net,
@@ -88,10 +89,12 @@ def _param_specs(hypernet: HyperNetwork, config: dict, example_batch: dict):
         "patch_embeddings")
     image_tokens = (patches.shape[1] if config["hypernet_kwargs"].get(
         "use_all_image_tokens", False) else 1)
+    goal = example_batch["task"].get("image_primary")
     return hypernet.specs(
         instr_len=tokens.shape[1], token_dim=tokens.shape[-1],
         image_tokens=image_tokens,
         patch_dim=patches.shape[-1] if patches is not None else 0,
+        goal_shape=None if goal is None else tuple(goal.shape[-3:-1]),
     )
 
 
@@ -150,8 +153,9 @@ class HyperVLA:
         """example_batch gives the shapes the params depend on: the
         instruction's token embedding (B, L, token_dim), the frames
         (observation image_primary, B, window, H, W, 3; 224 x 224 where it
-        has none) and, with initial-image conditioning, the initial image's
-        patch embeddings (B, T, dim)."""
+        has none), with initial-image conditioning the initial image's
+        patch embeddings (B, T, dim) and with goal images the task's
+        image_primary (B, H, W, 3)."""
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         example_batch = _map_tree(lambda x: np.asarray(x)[:1], example_batch)
@@ -161,19 +165,37 @@ class HyperVLA:
         specs = _param_specs(hypernet, config, example_batch)
         params = {n: init(shape, gen).float()
                   for n, (shape, init) in specs.items()}
-        # bias-init protocol (hypervla_tpu/models/hypervla.py:211-231): the
+
+        def flat_init(init):
+            return torch.cat([init[n].reshape(-1) for n in plan.names])
+
+        # bias-init protocol (hypervla_tpu/models/hypervla.py:204-233): the
         # output heads' biases hold the fresh base net ("full": one flat
-        # vector of every block), the shared blocks their own init
+        # vector of every block; without output-head biases, each row of
+        # the kernel a fresh base net of its own), the shared blocks their
+        # own init; a VARIANCE_INIT head keeps its zero bias, and shared
+        # TF heads take encoderblock_0's
         if hypernet.strategy == "full":
-            params["output_head/bias"] = torch.cat(
-                [init_params[n].reshape(-1) for n in plan.names])
+            if hypernet.output_head_bias:
+                params["output_head/bias"] = flat_init(init_params)
+            else:
+                params["output_head/kernel"] = torch.stack(
+                    [flat_init(init_base_net(config, gen, example_batch)[1])
+                     for _ in range(hypernet.context_dim)])
         for name in plan.names:
-            flat = WeightPlan.flat_name(name)
             value = init_params[name].reshape(-1)
             if not plan.generation_flag[name]:
-                params[flat] = value
-            elif hypernet.strategy == "block":
-                params[f"output_head_{flat}/bias"] = value
+                params[WeightPlan.flat_name(name)] = value
+                continue
+            head = plan.head_name(name)
+            if (hypernet.strategy != "block" or not hypernet.output_head_bias
+                    or plan.output_head_info[head]["init_strategy"]
+                    == VARIANCE_INIT):
+                continue
+            if (plan.share_tf_output_head and "encoderblock_" in name
+                    and "encoderblock_0" not in name):
+                continue  # only layer 0 seeds the shared head
+            params[f"output_head_{head}/bias"] = value
         params = {k: v.to(device) for k, v in params.items()}
         return cls(hypernet, base_net, config, params, plan,
                    dataset_statistics, device, example_batch)
@@ -252,9 +274,12 @@ class HyperVLA:
 
         instruction_dict["language_instruction"] holds `token_embedding`
         (1, L, token_dim) and `attention_mask` (1, L); initial_state holds
-        `patch_embeddings` (1, T, dim) under initial-image conditioning.
-        Returns (base_params, tasks): the per-task base params (no batch
-        dim) and the task dict the hypernetwork read."""
+        `patch_embeddings` (1, T, dim) under initial-image conditioning. A
+        model with include_goal_image reads the example batch's goal frame
+        shape, zeros, padded out, as the JAX create_tasks fills every task
+        key but the instruction. Returns (base_params, tasks): the per-task
+        base params (no batch dim) and the task dict the hypernetwork
+        read."""
         instr = instruction_dict["language_instruction"]
         dev = self.device
         tokens = _as_tensor(instr["token_embedding"], dev).float()
@@ -268,15 +293,23 @@ class HyperVLA:
                 raise ValueError("this model conditions on the initial image")
             patches = _as_tensor(initial_state["patch_embeddings"],
                                  dev).float()
-        ctx = self.hypernet.context_embedding(self.params, tokens, token_mask,
-                                              pad_mask, patches)
+        tasks = {"language_instruction": instr,
+                 "pad_mask_dict": {"language_instruction": pad_mask}}
+        if self.hypernet.include_goal_image:
+            goal = self.example_batch["task"]["image_primary"]
+            tasks["image_primary"] = torch.zeros(
+                goal.shape, dtype=torch.uint8, device=dev)
+            tasks["pad_mask_dict"]["image_primary"] = torch.zeros_like(
+                pad_mask)
+        ctx = self.hypernet.context_embedding(
+            self.params, tokens, token_mask, pad_mask, patches,
+            tasks.get("image_primary"),
+            tasks["pad_mask_dict"].get("image_primary"))
         generated = self.hypernet.generate(self.params, ctx)
         base_params = {
             n: (v[0] if self.plan.generation_flag[n] else v)
             for n, v in generated.items()
         }
-        tasks = {"language_instruction": instr,
-                 "pad_mask_dict": {"language_instruction": pad_mask}}
         return base_params, tasks
 
     def shared_params(self, prefix: str = "encoder/image_encoder/",
@@ -297,11 +330,15 @@ class HyperVLA:
     @torch.no_grad()
     def sample_actions(self, images, base_params: Params,
                        trunk_impl: str = "kernel",
-                       tasks: Optional[dict] = None):
+                       tasks: Optional[dict] = None,
+                       maps: Optional[dict] = None):
         """images (B, 1, H, W, C) or (B, H, W, C) uint8 -> action chunks
         (B, horizon, action_dim); the regression heads' decode needs no
         random numbers. tasks (create_tasks' second result) give the
-        instruction's token embedding to a policy with language tokens."""
+        instruction's token embedding to a policy with language tokens.
+        maps (a dict) receives the attention maps
+        (models/base_vit.py::ViT.__call__; the trunk's on its layer loop:
+        a per-layer trunk_impl)."""
         images = _as_tensor(images, self.device)
         instruction = None
         if self.base_net.encoder.use_language_token:
@@ -312,7 +349,7 @@ class HyperVLA:
                 tasks["language_instruction"]["token_embedding"],
                 self.device).float()
         return self.base_net.predict_action(base_params, images, trunk_impl,
-                                            instruction)
+                                            instruction, maps)
 
 
 def check_params(params: Params, specs: dict) -> None:

@@ -162,14 +162,17 @@ def group_norm(x, scale, bias, num_groups: int = 32, eps: float = 1e-6):
     """flax nn.GroupNorm over NCHW activations: statistics per sample and
     group over (h, w, channels of the group) in fp32 with the fast variance
     E[x^2] - E[x]^2 (clipped at 0), then (x - mu) * (rsqrt(var + eps) *
-    scale) + bias. scale and bias are (C,) or per sample."""
+    scale) + bias. scale and bias are (C,) or per sample, or None (flax's
+    use_scale / use_bias False)."""
     b, c, h, w = x.shape
     g = x.float().reshape(b, num_groups, c // num_groups, h, w)
     mu = g.mean((2, 3, 4), keepdim=True)
     var = torch.clamp((g * g).mean((2, 3, 4), keepdim=True) - mu * mu,
                       min=0.0)
     mul = torch.rsqrt(var + eps).expand(b, num_groups, c // num_groups, 1, 1)
-    mul = mul.reshape(b, c, 1, 1) * _per_channel(scale, c)
+    mul = mul.reshape(b, c, 1, 1)
+    if scale is not None:
+        mul = mul * _per_channel(scale, c)
     y = (x.float() - mu.repeat_interleave(c // num_groups, 1).reshape(
         b, c, 1, 1)) * mul
-    return y + _per_channel(bias, c)
+    return y if bias is None else y + _per_channel(bias, c)

@@ -2,24 +2,35 @@
 hypervla_tpu/models/transformer.py: MlpBlock, Encoder1DBlock, Transformer).
 
 Param names are the JAX package's auto-names (encoderblock_<i>,
-LayerNorm_0/1, MlpBlock_0/Dense_0/1, MultiHeadAttention_0, encoder_norm).
-Dropout is the identity at serving time and is not modelled.
+LayerNorm_0/1, MlpBlock_0/Dense_0/1, MultiHeadAttention_0, encoder_norm,
+posembed_input). Dropout runs where the JAX modules drop, at their module
+paths under `prefix` (models/draws.py): after the position table
+(Dropout_0 of the stack), on the attention weights
+(MultiHeadAttention_0), after the attention (Dropout_0 of a block), after
+the MLP's GELU and after its output (MlpBlock_0/Dropout_0, Dropout_1);
+without draws it is the identity.
 """
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from hypervla_tpu_torch.models import layers
 from hypervla_tpu_torch.models.attention import (
     multi_head_attention,
     multi_head_attention_specs,
 )
+from hypervla_tpu_torch.models.draws import Draws, dropout
 
 
-def mlp_block(params, prefix: str, x):
-    """Dense -> GELU (tanh approximation, flax's nn.gelu) -> Dense."""
+def mlp_block(params, prefix: str, x, dropout_rate: float = 0.0,
+              draws: Optional[Draws] = None):
+    """Dense -> GELU (tanh approximation, flax's nn.gelu) -> dropout ->
+    Dense -> dropout."""
     h = layers.dense(x, params[f"{prefix}/Dense_0/kernel"],
                      params[f"{prefix}/Dense_0/bias"])
-    return layers.dense(layers.gelu_tanh(h), params[f"{prefix}/Dense_1/kernel"],
-                        params[f"{prefix}/Dense_1/bias"])
+    h = dropout(layers.gelu_tanh(h), dropout_rate, draws,
+                f"{prefix}/Dropout_0")
+    h = layers.dense(h, params[f"{prefix}/Dense_1/kernel"],
+                     params[f"{prefix}/Dense_1/bias"])
+    return dropout(h, dropout_rate, draws, f"{prefix}/Dropout_1")
 
 
 def _ln(params, prefix, x):
@@ -27,33 +38,60 @@ def _ln(params, prefix, x):
                              params[f"{prefix}/bias"])
 
 
-def encoder_block(params, prefix: str, x, mask, num_heads: int):
+def encoder_block(params, prefix: str, x, mask, num_heads: int,
+                  dropout_rate: float = 0.0,
+                  attention_dropout_rate: float = 0.0,
+                  draws: Optional[Draws] = None,
+                  maps: Optional[List] = None):
+    """One block; its attention probabilities (after the attention
+    dropout, as the JAX block returns them) are appended to `maps`."""
     y = _ln(params, f"{prefix}/LayerNorm_0", x)
-    x = x + multi_head_attention(params, f"{prefix}/MultiHeadAttention_0",
-                                 y, y, mask, num_heads)
+    attended, probs = multi_head_attention(
+        params, f"{prefix}/MultiHeadAttention_0", y, y, mask, num_heads,
+        attention_dropout_rate, draws, return_weights=True)
+    if maps is not None:
+        maps.append(probs)
+    x = x + dropout(attended, dropout_rate, draws, f"{prefix}/Dropout_0")
     y = _ln(params, f"{prefix}/LayerNorm_1", x)
-    return x + mlp_block(params, f"{prefix}/MlpBlock_0", y)
+    return x + mlp_block(params, f"{prefix}/MlpBlock_0", y, dropout_rate,
+                         draws)
 
 
 def transformer(params, prefix: str, x, mask, num_layers: int,
-                num_attention_heads: int):
-    """(batch, len, emb) -> encoded (batch, len, emb)."""
+                num_attention_heads: int, dropout_rate: float = 0.0,
+                attention_dropout_rate: float = 0.0,
+                add_position_embedding: bool = False,
+                draws: Optional[Draws] = None,
+                maps: Optional[List] = None):
+    """(batch, len, emb) -> encoded (batch, len, emb). maps, if given,
+    collects every block's attention probabilities (batch, heads, len,
+    len)."""
+    if add_position_embedding:
+        x = x + params[f"{prefix}/posembed_input/pos_embedding"]
+        x = dropout(x, dropout_rate, draws, f"{prefix}/Dropout_0")
     for depth in range(num_layers):
         x = encoder_block(params, f"{prefix}/encoderblock_{depth}", x, mask,
-                          num_attention_heads)
+                          num_attention_heads, dropout_rate,
+                          attention_dropout_rate, draws, maps)
     return _ln(params, f"{prefix}/encoder_norm", x)
 
 
 def transformer_specs(prefix: str, embedding_dim: int, num_layers: int,
-                      mlp_dim: int, num_attention_heads: int
+                      mlp_dim: int, num_attention_heads: int,
+                      position_embedding_len: int = 0
                       ) -> Dict[str, Tuple[tuple, layers.Init]]:
-    """Param shapes and initializers of `transformer`."""
+    """Param shapes and initializers of `transformer`; with
+    position_embedding_len, the (1, len, emb) table of
+    add_position_embedding."""
     specs = {}
 
     def norm(name):
         specs[f"{name}/bias"] = ((embedding_dim,), layers.zeros)
         specs[f"{name}/scale"] = ((embedding_dim,), layers.ones)
 
+    if position_embedding_len:
+        specs[f"{prefix}/posembed_input/pos_embedding"] = (
+            (1, position_embedding_len, embedding_dim), layers.normal(0.02))
     for depth in range(num_layers):
         block = f"{prefix}/encoderblock_{depth}"
         norm(f"{block}/LayerNorm_0")

@@ -13,13 +13,15 @@ package's NHWC row-major order. A kernel with a leading sample axis (the
 training step's per-sample generated params) runs as one grouped
 convolution.
 
-Only what the policy ViT builds is here: its stems take patch_size,
-features and num_features, over the default [-1, 1] image normalization
-and the published stage geometry (3x3 kernels, stride 2, padding 1, a
-learnable GroupNorm). The hypernetwork's goal-image stem (SmallStem16 with
-learnable_norm=False) comes with goal images (ROADMAP.md A8); FiLM
-conditioning (`use_film`), the ResNet stem, the ImageNet normalization and
-the registry of named variants are not ported (A12, breadth).
+Only what the policy ViT and the hypernetwork build is here: the stems
+take the JAX SmallStem's fields (patch_size, kernel_sizes, strides,
+features, padding, num_features, learnable_norm) over the default [-1, 1]
+image normalization; the policy ViT's use the published stage geometry
+(3x3 kernels, stride 2, padding 1, a learnable GroupNorm), the
+hypernetwork's goal-image stem (`SmallStem16`, models/hypernetwork.py) a
+GroupNorm without scale and bias. FiLM conditioning (`use_film`), the
+ResNet stem, the ImageNet normalization and the registry of named variants
+are not ported (ROADMAP.md A12, breadth).
 """
 import dataclasses
 from typing import Dict, Tuple
@@ -27,10 +29,6 @@ from typing import Dict, Tuple
 import torch
 
 from hypervla_tpu_torch.models import layers
-
-#: each SmallStem stage's (kernel size, stride, padding)
-STAGE = (3, 2, 1)
-
 
 def normalize_images(img):
     """uint8 -> [-1, 1] (the JAX function's "default" img_norm_type)."""
@@ -91,41 +89,50 @@ class PatchEncoder:
 @dataclasses.dataclass(frozen=True)
 class SmallStem:
     """StdConv + GroupNorm + ReLU per stage (one stage per entry of
-    `features`, each STAGE), then a `patch_size // 16` VALID
-    convolution."""
+    `features`, with its kernel size, stride and padding), then a
+    `patch_size // 16` VALID convolution. learnable_norm=False strips the
+    GroupNorms' scale and bias."""
 
     patch_size: int = 32
+    kernel_sizes: tuple = (3, 3, 3, 3)
+    strides: tuple = (2, 2, 2, 2)
     features: tuple = (32, 96, 192, 384)
+    padding: tuple = (1, 1, 1, 1)
     num_features: int = 512
+    learnable_norm: bool = True
+
+    def _stages(self):
+        return zip(self.kernel_sizes, self.strides, self.features,
+                   self.padding)
 
     def __call__(self, params, prefix: str, images):
         """uint8 (B, H, W, 3) -> tokens (B, n, num_features)."""
-        _, stride, padding = STAGE
         x = normalize_images(images).permute(0, 3, 1, 2)
-        for i in range(len(self.features)):
+        for i, (_, stride, _, padding) in enumerate(self._stages()):
             x = std_conv(params, f"{prefix}/StdConv_{i}", x, stride, padding)
             norm = f"{prefix}/GroupNorm_{i}"
             x = torch.relu(layers.group_norm(
-                x, params[f"{norm}/scale"], params[f"{norm}/bias"]))
+                x, params.get(f"{norm}/scale"), params.get(f"{norm}/bias")))
         # the stem downsamples 16x; the patchifier covers the rest
         return _to_tokens(_embedding(params, prefix, x,
                                      self.patch_size // 16))
 
     def num_tokens(self, height: int, width: int) -> int:
-        for _ in self.features:
-            height = _output_side(height, *STAGE)
-            width = _output_side(width, *STAGE)
+        for kernel, stride, _, padding in self._stages():
+            height = _output_side(height, kernel, stride, padding)
+            width = _output_side(width, kernel, stride, padding)
         patch = self.patch_size // 16
         return (height // patch) * (width // patch)
 
     def specs(self, prefix: str) -> Dict[str, Tuple[tuple, layers.Init]]:
         specs = {}
         c_in = 3
-        for i, f in enumerate(self.features):
-            specs.update(_conv_specs(f"{prefix}/StdConv_{i}", STAGE[0], c_in,
+        for i, (kernel, _, f, _) in enumerate(self._stages()):
+            specs.update(_conv_specs(f"{prefix}/StdConv_{i}", kernel, c_in,
                                      f))
-            specs[f"{prefix}/GroupNorm_{i}/bias"] = ((f,), layers.zeros)
-            specs[f"{prefix}/GroupNorm_{i}/scale"] = ((f,), layers.ones)
+            if self.learnable_norm:
+                specs[f"{prefix}/GroupNorm_{i}/bias"] = ((f,), layers.zeros)
+                specs[f"{prefix}/GroupNorm_{i}/scale"] = ((f,), layers.ones)
             c_in = f
         specs.update(_conv_specs(f"{prefix}/embedding",
                                  self.patch_size // 16, c_in,

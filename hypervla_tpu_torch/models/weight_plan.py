@@ -9,9 +9,19 @@ plan gives its shape, whether the hypernetwork generates it or shares it
 across tasks (`shared_modules` substring match), its context-token index
 and its output-head info; `layer_token_mask` says which context tokens
 generate weights.
+
+The output heads are keyed by head name (`WeightPlan.head_name`): a
+block's flat name, or under share_TF_output_head the policy ViT's
+encoderblock_<i> blocks share the heads of encoderblock_0, named
+"encoderblock" (hypervla_tpu/models/weight_plan.py, :273). A head's info
+gives its init strategy: BIAS_INIT (zero kernel, the fresh base net in the
+bias), or under init_strategy VARIANCE_INIT, for a generated block that is
+no norm, a truncated-normal kernel of the block's fan-in variance and a
+zero bias.
 """
 import dataclasses
 import math
+import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -19,6 +29,7 @@ import torch
 from hypervla_tpu_torch.models.base_network import BaseNetwork
 
 BIAS_INIT = 0  # InitOptions.BIAS_INIT
+VARIANCE_INIT = 1  # InitOptions.VARIANCE_INIT
 
 
 @dataclasses.dataclass
@@ -33,14 +44,25 @@ class WeightPlan:
     # where the shared pretrained image encoder's subtree sits in the
     # base-net tree (None without one): delta-decay walks it
     pretrained_block_path: Optional[Tuple[str, ...]] = None
+    share_tf_output_head: bool = False
 
     @property
     def total_param_num(self) -> int:
         return sum(math.prod(s) for s in self.param_shape.values())
 
+    def dim(self, name: str) -> int:
+        """The flat size of a block."""
+        return math.prod(self.param_shape[name]) or 1
+
     @staticmethod
     def flat_name(path: str) -> str:
         return path.replace("/", "_")
+
+    def head_name(self, name: str) -> str:
+        """The output head a generated block comes from
+        (hypervla_tpu/models/hypernetwork.py::head_name_for_block)."""
+        return head_name_for_block(self.flat_name(name),
+                                   self.share_tf_output_head)
 
     def flat_name_table(self) -> dict:
         """The block paths nested as the base-net tree, each leaf its flat
@@ -53,6 +75,38 @@ class WeightPlan:
                 node = node.setdefault(key, {})
             node[last] = self.flat_name(name)
         return table
+
+
+def head_name_for_block(flat_name: str, share_tf_output_head: bool) -> str:
+    if share_tf_output_head:
+        return re.sub(r"encoderblock_\d+", "encoderblock", flat_name)
+    return flat_name
+
+
+def _head_info(name, shape, generated, hk):
+    """A block's output-head info (hypervla_tpu/models/weight_plan.py::
+    init_base_net's _head_info)."""
+    strategy = int(hk.get("init_strategy", BIAS_INIT))
+    if strategy not in (BIAS_INIT, VARIANCE_INIT):
+        raise ValueError(f"{strategy} is not a valid InitOptions")
+    keys = name.split("/")
+    path = ".".join(keys)
+    if ("encoder_norm" in path or "LayerNorm" in path or "GroupNorm" in path
+            or not generated):
+        strategy = BIAS_INIT
+    variance = 0.0
+    if strategy == VARIANCE_INIT and keys[-1] != "bias":
+        if keys[-1] == "pos_embedding":
+            variance = 0.02 ** 2
+        elif keys[-2] == "out":
+            variance = 1.0 / (shape[0] * shape[1])
+        else:
+            variance = 1.0 / shape[0]
+        if not hk.get("scale_context_embedding", False):
+            variance = variance / hk["context_embedding_dim"]
+    return {"output_dim": math.prod(shape) if shape else 1,
+            "generation_flag": generated, "init_strategy": strategy,
+            "init_variance": float(variance)}
 
 
 def _token_indices(names, hk, encoder_type):
@@ -110,14 +164,7 @@ def input_shapes(example_batch: Optional[dict]) -> dict:
 
 def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
     hk = config["hypernet_kwargs"]
-    if hk.get("share_TF_output_head", False):
-        raise NotImplementedError(
-            "share_TF_output_head is not ported yet (ROADMAP.md A8, the "
-            "rest of the train step)")
-    if int(hk.get("init_strategy", BIAS_INIT)) != BIAS_INIT:
-        raise NotImplementedError(
-            "init_strategy VARIANCE_INIT is not ported yet (ROADMAP.md A8, "
-            "the rest of the train step)")
+    share_tf = bool(hk.get("share_TF_output_head", False))
     specs = base_net.specs()
     names = sorted(specs, key=lambda n: tuple(n.split("/")))
     shapes = {n: tuple(specs[n][0]) for n in names}
@@ -129,19 +176,18 @@ def build_weight_plan(config: dict, base_net: BaseNetwork) -> WeightPlan:
                             for key in n.split("/")) for n in names}
     encoder_type = base_net.encoder.encoder_type
     token_index, layer_token_mask = _token_indices(names, hk, encoder_type)
-    info = {
-        WeightPlan.flat_name(n): {
-            "output_dim": math.prod(shapes[n]) if shapes[n] else 1,
-            "generation_flag": flags[n],
-            "init_strategy": BIAS_INIT,
-            "init_variance": 0.0,
-        }
-        for n in names
-    }
+    info = {}
+    for n in names:
+        # under share_TF_output_head the first block of a head (the sorted
+        # names put encoderblock_0 first) gives its info, as the JAX plan
+        # keeps encoderblock_0's under the shared name
+        info.setdefault(head_name_for_block(WeightPlan.flat_name(n), share_tf),
+                        _head_info(n, shapes[n], flags[n], hk))
     return WeightPlan(names, shapes, flags, token_index, layer_token_mask,
                       len(layer_token_mask), info,
                       ("encoder", "image_encoder")
-                      if encoder_type in ("DINOv2", "CLIP") else None)
+                      if encoder_type in ("DINOv2", "CLIP") else None,
+                      share_tf)
 
 
 def init_base_net(config: dict, generator: torch.Generator,

@@ -150,11 +150,9 @@ class ValidationCallback:
         encoder = model.base_net.encoder
         emb = encoder.train_image_embeddings(
             model.shared_params(params=params), images)
-        ctx = model.hypernet.context_embedding(
-            params, instr["token_embedding"].float(),
-            instr["attention_mask"],
-            batch["task"]["pad_mask_dict"]["language_instruction"],
-            None if patches is None else patches.float())
+        ctx = model.hypernet.task_context(
+            params, dict(batch["task"], language_instruction=instr),
+            instr["token_embedding"], patches)
         view = per_sample_view(model.plan,
                                model.hypernet.generate(params, ctx))
         tokens = encoder(view, image_embeddings=emb)
@@ -165,7 +163,8 @@ class ValidationCallback:
         return float(mse) * target.shape[-1]
 
     def __call__(self, params, step: int) -> dict:
-        del step  # the JAX callback seeds its dropout with it; none here
+        del step  # the JAX callback seeds its dropout with it; validation
+        # runs with train=False there, so it draws nothing
         metrics = {}
         for name, iterator in self.val_iterators.items():
             losses = []

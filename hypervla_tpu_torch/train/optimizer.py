@@ -9,10 +9,14 @@ decay flag (`packed`); with gradient accumulation
 
 Written out in plain PyTorch to reproduce optax's arithmetic step for step
 (`clip_by_global_norm`, then per group `scale_by_adam(mu_dtype=bf16)`,
-`add_decayed_weights` under the mask and `scale_by_learning_rate`): the
-first moment is updated from its stored bf16 value, whose decay term is a
-bf16 product with b1 rounded to bf16 (a Python scalar takes the array's
-dtype in JAX), bias-corrected in fp32 and only then cast to bf16; weight
+`add_decayed_weights` under the mask and `scale_by_learning_rate`), as
+the compiled (jitted) JAX step rounds it: the first moment is updated from
+its stored bf16 value, with b1 rounded to bf16 (a Python scalar takes the
+array's dtype in JAX) and its product with the stored moment taken in fp32
+and not rounded (optax's ops run eagerly would round it to bf16), and
+`(1 - b1) * g` added to it as XLA compiles the sum, one fused
+multiply-add, so that the new moment is rounded to fp32 once, then
+bias-corrected in fp32 and cast to bf16 once, for the state; weight
 decay is `wd * p` on the pre-update param; the schedules run in fp32 on
 the optimizer's own update count, as optax's do. Params, grads and
 updates are flat dicts keyed like the port's params (the JAX key path
@@ -139,8 +143,17 @@ def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
 def _adamw(g, mu, nu, p, c1, c2, step_size, wd, b1, b1_bf16, b2, eps):
     """One AdamW update of one tensor: (update, new bf16 mu, new nu). The
     per-leaf and the packed optimizer both run this, so their updates are
-    equal bit for bit."""
-    mu = (1 - b1) * g + b1_bf16 * mu
+    equal bit for bit. The first moment is the compiled JAX step's
+    fma((1 - b1), g, b1_bf16 * mu), with b1_bf16 the bf16 value of b1 as a
+    float: the product of the bf16 b1 and the stored bf16 moment is exact
+    in fp64 (8 + 8 significant bits), and so is (1 - b1) * g (24 + 24), so
+    their sum in fp64, rounded to fp32, is the fused multiply-add's single
+    rounding (a separate fp32 product and sum differ from it on about one
+    element in 2^15). Three elementwise passes: the moment to fp64, its
+    scaling by b1, and the sum with the fp32 g scaled in fp64 by the
+    add's alpha, stored as fp32."""
+    mu = torch.add(mu.double().mul_(b1_bf16), g, alpha=float(_F(1 - b1)),
+                   out=torch.empty_like(g, dtype=torch.float32))
     nu = (1 - b2) * g * g + b2 * nu
     u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
     if wd:
@@ -163,7 +176,7 @@ class AdamW:
         self.schedules = schedules
         self.weight_decays = weight_decays
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.b1_bf16 = torch.tensor(b1, dtype=torch.bfloat16)
+        self.b1_bf16 = float(torch.tensor(b1, dtype=torch.bfloat16))
 
     def _scalars(self, count: int):
         """(c1, c2, {group: -lr}) of the update after `count` updates."""

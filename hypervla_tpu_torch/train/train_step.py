@@ -16,10 +16,14 @@ fused_resize_augment over each camera's frames on the card, drawn from a
 generator seeded by the state's seed and step) are the JAX step's, and so
 are the two extra weight-decay terms: delta-decay of the fine-tuned trunk
 toward `pretrained_params` and the v4 weight decay (the clipped gradient
-of 0.5 * sum(kernel ** 2) over the generated base-net params). The
-configured paths still to port raise NotImplementedError: the attention
-aux losses and embedding noise (ROADMAP.md A8, the rest of the train
-step), and the trunk switches with no counterpart
+of 0.5 * sum(kernel ** 2) over the generated base-net params), and so
+are the regularisers: dropout at every site of the hypernetwork and the
+policy ViT and the trunk's embedding noise, drawn from a generator of the
+state's (seed, step) (models/draws.py), and the two attention aux losses
+on the policy ViT's last attention map (`aux_losses`): its entropy and,
+annealed over the run, its alignment to the batch's
+observation DINO_last_layer_attention_map. The trunk switches with no
+counterpart raise NotImplementedError
 (models/base_vit.py::check_trunk_switches). The layer-kernel trunk
 (vit_kwargs dino_layers_impl="pallas_train") needs
 config["hoist_shared_trunk"], as in the JAX package. vit_kwargs
@@ -32,8 +36,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from hypervla_tpu_torch.configs import refuse_dropout
 from hypervla_tpu_torch.models.base_vit import check_trunk_switches
+from hypervla_tpu_torch.models.draws import Draws, draws_generator
 from hypervla_tpu_torch.models.hypernetwork import per_sample_view
 from hypervla_tpu_torch.ops.preprocess import fused_resize_augment
 from hypervla_tpu_torch.train.optimizer import global_norm
@@ -81,28 +85,61 @@ def _check_layer_kernel_hoist(config: Dict[str, Any]) -> None:
             "image_encoder shared)")
 
 
-def _unported(config: Dict[str, Any]) -> None:
-    vk = config["base_net_kwargs"]["vit_kwargs"]
-    check_trunk_switches(vk)
-    hk = config["hypernet_kwargs"]
-    refuse_dropout("hypernet_kwargs", hk)
-    refuse_dropout("hypernet_kwargs context_encoder_kwargs",
-                   hk.get("context_encoder_kwargs", {}))
-    refuse_dropout("vit_kwargs", vk)
+#: the batch's reference map of the alignment aux loss
+REFERENCE_MAP = "DINO_last_layer_attention_map"
+
+
+def aux_losses(config: Dict[str, Any], losses, maps: dict, batch,
+               step: int):
+    """The attention aux losses of hypervla_tpu/train/train_step.py
+    (:166-190) on the policy ViT's last attention map (B, heads, L, L):
+    per sample, the attention_entropy coefficient times the mean over heads
+    of the last row's entropy (log(p + 1e-8)), and the
+    attention_map_alignment coefficient, annealed by 1 - step / num_steps,
+    times the mean square between the head-mean of the last row without
+    itself and the head-mean of the batch's reference map's
+    [:, :, 0, 1:] (the class token's row without itself), each added to
+    the per-sample losses (B,) in that order. Returns (losses,
+    {metric: (B,)})."""
     aux = config["auxiliary_loss"]
-    rest = "A8, the rest of the train step"
-    checks = {
-        "auxiliary_loss attention_entropy": (
-            rest, aux.get("attention_entropy", 0.0) > 0.0),
-        "auxiliary_loss attention_map_alignment": (
-            rest, aux.get("attention_map_alignment", 0.0) > 0.0),
-        "vit_kwargs image_embedding_noise": (
-            rest, float(vk.get("image_embedding_noise", 0.0)) > 0.0),
-    }
-    for name, (item, bad) in checks.items():
-        if bad:
-            raise NotImplementedError(
-                f"train step: {name} is not ported yet (ROADMAP.md {item})")
+    metrics = {}
+    if not (aux.get("attention_entropy", 0.0) > 0.0
+            or aux.get("attention_map_alignment", 0.0) > 0.0):
+        return losses, metrics
+    attention_map = maps["policy"][-1]
+    if aux.get("attention_entropy", 0.0) > 0.0:
+        prob = attention_map[:, :, -1]
+        per_head = -(prob * torch.log(prob + 1e-8)).sum(-1)
+        entropy = per_head.mean(-1)
+        losses = losses + float(_F(aux["attention_entropy"])) * entropy
+        metrics["attention_entropy_loss"] = entropy.detach()
+    if aux.get("attention_map_alignment", 0.0) > 0.0:
+        observation = batch["observation"]
+        if REFERENCE_MAP not in observation:
+            raise KeyError(REFERENCE_MAP)
+        policy = attention_map[:, :, -1, :-1]
+        reference = observation[REFERENCE_MAP][:, :, 0, 1:].float().detach()
+        alignment = ((policy.mean(1) - reference.mean(1)) ** 2).mean(-1)
+        annealing = _F(1.0) - _F(step) / _F(config.get("num_steps", 100000))
+        losses = losses + float(
+            annealing * _F(aux["attention_map_alignment"])) * alignment
+        metrics["attention_alignment_loss"] = alignment.detach()
+    return losses, metrics
+
+
+def _check_aux(config: Dict[str, Any]) -> None:
+    """The aux losses read the policy ViT's attention map, which the JAX
+    ViT returns only with return_attention_map (else 0.0, which the JAX
+    step fails to index with a TypeError)."""
+    aux = config["auxiliary_loss"]
+    vk = config["base_net_kwargs"]["vit_kwargs"]
+    wanted = (aux.get("attention_entropy", 0.0) > 0.0
+              or aux.get("attention_map_alignment", 0.0) > 0.0)
+    if wanted and not vk.get("return_attention_map", False):
+        raise TypeError(
+            "auxiliary_loss attention_entropy / attention_map_alignment "
+            "read the policy ViT's attention map: set vit_kwargs "
+            "return_attention_map=True")
 
 
 def augment_specs(config: Dict[str, Any]) -> Dict[str, dict]:
@@ -146,9 +183,11 @@ def make_train_step(model, config: Dict[str, Any], tx,
                     dino_encode: Optional[Callable] = None,
                     pretrained_params=None):
     """Returns train_step(state, batch, task_index=None, encoder_params=None,
-    with_metrics=True) -> (new_state, info). task_index {task: (B,) 0/1
-    mask} adds info["task_loss_<task>"], the mean loss of the masked
-    samples (0 where none is).
+    with_metrics=True, draws=None) -> (new_state, info). task_index {task:
+    (B,) 0/1 mask} adds info["task_loss_<task>"], the mean loss of the
+    masked samples (0 where none is). draws (models/draws.py::Draws) are
+    the step's dropout masks and noise, by default drawn from
+    draws_generator(state.seed, state.step).
 
     text_encode(t5_params, input_ids, attention_mask) and
     dino_encode(dino_params, images) are the frozen encoders of
@@ -167,7 +206,8 @@ def make_train_step(model, config: Dict[str, Any], tx,
     auxiliary_loss base_weight_decay (a KeyError without it) and logs
     info["base_weight_decay_grad_norm"]."""
     _check_layer_kernel_hoist(config)
-    _unported(config)
+    check_trunk_switches(config["base_net_kwargs"]["vit_kwargs"])
+    _check_aux(config)
     hk = config["hypernet_kwargs"]
     vk = config["base_net_kwargs"]["vit_kwargs"]
     opt_cfg = config["optimizer"]
@@ -179,6 +219,8 @@ def make_train_step(model, config: Dict[str, Any], tx,
     plan = model.plan
     encoder = model.base_net.encoder
     aug_specs = augment_specs(config)
+    capture_maps = (aux.get("attention_entropy", 0.0) > 0.0
+                    or aux.get("attention_map_alignment", 0.0) > 0.0)
     delta_decay = None
     if pretrained_params is not None:
         targets = _delta_decay_targets(plan, pretrained_params, model.device)
@@ -195,8 +237,12 @@ def make_train_step(model, config: Dict[str, Any], tx,
         wd_coef = aux["base_weight_decay"]
 
     def train_step(state: TrainState, batch, task_index=None,
-                   encoder_params=None, with_metrics: bool = True):
+                   encoder_params=None, with_metrics: bool = True,
+                   draws: Optional[Draws] = None):
         encoder_params = encoder_params or {}
+        if draws is None:
+            draws = Draws(draws_generator(state.seed, state.step,
+                                          model.device))
         batch = to_tensors(batch, model.device)
         if aug_specs:  # to_tensors made the batch's dicts anew
             device_augment(batch, aug_specs, augment_generator(
@@ -236,17 +282,19 @@ def make_train_step(model, config: Dict[str, Any], tx,
             with torch.set_grad_enabled(encoder.fine_tune):
                 emb = encoder.train_image_embeddings(
                     model.shared_params(params=params),
-                    batch["observation"]["image_primary"].squeeze(1))
+                    batch["observation"]["image_primary"].squeeze(1), draws)
         # the hypernetwork and the per-sample loss, sample axis written out
-        ctx = model.hypernet.context_embedding(
-            params, instr["token_embedding"].float(),
-            instr["attention_mask"],
-            batch["task"]["pad_mask_dict"]["language_instruction"],
-            None if patches is None else patches.float())
-        generated = model.hypernet.generate(params, ctx)
+        ctx = model.hypernet.task_context(
+            params, dict(batch["task"], language_instruction=instr),
+            instr["token_embedding"], patches, draws)
+        generated = model.hypernet.generate(params, ctx, draws)
+        maps = {} if capture_maps else None
         losses, metrics = model.base_net.loss(
             per_sample_view(plan, generated), batch, emb,
-            instr["token_embedding"].float())
+            instr["token_embedding"].float(), draws, maps)
+        losses, aux_metrics = aux_losses(config, losses, maps, batch,
+                                         state.step)
+        metrics.update(aux_metrics)
         loss = losses.mean()
         wd_grads = None
         if v4:

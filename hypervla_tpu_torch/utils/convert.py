@@ -14,14 +14,26 @@ The trunk switches change no key: the JAX package's fused modules
 `_LayerScaleVector`, the layer kernel's collection) keep nn.LayerNorm's
 "scale"/"bias" and _LayerScale's "lambda1" under the same module names, so
 a tree from a model built with any of them converts as it is. The one
-switch that does change the keys, scan_dino_layers (one stacked
-encoder/layers/layer subtree), is refused here as in
-models/base_vit.py::check_trunk_switches.
+switch that does change the keys, scan_dino_layers, stacks the trunk's
+layers into one encoder/layers/layer subtree whose leaves carry a leading
+layer axis (in a HyperVLA's params, flat shared leaves
+"<...>encoder_layers_layer_<leaf>" of the layers' values one after the
+other); `from_jax_params` unstacks them into the port's per-layer keys
+(encoder/layer/<i>/..., "<...>encoder_layer_<i>_<leaf>"), which the
+port's scanned trunk reads as its layer loop does.
 """
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from hypervla_tpu_torch.configs import dinov2_config
+
+#: a base-net tree's stacked trunk layers, and a HyperVLA's flat ones
+STACKED = re.compile(r"^((?:.*/)?encoder)/layers/layer/(.*)$")
+STACKED_FLAT = re.compile(r"^(.*encoder_image_encoder_encoder)_layers_layer_"
+                          r"(.*)$")
 
 Params = Dict[str, torch.Tensor]
 
@@ -38,21 +50,65 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def from_jax_params(tree: Any, device: Optional[torch.device] = None,
-                    dtype: Optional[torch.dtype] = None) -> Params:
-    """A tree of numpy arrays (a flax param tree moved to the host) ->
-    the port's flat param dict of tensors on `device`."""
+def trunk_depth(config: dict) -> int:
+    """The DINOv2 trunk's layer count of a HyperVLA config."""
+    return dinov2_config(config["base_net_kwargs"]["vit_kwargs"].get(
+        "pretrained_encoder_name", "dinov2-base")).num_hidden_layers
+
+
+def unstack_trunk(flat: Dict[str, Any],
+                  layers: Optional[int] = None) -> Dict[str, Any]:
+    """A flat {path: array} dict with the JAX package's scanned trunk ->
+    the same with per-layer keys (a tree without one comes back as it
+    is). A base-net tree's stacked leaves carry their layer axis; a
+    HyperVLA's flat ones do not, and are split into `layers` parts
+    (`trunk_depth` of its config)."""
     out = {}
-    for path, leaf in flatten_tree(tree).items():
-        if "encoder/layers/layer/" in path:
-            raise NotImplementedError(
-                f"{path}: a tree built with scan_dino_layers=True stacks the "
-                "trunk's layers under encoder/layers/layer, a layout the "
-                "port does not read; unstack it first with the JAX "
-                "package's unstack_layer_params")
+    for path, leaf in flat.items():
+        stacked, flat_leaf = STACKED.match(path), STACKED_FLAT.match(path)
+        if stacked:
+            leaf = np.asarray(leaf)
+            for i in range(leaf.shape[0]):
+                out[f"{stacked.group(1)}/layer/{i}/{stacked.group(2)}"] = (
+                    leaf[i])
+        elif flat_leaf:
+            if layers is None:
+                raise ValueError(
+                    f"{path} holds a scanned trunk's layers one after the "
+                    "other: pass the trunk's layer count (trunk_depth)")
+            for i, part in enumerate(np.split(np.asarray(leaf).reshape(-1),
+                                              layers)):
+                out[f"{flat_leaf.group(1)}_layer_{i}_{flat_leaf.group(2)}"] = (
+                    part)
+        else:
+            out[path] = leaf
+    return out
+
+
+def from_jax_params(tree: Any, device: Optional[torch.device] = None,
+                    dtype: Optional[torch.dtype] = None,
+                    layers: Optional[int] = None) -> Params:
+    """A tree of numpy arrays (a flax param tree moved to the host) ->
+    the port's flat param dict of tensors on `device`, a scanned trunk
+    unstacked (`unstack_trunk`, which needs `layers` for a HyperVLA's)."""
+    out = {}
+    for path, leaf in unstack_trunk(flatten_tree(tree), layers).items():
         t = torch.from_numpy(np.array(leaf, copy=True))
         out[path] = t.to(device=device, dtype=dtype or t.dtype)
     return out
+
+
+def drop_unread_params(params: Params, config: dict) -> Params:
+    """A HyperVLA's converted params without the leaves its JAX model never
+    reads: under "block" generation with output_head_bias=False the JAX
+    bias-init protocol still writes each output head's bias
+    (hypervla_tpu/models/hypervla.py:216-229), which no module declares."""
+    hk = config["hypernet_kwargs"]
+    if (hk.get("generation_strategy", "full") != "block"
+            or hk.get("output_head_bias", True)):
+        return params
+    return {k: v for k, v in params.items()
+            if not (k.startswith("output_head_") and k.endswith("/bias"))}
 
 
 def subtree(params: Params, prefix: str) -> Params:

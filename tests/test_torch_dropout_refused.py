@@ -1,10 +1,11 @@
-"""The port has no dropout. Each of the six dropout rates the JAX package
-reads (hypervla_tpu/models/hypernetwork.py: image_dropout,
+"""The six dropout rates the JAX package reads
+(hypervla_tpu/models/hypernetwork.py: image_dropout,
 embedding_dropout_rate, final_dropout_rate, the context encoder's
 dropout_rate and attention_dropout_rate; hypervla_tpu/models/base_vit.py:
-the policy ViT's dropout_rate) raises NotImplementedError naming the key
-when it is nonzero, from the model's constructor and from the train step;
-a rate of 0 or an absent key builds."""
+the policy ViT's dropout_rate): a rate of 0 or an absent key builds the
+same params, and the model and the train step take it. A nonzero rate
+drops as the JAX package does (tests/test_torch_dropout.py and
+test_torch_dropout_sites.py hold each rate to it)."""
 import copy
 
 import pytest
@@ -43,25 +44,6 @@ def model():
 
 def test_the_jax_package_reads_six_dropout_rates():
     assert len(KEYS) == 6
-
-
-@pytest.mark.parametrize("section,key", KEYS)
-def test_nonzero_dropout_refused_by_the_constructor(section, key):
-    config = tiny_test_config()
-    _section(config, section)[key] = 0.1
-    with pytest.raises(NotImplementedError, match=key):
-        _build(config)
-
-
-@pytest.mark.parametrize("section,key", KEYS)
-def test_nonzero_dropout_refused_by_the_train_step(model, section, key):
-    config = copy.deepcopy(model.config)
-    _section(config, section)[key] = 0.1
-    tx, lr_fn, base_lr_fn, pnorm_fn = topt.create_optimizer(
-        model.params, topt.hn_param_type_tree(model.params),
-        **config["optimizer"])
-    with pytest.raises(NotImplementedError, match=key):
-        make_train_step(model, config, tx, lr_fn, base_lr_fn, pnorm_fn)
 
 
 @pytest.mark.parametrize("section,key", KEYS)

@@ -80,8 +80,10 @@ def _run_jax(params, grads, opt_cfg, states=False):
         params, jopt.hn_param_type_tree(params), **opt_cfg)
     state = _with_count(tx.init(params), COUNT)
     out, seen = [], []
+    # the compiled update, as the jitted JAX train step runs it
+    update = jax.jit(tx.update)
     for g in grads:
-        updates, state = tx.update(_unflat(g, params), state, params)
+        updates, state = update(_unflat(g, params), state, params)
         params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
         out.append(flatten_tree(jax.device_get(updates)))
         seen.append(state)
@@ -179,19 +181,16 @@ def _assert_close_to_leaf(got, ref, bound):
 
 @pytest.mark.parametrize("k", [2, 3])
 def test_multisteps_match_optax(tiny_params, k):
-    """optax.MultiSteps runs its inner update under lax.cond, which XLA
-    compiles: there the bf16 first moment's decay product is taken in fp32
-    (XLA's excess precision), where optax's ops run eagerly round it to
-    bf16 as the port does (ROADMAP.md queue C). The reference runs eagerly
-    (jax.disable_jit) over a few leaves of each kind, to 1e-5 of each
-    leaf's largest update."""
+    """optax.MultiSteps against the jitted update (XLA compiles its inner
+    update, under lax.cond, as the jitted train step does: the bf16 first
+    moment's decay product in fp32, as the port takes it), over a few
+    leaves of each kind, to 1e-5 of each leaf's largest update."""
     params = _small_tree(tiny_params)
     opt_cfg = dict(OPT, grad_accumulation_steps=k)
     # clipped (norm >> 1) and unclipped micro-gradients in turn
     scales = [1.0 if i % 2 == 0 else 1e-4 for i in range(2 * k)]
     grads = _grads(params, scales, seed=k)
-    with jax.disable_jit():
-        ref, jstates, _ = _run_jax(params, grads, opt_cfg, states=True)
+    ref, jstates, _ = _run_jax(params, grads, opt_cfg, states=True)
     got, states, _, _ = _run_torch(params, grads, opt_cfg, states=True)
     _assert_close_to_leaf(got, ref, 1e-5)
     for step, (update, state, jstate) in enumerate(zip(got, states,

@@ -61,7 +61,7 @@ def _flat(config):
 def test_finetune_config_matches_jax(mode):
     """Every field of the port's copy is the JAX config's; the fields it
     leaves out are those its flagship pretraining config leaves out (the
-    octo, CNN and dropout keys)."""
+    octo and CNN keys)."""
     string = f"vit_t,libero,{mode}"
     ref = _flat(jax_finetune.get_config(string).to_dict())
     got = finetune_config(string)

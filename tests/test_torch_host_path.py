@@ -181,16 +181,6 @@ def test_exec_horizon_is_refused(fp32):
     np.testing.assert_array_equal(*actions)
 
 
-@pytest.mark.parametrize("kwargs,item", [(dict(save_attention_map=True),
-                                          "A8")])
-def test_unported_options_raise(fp32, kwargs, item):
-    _, model, _, _, _ = fp32
-    model = model.replace(dataset_statistics={"action": STATS})
-    for fused in (False, True):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            InferenceWrapper(model, fused_serving=fused, **kwargs)
-
-
 @pytest.mark.parametrize("fused", [False, True])
 def test_history_window_fails_as_in_jax(fp32, fused):
     """horizon=2, as the JAX wrapper runs it: the host path (the fused step

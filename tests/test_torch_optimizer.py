@@ -79,8 +79,10 @@ def test_two_adamw_updates_match_optax(tiny_params):
     state = _with_count(tx.init(tiny_params), 2500)
     params = tiny_params
     ref_updates = []
+    # the compiled update, as the jitted JAX train step runs it
+    update = jax.jit(tx.update)
     for g in grads:
-        updates, state = tx.update(g, state, params)
+        updates, state = update(g, state, params)
         params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
         ref_updates.append(flatten_tree(jax.device_get(updates)))
 
@@ -101,3 +103,61 @@ def test_two_adamw_updates_match_optax(tiny_params):
     assert tstate["count"] == 2502
     assert all(m.dtype == torch.bfloat16 for m in tstate["mu"].values())
 
+
+
+def _mu_leaves(opt_state):
+    """{port param name: bf16 first moment} of a JAX optimizer state: the
+    `mu` trees of every scale_by_adam state in it."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(opt_state)[0]:
+        names = [getattr(p, "name", None) for p in path]
+        if "mu" not in names:
+            continue
+        keys = [str(p.key) for p in path[names.index("mu") + 1:]
+                if hasattr(p, "key")]
+        out["/".join(keys)] = np.asarray(leaf)
+    return out
+
+
+def test_adamw_first_moment_matches_jitted_optax_bit_for_bit(tiny_params):
+    """Three updates of the per-leaf AdamW against jax.jit of the JAX
+    package's optimizer update (the compiled step's rounding: the product
+    of the bf16 b1 and the stored bf16 moment taken in fp32, the sum
+    rounded to bf16 once): the bf16 first moments bit-equal after every
+    update, the updates to 1e-6."""
+    opt_cfg = dict(
+        learning_rate=SCHEDULES["rsqrt"],
+        base_learning_rate=dict(SCHEDULES["rsqrt"], peak_value=3e-5),
+        weight_decay=0.05, base_weight_decay=0.01,
+        weight_decay_strategy="v5", clip_gradient=1.0,
+        frozen_keys=(), grad_accumulation_steps=1)
+    rng = np.random.default_rng(1)
+    grads = [jax.tree_util.tree_map(
+        lambda p, s=s: jnp.asarray(rng.standard_normal(p.shape) * s,
+                                   jnp.float32), tiny_params)
+             for s in (1e-4, 3e-5, 1e-4)]
+    tx, *_ = jopt.create_optimizer(
+        tiny_params, jopt.hn_param_type_tree(tiny_params), **opt_cfg)
+    state = _with_count(tx.init(tiny_params), 2500)
+    update = jax.jit(tx.update)
+    flat = from_jax_params(tiny_params)
+    ttx, _, _, _ = topt.create_optimizer(
+        flat, topt.hn_param_type_tree(flat), **opt_cfg)
+    tstate = ttx.init(flat)
+    tstate["count"] = 2500
+    params, tparams = tiny_params, flat
+    for step, g in enumerate(grads):
+        updates, state = update(g, state, params)
+        params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
+        tupdates, tstate = ttx.update(from_jax_params(g), tstate, tparams)
+        tparams = {k: v + tupdates[k] for k, v in tparams.items()}
+        mu = _mu_leaves(state)
+        assert set(mu) == set(tstate["mu"])
+        for name, value in mu.items():
+            np.testing.assert_array_equal(
+                tstate["mu"][name].float().numpy(),
+                value.astype(np.float32), err_msg=f"{step} {name}")
+        for name, value in flatten_tree(jax.device_get(updates)).items():
+            np.testing.assert_allclose(tupdates[name].numpy(),
+                                       np.asarray(value), rtol=1e-6,
+                                       atol=1e-12, err_msg=f"{step} {name}")

@@ -197,15 +197,15 @@ def test_inference_wrapper_steps_and_postprocess(bf16):
 
 
 def test_inference_wrapper_rejects_unported_options(fp32):
-    """Attention-map capture is not ported. A history window (horizon > 1)
-    and the padded resize are, on the host path: as in the JAX wrapper,
-    each turns the fused step off (the window's failure on the ViT base
-    net, carried from the JAX package, is tests/test_torch_host_path.py::
-    test_history_window_fails_as_in_jax)."""
+    """Attention-map capture, a history window (horizon > 1) and the
+    padded resize run on the host path: as in the JAX wrapper, each turns
+    the fused step off (the window's failure on the ViT base net, carried
+    from the JAX package, is tests/test_torch_host_path.py::
+    test_history_window_fails_as_in_jax; the captured maps are held to
+    the JAX wrapper's in tests/test_torch_attention_capture.py)."""
     model = fp32[2]
     model.dataset_statistics = {"action": STATS}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceWrapper(model, fused_serving=True, save_attention_map=True)
-    for kwargs in (dict(horizon=2), dict(padded_resize=True)):
+    for kwargs in (dict(horizon=2), dict(padded_resize=True),
+                   dict(save_attention_map=True)):
         assert not InferenceWrapper(model, fused_serving=True,
                                     **kwargs).fused_serving

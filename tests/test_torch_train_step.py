@@ -11,7 +11,7 @@ flagship twin on the CPU:
 
 Both optimizers start from update count 1000 with state step 1000 (optax
 schedules read the optimizer's own count, not the state's step). Also
-here, without JAX: the frozen encoders from seeds, the unported options
+here, without JAX: the frozen encoders from seeds, the unported option
 raising, and the written-out sample axis against a per-sample loop.
 """
 import copy
@@ -162,15 +162,11 @@ def test_build_frozen_encoders_shapes():
 
 
 @pytest.mark.parametrize("change", [
-    lambda c: c["auxiliary_loss"].update(attention_entropy=0.1),
-    lambda c: c["auxiliary_loss"].update(attention_map_alignment=0.1),
-    lambda c: c["base_net_kwargs"]["vit_kwargs"].update(
-        image_embedding_noise=0.1),
+    # the attention aux losses, embedding noise and dropout now run
+    # (tests/test_torch_attention_capture.py, test_torch_dropout.py), as
+    # does device_augment (tests/test_torch_trainer.py)
     lambda c: c["base_net_kwargs"]["vit_kwargs"].update(
         flash_attention_trainable=True),
-    # dropout: device_augment, the case here before it was ported, now
-    # runs (tests/test_torch_trainer.py)
-    lambda c: c["base_net_kwargs"]["vit_kwargs"].update(dropout_rate=0.1),
 ])
 def test_unported_train_options_raise(change):
     model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None,

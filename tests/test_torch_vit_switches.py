@@ -20,7 +20,6 @@ from hypervla_tpu.configs import tiny_test_config as jax_tiny_config
 from hypervla_tpu.models.base_vit import ViT as JaxViT
 from hypervla_tpu_torch.configs import tiny_test_config
 from hypervla_tpu_torch.models.base_vit import ViT, check_trunk_switches
-from hypervla_tpu_torch.train.train_step import _unported
 from hypervla_tpu_torch.utils.convert import from_jax_params
 from test_torch_harness import torch_threads  # noqa: F401
 
@@ -49,23 +48,20 @@ HONOURED = {
     "add_positional_embedding": (False, {}),
     "patch_size": (32, {"encoder_type": "SmallStem"}),
     "cnn_channels": ((32, 64, 96, 128), {"encoder_type": "SmallStem"}),
+    "dropout_rate": (0.1, {}),
+    "image_embedding_noise": (0.1, {}),
+    "return_attention_map": (True, {}),
+    "scan_dino_layers": (True, {"sow_dino_attention": False}),
+    "remat_dino": (True, {}),
+    "dino_remat_policy": ("dots", {}),
 }
 
 # field -> a non-default value that the constructor refuses
 REFUSED = {
     "encoder_type": "CLIP",
-    "dropout_rate": 0.1,
     "use_differential_transformer": True,
-    "return_attention_map": True,
     "flash_attention_trainable": True,
-    "scan_dino_layers": True,
-    "remat_dino": True,
-    "dino_remat_policy": "dots",
 }
-
-# field -> a non-default value that only the train step refuses (the JAX
-# package adds the noise only in training; serving never reads it)
-REFUSED_BY_THE_TRAIN_STEP = {"image_embedding_noise": 0.1}
 
 # field -> a non-default value that is accepted and changes nothing:
 # dino_dot_softmax re-lays the softmax sums out for the TPU's matrix unit
@@ -74,7 +70,7 @@ ACCEPTED = {
     "dino_dot_softmax": True,
 }
 
-TABLES = (HONOURED, REFUSED, REFUSED_BY_THE_TRAIN_STEP, ACCEPTED)
+TABLES = (HONOURED, REFUSED, ACCEPTED)
 JAX_FIELDS = [f.name for f in dataclasses.fields(JaxViT)
               if f.name not in FLAX_FIELDS]
 
@@ -112,12 +108,6 @@ def test_every_jax_vit_field_is_honoured_or_refused(field):
     elif field in REFUSED:
         with pytest.raises((NotImplementedError, ValueError), match=field):
             _build(**{field: REFUSED[field]})
-    elif field in REFUSED_BY_THE_TRAIN_STEP:
-        config = tiny_test_config()
-        config["base_net_kwargs"]["vit_kwargs"][field] = (
-            REFUSED_BY_THE_TRAIN_STEP[field])
-        with pytest.raises(NotImplementedError, match=field):
-            _unported(config)
     elif field in ACCEPTED:
         assert _build(**{field: ACCEPTED[field]}) == _build()
     else:
@@ -125,37 +115,32 @@ def test_every_jax_vit_field_is_honoured_or_refused(field):
                     "neither honours nor refuses it")
 
 
-@pytest.mark.parametrize("field", ["scan_dino_layers", "remat_dino",
-                                   "dino_remat_policy"])
-def test_the_trunk_switch_check_refuses_naming_the_key(field):
-    """The check the train step shares with the constructor."""
-    with pytest.raises(NotImplementedError, match=field):
-        check_trunk_switches(_vit_kwargs(**{field: REFUSED[field]}))
-    default = {f.name: f.default for f in dataclasses.fields(JaxViT)}[field]
-    check_trunk_switches(_vit_kwargs(**{field: default}))
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(scan_dino_layers=True), AssertionError),
+    (dict(dino_remat_policy="everything"), KeyError),
+    (dict(dino_fused_add_ln=True, sow_dino_attention=False,
+          remat_dino=True), ValueError),
+])
+def test_the_trunk_switch_check_keeps_the_jax_refusals(kwargs, error):
+    """The combinations the JAX ViT refuses, with its exception types: the
+    scanned trunk with attention capture on (its default), an unknown
+    remat policy, the fused residual boundaries under remat."""
+    with pytest.raises(error):
+        check_trunk_switches(_vit_kwargs(**kwargs))
+    with pytest.raises(error):
+        ViT(_vit_kwargs(**kwargs), 1)
 
 
 def test_dino_dot_softmax_passes_the_trunk_switch_check():
     check_trunk_switches(_vit_kwargs(dino_dot_softmax=True))
 
 
-def test_from_jax_params_refuses_a_scanned_trunk():
-    import numpy as np
-
-    from hypervla_tpu_torch.utils.convert import from_jax_params
-
-    leaf = np.zeros((2, 4, 4), np.float32)
-    plain = {"encoder": {"image_encoder": {"encoder": {
-        "layer_0": {"mlp": {"fc1": {"kernel": leaf[0]}}}}}}}
-    assert len(from_jax_params(plain, device="cpu")) == 1
-    scanned = {"encoder": {"image_encoder": {"encoder": {"layers": {
-        "layer": {"mlp": {"fc1": {"kernel": leaf}}}}}}}}
-    with pytest.raises(NotImplementedError, match="scan_dino_layers"):
-        from_jax_params(scanned, device="cpu")
-
-
 #: the switches lifted from REFUSED (and encoder_type's ported values):
-#: field -> (the JAX tiny config's encoder_type, value, frame size)
+#: field -> (the JAX tiny config's encoder_type, value, frame size[, the
+#: other keys it needs]); the serving forward (train=False), where dropout
+#: and noise draw nothing (tests/test_torch_dropout.py holds them in
+#: training), remat changes no value, the scanned trunk's params arrive
+#: stacked and return_attention_map returns the last block's map too
 LIFTED = {
     "use_language_token": ("SmallStem", True, 64),
     "add_positional_embedding": ("SmallStem", False, 64),
@@ -163,6 +148,13 @@ LIFTED = {
     "patch_size": ("SmallStem", 32, 64),
     "cnn_channels": ("SmallStem", (32, 64, 96, 128), 64),
     "encoder_type": ("SmallStem", "PatchEncoder", 64),
+    "dropout_rate": ("SmallStem", 0.1, 64),
+    "image_embedding_noise": ("DINOv2", 0.1, 224),
+    "return_attention_map": ("SmallStem", True, 64),
+    "scan_dino_layers": ("DINOv2", True, 224,
+                         {"sow_dino_attention": False}),
+    "remat_dino": ("DINOv2", True, 224),
+    "dino_remat_policy": ("DINOv2", "dots", 224),
 }
 
 
@@ -170,29 +162,39 @@ LIFTED = {
 def test_lifted_switch_matches_jax(field):
     """The JAX ViT and the port's with the switch set, on the same params
     (the JAX init, perturbed, through from_jax_params) and inputs: the
-    readout embeddings to 1e-5."""
-    encoder, value, size = LIFTED[field]
+    readout embeddings (and with return_attention_map the last block's
+    attention map) to 1e-5."""
+    encoder, value, size, *others = LIFTED[field]
     kw = jax_tiny_config(encoder)["base_net_kwargs"]["vit_kwargs"]
-    kw = dict(kw, **{field: value})
+    kw = dict(kw, **{field: value}, **(others[0] if others else {}))
     if encoder == "DINOv2":
         kw["pretrained_encoder_name"] = "dinov2-test"
     rng = np.random.RandomState(0)
     images = rng.randint(0, 256, (2, size, size, 3)).astype(np.uint8)
     instruction = rng.randn(2, 5, 12).astype(np.float32)
     jvit = JaxViT(**kw, action_token_num=2)
-    variables = jvit.init(jax.random.PRNGKey(0), images, instruction,
-                          train=False)
+    # the JAX ViT draws its embedding noise at train=False too (and
+    # multiplies it by 0), so it needs the key
+    rngs = {"embedding_noise": jax.random.PRNGKey(1)}
+    variables = jvit.init({"params": jax.random.PRNGKey(0), **rngs}, images,
+                          instruction, train=False)
     variables = jax.tree_util.tree_map(
         lambda v: (v + rng.randn(*v.shape) * 0.05).astype(np.float32),
         variables)
-    ref, _ = jvit.apply(variables, images, instruction, train=False)
+    ref, ref_map = jvit.apply(variables, images, instruction, train=False,
+                              rngs=rngs)
     params = {f"encoder/{k}": v for k, v in from_jax_params(
         jax.tree_util.tree_map(np.asarray, variables["params"])).items()}
     vit = ViT(kw, 2, {"image": (size, size), "instruction": (5, 12)})
     assert set(params) == set(vit.specs())
     for name, (shape, _) in vit.specs().items():
         assert tuple(params[name].shape) == tuple(shape), name
+    maps = {}
     got = vit(params, torch.tensor(images),
-              instruction_embeddings=torch.tensor(instruction))
+              instruction_embeddings=torch.tensor(instruction), maps=maps)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+    if kw.get("return_attention_map"):
+        np.testing.assert_allclose(maps["policy"][-1].numpy(),
+                                   np.asarray(ref_map), rtol=1e-5,
+                                   atol=1e-6)

@@ -9,7 +9,8 @@ the orbax step directories and <step>/EMA_params.pkl. Writes the layout of
 hypervla_tpu_torch/models/hypervla.py: config.json and
 dataset_statistics.json copied as they are, example_batch.npz ("/"-joined
 keys), <step>/params.pt and <step>/EMA_params.pt (flat {name: tensor}
-dicts in the keys of hypervla_tpu_torch/utils/convert.py). Every step
+dicts in the keys of hypervla_tpu_torch/utils/convert.py, a scanned trunk
+unstacked into per-layer keys). Every step
 directory is converted unless --step names one. The port then serves the
 result where JAX is absent:
 
@@ -29,8 +30,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from hypervla_tpu.models.hypervla import HyperVLA  # noqa: E402
 from hypervla_tpu_torch.models.hypervla import EMA_FILE, PARAMS_FILE  # noqa: E402
 from hypervla_tpu_torch.utils.convert import (  # noqa: E402
+    drop_unread_params,
     flatten_tree,
     from_jax_params,
+    trunk_depth,
 )
 
 
@@ -55,13 +58,17 @@ def convert(src: str, dst: str, step=None) -> list:
         out = os.path.join(dst, str(s))
         os.makedirs(out, exist_ok=True)
         model = HyperVLA.load_pretrained(src, step=s)
-        torch.save(from_jax_params(model.params),
+        layers = trunk_depth(model.config)
+        torch.save(drop_unread_params(from_jax_params(model.params,
+                                                      layers=layers),
+                                      model.config),
                    os.path.join(out, PARAMS_FILE))
         ema_path = os.path.join(src, str(s), "EMA_params.pkl")
         if os.path.exists(ema_path):
             with open(ema_path, "rb") as f:
                 ema = pickle.load(f)
-            torch.save({key: from_jax_params(tree)
+            torch.save({key: drop_unread_params(
+                from_jax_params(tree, layers=layers), model.config)
                         for key, tree in ema.items()},
                        os.path.join(out, EMA_FILE))
     return steps
