@@ -150,6 +150,22 @@
    the CPU, ms/step, samples/s, one traced step's device busy and idle
    share, and the peak memory; the checkpoint it saves is then served for
    5 fused steps.
+8. Heads phase: the flagship with the diffusion head (the JAX default:
+   an MLP-ResNet score net sampling in 20 denoising steps, 209 M params of
+   fan-out heads) and with the discrete head (28 readout tokens, 256
+   bins), `action_head_type` overridden in the vit_t,oxe recipe, random
+   weights and fan-out kernels from a seed. Each is served through fused
+   InferenceWrapper steps (50 and 20) on kernel 1, one trunk launch a
+   step, against the same steps on kernel 1's plain version (the
+   diffusion actions within 0.05 * max(scale, 1); the discrete head's
+   logits within that bound and its clear argmax tokens equal), a second
+   wrapper with the same init_rng bit-equal and one with another
+   different (diffusion) or equal (discrete); then trained under the fast
+   preset at batch 64 (3 and 2 steps) beside the mix head: finite losses,
+   12 + 12 launches of kernel 2 and 12 of kernel 3 a step, the step from
+   one state and (seed, step) bit-equal; ms/step, device busy, kernels,
+   peak memory, the optimizer's update alone, and the kernels that take
+   each head's device time beyond the mix head's.
 
 The kernels redesigned for Hopper, the training attention (forward and
 backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
@@ -1664,7 +1680,8 @@ def server_phase(device, flagship):
     stats = policy.unnormalization_statistics
     kwargs = dict(image_size=224, crop=True, ensemble=True,
                   trunk_impl="kernel")
-    base, _ = loaded.create_tasks(instruction, init)
+    base, _ = loaded.create_tasks(instruction_dict=instruction,
+                                  initial_state=init)
     params = serving.prepare_serving_params(loaded, base)
     tick, init_history = serving.make_serving_step(loaded, stats, **kwargs)
     scan, _ = serving.make_scan_serving_step(loaded, stats, SCAN_K, **kwargs)
@@ -1710,7 +1727,9 @@ def server_phase(device, flagship):
     for _ in range(TASKS):
         lang = dict(instruction["language_instruction"], token_embedding=(
             rng.standard_normal(tokens.shape).astype(np.float32)))
-        base, _ = loaded.create_tasks({"language_instruction": lang}, init)
+        base, _ = loaded.create_tasks(
+            instruction_dict={"language_instruction": lang},
+            initial_state=init)
         per_task.append(serving.prepare_serving_params(loaded, base))
     multi, _, stack = serving.make_multitask_serving_step(loaded, stats,
                                                           **kwargs)
@@ -3854,6 +3873,320 @@ def smallstem_phase(device, card):
     torch.cuda.empty_cache()
 
 
+#: the heads phase: head -> (fused serving steps, fast-preset train
+#: steps at TRAIN_BATCH), on the flagship with that action head; the mix
+#: head's train steps are the others' yardstick in the same run (its
+#: serving is the slice phase's)
+HEADS = {"mix": (0, 2), "diffusion": (50, 3), "discrete": (20, 2)}
+#: the fast preset's launches of kernels 2 and 3 a train step
+FAST_PRESET_LAUNCHES = {"mha_fused_train_fwd": 12, "mha_fused_train_bwd": 12,
+                        "dino_layer_train_fwd": 12}
+
+
+def serving_checks(head, model, wrapper, serve, steps, frames, card):
+    """The heads phase's serving checks of one head (see heads_phase);
+    returns kernel 1's launches over the counted steps."""
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.ops import dino_layer as dl
+
+    policy = wrapper("kernel", SEED)
+    dl.reset_launch_counts()
+    actions = serve(policy)
+    torch.cuda.synchronize()
+    launches = dict(dl.LAUNCHES)
+    log(f"heads {head} serving launches over {steps} steps: {launches}")
+    if launches["dino_layers_serving"] != steps:
+        raise AssertionError(f"{head}: not every serving step went through "
+                             "the trunk kernel")
+    if actions.shape != (steps, 7) or not np.isfinite(actions).all():
+        raise AssertionError(f"{head}: bad actions {actions.shape}")
+    plain = serve(wrapper("reference", SEED))
+    scale = max(float(np.abs(plain).max()), 1.0)
+    err = float(np.abs(actions - plain).max())
+    agree = float((actions == plain).mean())
+    log(f"heads {head} actions kernel vs plain trunk: max_abs_err {err:.6g} "
+        f"(bound {TRUNK_BOUND * scale:.6g}), equal entries {agree:.4f}; "
+        f"first action {actions[0].tolist()}")
+    if head == "discrete":
+        # the logits before the argmax, and the argmax where it is clear
+        image = torch.as_tensor(frames[1][:224, :224],
+                                device=model.device)[None]
+        logits = {impl: model.base_net.action_head(
+            policy.base_params, model.base_net.encode(
+                policy.base_params, image, impl)).flatten(0, -2)
+            for impl in ("kernel", "reference")}
+        lerr, lscale = max_err(logits["kernel"], logits["reference"])
+        top2 = logits["reference"].topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * lerr
+        same = (logits["kernel"].argmax(-1) == logits["reference"].argmax(
+            -1))[clear]
+        log(f"heads discrete logits kernel vs plain: max_abs_err "
+            f"{lerr:.6g} (bound {TRUNK_BOUND * max(lscale, 1.0):.6g}); "
+            f"tokens with a clear argmax {int(clear.sum())} of "
+            f"{clear.numel()}, equal {int(same.sum())}")
+        if not lerr < TRUNK_BOUND * max(lscale, 1.0) or not bool(
+                same.all()):
+            raise AssertionError("discrete: logits or clear tokens disagree "
+                                 "with the plain trunk")
+    elif not err < TRUNK_BOUND * scale:
+        raise AssertionError(f"{head}: actions disagree with the plain "
+                             "trunk")
+    again = serve(wrapper("kernel", SEED))
+    other = serve(wrapper("kernel", SEED + 1))
+    same, differ = np.array_equal(actions, again), not np.array_equal(
+        actions, other)
+    log(f"heads {head} init_rng: the same seed bit-equal {same}, another "
+        f"seed different {differ} (max abs diff "
+        f"{float(np.abs(actions - other).max()):.6g})")
+    if not same or differ != (head == "diffusion"):
+        raise AssertionError(f"{head}: init_rng does not seed the actions "
+                             "as it should")
+    times = []
+    for f in frames[1:21]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        policy.step(f)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    busy, kernels = device_busy(lambda: policy.step(frames[1]))
+    med = statistics.median(times)
+    log(f"heads {head} serving ms/step (median of 20, CUDA events) "
+        f"{med:.4f}; step profiled: device busy ms {busy:.3f}, "
+        f"{kernels:.0f} device kernels, idle share {1 - busy / med:.3f}; "
+        f"{card}")
+    return launches
+
+
+def heads_phase(device, card):
+    """The flagship with the diffusion head and with the discrete head
+    (action_head_type overridden in the vit_t,oxe recipe), full width and
+    depth, random weights from a seed and random fan-out kernels. For
+    each: `reset` and fused InferenceWrapper steps on kernel 1's stacked
+    trunk (every step one trunk launch) against the same steps through
+    kernel 1's plain version, a second wrapper with that init_rng
+    bit-equal and one with another init_rng different (diffusion) or
+    equal (discrete: argmax decode), ms/step, device busy and kernels a
+    step. The diffusion actions are held within 0.05 * max(scale, 1) of
+    the plain trunk's (the same init_rng, so the sampler draws the same
+    numbers); the discrete head's argmax is a threshold, as the mix head's
+    gripper is (slice phase), so its logits are held to that bound and its
+    tokens must agree wherever the plain logits' top two lie further apart
+    than twice the logits' error. Then fast-preset train steps at batch 64
+    from one state, for these two heads and the mix head beside them: a
+    finite loss, 12 + 12 launches of kernel 2 and 12 of kernel 3 every
+    step, the step repeated from one state and (seed, step) bit-equal,
+    ms/step, device busy, kernels and the peak memory of a step. Returns
+    {head: {"serve": launches, "train": launches of a step}}."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.configs import (
+        apply_fast_training_preset,
+        flagship_pretrain_config,
+    )
+    from hypervla_tpu_torch.eval.inference import (
+        InferenceWrapper,
+        initial_state,
+    )
+    from hypervla_tpu_torch.flagship import make_flagship_batch
+    from hypervla_tpu_torch.models.base_network import BaseNetwork
+    from hypervla_tpu_torch.models.hypernetwork import HyperNetwork
+    from hypervla_tpu_torch.models.hypervla import HyperVLA
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.train.optimizer import (
+        create_optimizer,
+        hn_param_type_tree,
+    )
+    from hypervla_tpu_torch.train.train_state import TrainState
+    from hypervla_tpu_torch.train.train_step import (
+        make_train_step,
+        to_tensors,
+    )
+    from hypervla_tpu_torch.train.trainer import build_frozen_encoders
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 16)
+    stats = {"action": {
+        "mean": rng.standard_normal(7).astype(np.float32) * 0.1,
+        "std": (1 + rng.random(7)).astype(np.float32),
+        "mask": np.array([True] * 6 + [False]),
+    }}
+    most = max(steps for steps, _ in HEADS.values())
+    frames = rng.integers(0, 256, (most + 1, 256, 256, 3), dtype=np.uint8)
+    example = make_flagship_batch(seed=SEED)
+    instruction = {"language_instruction":
+                   example["task"]["language_instruction"]}
+    batch = make_flagship_batch(batch_size=TRAIN_BATCH, seed=SEED)
+    del batch["task"]["language_instruction"]["token_embedding"]
+    del batch["initial_state"]["patch_embeddings"]
+    batch = to_tensors(batch, device)
+    encoders = None
+    out, traced = {}, {}
+    for head, (serve_steps, train_steps) in HEADS.items():
+        t0 = time.perf_counter()
+        config = flagship_pretrain_config()
+        config["base_net_kwargs"]["action_head_type"] = head
+        config["base_net_kwargs"]["vit_kwargs"]["encoder_dtype"] = "bfloat16"
+        model = HyperVLA.from_config(config, example, seed=SEED,
+                                     device=device, dataset_statistics=stats)
+        # random fan-out kernels make the generated weights depend on the
+        # task (at init they are 0)
+        gen = torch.Generator(device=device).manual_seed(SEED + 17)
+        for name, value in model.params.items():
+            if name.startswith("output_head_") and name.endswith("/kernel"):
+                value += 0.02 * torch.randn(value.shape, generator=gen,
+                                            device=device)
+        torch.cuda.synchronize()
+        fan_out = sum(v.numel() for k, v in model.params.items()
+                      if k.startswith("output_head_action_head"))
+        total = sum(v.numel() for v in model.params.values())
+        log(f"heads {head}: flagship built in "
+            f"{time.perf_counter() - t0:.3f} s, {total} params, the action "
+            f"head's fan-out heads {fan_out}; {card}")
+
+        out[head] = {}
+        # ---- serving: kernel 1 against its plain version ----
+        init = initial_state(model, frames[0])
+
+        def wrapper(trunk_impl, init_rng):
+            w = InferenceWrapper(
+                model, policy_setup="google_robot", image_size=224,
+                action_ensemble=True, crop=True, fused_serving=True,
+                trunk_impl=trunk_impl, init_rng=init_rng,
+                pred_action_horizon=config["base_net_kwargs"][
+                    "action_horizon"])
+            w.reset("pick up the cube", instruction, init)
+            return w
+
+        def serve(w):
+            return np.stack([w.step(f)[0] for f in frames[1:serve_steps + 1]])
+
+        if serve_steps:
+            out[head]["serve"] = serving_checks(
+                head, model, wrapper, serve, serve_steps, frames, card)
+
+        # ---- training: the fast preset at batch 64 ----
+        fast = apply_fast_training_preset(copy.deepcopy(config))
+        trained = HyperVLA(HyperNetwork(model.plan, fast["hypernet_kwargs"]),
+                           BaseNetwork(**fast["base_net_kwargs"]), fast,
+                           model.params, model.plan, stats, device,
+                           model.example_batch)
+        if encoders is None:
+            text_apply, dino_apply, t5, dino_params = build_frozen_encoders(
+                fast, device=device, seed=SEED + 1)
+            encoders = {"t5": t5, "dino": dino_params}
+        tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
+            model.params, hn_param_type_tree(model.params),
+            **fast["optimizer"])
+        step_fn = make_train_step(trained, fast, tx, lr_fn, base_lr_fn,
+                                  pnorm_fn, text_encode=text_apply,
+                                  dino_encode=dino_apply)
+        state0 = TrainState.create(model.params, tx, seed=SEED)
+        warmup = fast["optimizer"]["learning_rate"]["warmup_steps"]
+        state0.step = warmup
+        state0.opt_state["count"] = warmup
+        del model
+
+        def run(state):
+            return step_fn(state, batch, encoder_params=encoders,
+                           with_metrics=False)
+
+        def counts():
+            return {k: v for k, v in {**fa.LAUNCHES, **dlt.LAUNCHES}.items()
+                    if v}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first, info = run(state0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        again, _ = run(state0)
+        same = all(torch.equal(first.params[k], again.params[k])
+                   for k in first.params)
+        del again
+        log(f"heads {head} train step repeated from one state and (seed, "
+            f"step): new params bit-equal {same}; {card}")
+        if not same:
+            raise AssertionError(f"{head}: the train step does not repeat "
+                                 "bit for bit")
+        state, times, losses, per_step = first, [], [
+            float(info["training_loss"])], []
+        for _ in range(train_steps):
+            for module in (fa, dlt):
+                module.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, info = run(state)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            per_step.append(counts())
+            losses.append(float(info["training_loss"]))
+        del state, first
+        log(f"heads {head} train losses {losses}, launches a step "
+            f"{per_step}; {card}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{head}: a train loss is not finite")
+        for launched in per_step:
+            for kernel, want in FAST_PRESET_LAUNCHES.items():
+                if launched.get(kernel) != want:
+                    raise AssertionError(
+                        f"{head}: a train step launched {kernel} "
+                        f"{launched.get(kernel)} times, want {want}")
+        traced[head] = _device_trace(lambda: run(state0), 1, host=False)
+        busy = sum(mean_us * n for mean_us, n in traced[head].values()) / 1e3
+        kernels = sum(n for _, n in traced[head].values())
+        # the optimizer's update alone, on the gradients that step left
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in state0.params.items()}
+        with torch.no_grad():
+            opt_busy, opt_kernels = device_busy(lambda: tx.update(
+                grads, state0.opt_state, state0.params), host=False)
+        del grads
+        log(f"heads {head} optimizer update alone ({len(state0.params)} "
+            f"leaves, {sum(p.numel() for p in state0.params.values())} "
+            f"params): device busy ms {opt_busy:.3f}, {opt_kernels:.0f} "
+            f"device kernels; {card}")
+        med = statistics.median(times)
+        log(f"heads {head} train ms/step (median of {train_steps}, CUDA "
+            f"events, batch {TRAIN_BATCH}) {med:.4f}; step profiled: device "
+            f"busy ms {busy:.3f}, {kernels:.0f} device kernels, idle share "
+            f"{1 - busy / med:.3f}; peak memory (max_memory_allocated over "
+            f"a step from the state) {peak / 2 ** 30:.3f} GiB; {card}")
+        out[head]["train"] = per_step[-1]
+        del state0, step_fn, trained, tx
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    # where a head's step spends its device time beyond the mix head's
+    def by_name(per):
+        ms = {}
+        for key, (mean_us, n) in per.items():
+            name = key.removeprefix("void ").split("(")[0].split("<")[0]
+            ms[name] = ms.get(name, 0.0) + mean_us * n / 1e3
+        return ms
+
+    base = by_name(traced["mix"])
+    for head in traced:
+        if head == "mix":
+            continue
+        ms = by_name(traced[head])
+        extra = sorted(((ms.get(k, 0.0) - base.get(k, 0.0), k)
+                        for k in set(ms) | set(base)), reverse=True)[:6]
+        log(f"heads {head} train step's device ms over the mix head's, the "
+            "six largest by kernel: " + ", ".join(
+                f"{k} {d:+.3f}" for d, k in extra) + f"; {card}")
+    log(f"heads phase s {time.perf_counter() - t_phase:.3f}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3895,6 +4228,7 @@ def main() -> int:
     trainer_launches = trainer_phase(device, card, hand_fed)
     smallstem_phase(device, card)
     regularised_phase(device, card)
+    heads_phase(device, card)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")

@@ -126,6 +126,13 @@ def pretrain_config() -> Dict[str, Any]:
             "action_head_type": "diffusion",
             "action_horizon": 4,
             "action_dim": 7,
+            "cnn_kwargs": {
+                "kernel_sizes": (3, 3, 3, 3),
+                "strides": (2, 2, 2, 2),
+                "features": (32, 64, 128, 256),
+                "padding": (1, 1, 1, 1),
+                "mlp_hidden_sizes": (32, 32),
+            },
             "vit_kwargs": {
                 "encoder_type": "SmallStem",
                 "patch_size": 16,
@@ -150,6 +157,10 @@ def pretrain_config() -> Dict[str, Any]:
                 "clip_target": False,
                 "max_action": 5.0,
                 "hidden_dims": tuple(),
+                "discrete_token_type": "action_dim_and_action_horizon",
+                "num_blocks": 3,
+                "hidden_dim": 256,
+                "diffusion_dropout_rate": 0.0,
                 "loss_type": "mse",
             },
         },

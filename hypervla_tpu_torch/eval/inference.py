@@ -33,6 +33,13 @@ for a bf16 trunk: the stacked trunk captures nothing); each step keeps
 class-token row without itself, where the config captures the trunk's
 maps (sow_dino_attention), and `head_attention_map` (policy layers, heads,
 tokens - 1), every policy ViT layer's last row without itself.
+
+init_rng seeds the wrapper's random numbers, which only the diffusion head
+reads: each step splits a seed off a host generator seeded with init_rng
+and draws the tick's numbers from a generator on the model's device seeded
+with it (the JAX wrapper splits a key off its PRNGKey(init_rng) a step).
+Two wrappers with one init_rng serve the same actions; the mix, continuous
+and discrete heads serve the same actions under any.
 """
 import logging
 import time
@@ -57,6 +64,7 @@ from hypervla_tpu_torch.ops.serving import (
     per_layer_trunk,
     prepare_serving_params,
     resolve_trunk_impl,
+    trunk_impl_of,
 )
 
 
@@ -76,22 +84,30 @@ PADDED_SIZE = (256, 320)
 
 
 class InferenceWrapper:
-    def __init__(self, model, policy_setup: str = "libero",
+    def __init__(self, model=None, policy_setup: str = "libero",
                  horizon: int = 1, pred_action_horizon: int = 1,
-                 exec_horizon: int = 1, image_size: int = 224,
+                 exec_horizon: int = 1, image_size: int = 256,
                  init_rng: int = 0, action_ensemble: bool = False,
                  crop: bool = False, save_attention_map: bool = False,
                  padded_resize: bool = False, fused_serving: bool = False,
-                 trunk_impl=None) -> None:
-        """trunk_impl (the JAX wrapper's trunk_kernel) is one of
-        ops/serving.py::TRUNK_IMPLS, on either path, or None
+                 trunk_kernel=False, trunk_impl=None) -> None:
+        """The JAX wrapper's arguments with its defaults: image_size 256,
+        at which a DINOv2 model's step fails (its trunk takes 224 x 224:
+        an AssertionError, as in the JAX package), so a DINOv2 policy is
+        served with image_size=224 (load_hypervla_policy's default).
+        trunk_kernel takes the JAX values (ops/serving.py::trunk_impl_of:
+        True or "pallas" is kernel 1, "scan" or "unroll" its plain
+        version; False leaves the choice to trunk_impl) on either path.
+        trunk_impl is one of ops/serving.py::TRUNK_IMPLS, or None
         (ops/serving.py::resolve_trunk_impl: the stacked trunk kernel for
         a DINOv2 model, nothing for a model with a generated conv stem,
-        which takes no other value). exec_horizon and
-        init_rng are taken for the JAX signature only: a step returns one
-        action (receding-horizon execution is the environment loop's, so
-        exec_horizon must be 1), and the mix head's argmax decode draws no
-        random numbers, so init_rng changes nothing."""
+        which takes no other value). exec_horizon is taken for the JAX
+        signature: a step returns one action (receding-horizon execution
+        is the environment loop's, so exec_horizon must be 1). init_rng
+        seeds the diffusion head's draws (the module docstring). Without a
+        model the wrapper holds its settings only, as the JAX one does.
+        The JAX wrapper's pack_args, a TPU dispatch workaround, is not
+        taken."""
         if exec_horizon != 1:
             raise ValueError(
                 f"exec_horizon={exec_horizon}: a step returns one action; "
@@ -101,6 +117,8 @@ class InferenceWrapper:
         self.model = model
         self.policy_setup = policy_setup
         self.image_size = image_size
+        self._rng = torch.Generator().manual_seed(int(init_rng))
+        self._tick_generator = None
         self.horizon = horizon
         self.pred_action_horizon = pred_action_horizon
         self.action_ensemble = action_ensemble
@@ -114,18 +132,31 @@ class InferenceWrapper:
         self.fused_serving = (fused_serving and horizon == 1
                               and not padded_resize
                               and not save_attention_map)
-        self.trunk_impl = resolve_trunk_impl(model, trunk_impl)
+        self.image_history = deque(maxlen=self.horizon)
+        self.num_image_history = 0
+        self.action_ensembler = (
+            ActionEnsembler(self.pred_action_horizon,
+                            self.action_ensemble_temp)
+            if self.action_ensemble else None)
+        self._serving_step = None
+        self.task = None
+        self.task_description = None
+        self.sticky_gripper_num_repeat = {
+            "google_robot": 15, "widowx_bridge": 1}.get(policy_setup)
+        self._reset_gripper()
+        self.unnormalization_statistics = None
+        self.trunk_impl = trunk_impl_of(trunk_kernel, trunk_impl)
+        if model is None:
+            return
+        self.trunk_impl = resolve_trunk_impl(model, self.trunk_impl)
         if save_attention_map and self.trunk_impl is not None and (
                 not per_layer_trunk(self.trunk_impl)):
             # the capture runs the trunk's layer loop
             self.trunk_impl = "layers"
         self.dino_attention_map = None
         self.head_attention_map = None
-        self.sticky_gripper_num_repeat = {
-            "google_robot": 15, "widowx_bridge": 1}.get(policy_setup)
         dataset = _DATASETS[policy_setup]
         stats = model.dataset_statistics
-        self.unnormalization_statistics = None
         if stats is not None:
             if "action" in stats:
                 self.unnormalization_statistics = stats["action"]
@@ -138,16 +169,6 @@ class InferenceWrapper:
                 self.unnormalization_statistics = stats[fallback]["action"]
         self.normalization_type = _find_normalization_type(model.config,
                                                            dataset)
-        self.image_history = deque(maxlen=self.horizon)
-        self.num_image_history = 0
-        self.action_ensembler = (
-            ActionEnsembler(self.pred_action_horizon,
-                            self.action_ensemble_temp)
-            if self.action_ensemble else None)
-        self._serving_step = None
-        self.task = None
-        self.task_description = None
-        self._reset_gripper()
 
     def _statistics(self) -> dict:
         if self.unnormalization_statistics is None:
@@ -223,18 +244,32 @@ class InferenceWrapper:
         self.num_image_history = 0
         self._reset_gripper()
 
-    def step(self, image: np.ndarray, task_description: Optional[str] = None):
+    def _split_rng(self) -> torch.Generator:
+        """This tick's generator, on the model's device: seeded with a seed
+        split off the wrapper's host generator (init_rng)."""
+        seed = int(torch.randint(0, 2 ** 62, (), generator=self._rng))
+        if self._tick_generator is None:
+            self._tick_generator = torch.Generator(device=self.model.device)
+        return self._tick_generator.manual_seed(seed)
+
+    def step(self, image: np.ndarray, task_description: Optional[str] = None,
+             rng=None):
         """One control tick: uint8 (H, W, C) frame -> (raw_action, action,
         image, (task_description, task), seconds); the image is the
         resized frame on the host path, the frame itself on the fused
-        one."""
+        one. rng (a torch.Generator or a models/draws.py::Draws) stands in
+        for the tick's own draws; the wrapper's stream splits all the
+        same, so the ticks after it draw what they would have."""
         if (task_description is not None
                 and task_description != self.task_description):
             self.reset(task_description, self.instruction_dict)
         if image.dtype != np.uint8:
             raise ValueError(f"frames must be uint8, got {image.dtype}")
+        tick_rng = self._split_rng()
+        if rng is not None:
+            tick_rng = rng
         if self.fused_serving:
-            return self._fused_step(image)
+            return self._fused_step(image, tick_rng)
         image = self._resize_image(image)
         self._add_image_to_history(image)
         # the ViT base net reads no pad mask (and one frame: a longer
@@ -243,10 +278,10 @@ class InferenceWrapper:
 
         start = time.perf_counter()
         maps = {} if self.save_attention_map else None
-        raw_actions = self.model.sample_actions(images[None],
-                                                self.base_params,
-                                                self.trunk_impl, self.task,
-                                                maps)
+        raw_actions = self.model.sample_actions(
+            images[None], self.instruction_dict, self.task, None,
+            self.base_params, rng=tick_rng, trunk_impl=self.trunk_impl,
+            maps=maps)
         raw_actions = raw_actions[0].cpu().numpy()
         seconds = time.perf_counter() - start
         if maps is not None:
@@ -267,12 +302,12 @@ class InferenceWrapper:
         return raw_action, action, image, (self.task_description,
                                            self.task), seconds
 
-    def _fused_step(self, image: np.ndarray):
+    def _fused_step(self, image: np.ndarray, rng):
         """One call of the fused serving step (ops/serving.py)."""
         start = time.perf_counter()
         raw_action, self._serving_history = self._serving_step(
             self.base_params, image, self._serving_history,
-            self.episode_step, self._token_embedding,
+            self.episode_step, self._token_embedding, rng,
         )
         raw_action = raw_action.cpu().numpy()
         seconds = time.perf_counter() - start

@@ -1,13 +1,19 @@
 """BaseNetwork: the generated policy (counterpart of
-hypervla_tpu/models/base_network.py), for model_type "vit" with the mix or
-the continuous action head. Its params are a flat dict keyed by the JAX
-package's paths; at serving time they come from the hypernetwork once per
-episode, in training per sample (a leading batch axis,
-models/hypernetwork.py::per_sample_view).
+hypervla_tpu/models/base_network.py), for model_type "vit" with any of the
+four action heads that the JAX BaseNetwork builds: mix, continuous,
+discrete and diffusion, each built from action_head_kwargs as the JAX one
+builds it. Its params are a flat dict keyed by the JAX package's paths; at
+serving time they come from the hypernetwork once per episode, in training
+per sample (a leading batch axis, models/hypernetwork.py::per_sample_view).
 
 The window is one frame: the JAX ViT base net squeezes only a window of 1
 (HyperVLA.sample_actions) and raises ValueError on a longer one, and so
 does this one.
+
+model_type "cnn" (the JAX default's) raises TypeError, as the JAX model
+does at init: its BaseNetwork.encode calls the encoder with the
+instruction embeddings, train and image_embeddings, and the JAX CNN takes
+the image alone. models/base_cnn.py carries the CNN itself.
 """
 from typing import Dict, Optional, Tuple
 
@@ -16,18 +22,48 @@ import torch
 from hypervla_tpu_torch.models import layers
 from hypervla_tpu_torch.models.action_heads import (
     ContinuousActionHead,
+    DiffusionActionHead,
+    DiscreteActionHead,
     MixActionHead,
 )
 from hypervla_tpu_torch.models.base_vit import ViT
-
-#: the action heads the port carries
-ACTION_HEADS = {"mix": MixActionHead, "continuous": ContinuousActionHead}
+from hypervla_tpu_torch.models.draws import as_draws
 
 
-def readout_token_count(action_head_kwargs: dict, action_horizon: int) -> int:
-    """How many readout ("action") tokens the encoder appends for a
-    regression head: one per horizon step, or one in all
+def build_action_head(action_head_type: str, action_head_kwargs: dict,
+                      action_horizon: int, action_dim: int):
+    """The head as hypervla_tpu/models/base_network.py::_build_action_head
+    builds it: the diffusion head from the named keys
+    diffusion_dropout_rate, num_blocks and hidden_dim (one diffusion sample
+    a step), the discrete head's layout from discrete_token_type, the mix
+    head from its named keys, the continuous head from all of them."""
+    kw = action_head_kwargs
+    if action_head_type == "diffusion":
+        return DiffusionActionHead(
+            action_horizon, action_dim, n_diffusion_samples=1,
+            dropout_rate=kw.get("diffusion_dropout_rate", 0.0),
+            num_blocks=kw.get("num_blocks", 3),
+            hidden_dim=kw.get("hidden_dim", 256))
+    if action_head_type == "continuous":
+        return ContinuousActionHead(action_horizon, action_dim, kw)
+    if action_head_type == "mix":
+        return MixActionHead(action_horizon, action_dim, kw)
+    if action_head_type == "discrete":
+        return DiscreteActionHead(action_horizon, action_dim,
+                                  token_per=kw["discrete_token_type"])
+    raise NotImplementedError(f"unknown action_head_type {action_head_type}")
+
+
+def readout_token_count(action_head_type: str, action_head_kwargs: dict,
+                        action_horizon: int, action_dim: int) -> int:
+    """How many readout ("action") tokens the encoder appends: the discrete
+    head reads one a unit of its token layout, the regression heads one a
+    horizon step or one in all
     (hypervla_tpu/models/base_network.py::_readout_token_count)."""
+    if action_head_type == "discrete":
+        per = {"action_dim_and_action_horizon": action_horizon * action_dim,
+               "action_horizon": action_horizon}
+        return per[action_head_kwargs["discrete_token_type"]]
     return action_horizon if action_head_kwargs.get(
         "token_per_horizon", False) else 1
 
@@ -51,19 +87,24 @@ class BaseNetwork:
                  octo_kwargs: Optional[dict] = None,
                  input_shapes: Optional[dict] = None):
         """cnn_kwargs and octo_kwargs, which a JAX config carries, are
-        read only by the model types that are not ported. input_shapes
-        are the ViT's (models/base_vit.py::ViT)."""
-        if model_type != "vit" or action_head_type not in ACTION_HEADS:
+        read only by the model types that are not built (see the module
+        docstring). input_shapes are the ViT's (models/base_vit.py::ViT)."""
+        if model_type == "cnn":
+            raise TypeError(
+                "model_type='cnn': BaseNetwork.encode calls its encoder with "
+                "the instruction embeddings, train and image_embeddings, and "
+                "CNN.__call__ takes the image alone (the JAX package's model "
+                "raises this TypeError at init)")
+        if model_type != "vit":
             raise NotImplementedError(
-                f"model_type={model_type!r}, action_head_type="
-                f"{action_head_type!r}: only the vit policy with the mix or "
-                "continuous head is ported (ROADMAP.md A12.1, the other "
-                "action heads; A12.2, other encoders and topologies)"
-            )
-        self.action_head = ACTION_HEADS[action_head_type](
-            action_horizon, action_dim, action_head_kwargs)
-        self.encoder = ViT(vit_kwargs, readout_token_count(
-            action_head_kwargs, action_horizon), input_shapes)
+                f"model_type={model_type!r}: the Octo topology is not "
+                "ported yet (ROADMAP.md A12.2, other encoders and "
+                "topologies)")
+        n_readout = readout_token_count(action_head_type, action_head_kwargs,
+                                        action_horizon, action_dim)
+        self.encoder = ViT(vit_kwargs, n_readout, input_shapes)
+        self.action_head = build_action_head(
+            action_head_type, action_head_kwargs, action_horizon, action_dim)
 
     def encode(self, params, images, trunk_impl: str = "kernel",
                image_embeddings=None, instruction_embeddings=None,
@@ -81,8 +122,9 @@ class BaseNetwork:
         encoder reads the batch's frames, or on the DINOv2 path the batched
         trunk's patch embeddings (B, patches, dim); instruction_embeddings
         (B, L, token_dim) feed its language tokens. draws: the training
-        forward's dropout; maps (a dict) receives the policy
-        transformer's attention maps (ViT.__call__)."""
+        forward's dropout (and the diffusion head's steps and noise); maps
+        (a dict) receives the policy transformer's attention maps
+        (ViT.__call__)."""
         images = None
         if image_embeddings is None:
             images = _one_frame(batch["observation"]["image_primary"])
@@ -92,19 +134,23 @@ class BaseNetwork:
         return self.action_head.loss(
             params, tokens, batch["action"],
             batch["observation"]["timestep_pad_mask"],
-            batch["action_pad_mask"])
+            batch["action_pad_mask"], draws)
 
     def predict_action(self, params: Dict[str, torch.Tensor], images,
                        trunk_impl: str = "kernel",
-                       instruction_embeddings=None, maps=None):
+                       instruction_embeddings=None, maps=None, rng=None,
+                       image_embeddings=None):
         """images (B, H, W, C) or (B, 1, H, W, C) uint8 -> action chunk
         (B, horizon, action_dim); maps (a dict) receives the attention
-        maps (ViT.__call__)."""
-        images = _one_frame(images)
-        return self.action_head.predict_action(
-            params, self.encode(params, images, trunk_impl,
-                                instruction_embeddings=instruction_embeddings,
-                                maps=maps))
+        maps (ViT.__call__). rng (a torch.Generator, or a
+        models/draws.py::Draws to replay) is the diffusion head's, which
+        raises without one; the other heads do not read it."""
+        images = None if images is None else _one_frame(images)
+        tokens = self.encode(params, images, trunk_impl,
+                             image_embeddings=image_embeddings,
+                             instruction_embeddings=instruction_embeddings,
+                             maps=maps)
+        return self.action_head.predict_action(params, tokens, as_draws(rng))
 
     def specs(self) -> Dict[str, Tuple[tuple, layers.Init]]:
         specs = self.encoder.specs()

@@ -90,8 +90,11 @@ def normalize_pixels(images):
 
 
 def _check_resolution(images):
+    """The JAX ViT's assert on a DINOv2 frame's size, as an
+    AssertionError."""
     if tuple(images.shape[1:3]) != (RESOLUTION, RESOLUTION):
-        raise ValueError(f"DINOv2 input must be {RESOLUTION}x{RESOLUTION}")
+        raise AssertionError(
+            f"DINOv2 input must be {RESOLUTION}x{RESOLUTION}.")
 
 
 def trunk_remat(vit_kwargs: dict):
@@ -109,9 +112,9 @@ def check_trunk_switches(vit_kwargs: dict) -> None:
     """Raises NotImplementedError for a trunk switch of the JAX package
     (hypervla_tpu/models/base_vit.py) that the port has no counterpart for,
     rather than run the plain trunk without a word, and the JAX package's
-    exception for a combination it refuses: ValueError for the fused
-    residual boundaries under remat, AssertionError for the scanned trunk
-    with attention capture, KeyError for an unknown remat policy."""
+    exception for a combination it refuses: AssertionError for the fused
+    residual boundaries under remat and for the scanned trunk with
+    attention capture, KeyError for an unknown remat policy."""
     kw = vit_kwargs
     if kw.get("flash_attention_trainable", False):
         raise NotImplementedError(
@@ -131,8 +134,8 @@ def check_trunk_switches(vit_kwargs: dict) -> None:
     if (kw.get("dino_fused_add_ln", False) and remat and not scan
             and impl != "pallas_train"
             and not kw.get("sow_dino_attention", True)):
-        raise ValueError("dino_fused_add_ln is incompatible with layer remat "
-                         "(remat_dino, dino_remat_policy)")
+        raise AssertionError("dino_fused_add_ln is incompatible with layer "
+                             "remat (remat_dino, dino_remat_policy)")
     if (kw.get("encoder_type") == "DINOv2" and scan
             and kw.get("sow_dino_attention", True)):
         raise AssertionError("scan_dino_layers cannot capture attention "

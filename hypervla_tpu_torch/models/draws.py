@@ -17,7 +17,16 @@ weights), "encoder/Dropout_0" (the policy ViT's tokens),
 "encoder/Transformer_0/encoderblock_0/Dropout_0"; and by the config key
 where flax numbers the module by what else the config builds:
 "image_dropout", "embedding_dropout", "final_dropout/<group>" (one per
-context-token group, in group order) and "embedding_noise".
+context-token group, in group order) and "embedding_noise". The diffusion
+action head draws its steps and noise at "action_head/time" and
+"action_head/noise" (per sample, from the JAX head's make_rng("dropout")),
+its score network's dropout at
+"action_head/diffusion_model/trunk/blocks/<i>/Dropout_0" (one site a
+scanned block), and, sampling, "action_head/x_T" and "action_head/z/<t>"
+(models/action_heads.py::DiffusionActionHead).
+
+Serving draws only on the diffusion head: the caller's rng, a
+torch.Generator (`as_draws` wraps it) or a Draws to replay.
 """
 from typing import Dict, Optional
 
@@ -81,6 +90,23 @@ class Draws:
         """Standard-normal fp32 draws."""
         return self._take(site, shape, device, lambda: torch.randn(
             shape, generator=self.generator, device=device)).float()
+
+    def randint(self, site: str, shape, low: int, high: int, device):
+        """Integers drawn uniformly from [low, high)."""
+        return self._take(site, shape, device, lambda: torch.randint(
+            low, high, shape, generator=self.generator, device=device)
+        ).long()
+
+
+def as_draws(rng) -> Optional[Draws]:
+    """A serving call's rng as a Draws: None stays None, a Draws is itself,
+    a torch.Generator is drawn from in order."""
+    if rng is None or isinstance(rng, Draws):
+        return rng
+    if isinstance(rng, torch.Generator):
+        return Draws(rng)
+    raise TypeError(f"rng must be a torch.Generator or a Draws, not "
+                    f"{type(rng).__name__}")
 
 
 def dropout(x, rate: float, draws: Optional[Draws], site: str):

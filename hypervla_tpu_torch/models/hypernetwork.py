@@ -273,17 +273,20 @@ class HyperNetwork:
         plan = self.plan
         batch = context_embedding.shape[0]
         out = {}
+        def unpack(flat, names):
+            # torch.split, not one slice a block: the backward of a slice
+            # writes a zero tensor of the whole output, so slicing n blocks
+            # costs n passes over it in the backward, a split one
+            parts = torch.split(flat, [plan.dim(n) for n in names], dim=1)
+            return {name: part.reshape(batch, *plan.param_shape[name])
+                    for name, part in zip(names, parts)}
+
         if self.strategy == "full":
             flat = layers.dense(context_embedding[:, 0],
                                 params["output_head/kernel"],
                                 params.get("output_head/bias"))
-            offset = 0
-            for name in plan.names:
-                dim = plan.dim(name)
-                if plan.generation_flag[name]:
-                    out[name] = flat[:, offset:offset + dim].reshape(
-                        batch, *plan.param_shape[name])
-                offset += dim
+            out.update({name: value for name, value in unpack(
+                flat, plan.names).items() if plan.generation_flag[name]})
         final_rate = self.hk.get("final_dropout_rate")
         for i, (token, names) in enumerate(self.packed_groups):
             heads = [plan.head_name(n) for n in names]
@@ -294,12 +297,7 @@ class HyperNetwork:
                 packed = packed + torch.cat(
                     [params[f"output_head_{h}/bias"] for h in heads])
             packed = dropout(packed, final_rate, draws, f"final_dropout/{i}")
-            offset = 0
-            for name in names:
-                dim = plan.dim(name)
-                out[name] = packed[:, offset:offset + dim].reshape(
-                    batch, *plan.param_shape[name])
-                offset += dim
+            out.update(unpack(packed, names))
         for name in plan.names:
             if not plan.generation_flag[name]:
                 out[name] = params[WeightPlan.flat_name(name)].reshape(

@@ -268,9 +268,10 @@ class HyperVLA:
                    dataset_statistics, device, example_batch)
 
     @torch.no_grad()
-    def create_tasks(self, instruction_dict: dict,
+    def create_tasks(self, goals=None, instruction_dict: dict = None,
                      initial_state: Optional[dict] = None):
-        """One hypernetwork forward for one task.
+        """One hypernetwork forward for one task. goals are not read (the
+        JAX create_tasks takes them and reads none either).
 
         instruction_dict["language_instruction"] holds `token_embedding`
         (1, L, token_dim) and `attention_mask` (1, L); initial_state holds
@@ -280,6 +281,8 @@ class HyperVLA:
         key but the instruction. Returns (base_params, tasks): the per-task
         base params (no batch dim) and the task dict the hypernetwork
         read."""
+        if instruction_dict is None:
+            raise TypeError("create_tasks needs instruction_dict")
         instr = instruction_dict["language_instruction"]
         dev = self.device
         tokens = _as_tensor(instr["token_embedding"], dev).float()
@@ -328,28 +331,41 @@ class HyperVLA:
         }
 
     @torch.no_grad()
-    def sample_actions(self, images, base_params: Params,
+    def sample_actions(self, images, instruction_dict, task,
+                       timestep_pad_mask, base_params: Params,
+                       train: bool = False, rng=None, image_embeddings=None,
                        trunk_impl: str = "kernel",
-                       tasks: Optional[dict] = None,
                        maps: Optional[dict] = None):
         """images (B, 1, H, W, C) or (B, H, W, C) uint8 -> action chunks
-        (B, horizon, action_dim); the regression heads' decode needs no
-        random numbers. tasks (create_tasks' second result) give the
-        instruction's token embedding to a policy with language tokens.
-        maps (a dict) receives the attention maps
-        (models/base_vit.py::ViT.__call__; the trunk's on its layer loop:
-        a per-layer trunk_impl)."""
-        images = _as_tensor(images, self.device)
+        (B, horizon, action_dim), the JAX package's arguments in its order:
+        instruction_dict["language_instruction"]["token_embedding"] (B, L,
+        token_dim) feeds a policy with language tokens; task and
+        timestep_pad_mask are taken and not read (the ViT base net reads
+        neither, in both packages). rng is the diffusion head's: a
+        torch.Generator, or a models/draws.py::Draws to replay; it raises
+        without one, and the other heads do not read it. image_embeddings
+        (B, patches, dim) stand in for the DINOv2 trunk's. train=True
+        (sampling with dropout) raises NotImplementedError. trunk_impl
+        picks the trunk (ops/serving.py::TRUNK_IMPLS); maps (a dict)
+        receives the attention maps (models/base_vit.py::ViT.__call__; the
+        trunk's on its layer loop: a per-layer trunk_impl)."""
+        if train:
+            raise NotImplementedError(
+                "sample_actions(train=True): sampling with dropout on is not "
+                "ported (serving samples with train=False)")
+        if images is not None:
+            images = _as_tensor(images, self.device)
+        if image_embeddings is not None:
+            image_embeddings = _as_tensor(image_embeddings,
+                                          self.device).float()
         instruction = None
         if self.base_net.encoder.use_language_token:
-            if tasks is None:
-                raise ValueError("this policy reads language tokens: pass "
-                                 "the tasks that create_tasks returned")
             instruction = _as_tensor(
-                tasks["language_instruction"]["token_embedding"],
+                instruction_dict["language_instruction"]["token_embedding"],
                 self.device).float()
-        return self.base_net.predict_action(base_params, images, trunk_impl,
-                                            instruction, maps)
+        return self.base_net.predict_action(
+            base_params, images, trunk_impl, instruction, maps, rng,
+            image_embeddings)
 
 
 def check_params(params: Params, specs: dict) -> None:

@@ -83,6 +83,40 @@ def per_layer_trunk(trunk_impl) -> bool:
     return trunk_impl.startswith("layers")
 
 
+#: the JAX package's trunk_kernel strings (hypervla_tpu/ops/serving.py::
+#: TRUNK_IMPL_ALIASES) and the trunk_impl each maps to: its Pallas kernel
+#: to kernel 1, its XLA scan and unrolled twins (the same math without the
+#: kernel) to kernel 1's plain version
+TRUNK_KERNEL_IMPLS = {
+    "pallas": "kernel", "1": "kernel", "pallas_serving": "kernel",
+    "scan": "reference", "scan_serving": "reference",
+    "unroll": "reference", "unroll_serving": "reference",
+}
+
+
+def trunk_impl_of(trunk_kernel, trunk_impl=None):
+    """The trunk_impl that a call's JAX-style trunk_kernel asks for, beside
+    its trunk_impl: a false trunk_kernel (the JAX default) leaves the
+    choice to trunk_impl; True is kernel 1 (the JAX serving step's True);
+    a string maps through TRUNK_KERNEL_IMPLS, and an unknown one raises
+    ValueError, as in the JAX package. A trunk_impl that disagrees with a
+    given trunk_kernel raises ValueError."""
+    if not trunk_kernel:
+        return trunk_impl
+    if trunk_kernel is True:
+        impl = "kernel"
+    elif trunk_kernel in TRUNK_KERNEL_IMPLS:
+        impl = TRUNK_KERNEL_IMPLS[trunk_kernel]
+    else:
+        raise ValueError(f"unrecognized trunk_kernel value {trunk_kernel!r}; "
+                         "expected one of " + ", ".join(
+                             sorted(TRUNK_KERNEL_IMPLS)))
+    if trunk_impl is not None and trunk_impl != impl:
+        raise ValueError(f"trunk_kernel={trunk_kernel!r} asks for trunk_impl "
+                         f"{impl!r}, and trunk_impl={trunk_impl!r} was given")
+    return impl
+
+
 def resolve_trunk_impl(model, trunk_impl):
     """The trunk_impl that `model` runs: None picks the stacked trunk
     kernel ("kernel") for a DINOv2 model and no trunk for a model whose
@@ -105,13 +139,17 @@ def make_serving_step(model, unnorm_stats: dict,
                       normalization_type: str = "normal",
                       image_size: int = 224, crop: bool = True,
                       ensemble_temp: float = 0.0, ensemble: bool = True,
-                      trunk_impl=None):
+                      trunk_kernel=False, trunk_impl=None):
     """Builds (step_fn, init_history) for fused closed-loop serving.
 
     step_fn(params, frame_u8 (H, W, C), history, step_idx,
-            token_embedding=None) -> (action (action_dim,), new_history)
+            token_embedding=None, rng=None) -> (action (action_dim,),
+            new_history)
     token_embedding (1, L, token_dim): the instruction's, which a policy
     with language tokens reads (the JAX step takes it on every call).
+    rng: the tick's random numbers, which only the diffusion head reads (a
+    torch.Generator, or a models/draws.py::Draws to replay; the diffusion
+    head raises without one), as the JAX step takes its rng every tick.
     params: the episode's base params after prepare_serving_params.
     history: (horizon, horizon, action_dim) rolling chunk buffer.
     trunk_impl: "kernel" runs the bf16 trunk through
@@ -123,9 +161,11 @@ def make_serving_step(model, unnorm_stats: dict,
     and fused_layer_norm=True select the forward-only flash attention and
     one-pass LayerNorm kernels), "layers_reference" the same with those two
     kernels' plain versions; None is `resolve_trunk_impl`'s choice, the
-    only value a model with no DINOv2 trunk takes.
+    only value a model with no DINOv2 trunk takes. trunk_kernel takes the
+    JAX step's values (`trunk_impl_of`).
     """
-    trunk_impl = resolve_trunk_impl(model, trunk_impl)
+    trunk_impl = resolve_trunk_impl(model, trunk_impl_of(trunk_kernel,
+                                                         trunk_impl))
     if normalization_type not in ("normal", "bounds"):
         raise ValueError(f"unknown normalization_type {normalization_type!r}")
     kw = model.config["base_net_kwargs"]
@@ -151,7 +191,8 @@ def make_serving_step(model, unnorm_stats: dict,
         return torch.zeros((horizon, horizon, action_dim), device=dev)
 
     @torch.no_grad()
-    def step_fn(params, frame, history, step_idx: int, token_embedding=None):
+    def step_fn(params, frame, history, step_idx: int, token_embedding=None,
+                rng=None):
         img = preprocess.resize_image(torch.as_tensor(frame, device=dev),
                                       (image_size, image_size))
         if crop:
@@ -160,7 +201,7 @@ def make_serving_step(model, unnorm_stats: dict,
             token_embedding = torch.as_tensor(token_embedding,
                                               device=dev).float()
         raw = model.base_net.predict_action(params, img[None], trunk_impl,
-                                            token_embedding)[0]
+                                            token_embedding, rng=rng)[0]
         if normalization_type == "normal":
             raw = torch.where(mask, raw * std + mean, raw)
         else:
@@ -184,24 +225,29 @@ def make_scan_serving_step(model, unnorm_stats: dict, k: int, **kwargs):
     hands in K frames at once, the receding-horizon regime where the camera
     ticks slower than the control loop, or offline replay.
 
-    step_fn(params, frames_u8 (K, H, W, C), history, step_idx)
+    step_fn(params, frames_u8 (K, H, W, C), history, step_idx,
+            token_embedding=None, rng=None)
         -> (actions (K, action_dim), new_history)
     history and step_idx thread through the K ticks exactly as K calls of
-    make_serving_step's step would. The port's step is a thin loop over
-    that step, kept for the JAX package's API: it saves nothing over K
-    calls (a K-tick step in one CUDA graph waits for ROADMAP.md A3, the
-    host's share of the serving step).
+    make_serving_step's step would; token_embedding and rng are handed to
+    every tick, as the JAX step hands its one rng to each (a Draws then
+    replays the same draws each tick, a generator draws on). The port's
+    step is a thin loop over that step, kept for the JAX package's API: it
+    saves nothing over K calls (a K-tick step in one CUDA graph waits for
+    ROADMAP.md A3, the host's share of the serving step).
     kwargs are make_serving_step's (its argument packer is a TPU dispatch
     workaround and is not carried)."""
     tick, init_history = make_serving_step(model, unnorm_stats, **kwargs)
 
-    def step_fn(params, frames, history, step_idx: int):
+    def step_fn(params, frames, history, step_idx: int, token_embedding=None,
+                rng=None):
         if frames.shape[0] != k:
             raise ValueError(f"scan step built for k={k}, got "
                              f"{frames.shape[0]} frames")
         actions = []
         for i, frame in enumerate(frames):
-            action, history = tick(params, frame, history, step_idx + i)
+            action, history = tick(params, frame, history, step_idx + i,
+                                   token_embedding, rng)
             actions.append(action)
         return torch.stack(actions), history
 
@@ -219,7 +265,9 @@ def make_multitask_serving_step(model, unnorm_stats: dict, **kwargs):
 
     Returns (step_fn, init_history, stack_task_params):
       step_fn(stacked_params, frames (N, H, W, C), histories (N, ...),
-              step_idx (N,)) -> (actions (N, action_dim), new_histories)
+              step_idx (N,), token_embeddings=None (N, ...), rngs=None
+              (N rngs, one a task, as the JAX step's rngs[N]))
+          -> (actions (N, action_dim), new_histories)
       stack_task_params([params_task0, ...]) stacks the per-task leaves on
       a new leading axis and keeps the shared leaves of task 0 once. The
       per-task leaves are the generated ones and, where the image encoder
@@ -240,13 +288,16 @@ def make_multitask_serving_step(model, unnorm_stats: dict, **kwargs):
                        if per_task(name) else value)
                 for name, value in per_task_params[0].items()}
 
-    def step_fn(stacked_params, frames, histories, step_idx):
+    def step_fn(stacked_params, frames, histories, step_idx,
+                token_embeddings=None, rngs=None):
         actions, new_histories = [], []
         for i, frame in enumerate(frames):
             params = {name: value[i] if per_task(name) else value
                       for name, value in stacked_params.items()}
-            action, history = tick(params, frame, histories[i],
-                                   int(step_idx[i]))
+            action, history = tick(
+                params, frame, histories[i], int(step_idx[i]),
+                None if token_embeddings is None else token_embeddings[i],
+                None if rngs is None else rngs[i])
             actions.append(action)
             new_histories.append(history)
         return torch.stack(actions), torch.stack(new_histories)

@@ -15,6 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from hypervla_tpu_torch.models.draws import Draws
 from hypervla_tpu_torch.models.hypernetwork import per_sample_view
 from hypervla_tpu_torch.models.hypervla import save_ema_params
 from hypervla_tpu_torch.train.train_state import TrainState
@@ -132,7 +133,8 @@ class ValidationCallback:
         self.dino_encode = dino_encode
 
     @torch.no_grad()
-    def _mse(self, params, batch) -> float:
+    def _mse(self, params, batch, draws: Draws) -> float:
+        """One batch's MSE; draws are the diffusion head's sampler's."""
         model = self.model
         batch = to_tensors(batch, model.device)
         instr = dict(batch["task"]["language_instruction"])
@@ -157,14 +159,17 @@ class ValidationCallback:
                                model.hypernet.generate(params, ctx))
         tokens = encoder(view, image_embeddings=emb)
         predicted = model.base_net.action_head.predict_action(
-            view, tokens[:, None])
+            view, tokens[:, None], draws)
         target = torch.clamp(batch["action"], -5.0, 5.0)[:, -1]
         mse = ((predicted.reshape(target.shape) - target) ** 2).mean()
         return float(mse) * target.shape[-1]
 
     def __call__(self, params, step: int) -> dict:
-        del step  # the JAX callback seeds its dropout with it; validation
-        # runs with train=False there, so it draws nothing
+        # the JAX callback seeds its draws with the step; only the
+        # diffusion head's sampler reads them (validation runs with
+        # train=False, so nothing else draws)
+        draws = Draws(torch.Generator(device=self.model.device).manual_seed(
+            int(step)))
         metrics = {}
         for name, iterator in self.val_iterators.items():
             losses = []
@@ -173,7 +178,7 @@ class ValidationCallback:
                     batch = next(iterator)
                 except StopIteration:
                     break
-                losses.append(self._mse(params, batch))
+                losses.append(self._mse(params, batch, draws))
             if losses:
                 metrics[f"validation/{name}/mse"] = float(np.mean(losses))
         return metrics

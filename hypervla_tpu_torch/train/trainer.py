@@ -435,10 +435,13 @@ def train(
     fsdp: int = 1,
     tp: int = 1,
     profile_dir: Optional[str] = None,
+    profile_steps: tuple = (10, 15),
     device=None,
 ) -> TrainState:
     """Runs the training loop on `device` (None: the CUDA card); returns
-    the final TrainState. wandb_run is anything with
+    the final TrainState. profile_steps, the JAX trainer's window of
+    steps to trace into profile_dir, is read only with profile_dir, which
+    raises NotImplementedError. wandb_run is anything with
     `.log(dict, step=int)`: it receives the flattened info of every logged
     step (training_loss, task_loss_<task>, the norms on logged steps, the
     timer's mean seconds per phase) and the validation metrics."""

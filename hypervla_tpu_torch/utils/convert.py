@@ -20,7 +20,11 @@ layer axis (in a HyperVLA's params, flat shared leaves
 "<...>encoder_layers_layer_<leaf>" of the layers' values one after the
 other); `from_jax_params` unstacks them into the port's per-layer keys
 (encoder/layer/<i>/..., "<...>encoder_layer_<i>_<leaf>"), which the
-port's scanned trunk reads as its layer loop does.
+port's scanned trunk reads as its layer loop does. Another scan's
+stack, the diffusion head's score-network blocks
+(action_head/diffusion_model/trunk/blocks/..., a leading depth axis), is
+carried as it is: the port's score network reads its blocks stacked
+(models/diffusion.py).
 """
 import re
 from typing import Any, Dict, Optional

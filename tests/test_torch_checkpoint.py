@@ -100,7 +100,8 @@ def test_converted_checkpoint_serves_as_jax(ckpt):
 
     jbase, _, _ = jpolicy.model.create_tasks(
         instruction_dict=ckpt["instruction"], initial_state=ckpt["init"])
-    base, _ = policy.model.create_tasks(ckpt["instruction"], ckpt["init"])
+    base, _ = policy.model.create_tasks(
+        instruction_dict=ckpt["instruction"], initial_state=ckpt["init"])
     ref = {"/".join(k.key for k in path): v for path, v in
            jax.tree_util.tree_flatten_with_path(jbase)[0]}
     assert set(ref) == set(base)
@@ -177,7 +178,8 @@ def test_json_round_trip_keeps_lists_and_the_bool_mask(ckpt, tmp_path):
     stats = model.dataset_statistics["fractal20220817_data"]["action"]
     assert stats["mask"].dtype == np.bool_
     assert stats["std"].dtype == np.float64
-    base, _ = model.create_tasks(ckpt["instruction"], ckpt["init"])
+    base, _ = model.create_tasks(instruction_dict=ckpt["instruction"],
+                                 initial_state=ckpt["init"])
     assert base
 
 

@@ -131,7 +131,7 @@ def test_mix_head_options_match_jax(hidden_dims, per_horizon):
     jax_head = jah.MixActionHead(
         readout_key="readout_action", action_horizon=HORIZON,
         action_dim=DIM, **kw)
-    tokens = readout_token_count(kw, HORIZON)
+    tokens = readout_token_count("mix", kw, HORIZON, DIM)
     assert tokens == (HORIZON if per_horizon else 1)
     _check(jax_head, ah.MixActionHead(HORIZON, DIM, kw), tokens, 2)
 
@@ -169,8 +169,61 @@ def test_continuous_loss_refuses_an_unknown_type():
 
 
 def test_map_pooling_is_refused_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A12.1"):
+    """use_map in action_head_kwargs reaches the JAX ContinuousActionHead
+    twice (the JAX BaseNetwork passes use_map=False itself): a TypeError
+    naming it, in both packages."""
+    with pytest.raises(TypeError, match="use_map"):
         ah.ContinuousActionHead(HORIZON, DIM, _kwargs(use_map=True))
+    with pytest.raises(TypeError, match="use_map"):
+        jah.ContinuousActionHead(readout_key="readout_action",
+                                 use_map=False, **_kwargs(use_map=True))
+
+
+@pytest.mark.parametrize("head", ["mix", "continuous", "diffusion",
+                                  "discrete"])
+def test_use_map_in_action_head_kwargs_is_taken_as_jax_takes_it(head):
+    """HyperVLA.from_config in both packages on the tiny SmallStem config
+    with use_map=True in action_head_kwargs: the continuous head raises
+    TypeError (use_map reaches it twice), the heads that the JAX
+    BaseNetwork builds from named keys ignore it, and both packages build
+    the same param tree as without it."""
+    from hypervla_tpu.configs import tiny_test_config as jax_tiny_config
+    from hypervla_tpu.flagship import make_flagship_batch as jax_batch
+    from hypervla_tpu.models.hypervla import HyperVLA as JaxHyperVLA
+    from hypervla_tpu_torch.configs import tiny_test_config
+    from hypervla_tpu_torch.flagship import make_flagship_batch
+    from hypervla_tpu_torch.models.hypervla import HyperVLA
+    from hypervla_tpu_torch.utils.convert import flatten_tree
+
+    jconfig = jax_tiny_config("SmallStem", action_head_type=head)
+    config = tiny_test_config("SmallStem", action_head_type=head)
+    for c in (jconfig, config):
+        kw = c["base_net_kwargs"]["action_head_kwargs"]
+        if head == "continuous":  # the JAX head's own keys (see above)
+            kw = {k: v for k, v in kw.items() if k in _kwargs()}
+        c["base_net_kwargs"]["action_head_kwargs"] = dict(kw, use_map=True)
+    shapes = dict(instr_len=8, action_horizon=2, image_size=64,
+                  initial_patch_dim=32)
+    if head == "continuous":
+        with pytest.raises(TypeError, match="use_map"):
+            JaxHyperVLA.from_config(jconfig, jax_batch(**shapes),
+                                    jax.random.PRNGKey(0))
+        with pytest.raises(TypeError, match="use_map"):
+            HyperVLA.from_config(config, make_flagship_batch(**shapes),
+                                 device="cpu")
+        return
+    jmodel = JaxHyperVLA.from_config(jconfig, jax_batch(**shapes),
+                                     jax.random.PRNGKey(0))
+    model = HyperVLA.from_config(config, make_flagship_batch(**shapes),
+                                 device="cpu")
+    ref = flatten_tree(jax.device_get(jmodel.params))
+    assert {k: tuple(v.shape) for k, v in model.params.items()} == {
+        k: tuple(np.shape(v)) for k, v in ref.items()}
+    del config["base_net_kwargs"]["action_head_kwargs"]["use_map"]
+    without = HyperVLA.from_config(config, make_flagship_batch(**shapes),
+                                   device="cpu")
+    assert {k: v.shape for k, v in without.params.items()} == {
+        k: v.shape for k, v in model.params.items()}
 
 
 def test_the_continuous_head_takes_the_configs_keys_but_no_hidden_layers():

@@ -57,7 +57,8 @@ def test_create_tasks_with_a_goal_matches_jax(pair):
                    example["task"]["language_instruction"]}
     ref, _, _ = jmodel.create_tasks(instruction_dict=instruction,
                                     initial_state=example["initial_state"])
-    base, tasks = model.create_tasks(instruction, example["initial_state"])
+    base, tasks = model.create_tasks(
+        instruction_dict=instruction, initial_state=example["initial_state"])
     assert tasks["image_primary"].shape == (1, GOAL, GOAL, 3)
     assert not tasks["pad_mask_dict"]["image_primary"].any()
     flags = model.plan.generation_flag

@@ -75,7 +75,8 @@ def golden(request):
         "token_embedding": io["token_embedding"],
         "attention_mask": io["attention_mask"],
     }}
-    base_params, tasks = model.create_tasks(instruction, initial_state)
+    base_params, tasks = model.create_tasks(
+        instruction_dict=instruction, initial_state=initial_state)
     return case, model, io, base_params, tasks
 
 
@@ -90,6 +91,7 @@ def test_generated_weights_match_golden(golden):
 
 def test_action_matches_golden(golden):
     case, model, io, base_params, tasks = golden
-    action = model.sample_actions(io["image"], base_params, tasks=tasks)
+    action = model.sample_actions(io["image"], tasks, tasks, None,
+                                  base_params)
     np.testing.assert_allclose(action.numpy(), io["action"], atol=1e-5,
                                err_msg=case)

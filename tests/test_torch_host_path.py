@@ -148,7 +148,8 @@ def test_host_path_runs_the_trunk_asked_for(trunk_impl):
     the same trunk to the 1e-4 of test_fused_step_matches_host_step."""
     model, instruction, init = build_bf16()
     kwargs = dict(policy_setup="libero", pred_action_horizon=2,
-                  action_ensemble=True, crop=True, trunk_impl=trunk_impl)
+                  image_size=224, action_ensemble=True, crop=True,
+                  trunk_impl=trunk_impl)
     host = InferenceWrapper(model, **kwargs)
     fused = InferenceWrapper(model, fused_serving=True, **kwargs)
     for w in (host, fused):
@@ -166,8 +167,9 @@ def test_host_path_runs_the_trunk_asked_for(trunk_impl):
 
 def test_exec_horizon_is_refused(fp32):
     """A step returns one action: an exec_horizon other than 1 raises;
-    init_rng is taken and changes nothing (the argmax decode is not
-    random)."""
+    init_rng is taken and changes nothing on this mix-head model (its
+    decode is not random; tests/test_torch_diffusion_head.py holds the
+    diffusion head's)."""
     _, model, instruction, init, frames = fp32
     model = model.replace(dataset_statistics={"action": STATS})
     with pytest.raises(ValueError, match="exec_horizon=4"):
@@ -175,7 +177,8 @@ def test_exec_horizon_is_refused(fp32):
     actions = []
     for init_rng in (0, 7):
         w = InferenceWrapper(model, policy_setup="libero",
-                             pred_action_horizon=2, init_rng=init_rng)
+                             pred_action_horizon=2, image_size=224,
+                             init_rng=init_rng)
         w.reset("pick up the cube", instruction, init)
         actions.append(w.step(frames[0])[0])
     np.testing.assert_array_equal(*actions)
@@ -235,7 +238,7 @@ def test_missing_statistics_raise_where_actions_are_unnormalised(fp32):
     jmodel, model = _with_stats(jmodel, model, None)
     JaxWrapper(model=jmodel, policy_setup="libero")
     host = InferenceWrapper(model, policy_setup="libero",
-                            pred_action_horizon=2)
+                            pred_action_horizon=2, image_size=224)
     host.reset("pick up the cube", instruction, init)
     with pytest.raises(ValueError, match="no dataset statistics"):
         host.step(frames[0])

@@ -29,8 +29,9 @@ def test_bias_init_protocol_emits_fresh_base_init(seed):
     batch = make_flagship_batch(instr_len=8, initial_patch_dim=32, seed=seed)
     model = HyperVLA.from_config(config, batch, seed=seed, device="cpu")
     _, fresh, _ = init_base_net(config, torch.Generator().manual_seed(seed))
-    base_params, _ = model.create_tasks(_instruction(batch),
-                                        batch["initial_state"])
+    base_params, _ = model.create_tasks(
+        instruction_dict=_instruction(batch),
+        initial_state=batch["initial_state"])
     assert set(base_params) == set(fresh)
     for name, value in fresh.items():
         assert torch.equal(base_params[name], value), name
@@ -67,8 +68,9 @@ def test_hypernet_forward_matches_jax(hk):
     model = HyperVLA.from_config(tiny_test_config(hypernet_kwargs=dict(hk)),
                                  example, device="cpu")
     model.params = from_jax_params(params)
-    got, _ = model.create_tasks(_instruction(example),
-                                example["initial_state"])
+    got, _ = model.create_tasks(
+        instruction_dict=_instruction(example),
+        initial_state=example["initial_state"])
     ref = dict(("/".join(k.key for k in path), v) for path, v in
                jax.tree_util.tree_flatten_with_path(ref)[0])
     assert set(ref) == set(got)

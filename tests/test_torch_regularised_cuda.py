@@ -78,7 +78,10 @@ def _step(model, config, step=5, draws=None):
     variant.params = model.params
     fn = make_train_step(variant, config, tx, lr_fn, base_lr_fn, pnorm_fn)
     state = TrainState.create(model.params, tx, seed=3)
+    # the update count drives the LR schedule (at count 0 the LR is 0 and
+    # no param moves): set it with the step, as the parity tests do
     state.step = step
+    state.opt_state["count"] = step
     new, _ = fn(state, _batch(), with_metrics=False, draws=draws)
     torch.cuda.synchronize()
     return new.params, {k: p.grad.clone() for k, p in state.params.items()

@@ -77,7 +77,8 @@ def _tasks(jmodel, model, tok):
             "token_embedding": emb}}
         jparams.append(jmodel.create_tasks(instruction_dict=instruction,
                                            initial_state=init)[0])
-        params.append(model.create_tasks(instruction, init)[0])
+        params.append(model.create_tasks(instruction_dict=instruction,
+                                         initial_state=init)[0])
         tokens.append(emb)
     return jparams, params, np.concatenate(tokens)
 
@@ -133,7 +134,8 @@ def test_multitask_step_serves_each_task_its_generated_trunk():
         emb = rng.standard_normal(lang["token_embedding"].shape).astype(
             np.float32)
         base, _ = model.create_tasks(
-            {"language_instruction": dict(lang, token_embedding=emb)}, init)
+            instruction_dict={"language_instruction": dict(
+                lang, token_embedding=emb)}, initial_state=init)
         params.append(serving.prepare_serving_params(model, base))
     assert not torch.equal(params[0][TRUNK + "w"], params[1][TRUNK + "w"])
     multi, init_history, stack = serving.make_multitask_serving_step(

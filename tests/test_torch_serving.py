@@ -68,7 +68,8 @@ def _build(vit_overrides, patch_dim):
     config["base_net_kwargs"]["vit_kwargs"].update(vit_overrides)
     model = HyperVLA.from_config(config, example, device="cpu")
     model.params = from_jax_params(params)
-    base, _ = model.create_tasks(instruction, example["initial_state"])
+    base, _ = model.create_tasks(
+        instruction_dict=instruction, initial_state=example["initial_state"])
     frames = np.random.default_rng(1).integers(
         0, 256, (TICKS, 224, 224, 3), dtype=np.uint8)
     token_embedding = example["task"]["language_instruction"][
@@ -129,7 +130,8 @@ def test_device_ensembling_matches_host_ensembler(fp32):
     ours, theirs = ActionEnsembler(2), JaxEnsembler(2)
     for t, frame in enumerate(frames):
         action, history = step(base, frame, history, t)
-        raw = model.sample_actions(frame[None], base)[0].numpy()
+        raw = model.sample_actions(frame[None], None, None, None,
+                                   base)[0].numpy()
         raw = np.where(STATS["mask"], raw * STATS["std"] + STATS["mean"], raw)
         np.testing.assert_allclose(raw[0], raw_step(base, frame, None, t)[0],
                                    atol=1e-6)
@@ -182,7 +184,8 @@ def test_inference_wrapper_steps_and_postprocess(bf16):
     raws[:, 6] = rng.random(12) > 0.5
     for setup in ("google_robot", "widowx_bridge", "libero"):
         policy = InferenceWrapper(model, policy_setup=setup, crop=True,
-                                  action_ensemble=True, fused_serving=True)
+                                  image_size=224, action_ensemble=True,
+                                  fused_serving=True)
         policy.reset("task", instruction, init)
         for frame in frames[:2]:
             raw, action, _, _, _ = policy.step(frame)

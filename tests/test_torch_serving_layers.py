@@ -116,7 +116,8 @@ def test_inference_wrapper_takes_the_layer_loop(bf16):
     actions = {}
     for trunk_impl in ("layers", "kernel"):
         policy = InferenceWrapper(model, policy_setup="google_robot",
-                                  crop=True, action_ensemble=True,
+                                  image_size=224, crop=True,
+                                  action_ensemble=True,
                                   trunk_impl=trunk_impl, fused_serving=True)
         policy.reset("task", instruction, init)
         stacked = "encoder/image_encoder/trunk/w" in policy.base_params

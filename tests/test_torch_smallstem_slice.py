@@ -155,7 +155,7 @@ def test_create_tasks_and_sample_actions_match_jax(pair):
     (_, head), (jmodel, model, batch) = pair
     instruction = _instruction(batch)
     jparams, jtasks, _ = jmodel.create_tasks(instruction_dict=instruction)
-    base_params, tasks = model.create_tasks(instruction)
+    base_params, tasks = model.create_tasks(instruction_dict=instruction)
     ref = flatten_tree(flax.core.unfreeze(jax.device_get(jparams)))
     assert set(ref) == set(base_params)
     for name, value in ref.items():
@@ -166,7 +166,8 @@ def test_create_tasks_and_sample_actions_match_jax(pair):
     ref_action, _ = jmodel.sample_actions(
         images, instruction, jtasks, batch["observation"]["timestep_pad_mask"],
         jparams, rng=jax.random.PRNGKey(0))
-    action = model.sample_actions(images, base_params, tasks=tasks)
+    action = model.sample_actions(images, instruction, tasks, None,
+                                  base_params)
     assert action.shape == (1, 2, 7)
     np.testing.assert_allclose(action.numpy(), np.asarray(ref_action), **TOL)
     if head == "mix":

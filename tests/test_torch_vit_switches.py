@@ -119,16 +119,42 @@ def test_every_jax_vit_field_is_honoured_or_refused(field):
     (dict(scan_dino_layers=True), AssertionError),
     (dict(dino_remat_policy="everything"), KeyError),
     (dict(dino_fused_add_ln=True, sow_dino_attention=False,
-          remat_dino=True), ValueError),
+          remat_dino=True), AssertionError),
 ])
 def test_the_trunk_switch_check_keeps_the_jax_refusals(kwargs, error):
     """The combinations the JAX ViT refuses, with its exception types: the
     scanned trunk with attention capture on (its default), an unknown
-    remat policy, the fused residual boundaries under remat."""
+    remat policy, the fused residual boundaries under remat. The JAX ViT
+    is built (initialised on a frame) for each and raises the same type as
+    the port's check and the port's ViT."""
+    kw = jax_tiny_config("DINOv2")["base_net_kwargs"]["vit_kwargs"]
+    kw = dict(kw, pretrained_encoder_name="dinov2-test", **kwargs)
+    images = np.zeros((1, 224, 224, 3), np.uint8)
+    instruction = np.zeros((1, 5, 12), np.float32)
+    with pytest.raises(error):
+        JaxViT(**kw, action_token_num=1).init(
+            jax.random.PRNGKey(0), images, instruction, train=False)
     with pytest.raises(error):
         check_trunk_switches(_vit_kwargs(**kwargs))
     with pytest.raises(error):
         ViT(_vit_kwargs(**kwargs), 1)
+
+
+def test_a_dinov2_frame_of_another_size_raises_as_in_jax():
+    """The JAX ViT asserts a DINOv2 frame's 224 x 224; the port raises the
+    same AssertionError."""
+    kw = jax_tiny_config("DINOv2")["base_net_kwargs"]["vit_kwargs"]
+    kw = dict(kw, pretrained_encoder_name="dinov2-test")
+    images = np.zeros((1, 64, 64, 3), np.uint8)
+    instruction = np.zeros((1, 5, 12), np.float32)
+    with pytest.raises(AssertionError, match="224x224"):
+        JaxViT(**kw, action_token_num=1).init(
+            jax.random.PRNGKey(0), images, instruction, train=False)
+    vit = ViT(_vit_kwargs(), 1)
+    params = {name: torch.zeros(shape)
+              for name, (shape, _) in vit.specs().items()}
+    with pytest.raises(AssertionError, match="224x224"):
+        vit(params, torch.zeros((1, 64, 64, 3), dtype=torch.uint8))
 
 
 def test_dino_dot_softmax_passes_the_trunk_switch_check():
