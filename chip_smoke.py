@@ -166,6 +166,33 @@
    one state and (seed, step) bit-equal; ms/step, device busy, kernels,
    peak memory, the optimizer's update alone, and the kernels that take
    each head's device time beyond the mix head's.
+9. Eval phase: the evaluators a user runs after training, on the
+   full-width flagship from a seed. (a) Without the initial-image
+   conditioning (the JAX default, which the pixel environment's resets
+   need): its checkpoint served by `python -m
+   hypervla_tpu_torch.eval.policy_server` (host path, 224 px, libero
+   setup, ensembling) in a child process on the card, 3 episodes of
+   PixelReachEnv (40 steps at most) driven through a PolicyClient by
+   tools/eval_pixel_env.py::run_episodes, its JSON fields printed; then
+   the same episodes in this process through load_hypervla_policy: the
+   same steps and successes per episode, bit-equal actions, one kernel 1
+   launch a tick. (b) The SIMPLER and LIBERO evaluators over the
+   simulator stand-ins of tests/test_torch_sim_stubs.py: SIMPLER on the
+   flagship as it is (conditioned on the initial image, through the
+   evaluator's own fp32 DINOv2, drawn from a seed), one task of 2 episodes
+   of at most 10 steps, its initial state's patch embeddings held to the
+   same DINOv2 in fp32 on the CPU within 1e-4 of their scale; LIBERO on the model of (a), one task of
+   2 episodes: the success JSON, one kernel 1 launch a tick, finite
+   actions. (c) The trainer on the trainer phase's fixture at batch 64
+   under the fast preset, the model of (a), with viz_datasets: 4 steps,
+   the visualization callback at steps 2 and 4, every
+   visualizer/<dataset>/<metric> finite, kernel 1's launches counted per
+   call (one a frame: the stacked trunk takes one frame a launch), and the
+   last call's policy on one trajectory through kernel 1 held to the same
+   policy through its plain version. The script runs under
+   PYTHONHASHSEED=0 (it starts itself again so where that is not set), so
+   that the child server's FallbackTokenizer (its ids come from `hash`)
+   tokenizes as this process does.
 
 The kernels redesigned for Hopper, the training attention (forward and
 backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
@@ -4187,7 +4214,385 @@ def heads_phase(device, card):
     return out
 
 
+#: the eval phase's pixel-environment episodes and their step cap
+EVAL_EPISODES, EVAL_MAX_STEPS = 3, 40
+#: SIMPLER's stand-in: one task of 2 episodes of at most 10 steps (the
+#: first succeeds at its second step); LIBERO's: 2 episodes of 5 steps
+SIMPLER_EPISODES, SIMPLER_MAX_STEPS = 2, 10
+LIBERO_EPISODES, LIBERO_STEPS = 2, 5
+#: the trainer run with the visualization callback
+VIZ_STEPS, VIZ_INTERVAL = 4, 2
+#: the SIMPLER initial state's separate DINOv2: fp32 on the card (TF32 off,
+#: main) against the same fp32 network on the CPU, so a few fp32 roundings
+#: apart, not TRUNK_BOUND's 12 stacked bf16 layers
+INITIAL_STATE_BOUND = 1e-4
+#: the hash seed this script runs under (main)
+HASH_SEED = "0"
+
+
+def _eval_flagship(device, conditioned, stats):
+    """The full-width flagship (vit_t,oxe, bf16 trunk) from SEED, with or
+    without the initial-image conditioning, its fan-out kernels perturbed
+    so that the task matters."""
+    import torch
+
+    from hypervla_tpu_torch.configs import flagship_pretrain_config
+    from hypervla_tpu_torch.flagship import make_flagship_batch
+    from hypervla_tpu_torch.models.hypervla import HyperVLA
+
+    config = flagship_pretrain_config()
+    config["hypernet_kwargs"]["use_initial_image"] = conditioned
+    config["base_net_kwargs"]["vit_kwargs"]["encoder_dtype"] = "bfloat16"
+    model = HyperVLA.from_config(config, make_flagship_batch(seed=SEED),
+                                 seed=SEED, device=device,
+                                 dataset_statistics=stats)
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    for name, value in model.params.items():
+        if name.startswith("output_head_") and name.endswith("/kernel"):
+            value += 0.02 * torch.randn(value.shape, generator=gen,
+                                        device=device)
+    return model
+
+
+class _Counting:
+    """A policy whose steps are counted: kernel 1's launches each step
+    (which must be one), and every action."""
+
+    def __init__(self, policy):
+        self.policy = policy
+        self.model = policy.model
+        self.actions = []
+
+    def reset(self, *args, **kwargs):
+        return self.policy.reset(*args, **kwargs)
+
+    def step(self, image):
+        from hypervla_tpu_torch.ops import dino_layer as dl
+
+        before = dl.LAUNCHES["dino_layers_serving"]
+        out = self.policy.step(image)
+        launched = dl.LAUNCHES["dino_layers_serving"] - before
+        if launched != 1:
+            raise AssertionError(f"an eval tick launched kernel 1 "
+                                 f"{launched} times")
+        self.actions.append(out[1])
+        return out
+
+
+def eval_phase(device, card):
+    """The evaluators on the full-width flagship (module docstring, phase
+    9); kernel 1's launches over each part's ticks and viz calls, counted
+    from zero before the part and read after it."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.eval import libero, simpler
+    from hypervla_tpu_torch.eval.inference import InferenceWrapper
+    from hypervla_tpu_torch.eval.model_loading import (
+        build_text_encoder,
+        load_hypervla_policy,
+    )
+    from hypervla_tpu_torch.eval.pixel_env import PixelReachEnv
+    from hypervla_tpu_torch.eval.policy_server import PolicyClient
+    from hypervla_tpu_torch.eval.visualization import (
+        run_policy_on_trajectory,
+    )
+    from hypervla_tpu_torch.models.base_vit import normalize_pixels
+    from hypervla_tpu_torch.models.encoders.dinov2 import dinov2_forward
+    from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import preprocess
+    from hypervla_tpu_torch.train import callbacks
+    from hypervla_tpu_torch.train import main as cli
+    from hypervla_tpu_torch.train import trainer
+    from tools import eval_pixel_env
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import test_torch_sim_stubs as stubs
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+    stats = {"action": {
+        "mean": rng.standard_normal(7).astype(np.float32) * 0.1,
+        "std": (1 + rng.random(7)).astype(np.float32),
+        "mask": np.array([True] * 6 + [False]),
+    }}
+    launches = {}
+    root = tempfile.mkdtemp(prefix="hypervla_eval_")
+    try:
+        # ---- a. the pixel environment through the served checkpoint ----
+        t0 = time.perf_counter()
+        model = _eval_flagship(device, False, stats)
+        ckpt = os.path.join(root, "ckpt")
+        model.save_pretrained(0, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        log(f"eval flagship (use_initial_image=False) built and saved in "
+            f"{time.perf_counter() - t0:.3f} s; {card}")
+        port = eval_pixel_env.free_port()
+        t0 = time.perf_counter()
+        proc = eval_pixel_env.start_server(eval_pixel_env.server_command(
+            ckpt, port, image_size=224))
+        try:
+            client = eval_pixel_env.wait_for_server(
+                PolicyClient, "127.0.0.1", port, proc, timeout_s=300)
+            up_s = time.perf_counter() - t0
+            replies = []
+
+            class Recorded:
+                """The client, its replies kept."""
+
+                def reset(self, task):
+                    client.reset(task)
+
+                def step(self, frame):
+                    replies.append(client.step(frame))
+                    return replies[-1]
+
+            served = eval_pixel_env.run_episodes(
+                Recorded(), PixelReachEnv(seed=0, max_steps=EVAL_MAX_STEPS),
+                EVAL_EPISODES, log=lambda m: log(f"eval served {m}"))
+            client.close()
+        finally:
+            proc.terminate()
+            proc.wait(timeout=60)
+        summary = eval_pixel_env.summary(served)
+        log(f"eval pixel_env served (server up in {up_s:.3f} s; {card}): "
+            + json.dumps(dict(summary, per_episode_steps=served["steps"],
+                              card=card)))
+
+        policy = load_hypervla_policy(ckpt, policy_setup="libero",
+                                      image_size=224, action_ensemble=True,
+                                      crop=False, device=device)
+        encode = build_text_encoder(policy.model)
+        counted = _Counting(policy)
+
+        class InProcess:
+            def reset(self, task):
+                counted.reset(task, encode(task))
+
+            def step(self, frame):
+                return {"action": counted.step(frame)[1]}
+
+        dl.reset_launch_counts()
+        local = eval_pixel_env.run_episodes(
+            InProcess(), PixelReachEnv(seed=0, max_steps=EVAL_MAX_STEPS),
+            EVAL_EPISODES, log=lambda m: log(f"eval in-process {m}"))
+        torch.cuda.synchronize()
+        ticks = sum(local["steps"])
+        launches["pixel_env"] = dl.LAUNCHES["dino_layers_serving"]
+        got = np.stack(counted.actions)
+        want = np.stack([r["action"] for r in replies])
+        # one checkpoint, one kernel, no atomics: the served actions are
+        # the in-process ones, bit for bit
+        err = float(np.abs(got - want).max()) \
+            if got.shape == want.shape else float("inf")
+        log(f"eval pixel_env in-process: steps {local['steps']} "
+            f"(served {served['steps']}), successes {local['successes']} "
+            f"(served {served['successes']}), {launches['pixel_env']} "
+            f"kernel 1 launches over {ticks} ticks, actions against the "
+            f"served ones max_abs_err {err:.6g} (must be 0); model_ms_p50 "
+            f"{np.median(local['model_ms']):.4f} in-process against "
+            f"{summary['model_ms_p50']} through the server; {card}")
+        if (local["steps"] != served["steps"]
+                or local["successes"] != served["successes"]
+                or launches["pixel_env"] != ticks
+                or not np.isfinite(got).all() or err != 0):
+            raise AssertionError("the in-process episodes differ from the "
+                                 "served ones")
+        libero_model = policy.model
+        del policy, counted
+
+        # ---- b. the SIMPLER and LIBERO evaluators on stand-ins ----
+        t0 = time.perf_counter()
+        conditioned = _eval_flagship(device, True, stats)
+        frames = np.random.default_rng(SEED + 22)
+
+        def simpler_frame(env, obs):
+            return frames.integers(0, 256, (512, 640, 3), dtype=np.uint8)
+
+        horizon = conditioned.config["base_net_kwargs"]["action_horizon"]
+        spolicy = _Counting(InferenceWrapper(
+            conditioned, policy_setup="google_robot", image_size=224,
+            pred_action_horizon=horizon, action_ensemble=True))
+        sencode = build_text_encoder(conditioned)
+        task = "google_robot_close_top_drawer"
+        with stubs.installed(stubs.install_mock_simpler,
+                             lambda ep: ep == 0, frame_fn=simpler_frame,
+                             max_episode_steps=SIMPLER_MAX_STEPS):
+            dl.reset_launch_counts()
+            results = simpler.evaluate(
+                spolicy, sencode, tasks={task: (None, SIMPLER_EPISODES,
+                                                None)},
+                eval_path=os.path.join(root, "simpler"))
+            torch.cuda.synchronize()
+        launches["simpler"] = dl.LAUNCHES["dino_layers_serving"]
+        with open(os.path.join(root, "simpler", "success_rate.json")) as f:
+            written = json.load(f)
+        sticks = len(spolicy.actions)
+        log(f"eval SIMPLER stand-in ({SIMPLER_EPISODES} episodes, at most "
+            f"{SIMPLER_MAX_STEPS} steps): {results}, {sticks} ticks, "
+            f"{launches['simpler']} kernel 1 launches, in "
+            f"{time.perf_counter() - t0:.3f} s with the build; {card}")
+        if (results != written or results != {task: 0.5}
+                or sticks != 2 + SIMPLER_MAX_STEPS
+                or launches["simpler"] != sticks
+                or not np.isfinite(np.stack(spolicy.actions)).all()):
+            raise AssertionError("the SIMPLER stand-in run is wrong")
+        # the initial state's encoder against the same DINOv2 on the CPU
+        frame = simpler_frame(None, None)
+        state = simpler._initial_state(spolicy, frame)
+        name = conditioned.config["base_net_kwargs"]["vit_kwargs"].get(
+            "pretrained_encoder_name", "dinov2-base")
+        config, params = simpler.initial_image_encoder(name, device)
+        # the same DINOv2 weights in fp32 on the CPU, on the card's pixels
+        resized = torch.as_tensor(state["image_primary"][:, 0])
+        with torch.no_grad():
+            ref = dinov2_forward(config, {k: v.cpu() for k, v in
+                                          params.items()},
+                                 normalize_pixels(resized))
+        ierr, iscale = max_err(torch.as_tensor(state["patch_embeddings"]),
+                               ref)
+        cpu_pixels = preprocess.resize_image(torch.as_tensor(frame),
+                                             (224, 224)).numpy()
+        pix = int(np.abs(resized[0].numpy().astype(int)
+                         - cpu_pixels.astype(int)).max())
+        ibound = INITIAL_STATE_BOUND * max(iscale, 1.0)
+        log(f"eval SIMPLER initial state: patch embeddings {tuple(ref.shape)}"
+            f" on the card against the fp32 DINOv2 on the CPU max_abs_err "
+            f"{ierr:.6g} (bound {ibound:.6g}); the "
+            f"card's resized pixels within {pix} level of the CPU's")
+        if not (ierr < ibound and pix <= 1):
+            raise AssertionError("the initial state's encoder disagrees "
+                                 "with the CPU")
+        del spolicy, conditioned, params, state
+        torch.cuda.empty_cache()
+
+        lpolicy = _Counting(InferenceWrapper(
+            libero_model, policy_setup="libero", image_size=224,
+            pred_action_horizon=horizon, action_ensemble=True))
+        lframe = frames.integers(0, 256, (256, 256, 3), dtype=np.uint8)
+        suite = {"libero_object": stubs.mock_suite(["pick_up_the_cube"])}
+        with stubs.installed(stubs.install_mock_libero, suite,
+                             done_after=LIBERO_STEPS, frame=lframe):
+            dl.reset_launch_counts()
+            results = libero.evaluate(
+                lpolicy, encode, eval_path=os.path.join(root, "libero"),
+                num_episodes=LIBERO_EPISODES)
+            torch.cuda.synchronize()
+        launches["libero"] = dl.LAUNCHES["dino_layers_serving"]
+        with open(os.path.join(root, "libero", "libero_object.json")) as f:
+            written = json.load(f)
+        lticks = len(lpolicy.actions)
+        log(f"eval LIBERO stand-in ({LIBERO_EPISODES} episodes): {results}, "
+            f"{lticks} ticks, {launches['libero']} kernel 1 launches")
+        if (results != written or results != {"pick_up_the_cube": 1.0}
+                or lticks != LIBERO_EPISODES * LIBERO_STEPS
+                or launches["libero"] != lticks
+                or not np.isfinite(np.stack(lpolicy.actions)).all()):
+            raise AssertionError("the LIBERO stand-in run is wrong")
+        del lpolicy, libero_model, encode, sencode
+        torch.cuda.empty_cache()
+
+        # ---- c. the visualization callback during training ----
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        _, names, _ = write_trainer_fixture(data)
+        config = cli.load_config(TRAINER_CONFIG)
+        config["hypernet_kwargs"]["use_initial_image"] = False
+        dk = config["dataset_kwargs"]
+        dk.update(oxe_mix=None, batch_size=TRAINER_BATCH,
+                  shuffle_buffer_size=TRAINER_SHUFFLE,
+                  resize_size={"primary": (224, 224)},
+                  dataset_kwargs_list=[dict(
+                      name=name, data_dir=data,
+                      image_obs_keys={"primary": "image"},
+                      language_key="language_instruction",
+                      action_proprio_normalization_type="normal")
+                      for name in names])
+        config.update(viz_datasets=[names[0]], viz_interval=VIZ_INTERVAL,
+                      log_interval=1)
+        per_call = []
+        seen = {}
+        real = trainer.VisualizationCallback
+
+        class CountedViz(callbacks.VisualizationCallback):
+            def __call__(self, params, step):
+                seen.update(callback=self, params=params, step=step)
+                torch.cuda.synchronize()
+                before = dl.LAUNCHES["dino_layers_serving"]
+                t1 = time.perf_counter()
+                metrics = super().__call__(params, step)
+                torch.cuda.synchronize()
+                per_call.append((step, dl.LAUNCHES["dino_layers_serving"]
+                                 - before, time.perf_counter() - t1))
+                return metrics
+
+        recorder = LogRecorder()
+        trainer.VisualizationCallback = CountedViz
+        try:
+            dl.reset_launch_counts()
+            state = trainer.train(config, num_steps=VIZ_STEPS,
+                                  wandb_run=recorder, device=device)
+            torch.cuda.synchronize()
+        finally:
+            trainer.VisualizationCallback = real
+        launches["viz"] = dl.LAUNCHES["dino_layers_serving"]
+        viz = {step: {k: v for k, v in recorder.logs.get(step, {}).items()
+                      if k.startswith(f"visualizer/{names[0]}/")}
+               for step in range(1, VIZ_STEPS + 1)}
+        frames_per_call = config.get("viz_num_trajs", 4) * TRAINER_TRAJ_LEN
+        log(f"eval trainer with viz_datasets: {state.step} steps in "
+            f"{time.perf_counter() - t0:.3f} s, viz calls (step, kernel 1 "
+            f"launches, s) {per_call}, {len(viz[VIZ_INTERVAL])} metrics a "
+            f"call, e.g. mse {viz[VIZ_INTERVAL].get(f'visualizer/{names[0]}/mse')}"
+            f"; {card}")
+        wanted = [s for s in range(1, VIZ_STEPS + 1) if s % VIZ_INTERVAL == 0]
+        if (state.step != VIZ_STEPS
+                or [s for s in viz if viz[s]] != wanted
+                or not all(math.isfinite(v) for s in wanted
+                           for v in viz[s].values())
+                or [c[1] for c in per_call] != [frames_per_call] * len(wanted)
+                or launches["viz"] != frames_per_call * len(wanted)):
+            raise AssertionError(f"the visualization callback's run is wrong:"
+                                 f" {per_call}, {launches['viz']}")
+        # the last viz call's policy on its first trajectory, through
+        # kernel 1 and through its plain version
+        cb = seen["callback"]
+        viz_name, visualizer = next(iter(cb.visualizers.items()))
+        traj = next(visualizer._iter_trajs(1))
+        acts = {impl: run_policy_on_trajectory(
+            cb._policy_fn(seen["params"], seen["step"], trunk_impl=impl),
+            traj, text_processor=visualizer.text_processor)["pred_actions"]
+            for impl in ("kernel", "reference")}
+        verr, vscale = max_err(torch.as_tensor(acts["kernel"]),
+                               torch.as_tensor(acts["reference"]))
+        log(f"eval viz policy on {viz_name}'s first trajectory "
+            f"{acts['kernel'].shape}: kernel 1 against its plain version "
+            f"max_abs_err {verr:.6g} (bound "
+            f"{TRUNK_BOUND * max(vscale, 1.0):.6g})")
+        if not (np.isfinite(acts["kernel"]).all()
+                and verr < TRUNK_BOUND * max(vscale, 1.0)):
+            raise AssertionError("the viz policy through kernel 1 disagrees "
+                                 "with its plain version")
+        del seen, cb, visualizer
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"eval phase kernel 1 launches: {launches}; eval phase s "
+        f"{time.perf_counter() - t_phase:.3f}; {card}")
+
+
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
+        # the eval phase's child server must tokenize as this process does
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  dict(os.environ, PYTHONHASHSEED=HASH_SEED))
     import torch
 
     if not torch.cuda.is_available():
@@ -4229,6 +4634,7 @@ def main() -> int:
     smallstem_phase(device, card)
     regularised_phase(device, card)
     heads_phase(device, card)
+    eval_phase(device, card)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")

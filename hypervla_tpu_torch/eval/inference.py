@@ -265,6 +265,9 @@ class InferenceWrapper:
             self.reset(task_description, self.instruction_dict)
         if image.dtype != np.uint8:
             raise ValueError(f"frames must be uint8, got {image.dtype}")
+        # a flipped view (LIBERO's upright frame) has negative strides,
+        # which torch does not take
+        image = np.ascontiguousarray(image)
         tick_rng = self._split_rng()
         if rng is not None:
             tick_rng = rng
@@ -397,8 +400,11 @@ class InferenceWrapper:
 @torch.no_grad()
 def initial_state(model, frame: np.ndarray) -> dict:
     """The initial-state dict of an episode's first frame: its fp32 DINOv2
-    last hidden state (CLS + patches) from the model's shared image encoder
-    (hypervla_tpu/eval/simpler.py::_initial_state does this in JAX)."""
+    last hidden state (CLS + patches) from the model's shared image
+    encoder, the trunk the model serves with. Not the SIMPLER evaluator's
+    encode: eval/simpler.py::_initial_state (like the JAX evaluator's)
+    runs a separate DINOv2, the pretrained one or one from a seed, which
+    differs from a trunk that training fine-tuned."""
     vit = model.base_net.encoder
     if not vit.has_trunk:
         raise ValueError("initial_state encodes with the model's DINOv2 "

@@ -428,18 +428,18 @@ def dinov2_serving_forward(config: DINOv2Config,
                            params: Dict[str, torch.Tensor], pixel_values,
                            trunk_impl: str = "kernel"):
     """bf16 serving forward over prepared params (ops/serving.py): bf16
-    embeddings, the stacked trunk at batch 1, bf16 final LayerNorm.
-    trunk_impl "kernel" runs ops/dino_layer.py::dino_layers_serving (the
-    CUDA kernels for a CUDA tensor), "reference" its plain version."""
+    embeddings, the stacked trunk one frame at a time (one launch a frame),
+    bf16 final LayerNorm. trunk_impl "kernel" runs ops/dino_layer.py::
+    dino_layers_serving (the CUDA kernels for a CUDA tensor), "reference"
+    its plain version."""
     trunk = {
         "kernel": dino_layer.dino_layers_serving,
         "reference": dino_layer.dino_layers_serving_reference,
     }[trunk_impl]
     x = embeddings(config, params, pixel_values, torch.bfloat16)
-    if x.shape[0] != 1:
-        raise ValueError("the stacked serving trunk runs at batch 1")
-    x = trunk(x[0], params["trunk/w"], params["trunk/b"], params["trunk/p"],
-              config.layer_norm_eps)[None]
+    x = torch.stack([trunk(frame, params["trunk/w"], params["trunk/b"],
+                           params["trunk/p"], config.layer_norm_eps)
+                     for frame in x])
     x = layers.layer_norm(x, params["layernorm/scale"],
                           params["layernorm/bias"], config.layer_norm_eps)
     return x.bfloat16().float()

@@ -293,7 +293,11 @@ class HyperVLA:
         patches = None
         if self.hypernet.use_initial_image:
             if initial_state is None:
-                raise ValueError("this model conditions on the initial image")
+                # the JAX hypernetwork subscripts the missing initial state:
+                # the same exception type
+                raise TypeError("this model conditions on the initial image:"
+                                " create_tasks needs initial_state with "
+                                "patch_embeddings")
             patches = _as_tensor(initial_state["patch_embeddings"],
                                  dev).float()
         tasks = {"language_instruction": instr,

@@ -4,8 +4,10 @@ SaveCallback keeps the JAX package's two checkpoints: per-step params
 through the model's save_pretrained (`<step>/params.pt`) with the EMA
 beside them (`<step>/EMA_params.pt`), and one resumable TrainState
 (`state/latest.pt`). ValidationCallback computes the held-out action MSE of
-each validation dataset. The visualization and rollout callbacks need
-eval/visualization.py, which is not ported (ROADMAP.md A12.3).
+each validation dataset. VisualizationCallback runs the policy over
+held-out trajectories and reports eval/visualization.py's manipulation
+metrics; RolloutCallback runs closed-loop rollouts where an environment can
+be built.
 """
 import logging
 import os
@@ -18,6 +20,7 @@ import torch
 from hypervla_tpu_torch.models.draws import Draws
 from hypervla_tpu_torch.models.hypernetwork import per_sample_view
 from hypervla_tpu_torch.models.hypervla import save_ema_params
+from hypervla_tpu_torch.ops.serving import prepare_serving_params
 from hypervla_tpu_torch.train.train_state import TrainState
 from hypervla_tpu_torch.train.train_step import to_tensors
 
@@ -113,6 +116,125 @@ class SaveCallback:
             seed=payload["seed"],
         )
         return restored, payload["step"]
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x)
+
+
+class VisualizationCallback:
+    """Offline manipulation metrics and action-vs-prediction plots on
+    held-out trajectories (the JAX package's VisualizationCallback).
+
+    visualizers: {name: eval/visualization.py::Visualizer} over
+    chunked-trajectory validation datasets. text_encode(input_ids,
+    attention_mask) and dino_encode(uint8 images) take tensors on the
+    model's device, as the trainer's encoders do.
+
+    The policy is the model's create_tasks and one batched sample_actions
+    over a trajectory's frames, as in the JAX callback, on the params
+    InferenceWrapper serves with (ops/serving.py::prepare_serving_params:
+    a bf16 DINOv2 trunk runs the stacked trunk kernel, one launch a frame).
+    The JAX callback draws with PRNGKey(step); the port's draws come from a
+    generator seeded with the step, anew for each trajectory (only the
+    diffusion head reads them)."""
+
+    def __init__(self, model, text_encode: Callable, visualizers: dict,
+                 n_trajs: int = 4, use_initial_image: bool = False,
+                 dino_encode: Optional[Callable] = None,
+                 make_plots: bool = False):
+        self.model = model
+        self.text_encode = text_encode
+        self.visualizers = visualizers
+        self.n_trajs = n_trajs
+        self.use_initial_image = use_initial_image
+        self.dino_encode = dino_encode
+        self.make_plots = make_plots
+
+    def _policy_fn(self, params, step: int, trunk_impl: str = "kernel"):
+        """The policy over a trajectory's frames; trunk_impl is
+        sample_actions' ("reference": kernel 1's plain version)."""
+        model = self.model.replace(params=params)
+        device = model.device
+
+        def tensor(x):
+            return torch.as_tensor(np.asarray(x), device=device)
+
+        @torch.no_grad()
+        def policy(observations, tasks):
+            instr = {k: np.asarray(v)[:1]
+                     for k, v in tasks["language_instruction"].items()}
+            if "token_embedding" not in instr:
+                instr["token_embedding"] = _host(self.text_encode(
+                    tensor(instr["input_ids"]),
+                    tensor(instr["attention_mask"])))
+            instruction_dict = {"language_instruction": instr}
+            initial_state = None
+            if self.use_initial_image and "initial_state" in tasks:
+                initial_state = {k: np.asarray(v)[:1]
+                                 for k, v in tasks["initial_state"].items()}
+                if ("patch_embeddings" not in initial_state
+                        and self.dino_encode is not None):
+                    initial_state["patch_embeddings"] = _host(
+                        self.dino_encode(tensor(
+                            initial_state["image_primary"].squeeze(1))))
+            base_params, hn_tasks = model.create_tasks(
+                instruction_dict=instruction_dict,
+                initial_state=initial_state)
+            base_params = prepare_serving_params(model, base_params)
+            images = np.asarray(observations["image_primary"])
+            num_frames = images.shape[0]
+            pad = np.asarray(observations["timestep_pad_mask"])
+            frame_instr = {"language_instruction": {
+                k: np.broadcast_to(v, (num_frames,) + v.shape[1:])
+                for k, v in instr.items()}}
+            rng = torch.Generator(device=device).manual_seed(int(step))
+            return _host(model.sample_actions(
+                images, frame_instr, hn_tasks, pad, base_params, rng=rng,
+                trunk_impl=trunk_impl))
+
+        return policy
+
+    def __call__(self, params, step: int) -> dict:
+        metrics = {}
+        for name, viz in self.visualizers.items():
+            policy_fn = self._policy_fn(params, step)
+            for k, v in viz.metrics_for_wandb(
+                    policy_fn, n_trajs=self.n_trajs).items():
+                metrics[f"visualizer/{name}/{k}"] = v
+            if self.make_plots:
+                for k, fig in viz.visualize_for_wandb(
+                        policy_fn, n_trajs=min(2, self.n_trajs)).items():
+                    metrics[f"visualizer/{name}/{k}"] = fig
+        return metrics
+
+
+class RolloutCallback:
+    """Closed-loop rollouts during training (the JAX package's
+    RolloutCallback). A rollout whose environment cannot be built or dies
+    is skipped with a logged warning."""
+
+    def __init__(self, rollout_visualizers, policy_fn_builder,
+                 n_rollouts: int = 5):
+        """rollout_visualizers: a list of eval/visualization.py::
+        RolloutVisualizer. policy_fn_builder(params) -> policy_fn(stacked
+        observation) -> action chunk."""
+        self.rollout_visualizers = rollout_visualizers
+        self.policy_fn_builder = policy_fn_builder
+        self.n_rollouts = n_rollouts
+
+    def __call__(self, params, step: int) -> dict:
+        metrics = {}
+        policy_fn = self.policy_fn_builder(params)
+        for rv in self.rollout_visualizers:
+            try:
+                m, _ = rv.run_rollouts(policy_fn, n_rollouts=self.n_rollouts)
+                metrics.update(m)
+            except Exception as e:  # no simulator, or the env died
+                logging.warning(f"rollout {rv.name} skipped: {e!r}")
+        return metrics
 
 
 class ValidationCallback:

@@ -16,10 +16,14 @@ models/encoders/pretrained.py) T5 and DINOv2 are drawn from seeds of their
 own, as the JAX trainer inits them when no weights load; the DINOv2
 conditioning encoder's params are separate from the (fine-tuned) trunk's.
 
+The datasets named in `viz_datasets` feed the visualization callback
+(train/callbacks.py::VisualizationCallback), which logs
+`visualizer/<name>/<metric>` every `viz_interval` steps (default
+`eval_interval`), as the JAX trainer does.
+
 Not ported, and refused with the ROADMAP.md item that will carry them: a
-sharded mesh (fsdp, tp > 1: A11), the profile window (`profile_dir`: the
-JAX trainer reads XPlane traces, a TPU tool), and the visualization and
-rollout callbacks (`viz_datasets`: A12.3).
+sharded mesh (fsdp, tp > 1: A11) and the profile window (`profile_dir`:
+the JAX trainer reads XPlane traces, a TPU tool).
 """
 import logging
 import queue
@@ -52,7 +56,11 @@ from hypervla_tpu_torch.models.encoders.t5 import (
 )
 from hypervla_tpu_torch.models.hypervla import EMA_FILE, HyperVLA
 from hypervla_tpu_torch.models.layers import init_params
-from hypervla_tpu_torch.train.callbacks import SaveCallback, ValidationCallback
+from hypervla_tpu_torch.train.callbacks import (
+    SaveCallback,
+    ValidationCallback,
+    VisualizationCallback,
+)
 from hypervla_tpu_torch.train.optimizer import (
     create_optimizer,
     hn_param_type_tree,
@@ -417,13 +425,6 @@ def _refuse_unported(config: Dict[str, Any], fsdp: int, tp: int,
             "train: profile_dir reads XPlane traces, a TPU tool that is not "
             "carried (ROADMAP.md A11, multi-card training and its "
             "profiling); trace a step with torch.profiler instead")
-    names = set(config.get("viz_datasets") or ())
-    kwargs_list = config["dataset_kwargs"].get("dataset_kwargs_list") or []
-    if any(k["name"] in names for k in kwargs_list):
-        raise NotImplementedError(
-            "train: viz_datasets needs the visualization and rollout "
-            "callbacks, which are not ported yet (ROADMAP.md A12.3, "
-            "eval/visualization.py)")
 
 
 def train(
@@ -508,6 +509,8 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
     save_callback = SaveCallback(save_dir)
     val_callback = _build_validation_callback(
         config, model, text_encode, dino_encode, process_batch)
+    viz_callback = _build_visualization_callback(
+        config, model, text_encode, dino_encode)
     start_step = 0
     if save_dir is not None:
         state, restored_step = save_callback.restore(state)
@@ -553,6 +556,15 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
                 logging.info(f"step {step}: {val_metrics}")
                 if wandb_run is not None:
                     wandb_run.log(val_metrics, step=step)
+            if (viz_callback is not None
+                    and step % config.get(
+                        "viz_interval",
+                        config.get("eval_interval", 5000)) == 0):
+                with timer("visualize"):
+                    viz_metrics = viz_callback(state.params, step)
+                logging.info(f"step {step}: {viz_metrics}")
+                if wandb_run is not None:
+                    wandb_run.log(viz_metrics, step=step)
             if step % log_interval == 0:
                 info = {k: float(v) for k, v in info.items()}
                 info["timer"] = timer.get_average_times()
@@ -566,6 +578,46 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
         prefetched.close()
         save_callback.close()
     return state
+
+
+def _build_visualization_callback(config, model, text_encode, dino_encode):
+    """The manipulation-metric visualizers over the datasets named in
+    config["viz_datasets"] (single datasets of whole trajectories, no
+    augmentation, instructions through the trainer's tokenizer), or None
+    where none is named or found."""
+    viz_datasets = set(config.get("viz_datasets") or ())
+    dk = config["dataset_kwargs"]
+    selected = [k for k in dk.get("dataset_kwargs_list") or []
+                if k["name"] in viz_datasets]
+    if not selected:
+        return None
+    from hypervla_tpu_torch.data.dataset import make_single_dataset
+    from hypervla_tpu_torch.eval.visualization import Visualizer
+
+    tokenizer = _tokenizer(config)
+    visualizers = {}
+    for kwargs in selected:
+        try:
+            dataset = make_single_dataset(
+                kwargs,
+                train=False,
+                traj_transform_kwargs=_traj_kwargs(config),
+                frame_transform_kwargs=dict(resize_size=dk.get(
+                    "resize_size", {"primary": (224, 224)})),
+            )
+        except FileNotFoundError as e:
+            logging.warning(f"viz dataset {kwargs['name']}: {e}")
+            continue
+        visualizers[kwargs["name"]] = Visualizer(
+            dataset=dataset.repeat(), text_processor=tokenizer)
+    if not visualizers:
+        return None
+    return VisualizationCallback(
+        model, text_encode, visualizers,
+        n_trajs=config.get("viz_num_trajs", 4),
+        use_initial_image=config["hypernet_kwargs"].get(
+            "use_initial_image", False),
+        dino_encode=dino_encode)
 
 
 def _build_validation_callback(config, model, text_encode, dino_encode,

@@ -59,8 +59,6 @@ def test_hf_tokenizer_matches_jax():
     assert got.keys() == ref.keys()
     for key in ref:
         np.testing.assert_array_equal(got[key], ref[key])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        text.HFTokenizer("t5-base", encode_with_model=True)
 
 
 def test_t5_weights_come_from_the_pretrained_dir(tmp_path, monkeypatch):

@@ -581,7 +581,6 @@ def test_device_augment_runs_and_repeats(setup, pretrained_dir):
 
 
 @pytest.mark.parametrize("change,kwargs,item", [
-    (dict(viz_datasets=["fixture_train"]), {}, "A12.3"),
     ({}, dict(fsdp=2), "A11"),
     ({}, dict(tp=2), "A11"),
     ({}, dict(profile_dir="/nonexistent"), "A11"),
