@@ -193,6 +193,20 @@
    PYTHONHASHSEED=0 (it starts itself again so where that is not set), so
    that the child server's FallbackTokenizer (its ids come from `hash`)
    tokenizes as this process does.
+10. Multi-device phase: the port's training on a process group. (a) Two
+   gloo ranks share the card (NCCL refuses two ranks on one device), the
+   fast-preset flagship at full width, data-parallel, 32 rows of the
+   fixed batch of 64 each, 3 steps from one state: each step's
+   training_loss and grad_norm within rtol 2e-4, atol 1e-5 of the same
+   steps in one process at batch 64, the two ranks' params bit-equal
+   before and after every step, each rank launching kernels 2 and 3
+   (12 + 12 and 12 a step). (b) The trainer on the trainer phase's
+   fixture mix in an NCCL process group of one rank (a FileStore in a
+   temporary directory): 4 steps bit-equal to run A's, which ran without
+   a group, and an NCCL all-reduce on the card; its steps [2, 4) traced
+   by the trainer's profile window, whose summary must name kernels 2 and
+   3's CUDA kernels with their device ms per step. The ranks' step time
+   is printed with the card, and is not a scaling number.
 
 The kernels redesigned for Hopper, the training attention (forward and
 backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
@@ -235,6 +249,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2935,7 +2950,8 @@ def trainer_counts():
 def trainer_phase(device, card, hand_fed):
     """The port's trainer on data at full width through its command line
     (module docstring, phase 6). Returns the launches of run A, counted
-    from zero before it and read after it."""
+    from zero before it and read after it, and run A's per-step
+    training_loss (the multi-device phase's trainer without a group)."""
     import copy
     import tempfile
 
@@ -3186,7 +3202,7 @@ def trainer_phase(device, card, hand_fed):
 
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 FINETUNE_CONFIG_FILE = """from hypervla_tpu_torch.configs import (
@@ -4588,11 +4604,292 @@ def eval_phase(device, card):
         f"{time.perf_counter() - t_phase:.3f}; {card}")
 
 
+#: the multi-device phase: train steps of the two ranks on the card and of
+#: the one process they are held to; trainer steps under NCCL and profiled
+MULTI_STEPS = 3
+MULTI_TRAINER_STEPS = 4
+PROFILE_STEPS = (2, 4)
+#: the JAX package's bound between a sharded step and one device's
+MESH_RTOL, MESH_ATOL = 2e-4, 1e-5
+#: seconds the two ranks may take, start-up and build included
+RANKS_DEADLINE = 300
+#: the CUDA kernels of kernels 2 (csrc/fused_attention.cu) and 3 (the
+#: frozen encoder's layer forward, over csrc/dino_layer.cu) a profile
+#: summary must name
+PROFILE_KERNEL_2 = ("mha_fwd_kernel", "mha_bwd_dq_kernel",
+                    "mha_bwd_dkv_kernel")
+PROFILE_KERNEL_3 = ("gemm_tma_kernel", "gemm_kernel",
+                    "layer_norm_rows_kernel", "layer_norm_kernel")
+
+
+def _multi_device_setup(device):
+    """The full-width flagship under the fast preset from SEED, its frozen
+    encoders from SEED + 1, the optimizer and a state at the LR's peak, and
+    the fixed global batch: (model, config, tx, step args, encoder params,
+    state, batch), the same in every process."""
+    import copy
+
+    from hypervla_tpu_torch.configs import (
+        apply_fast_training_preset,
+        disable_unused_attention_capture,
+        flagship_pretrain_config,
+    )
+    from hypervla_tpu_torch.flagship import make_flagship_batch
+    from hypervla_tpu_torch.models.hypervla import HyperVLA
+    from hypervla_tpu_torch.train.optimizer import (
+        create_optimizer,
+        hn_param_type_tree,
+    )
+    from hypervla_tpu_torch.train.train_state import TrainState
+    from hypervla_tpu_torch.train.trainer import build_frozen_encoders
+
+    config = flagship_pretrain_config()
+    config["base_net_kwargs"]["vit_kwargs"]["encoder_dtype"] = "bfloat16"
+    disable_unused_attention_capture(config)
+    fast = apply_fast_training_preset(copy.deepcopy(config))
+    model = HyperVLA.from_config(fast, make_flagship_batch(seed=SEED),
+                                 seed=SEED, device=device)
+    text_apply, dino_apply, t5, dino = build_frozen_encoders(
+        fast, device=device, seed=SEED + 1)
+    tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
+        model.params, hn_param_type_tree(model.params), **fast["optimizer"])
+    state = TrainState.create(model.params, tx,
+                              track_ema=fast.get("save_param_EMA", True))
+    warmup = fast["optimizer"]["learning_rate"]["warmup_steps"]
+    state.step = warmup
+    state.opt_state["count"] = warmup
+    batch = make_flagship_batch(batch_size=TRAIN_BATCH, seed=SEED)
+    del batch["task"]["language_instruction"]["token_embedding"]
+    del batch["initial_state"]["patch_embeddings"]
+    step_args = (tx, lr_fn, base_lr_fn, pnorm_fn)
+    return (model, fast, step_args, (text_apply, dino_apply),
+            {"t5": t5, "dino": dino}, state, batch)
+
+
+def _same_on_ranks(params):
+    """Whether every rank holds these params bit for bit: rank 0's flat
+    copy is broadcast and compared on every rank, the verdicts reduced."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1) for p in params.values()])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=0)
+    same = torch.tensor([int(torch.equal(flat, theirs))], device=flat.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _two_rank_child(rank, world, device_type):
+    """One of two ranks on card 0 over gloo: the fast-preset flagship,
+    data-parallel (fsdp = tp = 1), this rank's 32 rows of the fixed batch
+    of 64, MULTI_STEPS steps; returns each step's info, host ms and whether
+    the ranks' params agree bit for bit (before the first step too), and
+    kernels 2 and 3's launches over the steps."""
+    import torch
+
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.parallel.mesh import create_mesh, shard_batch
+    from hypervla_tpu_torch.train.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    model, config, args, (text_apply, dino_apply), encoders, state, batch \
+        = _multi_device_setup(device)
+    mesh = create_mesh()
+    step_fn = make_train_step(model, config, *args, text_encode=text_apply,
+                              dino_encode=dino_apply, mesh=mesh)
+    layout = step_fn.layout
+    state = layout.shard_state(state, args[0])
+    rows = shard_batch(batch, mesh)
+    same = [_same_on_ranks(state.params)]
+    infos, ms = [], []
+    for module in (fa, dlt):
+        module.reset_launch_counts()
+    for _ in range(MULTI_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, info = step_fn(state, rows, None, encoders, with_metrics=True)
+        infos.append({k: float(v) for k, v in info.items()})
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        same.append(_same_on_ranks(state.params))
+    launches = {k: v for k, v in {**fa.LAUNCHES, **dlt.LAUNCHES}.items()
+                if k in FAST_PRESET_LAUNCHES}
+    return {"infos": infos, "ms": ms, "same": same, "launches": launches,
+            "rows": len(rows["action"]), "mesh": mesh.shape}
+
+
+def multi_device_phase(device, card, no_group_losses):
+    """The port's multi-device training on the one card: two gloo ranks
+    sharing it against one process; the trainer in an NCCL process group
+    of one rank, its steps profiled, against no_group_losses, the
+    per-step training_loss of the same command line without a group (the
+    trainer phase's run A). The two ranks' step time is not a scaling
+    number: both share one card."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from hypervla_tpu_torch.parallel.dryrun import run_ranks
+    from hypervla_tpu_torch.train import main as cli
+    from hypervla_tpu_torch.train import trainer
+    from hypervla_tpu_torch.train.train_step import make_train_step
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    # ---- (1) two ranks on the card over gloo, against one process ----
+    model, config, args, (text_apply, dino_apply), encoders, state, batch \
+        = _multi_device_setup(device)
+    step_fn = make_train_step(model, config, *args, text_encode=text_apply,
+                              dino_encode=dino_apply)
+    ref = []
+    for _ in range(MULTI_STEPS):
+        state, info = step_fn(state, batch, None, encoders,
+                              with_metrics=True)
+        ref.append({k: float(v) for k, v in info.items()})
+    del model, step_fn, state, encoders
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, _two_rank_child, device.type,
+                      timeout=RANKS_DEADLINE)
+    ranks_s = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        if got["launches"] != {k: v * MULTI_STEPS
+                               for k, v in FAST_PRESET_LAUNCHES.items()}:
+            raise AssertionError(f"rank {r} launches {got['launches']}, "
+                                 f"want {FAST_PRESET_LAUNCHES} a step")
+        if not all(got["same"]):
+            raise AssertionError(f"the ranks' params differ: {got['same']} "
+                                 "(before the first step, after each)")
+        if got["infos"] != ranks[0]["infos"]:
+            raise AssertionError("the ranks report different infos")
+    for step, (got, want) in enumerate(zip(ranks[0]["infos"], ref), 1):
+        for key in ("training_loss", "grad_norm"):
+            if not math.isclose(got[key], want[key], rel_tol=MESH_RTOL,
+                                abs_tol=MESH_ATOL):
+                raise AssertionError(
+                    f"step {step} {key}: two ranks {got[key]!r}, one "
+                    f"process {want[key]!r}")
+        log(f"two ranks step {step}: training_loss {got['training_loss']!r}"
+            f" (one process {want['training_loss']!r}), grad_norm "
+            f"{got['grad_norm']!r} (one process {want['grad_norm']!r})")
+    log(f"two gloo ranks on one card, mesh {ranks[0]['mesh']}, "
+        f"{ranks[0]['rows']} rows a rank: {MULTI_STEPS} steps within rtol "
+        f"{MESH_RTOL}, atol {MESH_ATOL} of one process at batch "
+        f"{TRAIN_BATCH}, params bit-equal on both ranks before and after "
+        f"every step, launches a rank {ranks[0]['launches']}; step ms "
+        f"(host clock, both ranks sharing the card, not a scaling number) "
+        f"rank 0 {[round(x, 2) for x in ranks[0]['ms']]}, rank 1 "
+        f"{[round(x, 2) for x in ranks[1]['ms']]}; the ranks' run "
+        f"{ranks_s:.2f} s with start-up and build; card {card}")
+
+    # ---- (2) the trainer in an NCCL group of one rank, (3) profiled ----
+    root = tempfile.mkdtemp(prefix="hypervla_multi_")
+    try:
+        data = os.path.join(root, "data")
+        mix, _, _ = write_trainer_fixture(data)
+        # the trainer phase's run A without its save_dir: the config main()
+        # builds from the command line
+        config = cli.load_config(TRAINER_CONFIG)
+        cli.apply_overrides(config, [
+            f"--config.dataset_kwargs.oxe_mix={mix!r}",
+            f"--config.dataset_kwargs.data_dir={data!r}",
+            f"--config.dataset_kwargs.batch_size={TRAINER_BATCH}",
+            f"--config.dataset_kwargs.shuffle_buffer_size={TRAINER_SHUFFLE}",
+            "--config.dataset_kwargs.resize_size={'primary': (224, 224)}",
+            f"--config.num_steps={TRAINER_STEPS}", "--config.log_interval=1"])
+        recorder = LogRecorder()
+        lines = []
+
+        class Lines(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if msg.startswith("profile"):
+                    lines.append(msg)
+
+        handler = Lines()
+        logging.getLogger().addHandler(handler)
+        profile_dir = os.path.join(root, "profile")
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(root, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            trainer.train(config, num_steps=MULTI_TRAINER_STEPS,
+                          wandb_run=recorder, profile_dir=profile_dir,
+                          profile_steps=PROFILE_STEPS, device=device)
+            one = torch.ones(1, device=device)
+            dist.all_reduce(one)
+            if one.item() != 1.0:
+                raise AssertionError(f"an all-reduce of one rank gave "
+                                     f"{one.item()}")
+        finally:
+            dist.destroy_process_group()
+            logging.getLogger().removeHandler(handler)
+        group_s = time.perf_counter() - t0
+        losses = [recorder.logs[s]["training_loss"]
+                  for s in range(1, MULTI_TRAINER_STEPS + 1)]
+        if losses != list(no_group_losses[:MULTI_TRAINER_STEPS]):
+            raise AssertionError(f"the trainer in a group of one: losses "
+                                 f"{losses}, without a group "
+                                 f"{no_group_losses}")
+        log(f"trainer in an NCCL group of one rank: {MULTI_TRAINER_STEPS} "
+            f"steps bit-equal to the trainer phase's run A without a group "
+            f"(losses {losses}), an NCCL all-reduce on the card; "
+            f"{group_s:.2f} s with start-up and the profile window; card "
+            f"{card}")
+        trace = os.path.join(profile_dir, "trace_rank0.json")
+        if not os.path.getsize(trace):
+            raise AssertionError("the profile window wrote no trace")
+
+        def named(kernels):
+            return [x for x in lines if any(
+                re.search(rf"\b{k}\b", x) for k in kernels)]
+
+        k2, k3 = named(PROFILE_KERNEL_2), named(PROFILE_KERNEL_3)
+        window = PROFILE_STEPS[1] - PROFILE_STEPS[0]
+        where = "device" if device.type == "cuda" else "host"
+        if (not k2 or not k3 or not all(f"ms {where}/step over {window} "
+                                        "steps" in x for x in k2 + k3)):
+            raise AssertionError(f"the profile summary does not name "
+                                 f"kernels 2 and 3: {lines[:40]}")
+        for line in k2 + k3:
+            log(f"profile window [{PROFILE_STEPS[0]}, {PROFILE_STEPS[1]}): "
+                f"{line}; card {card}")
+        log(f"profile window: {len(lines)} summary lines, chrome trace "
+            f"{os.path.getsize(trace)} bytes")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"multi-device phase s {time.perf_counter() - t_phase:.3f}; "
+        f"card {card}")
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
         # the eval phase's child server must tokenize as this process does
         os.execve(sys.executable, [sys.executable, *sys.argv],
                   dict(os.environ, PYTHONHASHSEED=HASH_SEED))
+    # no tokenizer files are in the checkout: the tokenizers fall back
+    # without asking the network
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -4630,11 +4927,12 @@ def main() -> int:
     train_results = train_kernel_phase(device)
     column_pass_phase(device)
     train_launches, hand_fed = train_phase(device)
-    trainer_launches = trainer_phase(device, card, hand_fed)
+    trainer_launches, trainer_losses = trainer_phase(device, card, hand_fed)
     smallstem_phase(device, card)
     regularised_phase(device, card)
     heads_phase(device, card)
     eval_phase(device, card)
+    multi_device_phase(device, card, trainer_losses)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")

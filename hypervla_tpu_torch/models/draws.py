@@ -50,16 +50,21 @@ def draws_generator(seed: int, step: int, device) -> torch.Generator:
 class Draws:
     """Draws by site, generated from `generator` or replayed from
     `replay` ({site: array}, a site missing there raises KeyError). With
-    record, every draw is kept in `drawn` ({site: tensor})."""
+    record, every draw is kept in `drawn` ({site: tensor}). rows, (first,
+    last, total) of a rank's rows of a global batch
+    (parallel/mesh.py::batch_rows), makes each generated draw at the global
+    batch's shape and keeps the rank's rows of it, so that the ranks of a
+    mesh draw together what one process draws for the whole batch."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  replay: Optional[Dict[str, object]] = None,
-                 record: bool = False):
+                 record: bool = False, rows: Optional[tuple] = None):
         if (generator is None) == (replay is None):
             raise ValueError("give Draws a generator or the draws to replay")
         self.generator = generator
         self.replay = replay
         self.record = record
+        self.rows = rows
         self.drawn: Dict[str, torch.Tensor] = {}
 
     def _take(self, site: str, shape, device, draw):
@@ -72,8 +77,15 @@ class Draws:
                 raise ValueError(f"{site}: replayed draw of shape "
                                  f"{tuple(value.shape)}, the forward's "
                                  f"{tuple(shape)}")
+        elif self.rows is not None:
+            first, last, total = self.rows
+            if shape[0] != last - first:
+                raise ValueError(f"{site}: a draw of {shape[0]} rows on a "
+                                 f"rank that holds {last - first} of the "
+                                 "batch")
+            value = draw((total,) + tuple(shape[1:]))[first:last]
         else:
-            value = draw()
+            value = draw(shape)
         if self.record:
             if site in self.drawn:
                 raise ValueError(f"{site} drawn twice in one forward")
@@ -83,18 +95,18 @@ class Draws:
     def keep_mask(self, site: str, shape, keep: float, device):
         """A bool mask, each element True with probability `keep` (the
         draw of jax.random.bernoulli)."""
-        return self._take(site, shape, device, lambda: torch.rand(
-            shape, generator=self.generator, device=device) < keep).bool()
+        return self._take(site, shape, device, lambda s: torch.rand(
+            s, generator=self.generator, device=device) < keep).bool()
 
     def normal(self, site: str, shape, device):
         """Standard-normal fp32 draws."""
-        return self._take(site, shape, device, lambda: torch.randn(
-            shape, generator=self.generator, device=device)).float()
+        return self._take(site, shape, device, lambda s: torch.randn(
+            s, generator=self.generator, device=device)).float()
 
     def randint(self, site: str, shape, low: int, high: int, device):
         """Integers drawn uniformly from [low, high)."""
-        return self._take(site, shape, device, lambda: torch.randint(
-            low, high, shape, generator=self.generator, device=device)
+        return self._take(site, shape, device, lambda s: torch.randint(
+            low, high, s, generator=self.generator, device=device)
         ).long()
 
 

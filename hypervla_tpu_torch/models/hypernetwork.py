@@ -266,10 +266,14 @@ class HyperNetwork:
             else initial_patch_embeddings.float(), goal, goal_mask, draws)
 
     def generate(self, params: Params, context_embedding,
-                 draws: Optional[Draws] = None) -> Params:
+                 draws: Optional[Draws] = None, fanout=None) -> Params:
         """Base-net params: generated blocks (B, *shape), shared blocks
         (*shape) without the batch dim. draws: the training forward's
-        final dropout ("block" only, as in the JAX package)."""
+        final dropout ("block" only, as in the JAX package). fanout(x,
+        name, kernel): x @ kernel of each output-head kernel, one head at
+        a time (a mesh's split matmul, parallel/sharded.py::
+        ShardLayout.fanout); None multiplies each group's heads as one
+        concatenated kernel."""
         plan = self.plan
         batch = context_embedding.shape[0]
         out = {}
@@ -282,17 +286,28 @@ class HyperNetwork:
                     for name, part in zip(names, parts)}
 
         if self.strategy == "full":
-            flat = layers.dense(context_embedding[:, 0],
-                                params["output_head/kernel"],
-                                params.get("output_head/bias"))
+            x, bias = context_embedding[:, 0], params.get("output_head/bias")
+            if fanout is None:
+                flat = layers.dense(x, params["output_head/kernel"], bias)
+            else:
+                flat = fanout(x, "output_head/kernel",
+                              params["output_head/kernel"])
+                flat = flat if bias is None else flat + bias
             out.update({name: value for name, value in unpack(
                 flat, plan.names).items() if plan.generation_flag[name]})
         final_rate = self.hk.get("final_dropout_rate")
         for i, (token, names) in enumerate(self.packed_groups):
             heads = [plan.head_name(n) for n in names]
-            kernel = torch.cat([params[f"output_head_{h}/kernel"]
-                                for h in heads], dim=1)
-            packed = context_embedding[:, token] @ kernel
+            if fanout is None:
+                kernel = torch.cat([params[f"output_head_{h}/kernel"]
+                                    for h in heads], dim=1)
+                packed = context_embedding[:, token] @ kernel
+            else:
+                packed = torch.cat([
+                    fanout(context_embedding[:, token],
+                           f"output_head_{h}/kernel",
+                           params[f"output_head_{h}/kernel"])
+                    for h in heads], dim=1)
             if self.output_head_bias:
                 packed = packed + torch.cat(
                     [params[f"output_head_{h}/bias"] for h in heads])

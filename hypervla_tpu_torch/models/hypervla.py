@@ -37,6 +37,7 @@ from hypervla_tpu_torch.models.weight_plan import (
     init_base_net,
     input_shapes,
 )
+from hypervla_tpu_torch.parallel.mesh import process_index
 from hypervla_tpu_torch.utils.convert import flatten_tree
 from hypervla_tpu_torch.utils.device import resolve_device
 
@@ -206,7 +207,10 @@ class HyperVLA:
         """Writes <checkpoint_path>/<step>/params.pt, and config.json,
         example_batch.npz and dataset_statistics.json where they are not
         there yet (the JAX package's save_pretrained writes them once per
-        directory too)."""
+        directory too). Under a process group only rank 0 writes, as the
+        JAX package writes on process 0; the params must be whole there."""
+        if process_index() != 0:
+            return
         path = os.path.abspath(checkpoint_path)
         step_dir = os.path.join(path, str(step))
         os.makedirs(step_dir, exist_ok=True)

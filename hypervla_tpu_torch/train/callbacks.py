@@ -3,7 +3,9 @@
 SaveCallback keeps the JAX package's two checkpoints: per-step params
 through the model's save_pretrained (`<step>/params.pt`) with the EMA
 beside them (`<step>/EMA_params.pt`), and one resumable TrainState
-(`state/latest.pt`). ValidationCallback computes the held-out action MSE of
+(`state/latest.pt`), written by rank 0 alone on a mesh and whole, so that
+a checkpoint saved at N ranks restores at any other count.
+ValidationCallback computes the held-out action MSE of
 each validation dataset. VisualizationCallback runs the policy over
 held-out trajectories and reports eval/visualization.py's manipulation
 metrics; RolloutCallback runs closed-loop rollouts where an environment can
@@ -21,6 +23,7 @@ from hypervla_tpu_torch.models.draws import Draws
 from hypervla_tpu_torch.models.hypernetwork import per_sample_view
 from hypervla_tpu_torch.models.hypervla import save_ema_params
 from hypervla_tpu_torch.ops.serving import prepare_serving_params
+from hypervla_tpu_torch.parallel.mesh import process_index
 from hypervla_tpu_torch.train.train_state import TrainState
 from hypervla_tpu_torch.train.train_step import to_tensors
 
@@ -44,20 +47,32 @@ class SaveCallback:
     params, optimizer state, EMA and seed, written to a temporary file and
     renamed, so a crash never leaves a torn resume point. The copy to the
     host is synchronous; the serialization and the disk writes run on one
-    background thread, one save in flight at a time."""
+    background thread, one save in flight at a time.
 
-    def __init__(self, save_dir: Optional[str]):
+    On a mesh (`layout`, parallel/sharded.py::ShardLayout, and the
+    optimizer `tx`, whose state it lays out), every rank calls it: the
+    state is gathered whole, then rank 0 writes it, as the JAX callbacks
+    write on process 0; `restore` reads the whole state and keeps this
+    rank's shards."""
+
+    def __init__(self, save_dir: Optional[str], layout=None, tx=None):
         self.save_dir = save_dir
         self.state_dir = os.path.join(save_dir, "state") if save_dir else None
+        self.layout = layout
+        self.tx = tx
         self._pending = None
         self._executor = None
-        if self.save_dir is not None:
+        if self.save_dir is not None and process_index() == 0:
             os.makedirs(self.save_dir, exist_ok=True)
             self._executor = ThreadPoolExecutor(max_workers=1,
                                                 thread_name_prefix="ckpt")
 
     def __call__(self, model, train_state: TrainState, step: int) -> None:
         if self.save_dir is None:
+            return
+        if self.layout is not None:
+            train_state = self.layout.gather_state(train_state, self.tx)
+        if process_index() != 0:
             return
         self.wait()
         payload = {
@@ -115,6 +130,8 @@ class SaveCallback:
             ema_params=payload["ema_params"],
             seed=payload["seed"],
         )
+        if self.layout is not None:
+            restored = self.layout.shard_state(restored, self.tx)
         return restored, payload["step"]
 
 

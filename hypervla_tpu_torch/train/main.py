@@ -16,6 +16,16 @@ port's trainer saved there. Every `--config.<dotted.field>=
 ast.literal_eval and kept as a string where that fails. The trainer runs on
 the card unless `--cpu` is given. argparse stands in for absl and
 ml_collections, which the GPU host lacks.
+
+On N cards, under torchrun:
+
+    torchrun --nproc_per_node N -m hypervla_tpu_torch.train.main \\
+        --config vit_t,oxe,fast ... --fsdp F --tp T
+
+each rank joins the process group from torchrun's environment (nccl; gloo
+with `--cpu`) and the ranks train on an N-rank ("data", "fsdp"[,
+"model"]) mesh (train/trainer.py); wandb logs from rank 0. Without
+torchrun the run is one process, as before.
 """
 import argparse
 import ast
@@ -28,6 +38,7 @@ from hypervla_tpu_torch.configs import (
     finetune_config,
     hypervla_pretrain_config,
 )
+from hypervla_tpu_torch.parallel.mesh import init_distributed, process_index
 
 #: the built-in configs by name: the JAX command line's config files,
 #: whose copies the port holds
@@ -85,7 +96,7 @@ def apply_overrides(config: Dict[str, Any], overrides: List[str]) -> None:
 
 
 def _wandb_run(args, config):
-    if not args.wandb:
+    if not args.wandb or process_index() != 0:
         return None
     try:
         import wandb
@@ -112,9 +123,10 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--save_dir", default=None,
                         help="checkpoint directory")
     parser.add_argument("--fsdp", type=int, default=1,
-                        help="FSDP axis size (only 1 is ported)")
+                        help="FSDP axis size of the mesh over torchrun's "
+                        "ranks")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel axis size (only 1 is ported)")
+                        help="tensor-parallel (\"model\") axis size")
     parser.add_argument("--wandb", action="store_true",
                         help="log to wandb where it is installed")
     parser.add_argument("--wandb_project", default="hypervla_tpu")
@@ -128,9 +140,16 @@ def main(argv: Optional[List[str]] = None):
 
     from hypervla_tpu_torch.train.trainer import train
 
-    return train(config, save_dir=args.save_dir,
-                 wandb_run=_wandb_run(args, config), fsdp=args.fsdp,
-                 tp=args.tp, device="cpu" if args.cpu else None)
+    created = init_distributed(cpu=args.cpu)
+    try:
+        return train(config, save_dir=args.save_dir,
+                     wandb_run=_wandb_run(args, config), fsdp=args.fsdp,
+                     tp=args.tp, device="cpu" if args.cpu else None)
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

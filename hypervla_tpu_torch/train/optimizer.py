@@ -131,10 +131,13 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tree.values()))
 
 
-def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        norm: Callable = global_norm) -> Params:
     """optax.clip_by_global_norm: the grads as they are where their global
-    norm is below max_norm, else each scaled to (g / norm) * max_norm."""
-    g_norm = global_norm(grads)
+    norm is below max_norm, else each scaled to (g / norm) * max_norm.
+    norm: the global norm of the tree (on a mesh, of every rank's shards,
+    the same on every rank, so that every rank takes the same branch)."""
+    g_norm = norm(grads)
     if bool(g_norm < max_norm):
         return grads
     return {k: (g / g_norm) * max_norm for k, g in grads.items()}
@@ -300,12 +303,13 @@ class Optimizer:
                 "inner": inner}
 
     @torch.no_grad()
-    def update(self, grads: Params, state: dict, params: Params):
+    def update(self, grads: Params, state: dict, params: Params,
+               norm: Callable = global_norm):
         """Returns (updates, new_state): an update for every leaf of grads,
-        zeros for the frozen ones."""
+        zeros for the frozen ones. norm: the clip's global norm."""
         g = self.trainable(grads)
         if self.clip_gradient is not None:
-            g = clip_by_global_norm(g, self.clip_gradient)
+            g = clip_by_global_norm(g, self.clip_gradient, norm)
         p = self.trainable(params)
         if self.k == 1:
             updates, state = self.inner.update(g, state, p)
@@ -378,8 +382,9 @@ def create_optimizer(params: Params, hn_param_type: Dict[str, str],
                                                  1),
                    frozen=frozen)
     if frozen:
-        def param_norm_callable(tree):
-            return global_norm(tx.trainable(tree))
+        def param_norm_callable(tree, norm=global_norm):
+            return norm(tx.trainable(tree))
     else:
-        param_norm_callable = global_norm
+        def param_norm_callable(tree, norm=global_norm):
+            return norm(tree)
     return tx, lr_callable, base_lr_callable, param_norm_callable

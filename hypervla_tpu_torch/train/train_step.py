@@ -39,7 +39,12 @@ import torch
 from hypervla_tpu_torch.models.base_vit import check_trunk_switches
 from hypervla_tpu_torch.models.draws import Draws, draws_generator
 from hypervla_tpu_torch.models.hypernetwork import per_sample_view
-from hypervla_tpu_torch.ops.preprocess import fused_resize_augment
+from hypervla_tpu_torch.ops.preprocess import (
+    fused_resize_augment,
+    sample_augment_params,
+)
+from hypervla_tpu_torch.parallel.mesh import batch_rows
+from hypervla_tpu_torch.parallel.sharded import layout_for
 from hypervla_tpu_torch.train.optimizer import global_norm
 from hypervla_tpu_torch.train.train_state import TrainState
 
@@ -161,9 +166,13 @@ def augment_generator(seed: int, step: int, device) -> torch.Generator:
     return gen.manual_seed(int(seed) * 1_000_003 + int(step))
 
 
-def device_augment(batch, specs: Dict[str, dict], generator) -> None:
+def device_augment(batch, specs: Dict[str, dict], generator,
+                   rows: Optional[tuple] = None) -> None:
     """Runs fused_resize_augment over each camera's flattened (B * window)
-    frames of batch["observation"], in place, drawing from `generator`."""
+    frames of batch["observation"], in place, drawing from `generator`.
+    rows, (first, last, total) of a rank's rows of the global batch
+    (parallel/mesh.py::batch_rows): the draws are made for the whole batch
+    and the rank's frames take theirs."""
     obs = batch["observation"]
     for cam, kw in specs.items():
         key = f"image_{cam}"
@@ -171,8 +180,18 @@ def device_augment(batch, specs: Dict[str, dict], generator) -> None:
             continue
         imgs = obs[key]
         flat = imgs.reshape((-1,) + tuple(imgs.shape[2:]))
+        params = None
+        if rows is not None:
+            first, last, total = rows
+            per_row = flat.shape[0] // (last - first)
+            params = {op: {k: v[first * per_row:last * per_row]
+                           for k, v in drawn.items()}
+                      for op, drawn in sample_augment_params(
+                          total * per_row, generator=generator,
+                          **dict(kw)).items()}
         flat = fused_resize_augment(flat, tuple(flat.shape[1:3]), dict(kw),
-                                    train=True, generator=generator)
+                                    train=True, params=params,
+                                    generator=generator)
         obs[key] = flat.reshape(imgs.shape)
 
 
@@ -181,7 +200,7 @@ def make_train_step(model, config: Dict[str, Any], tx,
                     param_norm_callable: Callable,
                     text_encode: Optional[Callable] = None,
                     dino_encode: Optional[Callable] = None,
-                    pretrained_params=None):
+                    pretrained_params=None, mesh=None):
     """Returns train_step(state, batch, task_index=None, encoder_params=None,
     with_metrics=True, draws=None) -> (new_state, info). task_index {task:
     (B,) 0/1 mask} adds info["task_loss_<task>"], the mean loss of the
@@ -204,7 +223,19 @@ def make_train_step(model, config: Dict[str, Any], tx,
     pretrained value to the matching shared param's update (delta-decay),
     optimizer update or not. weight_decay_strategy "v4" reads
     auxiliary_loss base_weight_decay (a KeyError without it) and logs
-    info["base_weight_decay_grad_norm"]."""
+    info["base_weight_decay_grad_norm"].
+
+    mesh (parallel/mesh.py::create_mesh) of more than one rank: the state
+    holds this rank's shards (parallel/sharded.py::ShardLayout.shard_state)
+    and the batch this rank's rows (parallel/mesh.py::shard_batch). The
+    step gathers the params, runs its rows, reduces the gradients before
+    the optimizer, so that the clip sees the global gradient, and reports
+    global-batch means and per-task losses (a global sum over a global
+    count), the same on every rank; every draw is made at the global
+    batch's shape and sliced to the rank's rows, so that the ranks together
+    take the step one process takes on the whole batch. The step's
+    `layout` attribute is its parallel/sharded.py::ShardLayout (None on one
+    process)."""
     _check_layer_kernel_hoist(config)
     check_trunk_switches(config["base_net_kwargs"]["vit_kwargs"])
     _check_aux(config)
@@ -222,11 +253,15 @@ def make_train_step(model, config: Dict[str, Any], tx,
     capture_maps = (aux.get("attention_entropy", 0.0) > 0.0
                     or aux.get("attention_map_alignment", 0.0) > 0.0)
     delta_decay = None
+    layout = layout_for(mesh, model.params)
     if pretrained_params is not None:
         targets = _delta_decay_targets(plan, pretrained_params, model.device)
         if (vk.get("fine_tune_pretrained_image_encoder", False)
                 and opt_cfg.get("base_weight_decay", 0.0) > 0):
             delta_decay = targets
+            if layout is not None:
+                delta_decay = [(name, layout.shard(name, value.view(
+                    layout.shapes[name]))) for name, value in targets]
     v4 = opt_cfg.get("weight_decay_strategy", "v1") == "v4"
     if v4:
         if "base_weight_decay" not in aux:
@@ -240,13 +275,14 @@ def make_train_step(model, config: Dict[str, Any], tx,
                    encoder_params=None, with_metrics: bool = True,
                    draws: Optional[Draws] = None):
         encoder_params = encoder_params or {}
+        batch = to_tensors(batch, model.device)
+        rows = batch_rows(mesh, batch["action"].shape[0])
         if draws is None:
             draws = Draws(draws_generator(state.seed, state.step,
-                                          model.device))
-        batch = to_tensors(batch, model.device)
+                                          model.device), rows=rows)
         if aug_specs:  # to_tensors made the batch's dicts anew
             device_augment(batch, aug_specs, augment_generator(
-                state.seed, state.step, model.device))
+                state.seed, state.step, model.device), rows)
         instr = dict(batch["task"]["language_instruction"])
         patches = (batch.get("initial_state") or {}).get("patch_embeddings")
         with torch.no_grad():
@@ -273,7 +309,8 @@ def make_train_step(model, config: Dict[str, Any], tx,
                 "its embeddings or the frozen DINOv2 "
                 "(trainer.build_frozen_encoders)")
 
-        params = state.params
+        params = (state.params if layout is None
+                  else layout.gather_params(state.params))
         for p in params.values():
             p.grad = None
         emb = None
@@ -287,7 +324,9 @@ def make_train_step(model, config: Dict[str, Any], tx,
         ctx = model.hypernet.task_context(
             params, dict(batch["task"], language_instruction=instr),
             instr["token_embedding"], patches, draws)
-        generated = model.hypernet.generate(params, ctx, draws)
+        generated = model.hypernet.generate(
+            params, ctx, draws,
+            fanout=None if layout is None else layout.fanout)
         maps = {} if capture_maps else None
         losses, metrics = model.base_net.loss(
             per_sample_view(plan, generated), batch, emb,
@@ -295,18 +334,32 @@ def make_train_step(model, config: Dict[str, Any], tx,
         losses, aux_metrics = aux_losses(config, losses, maps, batch,
                                          state.step)
         metrics.update(aux_metrics)
-        loss = losses.mean()
+        n_global = losses.shape[0] if rows is None else rows[2]
+        if layout is None:
+            loss = losses.mean()
+        else:  # the rank's share of the global batch mean
+            loss = losses.sum() / n_global
         wd_grads = None
         if v4:
             # a second backward over the same generated params, into its
             # own gradients, before the loss's frees the graph
-            wd_grads = _weight_decay_grads(plan, generated, params)
+            wd_grads = _weight_decay_grads(plan, generated, params,
+                                           None if layout is None
+                                           else n_global)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        norm = global_norm
+        if layout is not None:
+            grads = layout.reduce_grads(grads)
+            if v4:
+                wd_grads = layout.reduce_grads(wd_grads)
+            norm = layout.global_norm
+            params = state.params
 
         with torch.no_grad():
-            updates, opt_state = tx.update(grads, state.opt_state, params)
+            updates, opt_state = tx.update(grads, state.opt_state, params,
+                                           norm=norm)
             info = {}
             if delta_decay is not None:
                 # pull the fine-tuned trunk toward its pretrained values
@@ -315,24 +368,38 @@ def make_train_step(model, config: Dict[str, Any], tx,
                 for name, value in delta_decay:
                     updates[name] = updates[name] + coef * value
             if v4:
-                wd_norm = global_norm(wd_grads)
+                wd_norm = norm(wd_grads)
                 scale = torch.clamp(wd_norm, max=wd_clip)
                 coef = float(_F(lr_callable(state.step)) * _F(wd_coef))
                 updates = {k: u - coef * (wd_grads[k] / wd_norm * scale)
                            for k, u in updates.items()}
                 info["base_weight_decay_grad_norm"] = wd_norm
-            info.update(training_loss=loss.detach(),
-                        learning_rate=lr_callable(state.step))
+            means = {"training_loss": losses.detach(),
+                     **{k: v.detach() for k, v in metrics.items()},
+                     "base_params_norm": _base_params_norms(plan,
+                                                            generated)}
+            masks = {name: torch.as_tensor(mask, device=losses.device
+                                           ).float()
+                     for name, mask in (task_index or {}).items()}
+            if layout is None:
+                stats = {k: v.mean() for k, v in means.items()}
+                tasks = {name: ((losses.detach() * mask).sum(), mask.sum())
+                         for name, mask in masks.items()}
+            else:
+                stats, tasks = _global_stats(layout, means, masks,
+                                             losses.detach(), n_global)
+            info["training_loss"] = stats.pop("training_loss")
+            info["learning_rate"] = lr_callable(state.step)
             if with_metrics:
-                info.update(grad_norm=global_norm(grads),
-                            update_norm=global_norm(updates),
-                            param_norm=param_norm_callable(params))
-            for name, mask in (task_index or {}).items():
-                mask = torch.as_tensor(mask, device=losses.device).float()
-                info[f"task_loss_{name}"] = (
-                    (losses.detach() * mask).sum() / mask.sum().clamp(min=1))
-            info.update({k: v.detach().mean() for k, v in metrics.items()})
-            info["base_params_norm"] = _base_params_norm(plan, generated)
+                info.update(grad_norm=norm(grads),
+                            update_norm=norm(updates),
+                            param_norm=param_norm_callable(params,
+                                                           norm=norm))
+            for name, (total, count) in tasks.items():
+                info[f"task_loss_{name}"] = total / count.clamp(min=1)
+            base_norm = stats.pop("base_params_norm")
+            info.update(stats)
+            info["base_params_norm"] = base_norm
             new_params = {k: (p.detach() + updates[k]).requires_grad_(True)
                           for k, p in params.items()}
             ema = state.ema_params
@@ -346,6 +413,7 @@ def make_train_step(model, config: Dict[str, Any], tx,
                           opt_state=opt_state, ema_params=ema,
                           seed=state.seed), info
 
+    train_step.layout = layout
     return train_step
 
 
@@ -378,17 +446,22 @@ def _delta_decay_targets(plan, pretrained_params, device):
     return out
 
 
-def _weight_decay_grads(plan, generated, params):
+def _weight_decay_grads(plan, generated, params, n_global=None):
     """The v4 weight decay's gradient: of the batch mean of each sample's
     0.5 * sum(kernel ** 2) over the base-net params whose path holds
     "kernel" (generated ones per sample, shared ones whole), with respect
-    to every hypernetwork param (zeros where it does not reach)."""
+    to every hypernetwork param (zeros where it does not reach). n_global:
+    on a mesh, the global batch size, of whose mean this rank's rows give
+    their share."""
     per_sample = sum((v.float() ** 2).flatten(1).sum(1)
                      for n, v in generated.items()
                      if "kernel" in n and plan.generation_flag[n])
     shared = sum((v.float() ** 2).sum() for n, v in generated.items()
                  if "kernel" in n and not plan.generation_flag[n])
-    wd_loss = 0.5 * (per_sample + shared).mean()
+    if n_global is None:
+        wd_loss = 0.5 * (per_sample + shared).mean()
+    else:
+        wd_loss = 0.5 * (per_sample + shared).sum() / n_global
     names = list(params)
     grads = torch.autograd.grad(wd_loss, [params[n] for n in names],
                                 retain_graph=True, allow_unused=True)
@@ -396,12 +469,31 @@ def _weight_decay_grads(plan, generated, params):
             for n, g in zip(names, grads)}
 
 
-def _base_params_norm(plan, generated):
-    """Mean over samples of each sample's base-net param norm (its
-    generated blocks and the shared ones)."""
+def _base_params_norms(plan, generated):
+    """Each sample's base-net param norm (its generated blocks and the
+    shared ones), (B,)."""
     shared = sum((v.float() ** 2).sum() for n, v in generated.items()
                  if not plan.generation_flag[n])
     per_sample = sum((v.float() ** 2).flatten(1).sum(1)
                      for n, v in generated.items()
                      if plan.generation_flag[n])
-    return torch.sqrt(per_sample + shared).mean()
+    return torch.sqrt(per_sample + shared)
+
+
+def _global_stats(layout, means, masks, losses, n_global):
+    """({name: global-batch mean} of per-sample values (B_rank,),
+    {task: (global masked loss sum, global mask count)}), summed over the
+    rows' ranks in one collective."""
+    for name, value in means.items():
+        if value.dim() != 1 or value.shape[0] != losses.shape[0]:
+            raise ValueError(f"metric {name} of shape {tuple(value.shape)} "
+                             "is not per sample: its global mean is unknown")
+    values = [v.sum() for v in means.values()]
+    for mask in masks.values():
+        values += [(losses * mask).sum(), mask.sum()]
+    sums = layout.row_sums(values)
+    stats = {k: s / n_global for k, s in zip(means, sums)}
+    rest = sums[len(means):]
+    tasks = {name: (rest[2 * i], rest[2 * i + 1])
+             for i, name in enumerate(masks)}
+    return stats, tasks

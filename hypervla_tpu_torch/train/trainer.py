@@ -21,13 +21,19 @@ The datasets named in `viz_datasets` feed the visualization callback
 `visualizer/<name>/<metric>` every `viz_interval` steps (default
 `eval_interval`), as the JAX trainer does.
 
-Not ported, and refused with the ROADMAP.md item that will carry them: a
-sharded mesh (fsdp, tp > 1: A11) and the profile window (`profile_dir`:
-the JAX trainer reads XPlane traces, a TPU tool).
+Under torchrun (`torchrun --nproc_per_node N -m hypervla_tpu_torch.train.
+main ... --fsdp F --tp T`) `train()` joins the process group and lays the
+ranks out on the JAX trainer's ("data", "fsdp"[, "model"]) mesh
+(parallel/mesh.py): the state sharded by the JAX rule
+(parallel/sharded.py), each rank's own pipeline process yielding the
+global batch from the same seed, of which the rank keeps its rows (the
+JAX single-process semantics: the ranks' rows of step k are the one
+process's batch of step k), the frozen encoders replicated, the logging,
+wandb and the checkpoints on rank 0. The profile window (`profile_dir`,
+`profile_steps`) traces its steps with torch.profiler into a chrome trace
+and logs each kernel's device ms per step (utils/profile.py).
 """
 import logging
-import queue
-import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -56,6 +62,13 @@ from hypervla_tpu_torch.models.encoders.t5 import (
 )
 from hypervla_tpu_torch.models.hypervla import EMA_FILE, HyperVLA
 from hypervla_tpu_torch.models.layers import init_params
+from hypervla_tpu_torch.parallel.mesh import (
+    create_mesh,
+    device_prefetch,
+    init_distributed,
+    process_index,
+)
+from hypervla_tpu_torch.parallel.sharded import layout_for
 from hypervla_tpu_torch.train.callbacks import (
     SaveCallback,
     ValidationCallback,
@@ -67,6 +80,7 @@ from hypervla_tpu_torch.train.optimizer import (
 )
 from hypervla_tpu_torch.train.train_state import TrainState
 from hypervla_tpu_torch.train.train_step import make_train_step
+from hypervla_tpu_torch.utils import profile
 from hypervla_tpu_torch.utils.device import resolve_device
 from hypervla_tpu_torch.utils.timer import Timer
 
@@ -353,80 +367,6 @@ class PipelineProcess:
         self._conn.close()
 
 
-def _to_device(tree, device):
-    """A nested dict of numeric numpy arrays -> tensors on `device`,
-    through pinned memory to a card. A leaf that is not numeric (a string
-    field the host should have dropped) raises."""
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    arr = np.asarray(tree)
-    if arr.dtype.kind not in "biuf":
-        raise TypeError(f"a host-only field of dtype {arr.dtype} reached "
-                        "the copy to the device")
-    t = torch.as_tensor(arr)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
-def device_prefetch(iterator, device: torch.device, size: int = 2):
-    """Yields the items of `iterator` moved to `device` by a background
-    thread that keeps `size` of them ahead (counterpart of
-    hypervla_tpu/parallel/mesh.py::device_prefetch). Closing the generator
-    stops the thread."""
-    q: "queue.Queue" = queue.Queue(maxsize=size)
-    done = object()
-    stop = threading.Event()
-    error = []
-
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def worker():
-        try:
-            for item in iterator:
-                if not put(_to_device(item, device)):
-                    return
-        except BaseException as e:  # re-raised in the consumer
-            error.append(e)
-        finally:
-            put(done)
-
-    thread = threading.Thread(target=worker, daemon=True,
-                              name="device_prefetch")
-    thread.start()
-    try:
-        while True:
-            item = q.get()
-            if item is done:
-                if error:
-                    raise error[0]
-                return
-            yield item
-    finally:
-        stop.set()
-        thread.join(timeout=10)
-
-
-def _refuse_unported(config: Dict[str, Any], fsdp: int, tp: int,
-                     profile_dir: Optional[str]) -> None:
-    if fsdp > 1 or tp > 1:
-        raise NotImplementedError(
-            f"train: fsdp={fsdp}, tp={tp}: a sharded mesh is not ported "
-            "yet (ROADMAP.md A11, multi-card training)")
-    if profile_dir is not None:
-        raise NotImplementedError(
-            "train: profile_dir reads XPlane traces, a TPU tool that is not "
-            "carried (ROADMAP.md A11, multi-card training and its "
-            "profiling); trace a step with torch.profiler instead")
-
-
 def train(
     config: Dict[str, Any],
     save_dir: Optional[str] = None,
@@ -439,32 +379,47 @@ def train(
     profile_steps: tuple = (10, 15),
     device=None,
 ) -> TrainState:
-    """Runs the training loop on `device` (None: the CUDA card); returns
-    the final TrainState. profile_steps, the JAX trainer's window of
-    steps to trace into profile_dir, is read only with profile_dir, which
-    raises NotImplementedError. wandb_run is anything with
-    `.log(dict, step=int)`: it receives the flattened info of every logged
-    step (training_loss, task_loss_<task>, the norms on logged steps, the
-    timer's mean seconds per phase) and the validation metrics."""
-    _refuse_unported(config, fsdp, tp, profile_dir)
-    device = resolve_device(device)
-    num_steps = num_steps if num_steps is not None else config["num_steps"]
-    pipeline = None
-    if dataset is None:
-        dataset = pipeline = PipelineProcess(config)
-        batches = iter(pipeline)
-    else:
-        batches = iter(dataset.prefetch(PREFETCH))
+    """Runs the training loop on `device` (None: the CUDA card, under a
+    process group the rank's own, cuda:LOCAL_RANK); returns the final
+    TrainState, whole on every rank. Under torchrun's environment (or in
+    a process group the caller made) the ranks train as one on a mesh of
+    fsdp x tp (x the rest on "data"), as the JAX trainer does on its
+    devices. profile_dir: steps [profile_steps[0], profile_steps[1]) are
+    traced with torch.profiler into <profile_dir>/trace_rank<r>.json and
+    each device kernel's ms per step is logged. wandb_run is anything with
+    `.log(dict, step=int)`: it receives, on rank 0, the flattened info of
+    every logged step (training_loss, task_loss_<task>, the norms on
+    logged steps, the timer's mean seconds per phase) and the validation
+    metrics."""
+    created = init_distributed(
+        cpu=device is not None and torch.device(device).type == "cpu")
     try:
-        return _train(config, save_dir, num_steps, dataset, batches,
-                      wandb_run, device)
+        device = resolve_device(device)
+        mesh = create_mesh(fsdp=fsdp, tp=tp)
+        num_steps = (num_steps if num_steps is not None
+                     else config["num_steps"])
+        pipeline = None
+        if dataset is None:
+            dataset = pipeline = PipelineProcess(config)
+            batches = iter(pipeline)
+        else:
+            batches = iter(dataset.prefetch(PREFETCH))
+        try:
+            return _train(config, save_dir, num_steps, dataset, batches,
+                          wandb_run, device, mesh,
+                          profile_dir, tuple(profile_steps))
+        finally:
+            if pipeline is not None:
+                pipeline.close()
     finally:
-        if pipeline is not None:
-            pipeline.close()
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
-           device) -> TrainState:
+           device, mesh, profile_dir, profile_steps) -> TrainState:
     """train()'s loop over `batches`, the raw batches of `dataset`."""
     seed = config.get("seed", 0)
     process_batch = make_process_batch(config)
@@ -472,6 +427,8 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
 
     # the first batch primes model construction (the embeddings' shapes)
     example_batch = _prime_example_batch(next(data_iter), config)
+    if mesh.size(*mesh.axis_names) > 1:
+        _check_ranks_agree(example_batch, device)
     disable_unused_attention_capture(config)
 
     text_apply, dino_apply, t5_params, dino_params = build_frozen_encoders(
@@ -505,8 +462,19 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
     state = TrainState.create(model.params, tx,
                               track_ema=config.get("save_param_EMA", False),
                               seed=seed)
+    step_fn = make_train_step(model, config, tx, lr_fn, base_lr_fn, pnorm_fn,
+                              text_encode=text_apply, dino_encode=dino_apply,
+                              mesh=mesh)
+    layout = layout_for(mesh, model.params)
+    if layout is not None:
+        state = layout.shard_state(state, tx)
+        logging.info(f"Mesh {mesh.shape}: rank {mesh.rank} holds "
+                     f"{sum(p.numel() for p in state.params.values())} of "
+                     f"{sum(p.numel() for p in model.params.values())} "
+                     "param elements")
+    main_rank = process_index() == 0
 
-    save_callback = SaveCallback(save_dir)
+    save_callback = SaveCallback(save_dir, layout=layout, tx=tx)
     val_callback = _build_validation_callback(
         config, model, text_encode, dino_encode, process_batch)
     viz_callback = _build_visualization_callback(
@@ -517,10 +485,11 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
         if restored_step is not None:
             start_step = restored_step
             logging.info(f"Resumed from step {start_step}")
-
-    step_fn = make_train_step(model, config, tx, lr_fn, base_lr_fn, pnorm_fn,
-                              text_encode=text_apply, dino_encode=dino_apply)
     encoder_params = {"t5": t5_params, "dino": dino_params}
+
+    def whole_params():
+        return (state.params if layout is None
+                else layout.gather_tree(state.params))
 
     def prepared():
         for raw in data_iter:
@@ -528,12 +497,19 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
             yield {"batch": _prime_example_batch(raw, config, embed=False),
                    "task_index": task_index or {}}
 
-    prefetched = device_prefetch(prepared(), device, size=PREFETCH)
+    prefetched = device_prefetch(prepared(), mesh, size=PREFETCH,
+                                 device=device)
     log_interval = config.get("log_interval", 100)
     timer = Timer()
     last_saved_step = None
+    trace = None
     try:
         for i in range(start_step, num_steps):
+            if profile_dir is not None and i == profile_steps[0]:
+                trace = profile.start_trace()
+            if trace is not None and i == profile_steps[1]:
+                _end_profile(trace, profile_dir, profile_steps, main_rank)
+                trace = None
             timer.tick("total")
             with timer("dataset"):
                 item = next(prefetched)
@@ -549,35 +525,88 @@ def _train(config, save_dir, num_steps, dataset, batches, wandb_run,
                     and step % config.get("save_interval", 10000) == 0):
                 save_callback(model, state, step)
                 last_saved_step = step
+            # every rank gathers the params; rank 0 evaluates and logs
             if (val_callback is not None
                     and step % config.get("eval_interval", 5000) == 0):
                 with timer("eval"):
-                    val_metrics = val_callback(state.params, step)
-                logging.info(f"step {step}: {val_metrics}")
-                if wandb_run is not None:
-                    wandb_run.log(val_metrics, step=step)
+                    params = whole_params()
+                    if main_rank:
+                        val_metrics = val_callback(params, step)
+                if main_rank:
+                    logging.info(f"step {step}: {val_metrics}")
+                    if wandb_run is not None:
+                        wandb_run.log(val_metrics, step=step)
             if (viz_callback is not None
                     and step % config.get(
                         "viz_interval",
                         config.get("eval_interval", 5000)) == 0):
                 with timer("visualize"):
-                    viz_metrics = viz_callback(state.params, step)
-                logging.info(f"step {step}: {viz_metrics}")
-                if wandb_run is not None:
-                    wandb_run.log(viz_metrics, step=step)
-            if step % log_interval == 0:
+                    params = whole_params()
+                    if main_rank:
+                        viz_metrics = viz_callback(params, step)
+                if main_rank:
+                    logging.info(f"step {step}: {viz_metrics}")
+                    if wandb_run is not None:
+                        wandb_run.log(viz_metrics, step=step)
+            if step % log_interval == 0 and main_rank:
                 info = {k: float(v) for k, v in info.items()}
                 info["timer"] = timer.get_average_times()
                 if wandb_run is not None:
                     wandb_run.log(_flatten_log(info), step=step)
                 logging.info(f"step {step}: "
                              f"loss={info['training_loss']:.4f}")
+        if trace is not None:  # the run ended inside the window
+            _end_profile(trace, profile_dir,
+                         (profile_steps[0], num_steps), main_rank)
+            trace = None
         if save_dir is not None and last_saved_step != num_steps:
             save_callback(model, state, num_steps)
     finally:
+        if trace is not None:
+            trace.stop()
         prefetched.close()
         save_callback.close()
-    return state
+    return state if layout is None else layout.gather_state(state, tx)
+
+
+def _check_ranks_agree(batch, device) -> None:
+    """Every rank's pipeline must yield the same global batch (of which it
+    keeps its rows): a digest of the first batch's tokens and actions is
+    compared over the ranks. A tokenizer whose ids depend on the process
+    (data/text_processing.py::FallbackTokenizer hashes words with Python's
+    salted hash) breaks that unless every rank runs under one
+    PYTHONHASHSEED."""
+    import torch.distributed as dist
+
+    ids = np.asarray(batch["task"]["language_instruction"]["input_ids"],
+                     np.int64).reshape(-1)
+    digest = torch.tensor(
+        [float(((ids % 65521) * (np.arange(ids.size) % 65521 + 1)).sum()),
+         float(np.asarray(batch["action"], np.float64).sum())],
+        dtype=torch.float64, device=device)
+    low, high = digest.clone(), digest.clone()
+    dist.all_reduce(low, op=dist.ReduceOp.MIN)
+    dist.all_reduce(high, op=dist.ReduceOp.MAX)
+    if not torch.equal(low, high):
+        raise RuntimeError(
+            "the ranks' input pipelines yield different global batches: "
+            "every rank must draw the same batch from the same seed (a "
+            "tokenizer that hashes words needs one PYTHONHASHSEED on every "
+            "rank)")
+
+
+def _end_profile(trace, profile_dir, window, log_summary: bool) -> None:
+    """Ends the profile window: the chrome trace written, and on rank 0
+    each kernel's ms per step logged (a failed summary is a warning, as in
+    the JAX trainer)."""
+    profile.stop_trace(trace, profile_dir, process_index())
+    if not log_summary:
+        return
+    try:
+        for line in profile.summary_lines(trace, window[1] - window[0]):
+            logging.info(line)
+    except Exception as e:
+        logging.warning(f"profile summary failed: {e!r}")
 
 
 def _build_visualization_callback(config, model, text_encode, dino_encode):

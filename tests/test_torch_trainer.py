@@ -22,8 +22,9 @@ params: the port's stored EMA is the JAX step's formula over the port's
 own param trajectory bit for bit (the JAX one over its own to an ulp), and
 its move from the warm start agrees with the JAX EMA's move by the params'
 rule. Also: resume from state/latest.pt bit for bit, the
-trained checkpoint serving a finite action, the command line, device
-augmentation, and the refusals of the unported paths. Every call passes
+trained checkpoint serving a finite action, the command line and device
+augmentation (the mesh, the profile window and the command line under
+ranks: tests/test_torch_parallel_step.py). Every call passes
 the CPU: the port's default is the card; every call that waits on the
 pipeline's worker process runs under a deadline
 (tests/test_torch_harness.py::within)."""
@@ -578,18 +579,6 @@ def test_device_augment_runs_and_repeats(setup, pretrained_dir):
     state = within(DEADLINE, trainer.train, config, num_steps=1,
                    wandb_run=log, device="cpu")
     assert state.step == 1 and np.isfinite(log.logs[1]["training_loss"])
-
-
-@pytest.mark.parametrize("change,kwargs,item", [
-    ({}, dict(fsdp=2), "A11"),
-    ({}, dict(tp=2), "A11"),
-    ({}, dict(profile_dir="/nonexistent"), "A11"),
-])
-def test_unported_paths_raise(setup, change, kwargs, item):
-    config = _port_config(setup, **change)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        within(DEADLINE, trainer.train, config, num_steps=1, device="cpu",
-               **kwargs)
 
 
 def test_train_defaults_to_the_card(setup):
