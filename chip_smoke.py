@@ -108,7 +108,7 @@
    and the frozen encoder's no-residual layer forward (12), its loss is
    finite, and its first step's training_loss and grad_norm equal, bit for
    bit, make_train_step called directly on the same batch from the same
-   state. Run B resumes to step 8: its first state is run A's last, bit for
+   state. Run B resumes to step 7: its first state is run A's last, bit for
    bit. Run C, 2 steps over a dataset_kwargs_list with a validation
    dataset and device_augment (random_resized_crop 0.8-1.0, brightness,
    contrast, saturation, hue on the card): a finite validation MSE, and the
@@ -155,7 +155,7 @@
    fan-out heads) and with the discrete head (28 readout tokens, 256
    bins), `action_head_type` overridden in the vit_t,oxe recipe, random
    weights and fan-out kernels from a seed. Each is served through fused
-   InferenceWrapper steps (50 and 20) on kernel 1, one trunk launch a
+   InferenceWrapper steps (20 each) on kernel 1, one trunk launch a
    step, against the same steps on kernel 1's plain version (the
    diffusion actions within 0.05 * max(scale, 1); the discrete head's
    logits within that bound and its clear argmax tokens equal), a second
@@ -207,6 +207,28 @@
    by the trainer's profile window, whose summary must name kernels 2 and
    3's CUDA kernels with their device ms per step. The ranks' step time
    is printed with the card, and is not a scaling number.
+11. Octo phase: the Octo model of octo_pretrain_config("vit_s,oxe")
+   (12 x 384, 6 heads, MLP 1536, SmallStem16 over the frame and the goal
+   image's channels, the 20-step diffusion head), full width and depth,
+   random weights from a seed, fp32. Serving through OctoInference
+   (google_robot, horizon 2, ensembling, the port's seeded T5 with the
+   fallback tokenizer), at 224 px, the size the model is built for (the
+   JAX default of 256 px fails its shape check, as in the JAX package,
+   checked here once): 50 steps, finite actions, a repeat from the same
+   init_rng bit-equal, the first step's sample against the same model,
+   observations and draws on the CPU within 1e-4; per-step ms (median,
+   CUDA events), device busy, kernels and idle share from one trace. A
+   checkpoint round trip (save_pretrained, load_pretrained onto the card):
+   params and the next action bit-equal. One hand-fed train step at the
+   config's batch of 256 (ms/step, samples/s, peak GiB, device busy), its
+   loss and grad_norm against the same step on the CPU from the same
+   state, T5 embedding and draws (1e-4 and 1e-3 relative; the CPU step
+   is most of the phase's time); then
+   `octo_train.main` for 3 steps at batch 64 on the trainer phase's
+   fixture mix, saving at step 3. None of the nine TPU kernels' wrappers
+   is launched (their counters stay 0).
+
+Every phase prints its seconds as `phase <name> s <seconds>`.
 
 The kernels redesigned for Hopper, the training attention (forward and
 backward on the bf16 tensor cores), the layer and trunk GEMM (a pipelined
@@ -343,14 +365,14 @@ FIRST_VERSION_DEVICE_MS = {"layer_colsum (16448, 2304)": 0.0455,
                            "fused_add_ln_fwd (16448, 768)": 0.0495,
                            "fused_add_ln_bwd (16448, 768)": 0.1868,
                            "layer_scale_grad (16448, 768)": 0.0379}
-TRAIN_WARMUP, TRAIN_STEPS = 2, 6
+TRAIN_WARMUP, TRAIN_STEPS = 2, 4
 #: the trainer phase: the command line's config and data, and its runs
 TRAINER_CONFIG = "vit_t,oxe,fast"
 TRAINER_BATCH = 64
 TRAINER_FRAME = 256
 TRAINER_DATASETS = 2
 TRAINER_TRAJS, TRAINER_TRAJ_LEN = 8, 20
-TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_RESUME_TO = 6, 3, 8
+TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_RESUME_TO = 6, 3, 7
 TRAINER_AUG_STEPS = 2
 TRAINER_SHUFFLE = 256
 TRAINER_SERVED = 5
@@ -432,35 +454,61 @@ def _trace(fn, calls, host=True):
             if e.device_type == DeviceType.CUDA and e.count > 0}
 
 
-def _device_trace(fn, calls, host=True):
-    """_trace, taken again where it comes back without its device records
-    (now and then one does); only a third empty one fails the run."""
-    for attempt in range(3):
+#: the pauses (s) before each retrace of a trace that came back without its
+#: device records; the profiler has lost up to four traces in a row
+PROFILER_RETRY_PAUSES = (0.5, 1.0, 2.0, 4.0, 8.0)
+#: the one key of a trace the profiler lost every time: CUDA events' time
+EVENTS_KEY = "(CUDA events: the profiler saw no device time)"
+
+
+class ProfilerLost(AssertionError):
+    """Every trace of a function came back without its device records."""
+
+
+def _device_trace(fn, calls, host=True, events_fallback=True):
+    """_trace, taken again after a pause where it comes back without its
+    device records (now and then one does, and on some hosts a few in a
+    row). Where every retrace is empty too, {EVENTS_KEY: (us a call, 1)}
+    from CUDA events around the same calls, or, for a caller that reads
+    the kernels' names (events_fallback=False), ProfilerLost."""
+    for attempt, pause in enumerate((0.0,) + PROFILER_RETRY_PAUSES):
+        if pause:
+            time.sleep(pause)
         per_call = _trace(fn, calls, host)
         if sum(mean_us * n for mean_us, n in per_call.values()) > 0:
             return per_call
         log(f"profiler: trace {attempt + 1} of {calls} calls held no device "
             "time")
-    raise AssertionError("the profiler saw no device time")
+    if not events_fallback:
+        raise ProfilerLost("the profiler saw no device time")
+    ms = cuda_ms(fn, calls)
+    log(f"profiler: {len(PROFILER_RETRY_PAUSES) + 1} traces held no device "
+        f"time; {ms:.6g} ms a call from CUDA events instead")
+    return {EVENTS_KEY: (ms * 1e3, 1)}
 
 
 def device_busy(fn, calls=1, host=True):
     """(device busy ms, device kernels) per call of fn, from a
     torch.profiler trace of `calls` identical calls: the sum of the kernels'
-    own device time (one stream, so they do not overlap)."""
-    per_call = _device_trace(fn, calls, host).values()
-    return (sum(mean_us * n for mean_us, n in per_call) / 1e3,
-            sum(n for _, n in per_call))
+    own device time (one stream, so they do not overlap). Where the
+    profiler lost every trace, the CUDA events' ms a call and nan kernels."""
+    per_call = _device_trace(fn, calls, host)
+    if EVENTS_KEY in per_call:
+        return per_call[EVENTS_KEY][0] / 1e3, math.nan
+    return (sum(mean_us * n for mean_us, n in per_call.values()) / 1e3,
+            sum(n for _, n in per_call.values()))
 
 
-def kernel_device_ms(fn, calls):
+def kernel_device_ms(fn, calls, events_fallback=True):
     """{kernel name: device ms per call of fn}, each device kernel apart (a
     pass and its finishing launch), from two traces of `calls` calls that
     agree (the same kernels and launches, total times within a quarter): a
     trace now and then comes back without any of one kernel's records,
     which a single trace cannot tell from a faster function. Each new trace
     is held against every earlier one (the profiler has been seen to
-    alternate between a whole and a halved reading), up to six traces."""
+    alternate between a whole and a halved reading), up to six; where none
+    agree, the longest. Where the profiler lost every trace, {EVENTS_KEY:
+    ms}. With events_fallback False, either of these raises ProfilerLost."""
     def total(per):
         return sum(mean_us * n for mean_us, n in per.values())
 
@@ -469,24 +517,34 @@ def kernel_device_ms(fn, calls):
                 == {k: n for k, (_, n) in b.items()}
                 and abs(total(a) - total(b)) <= 0.25 * max(total(a), total(b)))
 
-    traces = [_device_trace(fn, calls)]
+    def by_name(cur, prev):
+        out = {}
+        for key in cur:
+            name = (key if key == EVENTS_KEY
+                    else key.removeprefix("void ").split("(")[0])
+            out[name] = out.get(name, 0.0) + (
+                cur[key][0] * cur[key][1] + prev[key][0] * prev[key][1]) / 2e3
+        return out
+
+    traces = [_device_trace(fn, calls, events_fallback=events_fallback)]
     for _ in range(5):
-        cur = _device_trace(fn, calls)
+        cur = _device_trace(fn, calls, events_fallback=events_fallback)
         prev = next((t for t in traces if agree(t, cur)), None)
         if prev is not None:
             out = {}
-            for key in cur:
-                name = key.removeprefix("void ").split("(")[0]
-                out[name] = out.get(name, 0.0) + (
-                    cur[key][0] * cur[key][1]
-                    + prev[key][0] * prev[key][1]) / 2e3
-            return out
+            return by_name(cur, prev)
         log(f"profiler: trace {len(traces) + 1} ({total(cur) / 1e3:.6g} ms "
             f"in {len(cur)} kernels) agrees with no earlier one ("
             + ", ".join(f"{total(t) / 1e3:.6g}" for t in traces)
             + " ms); tracing again")
         traces.append(cur)
-    raise AssertionError("no two of six profiler traces agree")
+    if not events_fallback:
+        raise ProfilerLost("no two of six profiler traces agree")
+    # a lost record only shortens a trace: the longest is the most whole
+    whole = max(traces, key=total)
+    log(f"profiler: no two of six traces agree; the longest "
+        f"({total(whole) / 1e3:.6g} ms) taken")
+    return by_name(whole, whole)
 
 
 def confirmed_device_ms(fn, calls):
@@ -944,7 +1002,8 @@ def redesign_phase(device):
         if tln.layer_norm_plan(rows, d, x, sc, bi).chunks:
             raise AssertionError(f"layer_norm {label}: the warp-per-row "
                                  "kernel")
-        ran = kernel_device_ms(lambda: tln.layer_norm(x, sc, bi, 1e-6), 2)
+        ran = kernel_device_ms(lambda: tln.layer_norm(x, sc, bi, 1e-6), 2,
+                               events_fallback=False)
         if [k.split("<")[0] for k in ran] != ["layer_norm_two_pass_kernel"]:
             raise AssertionError(f"layer_norm {label}: ran {list(ran)}")
         got = tln.layer_norm(x, sc, bi, 1e-6)
@@ -971,7 +1030,8 @@ def redesign_phase(device):
     kinds = {"layer_norm_one_pass_rows_kernel": "warp per row",
              "layer_norm_two_pass_kernel": "first version",
              "layer_norm_rows_kernel": "kernel 6 layer_norm_rows"}
-    split = kernel_device_ms(serving_layer_norms, PROFILED_CALLS)
+    split = kernel_device_ms(serving_layer_norms, PROFILED_CALLS,
+                             events_fallback=False)
     line = {}
     for name, ms in split.items():
         kind = kinds.get(name.split("<")[0], "F.layer_norm")
@@ -2636,7 +2696,7 @@ def train_phase(device):
                 steps[name](states[name], batch,
                             encoder_params=encoders[name], with_metrics=False)
 
-        busy, count = device_busy(one_step)
+        busy, count = device_busy(one_step, host=False)
         med = statistics.median(times[name])
         log(f"train {name} step profiled: device busy ms {busy:.3f}, "
             f"{count:.0f} device kernels, idle share {1 - busy / med:.3f} "
@@ -2729,7 +2789,7 @@ def packed_check(per_leaf_step, model, config, applies, encoder_params,
             end.synchronize()
             times[name].append(start.elapsed_time(end))
     for name in runs:
-        busy, kernels = device_busy(lambda name=name: call(name))
+        busy, kernels = device_busy(lambda name=name: call(name), host=False)
         log(f"train fast preset, {name} AdamW: {kernels:.0f} device kernels "
             f"a step, device busy ms {busy:.3f}, ms/step (median of 4, CUDA "
             f"events, in turns) {statistics.median(times[name]):.4f}")
@@ -3074,7 +3134,7 @@ def trainer_phase(device, card, hand_fed):
             step_fn(first["state"], first["batch"], first["task_index"],
                     first["encoder_params"], with_metrics=False)
 
-        busy, kernels = device_busy(one_step)
+        busy, kernels = device_busy(one_step, host=False)
 
         def alone_ms(with_metrics, n=3):
             out = []
@@ -3326,7 +3386,7 @@ def finetune_phase(device, card, root, data, mix, pretrained, per_step):
             step_fn(kept["state"], kept["batch"], kept["task_index"],
                     kept["encoder_params"], with_metrics=with_metrics)
 
-        busy, kernels = device_busy(one_step)
+        busy, kernels = device_busy(one_step, host=False)
         traced.append(f"{kind}: device busy ms {busy:.3f}, {kernels:.0f} "
                       f"device kernels, idle share {1 - busy / med_ms:.3f}")
     log(f"finetune ms/step {med_ms:.4f} (median of the timer's total over "
@@ -3342,7 +3402,7 @@ def finetune_phase(device, card, root, data, mix, pretrained, per_step):
 #: aux-loss coefficients, its timed steps, the remat settings in turns
 REG_RATE = 0.1
 REG_ENTROPY, REG_ALIGNMENT = 0.1, 0.2
-REG_STEPS = 3
+REG_STEPS = 2
 REMAT_SETTINGS = {"off": {}, "remat_dino": {"remat_dino": True},
                   "dots": {"dino_remat_policy": "dots"},
                   "nothing": {"dino_remat_policy": "nothing"}}
@@ -3920,7 +3980,7 @@ def smallstem_phase(device, card):
 #: steps at TRAIN_BATCH), on the flagship with that action head; the mix
 #: head's train steps are the others' yardstick in the same run (its
 #: serving is the slice phase's)
-HEADS = {"mix": (0, 2), "diffusion": (50, 3), "discrete": (20, 2)}
+HEADS = {"mix": (0, 2), "diffusion": (20, 3), "discrete": (20, 2)}
 #: the fast preset's launches of kernels 2 and 3 a train step
 FAST_PRESET_LAUNCHES = {"mha_fused_train_fwd": 12, "mha_fused_train_bwd": 12,
                         "dino_layer_train_fwd": 12}
@@ -4813,7 +4873,6 @@ def multi_device_phase(device, card, no_group_losses):
             f"--config.dataset_kwargs.shuffle_buffer_size={TRAINER_SHUFFLE}",
             "--config.dataset_kwargs.resize_size={'primary': (224, 224)}",
             f"--config.num_steps={TRAINER_STEPS}", "--config.log_interval=1"])
-        recorder = LogRecorder()
         lines = []
 
         class Lines(logging.Handler):
@@ -4822,26 +4881,40 @@ def multi_device_phase(device, card, no_group_losses):
                 if msg.startswith("profile"):
                     lines.append(msg)
 
-        handler = Lines()
-        logging.getLogger().addHandler(handler)
         profile_dir = os.path.join(root, "profile")
-        t0 = time.perf_counter()
-        dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo",
-            store=dist.FileStore(os.path.join(root, "store"), 1),
-            rank=0, world_size=1)
-        try:
-            trainer.train(config, num_steps=MULTI_TRAINER_STEPS,
-                          wandb_run=recorder, profile_dir=profile_dir,
-                          profile_steps=PROFILE_STEPS, device=device)
-            one = torch.ones(1, device=device)
-            dist.all_reduce(one)
-            if one.item() != 1.0:
-                raise AssertionError(f"an all-reduce of one rank gave "
-                                     f"{one.item()}")
-        finally:
-            dist.destroy_process_group()
-            logging.getLogger().removeHandler(handler)
+        # the window is one trace: where the profiler lost its device
+        # records (the summary then falls back to host operators), the run
+        # is made once more
+        for attempt in range(2):
+            recorder = LogRecorder()
+            lines.clear()
+            handler = Lines()
+            logging.getLogger().addHandler(handler)
+            t0 = time.perf_counter()
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" else "gloo",
+                store=dist.FileStore(os.path.join(root, f"store{attempt}"),
+                                     1),
+                rank=0, world_size=1)
+            try:
+                trainer.train(config, num_steps=MULTI_TRAINER_STEPS,
+                              wandb_run=recorder, profile_dir=profile_dir,
+                              profile_steps=PROFILE_STEPS, device=device)
+                one = torch.ones(1, device=device)
+                dist.all_reduce(one)
+                if one.item() != 1.0:
+                    raise AssertionError(f"an all-reduce of one rank gave "
+                                         f"{one.item()}")
+            finally:
+                dist.destroy_process_group()
+                logging.getLogger().removeHandler(handler)
+            lost = (device.type == "cuda" and lines
+                    and not any("device/step" in x for x in lines))
+            if not lost:
+                break
+            log(f"profile window: the profiler lost the device records of "
+                f"run {attempt + 1} ({len(lines)} host lines); running the "
+                "trainer again")
         group_s = time.perf_counter() - t0
         losses = [recorder.logs[s]["training_loss"]
                   for s in range(1, MULTI_TRAINER_STEPS + 1)]
@@ -4881,6 +4954,412 @@ def multi_device_phase(device, card, no_group_losses):
         f"card {card}")
 
 
+OCTO_CONFIG = "octo_pretrain_config:vit_s,oxe"
+OCTO_TASK = "pick up the coke can"
+OCTO_REPEAT = 5          # steps of the repeat from the same init_rng
+OCTO_TRAIN_BATCH = 256   # the config's own batch
+OCTO_TIMED_STEPS = 2     # hand-fed steps timed after the compared one
+OCTO_TRAINER_BATCH = 64
+OCTO_TRAINER_STEPS = 3
+OCTO_ACTION_TOL = 1e-4
+OCTO_LOSS_TOL, OCTO_GRAD_TOL = 1e-4, 1e-3
+
+
+def _nine_kernel_counts():
+    """The launch counters of the nine TPU kernels' wrappers."""
+    from hypervla_tpu_torch.ops import add_layer_norm as aln
+    from hypervla_tpu_torch.ops import dino_layer as dl
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import flash_attention as fl
+    from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.ops import gelu
+    from hypervla_tpu_torch.ops import layer_norm as ln
+
+    modules = (aln, dl, dlt, fl, fa, gelu, ln)
+    return modules, lambda: {k: v for m in modules
+                             for k, v in m.LAUNCHES.items()}
+
+
+def _octo_batch(rng, tokenizer, batch, horizon=4):
+    """A synthetic Octo training batch of `batch` rows at 224 px: one
+    frame a row, its instruction tokenized, the last action dim of every
+    fourth row's chunk padded."""
+    import numpy as np
+
+    words = [b"pick up the coke can", b"open the top drawer"]
+    tokens = tokenizer.encode([words[i % 2] for i in range(batch)])
+    act_mask = np.ones((batch, 1, horizon, 7), bool)
+    act_mask[::4, :, :, -1] = False
+    return {
+        "observation": {
+            "image_primary": rng.integers(0, 256, (batch, 1, 224, 224, 3),
+                                          dtype=np.uint8),
+            "timestep_pad_mask": np.ones((batch, 1), bool),
+            "pad_mask_dict": {"image_primary": np.ones((batch, 1), bool)}},
+        "task": {"language_instruction": {
+            "input_ids": np.asarray(tokens["input_ids"]),
+            "attention_mask": np.asarray(tokens["attention_mask"])},
+            "pad_mask_dict": {"language_instruction": np.ones(batch, bool)}},
+        "action": rng.uniform(-1, 1, (batch, 1, horizon, 7)).astype(
+            np.float32),
+        "action_pad_mask": act_mask,
+    }
+
+
+def _octo_setup(device):
+    """(config, text_apply, t5_params, tokenizer, example batch) of the
+    Octo model: the built-in config, the seeded T5 and fallback tokenizer,
+    a one-frame example batch at 224 px with a goal image."""
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.train import main as cli
+    from hypervla_tpu_torch.train import trainer
+
+    config = cli.load_config(OCTO_CONFIG)
+    text_apply, _, t5_params, _ = trainer.build_frozen_encoders(config,
+                                                                device)
+    tokenizer = trainer._tokenizer(config)
+    tokens = tokenizer.encode([OCTO_TASK])
+    with torch.no_grad():
+        embedding = text_apply(
+            t5_params, torch.as_tensor(tokens["input_ids"], device=device),
+            torch.as_tensor(tokens["attention_mask"], device=device))
+    example = {
+        "observation": {"image_primary": np.zeros((1, 1, 224, 224, 3),
+                                                  np.uint8),
+                        "timestep_pad_mask": np.ones((1, 1), bool)},
+        "task": {"image_primary": np.zeros((1, 224, 224, 3), np.uint8),
+                 "language_instruction": dict(
+                     tokens, token_embedding=embedding.cpu().numpy()),
+                 "pad_mask_dict": {"language_instruction": np.ones(1, bool),
+                                   "image_primary": np.ones(1, bool)}},
+    }
+    return config, text_apply, t5_params, tokenizer, example
+
+
+def octo_reference(model, config, state0, batch, embedding, drawn):
+    """The octo phase's CPU reference: the card's first hand-fed step
+    again on the CPU, on every core, from the same initial params
+    (state0), batch, T5 embedding and draws. Returns (loss, grad_norm,
+    seconds, cores)."""
+    import torch
+
+    from hypervla_tpu_torch.models.draws import Draws
+    from hypervla_tpu_torch.parallel.mesh import to_device
+    from hypervla_tpu_torch.train import octo_train
+
+    t0 = time.perf_counter()
+    cores = len(os.sched_getaffinity(0))
+    torch.set_num_threads(cores)
+    cpu = torch.device("cpu")
+    params = {k: v.clone().requires_grad_(True) for k, v in state0.items()}
+    tx, step = octo_train.make_train_step(
+        model.replace(params=params, device=cpu), config,
+        lambda p, ids, mask: embedding, None)
+    loss, grad_norm, _ = step(params, tx.init(params), to_device(batch, cpu),
+                              Draws(replay=drawn), OCTO_TRAIN_BATCH)
+    return (float(loss), float(grad_norm), time.perf_counter() - t0,
+            cores)
+
+
+def octo_phase(device, card):
+    """The Octo model at vit_s width through OctoInference and the
+    octo_train driver (module docstring, phase 11)."""
+    import logging
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.eval.octo_inference import OctoInference
+    from hypervla_tpu_torch.models.draws import Draws
+    from hypervla_tpu_torch.models.octo_model import OctoModel
+    from hypervla_tpu_torch.parallel.mesh import to_device
+    from hypervla_tpu_torch.train import octo_train
+
+    modules, counts = _nine_kernel_counts()
+    for m in modules:
+        m.reset_launch_counts()
+    clock = time.perf_counter()
+
+    def at(part):
+        log(f"octo phase clock: {part} at {time.perf_counter() - clock:.1f} "
+            "s")
+
+    config, text_apply, t5_params, tokenizer, example = _octo_setup(device)
+
+    @torch.no_grad()
+    def embed(ids, mask):
+        return text_apply(t5_params, torch.as_tensor(ids, device=device),
+                          torch.as_tensor(mask, device=device))
+
+    rng = np.random.default_rng(SEED + 41)
+    action_stats = {
+        "mean": (rng.standard_normal(7) * 0.1).astype(np.float32),
+        "std": (1 + rng.random(7)).astype(np.float32),
+        "mask": np.array([True] * 6 + [False])}
+    stats = {"fractal20220817_data": {"action": action_stats}}
+    t0 = time.perf_counter()
+    model = OctoModel.from_config(config, example, text_processor=tokenizer,
+                                  rng=SEED, dataset_statistics=stats,
+                                  text_embed_fn=embed, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in model.params.values())
+    log(f"octo build: {config['model']['token_embedding_size']} x "
+        f"{config['model']['transformer_kwargs']['num_layers']} layers, "
+        f"{n_params} params in {len(model.params)} leaves, built in "
+        f"{time.perf_counter() - t0:.2f} s; {card}")
+
+    # ---- serving ----
+    at("built")
+    frames = rng.integers(0, 256, (STEPS, 256, 256, 3), dtype=np.uint8)
+    default = OctoInference(model, pred_action_horizon=4)
+    default.reset(OCTO_TASK)
+    try:
+        default.step(frames[0])
+    except AssertionError as e:
+        log(f"octo serving at the JAX default image_size 256 fails as in "
+            f"the JAX package ({e}); serving at 224, the model's size")
+    else:
+        raise AssertionError("octo: a 224-px model served 256-px frames")
+
+    def wrapper():
+        w = OctoInference(model, policy_setup="google_robot", horizon=2,
+                          pred_action_horizon=4, image_size=224,
+                          init_rng=SEED, action_ensemble=True)
+        w.reset(OCTO_TASK)
+        return w
+
+    policy = wrapper()
+    raws, acts, times = [], [], []
+    for frame in frames:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        raw, act = policy.step(frame)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        raws.append(raw)
+        acts.append(act)
+    raws, acts = np.stack(raws), np.stack(acts)
+    if acts.shape != (STEPS, 7) or not (np.isfinite(acts).all()
+                                        and np.isfinite(raws).all()):
+        raise AssertionError(f"octo serving: bad actions {acts.shape}")
+    again = wrapper()
+    repeat = np.stack([again.step(f)[0] for f in frames[:OCTO_REPEAT]])
+    if not np.array_equal(repeat, raws[:OCTO_REPEAT]):
+        raise AssertionError("octo serving: the same init_rng served other "
+                             "actions")
+    busy, kernels = device_busy(lambda: policy.step(frames[-1]))
+    med = statistics.median(times[1:])
+    log(f"octo serving: {STEPS} steps, ms/step (median of steps 2-{STEPS}, "
+        f"CUDA events) {med:.4f}, first step {times[0]:.4f}; step "
+        f"profiled: device busy ms {busy:.4f}, {kernels:.0f} device "
+        f"kernels, idle share {1 - busy / med:.3f}; a repeat from the same "
+        f"init_rng bit-equal over {OCTO_REPEAT} steps; first action "
+        f"{acts[0].tolist()}; {card}")
+
+    # the first step's sample on the card and on the CPU
+    at("served")
+    first = wrapper()
+    first.step(frames[0])
+    obs = {"image_primary": np.stack(first.image_history)[None],
+           "timestep_pad_mask": np.ones((1, len(first.image_history)))}
+    rec = Draws(torch.Generator(device=device).manual_seed(SEED),
+                record=True)
+    on_card = model.sample_actions(obs, first.task, action_stats, rng=rec)
+    sample_draws = {k: v.cpu().numpy() for k, v in rec.drawn.items()}
+    cpu_model = model.replace(params=_to(model.params, "cpu"),
+                              device=torch.device("cpu"))
+    on_cpu = cpu_model.sample_actions(obs, first.task, action_stats,
+                                      rng=Draws(replay=sample_draws))
+    err, scale = max_err(on_card.cpu(), on_cpu)
+    log(f"octo first sample card vs CPU (fp32, TF32 off, the same "
+        f"observations and draws): max_abs_err {err:.6g} (bound "
+        f"{OCTO_ACTION_TOL * max(scale, 1.0):.6g})")
+    if not err <= OCTO_ACTION_TOL * max(scale, 1.0):
+        raise AssertionError("octo: the card's actions disagree with the "
+                             "CPU's")
+
+    # ---- one hand-fed train step at batch 256, against the CPU's ----
+    at("first sample compared")
+    root = tempfile.mkdtemp(prefix="hypervla_octo_")
+    try:
+        batch = _octo_batch(rng, tokenizer, OCTO_TRAIN_BATCH)
+        on = to_device(batch, device)
+        instr = on["task"]["language_instruction"]
+        with torch.no_grad():
+            emb = text_apply(t5_params, instr["input_ids"],
+                             instr["attention_mask"]).float()
+        tx, step = octo_train.make_train_step(
+            model, config, lambda p, ids, mask: emb, None)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in model.params.items()}
+        state0 = {k: v.detach().cpu().clone() for k, v in params.items()}
+        opt_state = tx.init(params)
+        rec = Draws(torch.Generator(device=device).manual_seed(SEED + 1),
+                    record=True)
+        torch.cuda.reset_peak_memory_stats()
+        loss, grad_norm, opt_state = step(params, opt_state, on, rec,
+                                          OCTO_TRAIN_BATCH)
+        loss, grad_norm = float(loss), float(grad_norm)
+        drawn = {k: v.cpu().numpy() for k, v in rec.drawn.items()}
+        step_ms = []
+        for i in range(OCTO_TIMED_STEPS):
+            draws = Draws(torch.Generator(device=device).manual_seed(
+                SEED + 2 + i))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, _, opt_state = step(params, opt_state, on, draws,
+                                   OCTO_TRAIN_BATCH)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, kernels = device_busy(lambda: step(
+            params, opt_state, on, Draws(torch.Generator(
+                device=device).manual_seed(SEED)), OCTO_TRAIN_BATCH),
+            host=False)
+        ms = statistics.median(step_ms)
+        log(f"octo train step, batch {OCTO_TRAIN_BATCH}: ms/step "
+            f"{ms:.2f} (median of {OCTO_TIMED_STEPS}: "
+            f"{[round(t, 2) for t in step_ms]}), samples/s "
+            f"{OCTO_TRAIN_BATCH * 1000 / ms:.1f}, peak {peak:.2f} GiB; "
+            f"step profiled: device busy ms {busy:.2f}, {kernels:.0f} "
+            f"device kernels, idle share {1 - busy / ms:.3f}; {card}")
+        cpu_emb = emb.cpu()
+        del params, opt_state, on, emb
+        torch.cuda.empty_cache()
+        # the same first step on the CPU, in a thread beside the checkpoint
+        # and the driver's run (their seconds are then not a clean number)
+        threads = torch.get_num_threads()
+        pool = ThreadPoolExecutor(max_workers=1)
+        reference = pool.submit(octo_reference, model, config, state0, batch,
+                                cpu_emb, drawn)
+        at("card train steps")
+
+        # ---- checkpoint ----
+        path = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        model.save_pretrained(step=1, checkpoint_path=path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = OctoModel.load_pretrained(path, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = all(torch.equal(loaded.params[k], v)
+                   for k, v in model.params.items())
+        a = model.sample_actions(obs, first.task, action_stats,
+                                 rng=Draws(replay=sample_draws))
+        b = loaded.sample_actions(obs, first.task, action_stats,
+                                  rng=Draws(replay=sample_draws))
+        log(f"octo checkpoint: save {save_s:.3f} s, load onto the card "
+            f"{load_s:.3f} s; params bit-equal {same}, next action "
+            f"bit-equal {bool(torch.equal(a, b))}")
+        if not same or not torch.equal(a, b):
+            raise AssertionError("octo: the checkpoint round trip changed "
+                                 "the model")
+        del loaded, cpu_model, a, b
+
+        # ---- the driver on the fixture mix ----
+        at("checkpoint")
+        data = os.path.join(root, "data")
+        mix, _, _ = write_trainer_fixture(data)
+        save_dir = os.path.join(root, "run")
+        argv = ["--config", OCTO_CONFIG, "--save_dir", save_dir,
+                f"--config.dataset_kwargs.oxe_mix={mix!r}",
+                f"--config.dataset_kwargs.data_dir={data!r}",
+                f"--config.dataset_kwargs.batch_size={OCTO_TRAINER_BATCH}",
+                "--config.dataset_kwargs.shuffle_buffer_size="
+                f"{TRAINER_SHUFFLE}",
+                f"--config.num_steps={OCTO_TRAINER_STEPS}",
+                "--config.log_interval=1",
+                f"--config.save_interval={OCTO_TRAINER_STEPS}",
+                *(["--cpu"] if device.type == "cpu" else [])]
+        losses = []
+
+        class Losses(logging.Handler):
+            def emit(self, record):
+                found = re.match(r"step \d+: loss=(\S+)",
+                                 record.getMessage())
+                if found:
+                    losses.append(float(found.group(1)))
+
+        handler = Losses()
+        logging.getLogger().addHandler(handler)
+        t0 = time.perf_counter()
+        try:
+            _, final = octo_train.main(argv)
+        finally:
+            logging.getLogger().removeHandler(handler)
+        run_s = time.perf_counter() - t0
+        saved = OctoModel.load_pretrained(save_dir, device="cpu")
+        if (len(losses) != OCTO_TRAINER_STEPS
+                or not all(map(math.isfinite, losses))
+                or not all(torch.equal(saved.params[k], v)
+                           for k, v in final.items())):
+            raise AssertionError(f"octo trainer: losses {losses}, or the "
+                                 f"step-{OCTO_TRAINER_STEPS} checkpoint is "
+                                 "not the final params")
+        log(f"octo trainer: octo_train.main on {mix}, {OCTO_TRAINER_STEPS} "
+            f"steps at batch {OCTO_TRAINER_BATCH} in {run_s:.2f} s with its "
+            f"start, losses {losses}, the step-{OCTO_TRAINER_STEPS} "
+            "checkpoint the final params")
+        at("trainer")
+        try:
+            cpu_loss, cpu_norm, cpu_s, cores = reference.result(timeout=900)
+        finally:
+            torch.set_num_threads(threads)
+            pool.shutdown()
+        loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+        norm_rel = abs(grad_norm - cpu_norm) / abs(cpu_norm)
+        log(f"octo train step card vs CPU (same state, T5 embedding and "
+            f"draws; the CPU step {cpu_s:.1f} s on {cores} cores, beside the "
+            f"checkpoint and the driver): loss {loss:.8g} vs {cpu_loss:.8g} "
+            f"(rel {loss_rel:.3g}, bound {OCTO_LOSS_TOL}), grad_norm "
+            f"{grad_norm:.8g} vs {cpu_norm:.8g} (rel {norm_rel:.3g}, bound "
+            f"{OCTO_GRAD_TOL})")
+        if not (loss_rel <= OCTO_LOSS_TOL and norm_rel <= OCTO_GRAD_TOL):
+            raise AssertionError("octo: the card's train step disagrees "
+                                 "with the CPU's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    at("CPU reference")
+    launched = {k: v for k, v in counts().items() if v}
+    log(f"octo phase launches of the nine TPU kernels' wrappers: "
+        f"{launched or 'none'}")
+    if launched:
+        raise AssertionError(f"octo: a TPU kernel's wrapper launched on "
+                             f"the Octo path: {launched}")
+
+
+def seeded_pretrained_dir(root: str) -> None:
+    """Writes the frozen encoders' seeded inits under root as the files
+    the port loads from $HYPERVLA_PRETRAINED_DIR (models/encoders/
+    pretrained.py): t5-base.pt, the T5 that build_frozen_encoders and the
+    text encoder draw from seed 0 without it, and dinov2-base.pt, the
+    frozen DINOv2 that build_frozen_encoders draws from seed 1. The values
+    are those draws: every phase builds the encoders it built before, from
+    a file instead of ~40 draws of 86-110 M values (the trunc-normal draw
+    of DINOv2-base alone is seconds on the host)."""
+    from hypervla_tpu_torch.configs import dinov2_config
+    from hypervla_tpu_torch.models.encoders.dinov2 import dinov2_specs
+    from hypervla_tpu_torch.models.encoders.t5 import t5_config, t5_specs
+    from hypervla_tpu_torch.models.layers import init_params
+
+    import torch
+
+    torch.save(init_params(t5_specs(t5_config("t5-base")), 0),
+               os.path.join(root, "t5-base.pt"))
+    dino = init_params(dinov2_specs(dinov2_config("dinov2-base"), "dino"), 1)
+    torch.save({k[len("dino/"):]: v for k, v in dino.items()},
+               os.path.join(root, "dinov2-base.pt"))
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
         # the eval phase's child server must tokenize as this process does
@@ -4910,29 +5389,54 @@ def main() -> int:
 
     from hypervla_tpu_torch.utils import cuda_build
 
-    # one nvcc per source, all started together, so the build time stays
-    # that of the slowest source as sources are added
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-        list(pool.map(cuda_build.build, SOURCES))
-    log(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s "
-        "(one nvcc each, in parallel)")
+    pretrained = None
+    if not os.environ.get("HYPERVLA_PRETRAINED_DIR"):
+        import atexit
+        import shutil
+        import tempfile
 
-    results = kernel_phase(device)
-    redesign_phase(device)
-    launches, flagship = slice_phase(device)
-    server_phase(device, flagship)
+        pretrained = tempfile.mkdtemp(prefix="hypervla_seeded_")
+        atexit.register(shutil.rmtree, pretrained, True)
+    # one nvcc per source, all started together, so the build time stays
+    # that of the slowest source as sources are added; the seeded encoders
+    # are written beside them
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(SOURCES) + 1) as pool:
+        seeded = (pool.submit(seeded_pretrained_dir, pretrained)
+                  if pretrained else None)
+        list(pool.map(cuda_build.build, SOURCES))
+        if seeded is not None:
+            seeded.result()
+            os.environ["HYPERVLA_PRETRAINED_DIR"] = pretrained
+    log(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s "
+        "(one nvcc each, in parallel; beside them the seeded T5-base and "
+        "DINOv2-base of every phase's frozen encoders, written to "
+        "HYPERVLA_PRETRAINED_DIR)")
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name} s {time.perf_counter() - t0:.1f}")
+        return out
+
+    results = phase("kernel", kernel_phase, device)
+    phase("redesign", redesign_phase, device)
+    launches, flagship = phase("slice", slice_phase, device)
+    phase("server", server_phase, device, flagship)
     del flagship
-    row_results, add_ln_launches = row_flash_kernel_phase(device)
-    train_results = train_kernel_phase(device)
-    column_pass_phase(device)
-    train_launches, hand_fed = train_phase(device)
-    trainer_launches, trainer_losses = trainer_phase(device, card, hand_fed)
-    smallstem_phase(device, card)
-    regularised_phase(device, card)
-    heads_phase(device, card)
-    eval_phase(device, card)
-    multi_device_phase(device, card, trainer_losses)
+    row_results, add_ln_launches = phase(
+        "row_flash_kernel", row_flash_kernel_phase, device)
+    train_results = phase("train_kernel", train_kernel_phase, device)
+    phase("column_pass", column_pass_phase, device)
+    train_launches, hand_fed = phase("train", train_phase, device)
+    trainer_launches, trainer_losses = phase(
+        "trainer", trainer_phase, device, card, hand_fed)
+    phase("smallstem", smallstem_phase, device, card)
+    phase("regularised", regularised_phase, device, card)
+    phase("heads", heads_phase, device, card)
+    phase("eval", eval_phase, device, card)
+    phase("multi_device", multi_device_phase, device, card, trainer_losses)
+    phase("octo", octo_phase, device, card)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")

@@ -6,10 +6,13 @@ Plain-dict copies of hypervla_tpu/configs/defaults.py (`pretrain_config`,
 training step and the trainer read, of the DINOv2 geometries in
 hypervla_tpu/models/encoders/dinov2.py, and of the command line's built-in
 config, scripts/configs/hypervla_pretrain_config.py::get_config
-(`hypervla_pretrain_config`), and of its fine-tuning config,
-scripts/configs/finetune_config.py (`finetune_config`). The JAX configs
-module imports flax and the command line's configs ml_collections, so the
-port keeps its own copy.
+(`hypervla_pretrain_config`), of its fine-tuning config,
+scripts/configs/finetune_config.py (`finetune_config`), and of the Octo
+pretraining config, scripts/configs/octo_pretrain_config.py
+(`octo_pretrain_config`, over the transformer sizes of
+hypervla_tpu/models/transformer.py::common_transformer_sizes). The JAX
+configs module imports flax and the command line's configs ml_collections,
+so the port keeps its own copy.
 """
 import copy
 import dataclasses
@@ -406,4 +409,82 @@ def finetune_config(config_string: str = "vit_t,libero") -> Dict[str, Any]:
     config["pretrained_checkpoint_path"] = None
     config["pretrained_checkpoint_step"] = None
     config["finetune_mode"] = mode
+    return config
+
+
+# name -> (token_dim, num_layers, mlp_dim, heads, dropout)
+_SIZE_TABLE = {
+    "dummy": (256, 1, 256, 2, 0.1),
+    "vanilla": (256, 4, 1024, 8, 0.1),
+    "vit_t": (192, 12, 768, 3, 0.0),
+    "vit_s": (384, 12, 1536, 6, 0.0),
+    "vit_b": (768, 12, 3072, 12, 0.0),
+    "vit_l": (1024, 24, 4096, 16, 0.1),
+    "vit_h": (1280, 32, 5120, 16, 0.1),
+}
+
+
+def common_transformer_sizes(transformer_size: str):
+    """(token_dim, transformer kwargs) of a named transformer size."""
+    assert transformer_size in _SIZE_TABLE, (
+        f"unknown transformer size {transformer_size}")
+    token_dim, layers, mlp_dim, heads, dropout = _SIZE_TABLE[transformer_size]
+    return token_dim, {
+        "attention_dropout_rate": 0.0,
+        "add_position_embedding": False,
+        "num_layers": layers,
+        "mlp_dim": mlp_dim,
+        "num_attention_heads": heads,
+        "dropout_rate": dropout,
+    }
+
+
+def octo_pretrain_config(config_string: str = "vit_s,oxe"
+                         ) -> Dict[str, Any]:
+    """The Octo pretraining config, "<size>,<dataset>": an OctoModel of
+    the named transformer size over an ImageTokenizer (SmallStem16, the
+    goal image stacked on the frame) and a diffusion head (horizon 4, 7
+    dims) reading one readout token, 10 timesteps of position tables,
+    the task tokens repeated a step; the rest the pretraining defaults
+    (batch 256, the rsqrt LR). oxe takes the oxe_magic_soup mix unless
+    dataset_kwargs say otherwise."""
+    model_size, dataset = (config_string.split(",") + ["oxe"])[:2]
+    token_embedding_size, transformer_kwargs = common_transformer_sizes(
+        model_size)
+    config = pretrain_config()
+    config["model_class"] = "octo"
+    config["model"] = {
+        "observation_tokenizers": {
+            "primary": {
+                "module": "hypervla_tpu_torch.models.tokenizers",
+                "name": "ImageTokenizer", "args": (),
+                "kwargs": {
+                    "obs_stack_keys": ["image_primary"],
+                    "task_stack_keys": ["image_primary"],
+                    "encoder": {
+                        "module": "hypervla_tpu_torch.models.vit_encoders",
+                        "name": "SmallStem16", "args": (), "kwargs": {}},
+                },
+            },
+        },
+        "heads": {
+            "action": {
+                "module": "hypervla_tpu_torch.models.action_heads",
+                "name": "DiffusionActionHead", "args": (),
+                "kwargs": {"readout_key": "readout_action",
+                           "use_map": False, "action_horizon": 4,
+                           "action_dim": 7, "n_diffusion_samples": 1},
+            },
+        },
+        "readouts": {"action": 1},
+        "token_embedding_size": token_embedding_size,
+        "transformer_kwargs": {**transformer_kwargs, "learnable_norm": True},
+        "max_horizon": 10,
+        "repeat_task_tokens": True,
+        "use_correct_attention": True,
+    }
+    config["dataset_kwargs"]["dataset"] = dataset
+    if dataset == "oxe":
+        config["dataset_kwargs"].setdefault("oxe_mix", "oxe_magic_soup")
+        config["dataset_kwargs"].setdefault("data_dir", "")
     return config

@@ -23,7 +23,10 @@ action head draws its steps and noise at "action_head/time" and
 its score network's dropout at
 "action_head/diffusion_model/trunk/blocks/<i>/Dropout_0" (one site a
 scanned block), and, sampling, "action_head/x_T" and "action_head/z/<t>"
-(models/action_heads.py::DiffusionActionHead).
+(models/action_heads.py::DiffusionActionHead); the U-Net DDPM head at
+the same sites, and the discrete head, sampling, "action_head/gumbel".
+The Octo topology's modules draw at their own paths
+("octo_transformer/BlockTransformer_0/Transformer_0/...").
 
 Serving draws only on the diffusion head: the caller's rng, a
 torch.Generator (`as_draws` wraps it) or a Draws to replay.
@@ -102,6 +105,14 @@ class Draws:
         """Standard-normal fp32 draws."""
         return self._take(site, shape, device, lambda s: torch.randn(
             s, generator=self.generator, device=device)).float()
+
+    def gumbel(self, site: str, shape, device):
+        """Standard Gumbel fp32 draws, -log(-log(u)) of u uniform on
+        [tiny, 1) (jax.random.gumbel's form)."""
+        tiny = torch.finfo(torch.float32).tiny
+        return self._take(site, shape, device, lambda s: -torch.log(
+            -torch.log(torch.rand(s, generator=self.generator,
+                                  device=device).clamp_(min=tiny)))).float()
 
     def randint(self, site: str, shape, low: int, high: int, device):
         """Integers drawn uniformly from [low, high)."""

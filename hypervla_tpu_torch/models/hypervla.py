@@ -258,6 +258,7 @@ class HyperVLA:
                 dataset_statistics = _map_tree(np.array, json.load(f))
 
         base_net = BaseNetwork(**config["base_net_kwargs"],
+                               octo_kwargs=config.get("model"),
                                input_shapes=input_shapes(example_batch))
         plan = build_weight_plan(config, base_net)
         hypernet = HyperNetwork(plan, config["hypernet_kwargs"])

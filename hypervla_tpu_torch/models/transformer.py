@@ -8,7 +8,12 @@ paths under `prefix` (models/draws.py): after the position table
 (Dropout_0 of the stack), on the attention weights
 (MultiHeadAttention_0), after the attention (Dropout_0 of a block), after
 the MLP's GELU and after its output (MlpBlock_0/Dropout_0, Dropout_1);
-without draws it is the identity.
+without draws it is the identity. learnable_norm=False strips the
+LayerNorms' scale and bias, as the JAX stack's switch does.
+
+`map_head` is the JAX MAPHead: learned probe tokens cross-attend into a
+sequence, then a residual MLP (the pooling of the Octo heads and of the
+TokenLearner).
 """
 from typing import Dict, List, Optional, Tuple
 
@@ -33,7 +38,9 @@ def mlp_block(params, prefix: str, x, dropout_rate: float = 0.0,
     return dropout(h, dropout_rate, draws, f"{prefix}/Dropout_1")
 
 
-def _ln(params, prefix, x):
+def _ln(params, prefix, x, learnable: bool = True):
+    if not learnable:
+        return layers.layer_norm(x)
     return layers.layer_norm(x, params[f"{prefix}/scale"],
                              params[f"{prefix}/bias"])
 
@@ -42,17 +49,17 @@ def encoder_block(params, prefix: str, x, mask, num_heads: int,
                   dropout_rate: float = 0.0,
                   attention_dropout_rate: float = 0.0,
                   draws: Optional[Draws] = None,
-                  maps: Optional[List] = None):
+                  maps: Optional[List] = None, learnable_norm: bool = True):
     """One block; its attention probabilities (after the attention
     dropout, as the JAX block returns them) are appended to `maps`."""
-    y = _ln(params, f"{prefix}/LayerNorm_0", x)
+    y = _ln(params, f"{prefix}/LayerNorm_0", x, learnable_norm)
     attended, probs = multi_head_attention(
         params, f"{prefix}/MultiHeadAttention_0", y, y, mask, num_heads,
         attention_dropout_rate, draws, return_weights=True)
     if maps is not None:
         maps.append(probs)
     x = x + dropout(attended, dropout_rate, draws, f"{prefix}/Dropout_0")
-    y = _ln(params, f"{prefix}/LayerNorm_1", x)
+    y = _ln(params, f"{prefix}/LayerNorm_1", x, learnable_norm)
     return x + mlp_block(params, f"{prefix}/MlpBlock_0", y, dropout_rate,
                          draws)
 
@@ -62,7 +69,7 @@ def transformer(params, prefix: str, x, mask, num_layers: int,
                 attention_dropout_rate: float = 0.0,
                 add_position_embedding: bool = False,
                 draws: Optional[Draws] = None,
-                maps: Optional[List] = None):
+                maps: Optional[List] = None, learnable_norm: bool = True):
     """(batch, len, emb) -> encoded (batch, len, emb). maps, if given,
     collects every block's attention probabilities (batch, heads, len,
     len)."""
@@ -72,13 +79,15 @@ def transformer(params, prefix: str, x, mask, num_layers: int,
     for depth in range(num_layers):
         x = encoder_block(params, f"{prefix}/encoderblock_{depth}", x, mask,
                           num_attention_heads, dropout_rate,
-                          attention_dropout_rate, draws, maps)
-    return _ln(params, f"{prefix}/encoder_norm", x)
+                          attention_dropout_rate, draws, maps,
+                          learnable_norm)
+    return _ln(params, f"{prefix}/encoder_norm", x, learnable_norm)
 
 
 def transformer_specs(prefix: str, embedding_dim: int, num_layers: int,
                       mlp_dim: int, num_attention_heads: int,
-                      position_embedding_len: int = 0
+                      position_embedding_len: int = 0,
+                      learnable_norm: bool = True
                       ) -> Dict[str, Tuple[tuple, layers.Init]]:
     """Param shapes and initializers of `transformer`; with
     position_embedding_len, the (1, len, emb) table of
@@ -86,6 +95,8 @@ def transformer_specs(prefix: str, embedding_dim: int, num_layers: int,
     specs = {}
 
     def norm(name):
+        if not learnable_norm:
+            return
         specs[f"{name}/bias"] = ((embedding_dim,), layers.zeros)
         specs[f"{name}/scale"] = ((embedding_dim,), layers.ones)
 
@@ -106,4 +117,51 @@ def transformer_specs(prefix: str, embedding_dim: int, num_layers: int,
             f"{block}/MultiHeadAttention_0", embedding_dim,
             num_attention_heads))
     norm(f"{prefix}/encoder_norm")
+    return specs
+
+
+def _mlp_specs(prefix, dim, mlp_dim, out_dim):
+    specs = {}
+    for name, fin, fout in (("Dense_0", dim, mlp_dim),
+                            ("Dense_1", mlp_dim, out_dim)):
+        specs[f"{prefix}/{name}/bias"] = ((fout,), layers.normal(1e-6))
+        specs[f"{prefix}/{name}/kernel"] = ((fin, fout),
+                                            layers.xavier_uniform())
+    return specs
+
+
+def map_head(params, prefix: str, x, mask=None, num_readouts: int = 1,
+             num_heads: int = 8, dropout_rate: float = 0.1,
+             draws: Optional[Draws] = None):
+    """MAPHead (hypervla_tpu/models/transformer.py): x (..., seq, dim) and
+    its key mask (..., seq) or None -> (..., num_readouts, dim). The probe
+    tokens (1, num_readouts, dim) attend into x; the MLP's dropout
+    (flax's default rate, 0.1) runs where draws are given, the JAX
+    module's train=True."""
+    *lead, seq, dim = x.shape
+    x = x.reshape(-1, seq, dim)
+    flat_batch = x.shape[0]
+    probe = params[f"{prefix}/probe"].expand(flat_batch, num_readouts, dim)
+    if mask is not None:
+        mask = mask.reshape(-1, seq)[:, None, None, :].expand(
+            flat_batch, 1, num_readouts, seq).bool()
+    pooled = multi_head_attention(params, f"{prefix}/MultiHeadAttention_0",
+                                  probe, x, mask, num_heads)
+    pooled = pooled + mlp_block(
+        params, f"{prefix}/MlpBlock_0",
+        _ln(params, f"{prefix}/LayerNorm_0", pooled), dropout_rate, draws)
+    return pooled.reshape(*lead, num_readouts, dim)
+
+
+def map_head_specs(prefix: str, dim: int, num_readouts: int = 1,
+                   num_heads: int = 8, mlp_dim: Optional[int] = None
+                   ) -> Dict[str, Tuple[tuple, layers.Init]]:
+    specs = {f"{prefix}/probe": ((1, num_readouts, dim),
+                                 layers.xavier_uniform())}
+    specs.update(multi_head_attention_specs(
+        f"{prefix}/MultiHeadAttention_0", dim, num_heads))
+    specs[f"{prefix}/LayerNorm_0/bias"] = ((dim,), layers.zeros)
+    specs[f"{prefix}/LayerNorm_0/scale"] = ((dim,), layers.ones)
+    specs.update(_mlp_specs(f"{prefix}/MlpBlock_0", dim, mlp_dim or 4 * dim,
+                            dim))
     return specs

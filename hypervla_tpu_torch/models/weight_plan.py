@@ -118,7 +118,14 @@ def _token_indices(names, hk, encoder_type):
         return {n: 0 for n in names}, (True,)
     shared_modules = tuple(hk.get("shared_modules", ()))
     groups, mask = [], []
+    def subtree(name):
+        # the JAX plan indexes the encoder's tree by the module's name: an
+        # encoder without it (the Octo transformer's) raises KeyError there
+        if not any(n.startswith(f"encoder/{name}/") for n in names):
+            raise KeyError(name)
+
     if encoder_type == "SmallStem":
+        subtree("SmallStem_0")
         stem = sorted({n.split("/")[2] for n in names
                        if n.startswith("encoder/SmallStem_0/")})
         groups += [f"encoder/SmallStem_0/{m}" for m in stem]
@@ -126,6 +133,7 @@ def _token_indices(names, hk, encoder_type):
     elif encoder_type == "DINOv2":
         if "image_encoder" not in shared_modules:
             raise ValueError("Pretrained image encoders must be shared")
+        subtree("image_encoder")
         groups.append("encoder/image_encoder")
         mask.append(False)
     tf = sorted({n.split("/")[2] for n in names
@@ -199,6 +207,7 @@ def init_base_net(config: dict, generator: torch.Generator,
     fp32 CPU tensors keyed by block path. Pretrained DINOv2 weights are not
     in the repository, so the shared trunk keeps its random init."""
     base_net = BaseNetwork(**config["base_net_kwargs"],
+                           octo_kwargs=config.get("model"),
                            input_shapes=input_shapes(example_batch))
     plan = build_weight_plan(config, base_net)
     specs = base_net.specs()

@@ -298,7 +298,7 @@ class ValidationCallback:
                                model.hypernet.generate(params, ctx))
         tokens = encoder(view, image_embeddings=emb)
         predicted = model.base_net.action_head.predict_action(
-            view, tokens[:, None], draws)
+            view, tokens[:, None], draws, argmax=True)
         target = torch.clamp(batch["action"], -5.0, 5.0)[:, -1]
         mse = ((predicted.reshape(target.shape) - target) ** 2).mean()
         return float(mse) * target.shape[-1]

@@ -8,7 +8,8 @@ dict or anything with `.to_dict()`, or a built-in config:
 `<size>,<dataset>[,fast]` alone or after `hypervla_pretrain_config:`, or
 `<size>,<dataset>[,full|head_only|head_mlp_only]` after
 `finetune_config:` (or the JAX command line's path to either file, whose
-copies they are: configs.py::hypervla_pretrain_config, finetune_config).
+copies they are: configs.py::hypervla_pretrain_config, finetune_config;
+train/octo_train.py reads `octo_pretrain_config:<size>,<dataset>` too).
 A fine-tune warm-starts from `--config.pretrained_checkpoint_path=<dir>
 --config.pretrained_checkpoint_step=<step>`, the EMA params a run of the
 port's trainer saved there. Every `--config.<dotted.field>=
@@ -37,13 +38,15 @@ from typing import Any, Dict, List, Optional
 from hypervla_tpu_torch.configs import (
     finetune_config,
     hypervla_pretrain_config,
+    octo_pretrain_config,
 )
 from hypervla_tpu_torch.parallel.mesh import init_distributed, process_index
 
 #: the built-in configs by name: the JAX command line's config files,
 #: whose copies the port holds
 BUILTIN_CONFIGS = {"hypervla_pretrain_config": hypervla_pretrain_config,
-                   "finetune_config": finetune_config}
+                   "finetune_config": finetune_config,
+                   "octo_pretrain_config": octo_pretrain_config}
 DEFAULT_CONFIG = "vit_t,oxe"
 OVERRIDE_PREFIX = "--config."
 

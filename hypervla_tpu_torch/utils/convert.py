@@ -119,3 +119,25 @@ def subtree(params: Params, prefix: str) -> Params:
     """The entries under `prefix` ("a/b/"), with the prefix removed."""
     return {k[len(prefix):]: v for k, v in params.items()
             if k.startswith(prefix)}
+
+
+#: the JAX package's module path prefix, and the port's
+JAX_PACKAGE, PORT_PACKAGE = "hypervla_tpu.", "hypervla_tpu_torch."
+
+
+def port_module_specs(tree: Any) -> Any:
+    """A config with every ModuleSpec ({module, name, args, kwargs}) that
+    names a module of the JAX package pointed at the port's module of the
+    same path (hypervla_tpu.models.tokenizers -> hypervla_tpu_torch.models.
+    tokenizers), nested specs too; the rest as it is."""
+    if isinstance(tree, dict):
+        out = {k: port_module_specs(v) for k, v in tree.items()}
+        module = out.get("module")
+        if (set(out) == {"module", "name", "args", "kwargs"}
+                and isinstance(module, str)
+                and module.startswith(JAX_PACKAGE)):
+            out["module"] = PORT_PACKAGE + module[len(JAX_PACKAGE):]
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(port_module_specs(v) for v in tree)
+    return tree

@@ -159,7 +159,7 @@ def test_loss_accuracy_and_decode_match_jax(token_per):
     ref = jhead.apply(variables, {"readout_action": TokenGroup(
         jnp.asarray(tokens), None)}, train=False, argmax=True,
         method="predict_action")
-    got = head.predict_action(params, torch.tensor(tokens))
+    got = head.predict_action(params, torch.tensor(tokens), argmax=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 

@@ -23,9 +23,11 @@ from hypervla_tpu.eval import gym_wrappers as jwrappers
 from hypervla_tpu.eval import inference as jinference
 from hypervla_tpu.eval import libero as jlibero
 from hypervla_tpu.eval import model_loading as jloading
+from hypervla_tpu.eval import octo_inference as joctoinf
 from hypervla_tpu.eval import simpler as jsimpler
 from hypervla_tpu.eval import visualization as jviz
 from hypervla_tpu.models import hypervla as jhypervla
+from hypervla_tpu.models import octo_model as joctomodel
 from hypervla_tpu.ops import serving as jserving
 from hypervla_tpu.train import callbacks as jcallbacks
 from hypervla_tpu.train import trainer as jtrainer
@@ -35,11 +37,14 @@ from hypervla_tpu_torch.eval import gym_wrappers
 from hypervla_tpu_torch.eval import inference
 from hypervla_tpu_torch.eval import libero
 from hypervla_tpu_torch.eval import model_loading
+from hypervla_tpu_torch.eval import octo_inference
 from hypervla_tpu_torch.eval import simpler
 from hypervla_tpu_torch.eval import visualization
 from hypervla_tpu_torch.models import hypervla
+from hypervla_tpu_torch.models import octo_model
 from hypervla_tpu_torch.ops import serving
 from hypervla_tpu_torch.train import callbacks
+from hypervla_tpu_torch.train import octo_train
 from hypervla_tpu_torch.train import trainer
 from test_torch_harness import torch_threads  # noqa: F401
 
@@ -71,16 +76,40 @@ ENTRY_POINTS = {
     "RolloutVisualizer.run_rollouts": (
         jviz.RolloutVisualizer.run_rollouts,
         visualization.RolloutVisualizer.run_rollouts),
+    "OctoModel.create_tasks": (joctomodel.OctoModel.create_tasks,
+                               octo_model.OctoModel.create_tasks),
+    "OctoModel.sample_actions": (joctomodel.OctoModel.sample_actions,
+                                 octo_model.OctoModel.sample_actions),
+    "OctoModel.from_config": (joctomodel.OctoModel.from_config,
+                              octo_model.OctoModel.from_config),
+    "OctoModel.save_pretrained": (joctomodel.OctoModel.save_pretrained,
+                                  octo_model.OctoModel.save_pretrained),
+    "OctoModel.load_pretrained": (joctomodel.OctoModel.load_pretrained,
+                                  octo_model.OctoModel.load_pretrained),
+    "OctoInference": (joctoinf.OctoInference.__init__,
+                      octo_inference.OctoInference.__init__),
+    "OctoInference.reset": (joctoinf.OctoInference.reset,
+                            octo_inference.OctoInference.reset),
+    "OctoInference.step": (joctoinf.OctoInference.step,
+                           octo_inference.OctoInference.step),
+    "octo_train.run": (None, octo_train.run),
 }
 #: the entry points where the port adds `device` (the CUDA card unless the
 #: caller asks for another), and no other parameter
-WITH_DEVICE = {"load_hypervla_policy", "train", "HFTokenizer"}
+WITH_DEVICE = {"load_hypervla_policy", "train", "HFTokenizer",
+               "OctoModel.from_config", "OctoModel.load_pretrained",
+               "octo_train.run"}
 #: the entry points of the eval stack and the text processors, which take
 #: the JAX parameters and, where WITH_DEVICE names them, `device`
 NEW_ENTRY_POINTS = ("simpler.evaluate", "libero.evaluate", "HFTokenizer",
                     "MuseEmbedding", "CLIPTextProcessor",
                     "add_octo_env_wrappers", "VisualizationCallback",
-                    "RolloutVisualizer.run_rollouts")
+                    "RolloutVisualizer.run_rollouts",
+                    "OctoModel.create_tasks", "OctoModel.sample_actions",
+                    "OctoModel.from_config", "OctoModel.save_pretrained",
+                    "OctoModel.load_pretrained", "OctoInference",
+                    "OctoInference.reset", "OctoInference.step",
+                    "octo_train.run")
 #: the TPU-only parameters the port leaves out (the module docstring)
 TPU_ONLY = ("pack_args", "keep_bytes", "coerce")
 
@@ -92,9 +121,17 @@ def test_the_tpu_only_list_names_the_packer_and_its_arguments():
         assert not set(TPU_ONLY) & set(inspect.signature(port).parameters)
 
 
+def _jax_octo_run():
+    """scripts/octo_train.py::run (the script imports absl at the top)."""
+    from scripts.octo_train import run
+
+    return run
+
+
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_every_jax_parameter_is_the_ports(name):
     jax_fn, port_fn = ENTRY_POINTS[name]
+    jax_fn = jax_fn or _jax_octo_run()
     ref = inspect.signature(jax_fn).parameters
     got = inspect.signature(port_fn).parameters
     kept = [p for p in ref if p not in TPU_ONLY]

@@ -15,8 +15,16 @@ directory is converted unless --step names one. The port then serves the
 result where JAX is absent:
 
     python -m hypervla_tpu_torch.eval.policy_server --checkpoint <torch_dir>
+
+A checkpoint of the JAX OctoModel (save_pretrained: its params, config.json,
+example_batch.msgpack, dataset_statistics.json; a config whose model_class
+is "octo", or without hypernet_kwargs) converts into the layout of
+hypervla_tpu_torch/models/octo_model.py, its config's ModuleSpecs pointed
+at the port's modules; the port loads it with
+`OctoModel.load_pretrained(<torch_dir>)`.
 """
 import argparse
+import json
 import os
 import pickle
 import shutil
@@ -28,13 +36,34 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from hypervla_tpu.models.hypervla import HyperVLA  # noqa: E402
+from hypervla_tpu.models.octo_model import OctoModel  # noqa: E402
 from hypervla_tpu_torch.models.hypervla import EMA_FILE, PARAMS_FILE  # noqa: E402
 from hypervla_tpu_torch.utils.convert import (  # noqa: E402
     drop_unread_params,
     flatten_tree,
     from_jax_params,
+    port_module_specs,
     trunk_depth,
 )
+
+
+def is_octo(config: dict) -> bool:
+    """Whether a checkpoint's config is an OctoModel's."""
+    return (config.get("model_class") == "octo"
+            or "hypernet_kwargs" not in config)
+
+
+def _convert_octo(src: str, dst: str, steps: list) -> None:
+    with open(os.path.join(src, "config.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(port_module_specs(config), f)
+    for s in steps:
+        out = os.path.join(dst, str(s))
+        os.makedirs(out, exist_ok=True)
+        model = OctoModel.load_pretrained(src, step=s)
+        torch.save(from_jax_params(model.params),
+                   os.path.join(out, PARAMS_FILE))
 
 
 def convert(src: str, dst: str, step=None) -> list:
@@ -54,6 +83,10 @@ def convert(src: str, dst: str, step=None) -> list:
 
     steps = ([step] if step is not None else
              sorted(int(d) for d in os.listdir(src) if d.isdigit()))
+    with open(os.path.join(src, "config.json")) as f:
+        if is_octo(json.load(f)):
+            _convert_octo(src, dst, steps)
+            return steps
     for s in steps:
         out = os.path.join(dst, str(s))
         os.makedirs(out, exist_ok=True)
