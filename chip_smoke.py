@@ -228,6 +228,27 @@
    fixture mix, saving at step 3. None of the nine TPU kernels' wrappers
    is launched (their counters stay 0).
 
+12. Encoders phase: A12.2's second half at full width, random weights
+   from a seed. The flagship with differential attention: 20 fused ticks
+   on kernel 1 against its plain trunk (0.05 max(scale, 1)), fast-preset
+   steps at batch 64 on kernels 2 and 3-forward, the first against the
+   plain step (loss and grad_norm 2e-2 relative, per-leaf update cosine
+   > 0.98). The BaseModel ablation (base_pretrain_config): trained as a
+   HyperVLA whose blocks are all shared (kernel 2, against plain), served
+   as a BaseModel on kernel 1 (against plain), a save/load round trip
+   bit-equal. The CLIP-base and EfficientNet-b3 HyperVLAs in the flagship
+   recipe (the backbone shared): CLIP 20 fused ticks; the EfficientNet
+   serving raises InvalidRngError, as the JAX package's; batch-64 steps
+   with kernel 3-forward on the initial image; the card against the CPU
+   in fp32 (actions 1e-4; one step at batch 2, its draws replayed: loss
+   1e-4, grad_norm 1e-3 relative). SigLIP on precomputed (256, 1152)
+   embeddings: 5 host ticks and a batch-64 step. The Octo model at vit_s
+   on resnetv2-26-film over ImageNet-normalized frames, with the in-model
+   T5-base LanguageTokenizer (the seeded t5-base.pt) as its text encoder:
+   20 OctoInference ticks, the first sample against the CPU's. Each
+   model's steps are timed (CUDA events) and traced once (device busy,
+   kernels, idle share, peak GiB; the CLIP, EfficientNet and SigLIP steps
+   untraced).
 Every phase prints its seconds as `phase <name> s <seconds>`.
 
 The kernels redesigned for Hopper, the training attention (forward and
@@ -5337,6 +5358,617 @@ def octo_phase(device, card):
                              f"the Octo path: {launched}")
 
 
+#: the encoders phase: serving ticks and train steps of each model, the
+#: SigLIP model's, the CPU comparison's batch, and the SigLIP embeddings'
+#: shape (SigLIP so400m/14 at 224 px: 256 tokens of 1152)
+ENC_SERVE_STEPS = 20
+ENC_TRAIN_STEPS = 2
+SIGLIP_SERVE_STEPS, SIGLIP_TRAIN_STEPS = 5, 1
+SIGLIP_TOKENS, SIGLIP_DIM = 256, 1152
+ENC_CPU_BATCH = 2
+ENC_ACTION_TOL = 1e-4
+ENC_LOSS_TOL, ENC_GRAD_TOL = 1e-4, 1e-3
+EFFICIENTNET_SIZE = 300
+#: the Octo model of the phase: the config's ImageTokenizer on
+#: resnetv2-26-film over ImageNet-normalized frames, FiLM-conditioned on a
+#: task key, and the in-model T5-base LanguageTokenizer as its text encoder
+OCTO_RESNET_ENCODER = {"module": "hypervla_tpu_torch.models.vit_encoders",
+                       "name": "ResNet26FILM", "args": (),
+                       "kwargs": {"img_norm_type": "imagenet"}}
+OCTO_FILM_KEY = "language_embedding"
+
+
+def _compare_to_plain(name, state0, kernel, plain):
+    """The first step's loss and grad_norm within STEP_REL_BOUND of the
+    plain step's and every leaf's update within COSINE_BOUND (cosine) of
+    the plain update's; kernel and plain are (new state, info). A leaf the
+    plain step leaves at noise (its update below 1e-3 of the median leaf's)
+    must move as little on the kernels."""
+    for key in ("training_loss", "grad_norm"):
+        a, b = float(kernel[1][key]), float(plain[1][key])
+        log(f"encoders {name} first step {key}: kernels {a:.6g} plain "
+            f"{b:.6g} (rel {abs(a - b) / abs(b):.3g}, bound "
+            f"{STEP_REL_BOUND})")
+        if not abs(a - b) <= STEP_REL_BOUND * abs(b):
+            raise AssertionError(f"{name}: first-step {key} kernels vs plain")
+    plain_up = {k: plain[0].params[k].detach() - v.detach()
+                for k, v in state0.params.items()}
+    typical = statistics.median(float(p.norm()) for p in plain_up.values())
+    degenerate = {k for k, p in plain_up.items()
+                  if float(p.norm()) < 1e-3 * typical}
+    worst, moved = (2.0, None), 0.0
+    for k, v in state0.params.items():
+        up = kernel[0].params[k].detach() - v.detach()
+        if k in degenerate:
+            moved = max(moved, float(up.norm()) / typical)
+        else:
+            worst = min(worst, (_cosine(up, plain_up[k]), k))
+    log(f"encoders {name} first step updates, kernels vs plain: lowest "
+        f"per-leaf cosine {worst[0]:.6f} ({worst[1]}), bound {COSINE_BOUND};"
+        f" {len(degenerate)} leaves barely move (largest kernel update of "
+        f"those {moved:.3g} of the median leaf's)")
+    if not worst[0] > COSINE_BOUND or not moved < 1e-2:
+        raise AssertionError(f"{name}: the updates disagree with the plain "
+                             "path")
+
+
+def encoders_phase(device, card):
+    """The second half of ROADMAP A12.2 at full width, random weights from
+    a seed (module docstring, phase 12): the differential flagship, the
+    BaseModel ablation, the CLIP-base, EfficientNet-b3 and SigLIP
+    HyperVLAs and the Octo model on the ResNet-26 FiLM tokenizer with the
+    in-model T5. Returns {model: launches of the nine TPU kernels'
+    wrappers over its counted serving steps and train steps}."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hypervla_tpu_torch.configs import (
+        apply_fast_training_preset,
+        base_pretrain_config,
+        flagship_pretrain_config,
+    )
+    from hypervla_tpu_torch.eval.inference import InferenceWrapper
+    from hypervla_tpu_torch.eval.octo_inference import OctoInference
+    from hypervla_tpu_torch.flagship import make_flagship_batch
+    from hypervla_tpu_torch.models.base_model import BaseModel
+    from hypervla_tpu_torch.models.base_network import BaseNetwork
+    from hypervla_tpu_torch.models.draws import Draws, InvalidRngError
+    from hypervla_tpu_torch.models.hypernetwork import HyperNetwork
+    from hypervla_tpu_torch.models.hypervla import HyperVLA
+    from hypervla_tpu_torch.models.octo_model import OctoModel
+    from hypervla_tpu_torch.models.tokenizers import LanguageTokenizer
+    from hypervla_tpu_torch.models.weight_plan import input_shapes
+    from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import fused_attention as fa
+    from hypervla_tpu_torch.train import main as cli
+    from hypervla_tpu_torch.train import trainer
+    from hypervla_tpu_torch.train.optimizer import (
+        create_optimizer,
+        hn_param_type_tree,
+    )
+    from hypervla_tpu_torch.train.train_state import TrainState
+    from hypervla_tpu_torch.train.train_step import (
+        make_train_step,
+        to_tensors,
+    )
+    from hypervla_tpu_torch.utils.convert import trunk_depth
+
+    t_phase = time.perf_counter()
+    modules, counts = _nine_kernel_counts()
+    rng = np.random.default_rng(SEED + 50)
+    stats = {"action": {
+        "mean": rng.standard_normal(7).astype(np.float32) * 0.1,
+        "std": (1 + rng.random(7)).astype(np.float32),
+        "mask": np.array([True] * 6 + [False])}}
+    frames = rng.integers(0, 256, (ENC_SERVE_STEPS + 1, 256, 256, 3),
+                          dtype=np.uint8)
+    example = make_flagship_batch(seed=SEED)
+    instruction = {"language_instruction":
+                   example["task"]["language_instruction"]}
+    init_state = {"patch_embeddings":
+                  example["initial_state"]["patch_embeddings"]}
+    big = make_flagship_batch(batch_size=TRAIN_BATCH, seed=SEED)
+    # the step embeds the instruction and the initial image itself
+    del big["task"]["language_instruction"]["token_embedding"]
+    del big["initial_state"]["patch_embeddings"]
+    fast_flagship = apply_fast_training_preset(flagship_pretrain_config())
+    depth = trunk_depth(fast_flagship)
+    # a fast-preset step's launches: the fine-tuned trunk's attention
+    # forward and backward (kernel 2), the frozen encode of the initial
+    # image (kernel 3's no-residual forward), a launch a layer each
+    fine_tuned = {"mha_fused_train_fwd": depth, "mha_fused_train_bwd": depth}
+    frozen_only = {"dino_layer_train_fwd": depth}
+    plain_flagship = copy.deepcopy(fast_flagship)
+    plain_flagship["base_net_kwargs"]["vit_kwargs"][
+        "dino_fused_attention"] = False
+    plain_flagship["frozen_encoder_layer_kernel"] = False
+    frozen = {}
+    for kind, cfg in (("kernels", fast_flagship), ("plain", plain_flagship)):
+        text_apply, dino_apply, t5, dino_params = (
+            trainer.build_frozen_encoders(cfg, device=device,
+                                          seed=SEED + 1))
+        frozen[kind] = (text_apply, dino_apply, {"t5": t5,
+                                                 "dino": dino_params})
+    out = {}
+
+    def randomize_heads(model):
+        """Random fan-out kernels make the generated weights depend on
+        the task (at init they are 0)."""
+        gen = torch.Generator(device=device).manual_seed(SEED + 51)
+        for name, value in model.params.items():
+            if name.startswith("output_head_") and name.endswith("/kernel"):
+                value += 0.02 * torch.randn(value.shape, generator=gen,
+                                            device=device)
+
+    def variant(model, config):
+        return HyperVLA(HyperNetwork(model.plan, config["hypernet_kwargs"]),
+                        BaseNetwork(**config["base_net_kwargs"],
+                                    input_shapes=input_shapes(
+                                        model.example_batch)),
+                        config, model.params, model.plan, stats, device,
+                        model.example_batch)
+
+    def serve(model, trunk_impl, n, init=init_state, embeddings=None,
+              host=False, image_size=224):
+        """n ticks of an InferenceWrapper (fused unless host) from the
+        same init_rng: (actions (n, 7), ms a tick, the wrapper)."""
+        w = InferenceWrapper(
+            model, policy_setup="google_robot", image_size=image_size,
+            action_ensemble=True, crop=True, fused_serving=not host,
+            trunk_impl=trunk_impl, init_rng=SEED,
+            pred_action_horizon=model.config["base_net_kwargs"][
+                "action_horizon"])
+        w.reset("pick up the cube", instruction, init)
+        actions, times = [], []
+        for f in frames[1:n + 1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            actions.append(w.step(f, image_embeddings=embeddings)[0])
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return np.stack(actions), times, w
+
+    def serve_against_plain(name, model):
+        """ENC_SERVE_STEPS fused ticks on kernel 1's stacked trunk (one
+        launch a tick) against the same ticks on its plain version."""
+        for m in modules:
+            m.reset_launch_counts()
+        actions, times, w = serve(model, "kernel", ENC_SERVE_STEPS)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+        plain, _, _ = serve(model, "reference", ENC_SERVE_STEPS)
+        if launched.get("dino_layers_serving") != ENC_SERVE_STEPS:
+            raise AssertionError(f"{name}: serving launches {launched}, "
+                                 f"want {ENC_SERVE_STEPS} of kernel 1")
+        if not np.isfinite(actions).all():
+            raise AssertionError(f"{name}: non-finite actions")
+        scale = max(float(np.abs(plain).max()), 1.0)
+        err = float(np.abs(actions - plain).max())
+        busy, kernels = device_busy(lambda: w.step(frames[1]))
+        med = statistics.median(times[1:])
+        log(f"encoders {name} serving: {ENC_SERVE_STEPS} fused steps on "
+            f"kernel 1 ({launched}), actions vs the plain trunk max_abs_err "
+            f"{err:.6g} (bound {TRUNK_BOUND * scale:.6g}); ms/step (median "
+            f"of steps 2-{ENC_SERVE_STEPS}, CUDA events) {med:.4f}; step "
+            f"profiled: device busy ms {busy:.4f}, {kernels:.0f} device "
+            f"kernels, idle share {1 - busy / med:.3f}; first action "
+            f"{actions[0].tolist()}; {card}")
+        if not err < TRUNK_BOUND * scale:
+            raise AssertionError(f"{name}: actions disagree with the plain "
+                                 "trunk")
+        return launched
+
+    def trainer_of(model, config, kind="kernels"):
+        text_apply, dino_apply, encoders = frozen[kind]
+        tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
+            model.params, hn_param_type_tree(model.params),
+            **config["optimizer"])
+        step_fn = make_train_step(model, config, tx, lr_fn, base_lr_fn,
+                                  pnorm_fn, text_encode=text_apply,
+                                  dino_encode=dino_apply)
+        state0 = TrainState.create(model.params, tx, seed=SEED)
+        warmup = config["optimizer"]["learning_rate"]["warmup_steps"]
+        state0.step = warmup
+        state0.opt_state["count"] = warmup
+        return step_fn, state0, encoders
+
+    def train_counts():
+        """The launches of kernels 2 and 3's wrappers since the reset."""
+        return {k: v for m in (fa, dlt) for k, v in m.LAUNCHES.items() if v}
+
+    def train(name, model, config, batch, want, plain_config=None,
+              n=ENC_TRAIN_STEPS, trace=True):
+        """n fast-preset steps at batch 64 from one state, each launching
+        the training kernels `want` says (kernels 2 and 3's wrappers; a
+        layer call of kernel 3 also counts its GEMM and LayerNorm parts
+        under kernel 1's module); with plain_config the first step also
+        against the same step on the kernels' plain versions; with trace,
+        one step traced. Returns the launches of the last step."""
+        step_fn, state0, encoders = trainer_of(model, config)
+        batch = to_tensors(batch, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, times, losses, per_step = state0, [], [], []
+        for i in range(n):
+            for m in modules:
+                m.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            # the first step with its norms, for the comparison
+            new_state, info = step_fn(state, batch, encoder_params=encoders,
+                                      with_metrics=i == 0)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            per_step.append(train_counts())
+            losses.append(float(info["training_loss"]))
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated()
+                first = (new_state, info)
+            state = new_state
+        if plain_config is not None:
+            plain_model = variant(model, plain_config)
+            plain_fn, _, plain_enc = trainer_of(plain_model, plain_config,
+                                                "plain")
+            plain = plain_fn(state0, batch, encoder_params=plain_enc)
+            _compare_to_plain(name, state0, first, plain)
+            del plain, plain_fn, plain_model
+        del state, new_state, first
+        for launched in per_step:
+            if launched != want:
+                raise AssertionError(f"{name}: a train step launched "
+                                     f"{launched}, want {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: a train loss is not finite")
+        med = statistics.median(times[1:] or times)
+        traced = "not traced"
+        if trace:
+            busy, kernels = device_busy(lambda: step_fn(
+                state0, batch, encoder_params=encoders, with_metrics=False),
+                host=False)
+            traced = (f"step profiled: device busy ms {busy:.3f}, "
+                      f"{kernels:.0f} device kernels, idle share "
+                      f"{1 - busy / med:.3f}")
+        log(f"encoders {name} train: losses {losses}; launches a step "
+            f"{per_step[-1]}; ms/step (CUDA events, batch "
+            f"{batch['action'].shape[0]}; the median of steps 2-{n}, the "
+            f"first with its norms {times[0]:.4f}) {med:.4f}; {traced}; "
+            f"peak memory (max_memory_allocated over the first step) "
+            f"{peak / 2 ** 30:.3f} GiB; {card}")
+        del step_fn, state0
+        torch.cuda.empty_cache()
+        return per_step[-1]
+
+    def against_cpu(name, model, config, image_size=224, actions=True):
+        """The card against the CPU in fp32 (TF32 off): with actions, the
+        actions of one frame; then one train step at ENC_CPU_BATCH from
+        the same state on a batch that carries its embeddings, its draws
+        made on the CPU and replayed on the card."""
+        cpu = torch.device("cpu")
+        cores = len(os.sched_getaffinity(0))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(cores)
+        t0 = time.perf_counter()
+        on_cpu = model.replace(params=_to(model.params, cpu), device=cpu)
+        if actions:
+            image = example["observation"]["image_primary"]
+            got = []
+            for m in (model, on_cpu):
+                params, task = m.create_tasks(instruction_dict=instruction,
+                                              initial_state=init_state)
+                got.append(m.sample_actions(image, instruction, task, None,
+                                            params).cpu())
+            err, scale = max_err(got[0], got[1])
+            log(f"encoders {name} actions card vs CPU (fp32, TF32 off): "
+                f"max_abs_err {err:.6g} (bound "
+                f"{ENC_ACTION_TOL * max(scale, 1.0):.6g})")
+            if not err <= ENC_ACTION_TOL * max(scale, 1.0):
+                raise AssertionError(f"{name}: the card's actions disagree "
+                                     "with the CPU's")
+        batch = make_flagship_batch(batch_size=ENC_CPU_BATCH, seed=SEED + 3,
+                                    image_size=image_size)
+        info = {}
+        drawn = None
+        for m, where in ((on_cpu, "cpu"), (model, "card")):
+            tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
+                m.params, hn_param_type_tree(m.params), **config["optimizer"])
+            step_fn = make_train_step(m, config, tx, lr_fn, base_lr_fn,
+                                      pnorm_fn)
+            state = TrainState.create(
+                {k: v.detach().clone().requires_grad_(True)
+                 for k, v in m.params.items()}, tx, seed=SEED,
+                track_ema=False)
+            if drawn is None:
+                draws = Draws(torch.Generator().manual_seed(SEED),
+                              record=True)
+            else:
+                draws = Draws(replay=drawn)
+            _, info[where] = step_fn(state, batch, draws=draws)
+            if drawn is None:
+                drawn = {k: v.numpy() for k, v in draws.drawn.items()}
+            del state, step_fn, tx
+        torch.set_num_threads(threads)
+        for key, tol in (("training_loss", ENC_LOSS_TOL),
+                         ("grad_norm", ENC_GRAD_TOL)):
+            a, b = float(info["card"][key]), float(info["cpu"][key])
+            log(f"encoders {name} train step card vs CPU (batch "
+                f"{ENC_CPU_BATCH}, fp32, {len(drawn)} draw sites replayed): "
+                f"{key} {a:.8g} vs {b:.8g} (rel {abs(a - b) / abs(b):.3g}, "
+                f"bound {tol})")
+            if not abs(a - b) <= tol * abs(b):
+                raise AssertionError(f"{name}: the card's {key} disagrees "
+                                     "with the CPU's")
+        log(f"encoders {name} CPU comparison s {time.perf_counter() - t0:.1f}"
+            f" ({cores} cores)")
+
+    log(f"encoders frozen encoders at {time.perf_counter() - t_phase:.1f} s")
+    # ---- the differential flagship ----
+    clock = time.perf_counter()
+    config = flagship_pretrain_config()
+    vk = config["base_net_kwargs"]["vit_kwargs"]
+    vk.update(use_differential_transformer=True, encoder_dtype="bfloat16")
+    model = HyperVLA.from_config(config, example, seed=SEED, device=device,
+                                 dataset_statistics=stats)
+    randomize_heads(model)
+    log(f"encoders differential clock: built at "
+        f"{time.perf_counter() - clock:.1f} s")
+    fast = apply_fast_training_preset(copy.deepcopy(config))
+    plain = copy.deepcopy(fast)
+    plain["base_net_kwargs"]["vit_kwargs"]["dino_fused_attention"] = False
+    plain["frozen_encoder_layer_kernel"] = False
+    served = serve_against_plain("differential", model)
+    log(f"encoders differential clock: served at "
+        f"{time.perf_counter() - clock:.1f} s")
+    out["differential"] = {
+        "serve": served,
+        "train": train("differential", variant(model, fast), fast, big,
+                       {**fine_tuned, **frozen_only}, plain)}
+    del model
+    log(f"encoders differential s {time.perf_counter() - clock:.1f}")
+
+    # ---- the BaseModel ablation ----
+    clock = time.perf_counter()
+    fast = base_pretrain_config("vit_t,oxe,fast")
+    plain = copy.deepcopy(fast)
+    plain["base_net_kwargs"]["vit_kwargs"]["dino_fused_attention"] = False
+    plain["frozen_encoder_layer_kernel"] = False
+    # the trainer's view: a HyperVLA whose blocks are all shared
+    hyper = HyperVLA.from_config(fast, example, seed=SEED, device=device,
+                                 dataset_statistics=stats)
+    trained = train("base_model", hyper, fast, big, fine_tuned, plain)
+    log(f"encoders base_model clock: trained at "
+        f"{time.perf_counter() - clock:.1f} s")
+    # the same weights served as a BaseModel: every block is shared, so
+    # the HyperVLA's flat params are the base net's, reshaped
+    base = BaseModel(hyper.base_net, fast, hyper.shared_params(""),
+                     hyper.example_batch, stats, hyper.plan, device)
+    del hyper
+    served = serve_against_plain("base_model", base)
+    root = tempfile.mkdtemp(prefix="hypervla_base_model_")
+    try:
+        base.save_pretrained(1, checkpoint_path=root)
+        loaded = BaseModel.load_pretrained(root, device=device)
+        same = set(loaded.params) == set(base.params) and all(
+            torch.equal(loaded.params[k], v) for k, v in base.params.items())
+        again, _, _ = serve(loaded, "kernel", 3)
+        first, _, _ = serve(base, "kernel", 3)
+        log(f"encoders base_model save/load round trip: params bit-equal "
+            f"{same}, the next 3 actions bit-equal "
+            f"{np.array_equal(again, first)}")
+        if not same or not np.array_equal(again, first):
+            raise AssertionError("base_model: the round trip changed it")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["base_model"] = {"serve": served, "train": trained}
+    del base, loaded
+    torch.cuda.empty_cache()
+    log(f"encoders base_model s {time.perf_counter() - clock:.1f}")
+
+    # ---- CLIP-base and EfficientNet-b3 in the flagship recipe ----
+    for name, size in (("CLIP", 224), ("EfficientNet", EFFICIENTNET_SIZE)):
+        clock = time.perf_counter()
+        config = flagship_pretrain_config()
+        config["base_net_kwargs"]["vit_kwargs"]["encoder_type"] = name
+        if name == "EfficientNet":
+            # the JAX plan supports a shared backbone only; shared it is one
+            # block of the base net, not a generated one per task
+            config["hypernet_kwargs"]["shared_modules"] = ("image_encoder",
+                                                           "EfficientNet")
+        batch = make_flagship_batch(seed=SEED, image_size=size)
+        model = HyperVLA.from_config(config, batch, seed=SEED,
+                                     device=device, dataset_statistics=stats)
+        randomize_heads(model)
+        n_params = sum(v.numel() for v in model.params.values())
+        log(f"encoders {name}: built in {time.perf_counter() - clock:.2f} "
+            f"s, {n_params} params; {card}")
+        if name == "CLIP":
+            for m in modules:
+                m.reset_launch_counts()
+            actions, times, w = serve(model, None, ENC_SERVE_STEPS)
+            busy, kernels = device_busy(lambda: w.step(frames[1]))
+            med = statistics.median(times[1:])
+            if not np.isfinite(actions).all():
+                raise AssertionError("CLIP: non-finite actions")
+            served = {k: v for k, v in counts().items() if v}
+            log(f"encoders CLIP serving: {ENC_SERVE_STEPS} fused steps, "
+                f"ms/step (median of steps 2-{ENC_SERVE_STEPS}) {med:.4f}; "
+                f"step profiled: device busy ms {busy:.4f}, {kernels:.0f} "
+                f"device kernels, idle share {1 - busy / med:.3f}; first "
+                f"action {actions[0].tolist()}; {card}")
+        else:
+            # the JAX serving path gives the backbone no "drop_connect"
+            # stream and fails at its first droppable block; so does this
+            try:
+                serve(model, None, 1, image_size=size)
+            except InvalidRngError as e:
+                log(f"encoders EfficientNet serving raises as in the JAX "
+                    f"package: InvalidRngError({e})")
+            else:
+                raise AssertionError("EfficientNet: served where the JAX "
+                                     "package raises InvalidRngError")
+            served = {}
+        big_enc = make_flagship_batch(batch_size=TRAIN_BATCH, seed=SEED,
+                                      image_size=size)
+        del big_enc["task"]["language_instruction"]["token_embedding"]
+        # the frozen DINOv2 encodes the initial image at its own 224 px
+        big_enc["initial_state"] = big["initial_state"]
+        fast = apply_fast_training_preset(copy.deepcopy(config))
+        trained = train(name, variant(model, fast), fast, big_enc,
+                        frozen_only, trace=False)
+        against_cpu(name, model, config, size, actions=name == "CLIP")
+        out[name] = {"serve": served, "train": trained}
+        del model
+        torch.cuda.empty_cache()
+        log(f"encoders {name} s {time.perf_counter() - clock:.1f}")
+
+    # ---- SigLIP: precomputed embeddings ----
+    clock = time.perf_counter()
+    config = flagship_pretrain_config()
+    config["base_net_kwargs"]["vit_kwargs"]["encoder_type"] = "Siglip"
+    sig_example = make_flagship_batch(seed=SEED)
+    sig_example["observation"]["patch_embeddings"] = rng.standard_normal(
+        (1, SIGLIP_TOKENS, SIGLIP_DIM)).astype(np.float32)
+    model = HyperVLA.from_config(config, sig_example, seed=SEED,
+                                 device=device, dataset_statistics=stats)
+    randomize_heads(model)
+    for m in modules:
+        m.reset_launch_counts()
+    actions, times, _ = serve(
+        model, None, SIGLIP_SERVE_STEPS, host=True,
+        embeddings=sig_example["observation"]["patch_embeddings"])
+    if not np.isfinite(actions).all():
+        raise AssertionError("Siglip: non-finite actions")
+    served = {k: v for k, v in counts().items() if v}
+    log(f"encoders Siglip serving: {SIGLIP_SERVE_STEPS} host-path steps on "
+        f"precomputed ({SIGLIP_TOKENS}, {SIGLIP_DIM}) embeddings, ms/step "
+        f"(median) {statistics.median(times):.4f}; first action "
+        f"{actions[0].tolist()}; {card}")
+    big_sig = copy.deepcopy(big)
+    big_sig["observation"]["patch_embeddings"] = rng.standard_normal(
+        (TRAIN_BATCH, SIGLIP_TOKENS, SIGLIP_DIM)).astype(np.float32)
+    fast = apply_fast_training_preset(copy.deepcopy(config))
+    out["Siglip"] = {"serve": served,
+                     "train": train("Siglip", variant(model, fast), fast,
+                                    big_sig, frozen_only,
+                                    n=SIGLIP_TRAIN_STEPS, trace=False)}
+    del model
+    torch.cuda.empty_cache()
+    log(f"encoders Siglip s {time.perf_counter() - clock:.1f}")
+
+    # ---- Octo on the ResNet-26 FiLM tokenizer and the in-model T5 ----
+    clock = time.perf_counter()
+    config = cli.load_config(OCTO_CONFIG)
+    config["model"]["observation_tokenizers"]["primary"]["kwargs"] = {
+        "obs_stack_keys": ["image_primary"], "task_stack_keys": [],
+        "task_film_keys": [OCTO_FILM_KEY], "encoder": OCTO_RESNET_ENCODER}
+    language = LanguageTokenizer(encoder="t5-base")
+    unset = {k: torch.empty(s, device=device)
+             for k, (s, _) in language.specs("language").items()}
+    lang_params = language.load_weights(unset, "language", device)
+    if lang_params is unset:
+        raise AssertionError("octo: no t5-base weights for the "
+                             "LanguageTokenizer's T5")
+    log(f"encoders octo clock: the in-model T5 loaded at "
+        f"{time.perf_counter() - clock:.1f} s")
+
+    @torch.no_grad()
+    def embed(ids, mask):
+        return language(lang_params, "language", {}, {
+            "language_instruction": {
+                "input_ids": torch.as_tensor(ids, device=device),
+                "attention_mask": torch.as_tensor(mask, device=device)}}
+        ).tokens
+
+    tokenizer = trainer._tokenizer(config)
+    tokens = tokenizer.encode([OCTO_TASK])
+    log(f"encoders octo clock: tokenizer at "
+        f"{time.perf_counter() - clock:.1f} s")
+    octo_example = {
+        "observation": {"image_primary": np.zeros((1, 1, 224, 224, 3),
+                                                  np.uint8),
+                        "timestep_pad_mask": np.ones((1, 1), bool)},
+        "task": {"language_instruction": dict(
+                     tokens, token_embedding=embed(
+                         tokens["input_ids"],
+                         tokens["attention_mask"]).cpu().numpy()),
+                 OCTO_FILM_KEY: np.zeros((1, 768), np.float32),
+                 "pad_mask_dict": {"language_instruction": np.ones(1, bool),
+                                   OCTO_FILM_KEY: np.ones(1, bool)}},
+    }
+    octo_stats = {"fractal20220817_data": stats}
+    model = OctoModel.from_config(config, octo_example,
+                                  text_processor=tokenizer, rng=SEED,
+                                  dataset_statistics=octo_stats,
+                                  text_embed_fn=embed, device=device)
+    n_params = sum(v.numel() for v in model.params.values())
+    log(f"encoders octo: vit_s on resnetv2-26-film (ImageNet-normalized, "
+        f"FiLM on {OCTO_FILM_KEY}) with the in-model T5-base "
+        f"LanguageTokenizer as its text encoder, {n_params} params, built "
+        f"in {time.perf_counter() - clock:.2f} s; {card}")
+    for m in modules:
+        m.reset_launch_counts()
+    policy = OctoInference(model, policy_setup="google_robot", horizon=2,
+                           pred_action_horizon=4, image_size=224,
+                           init_rng=SEED, action_ensemble=True)
+    policy.reset(OCTO_TASK)
+    acts, times = [], []
+    for frame in frames[1:ENC_SERVE_STEPS + 1]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        acts.append(policy.step(frame)[1])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    acts = np.stack(acts)
+    if acts.shape != (ENC_SERVE_STEPS, 7) or not np.isfinite(acts).all():
+        raise AssertionError(f"octo resnet: bad actions {acts.shape}")
+    served = {k: v for k, v in counts().items() if v}
+    busy, kernels = device_busy(lambda: policy.step(frames[1]))
+    med = statistics.median(times[1:])
+    log(f"encoders octo serving: {ENC_SERVE_STEPS} OctoInference steps, "
+        f"ms/step (median of steps 2-{ENC_SERVE_STEPS}) {med:.4f}; step "
+        f"profiled: device busy ms {busy:.4f}, {kernels:.0f} device kernels,"
+        f" idle share {1 - busy / med:.3f}; nine-kernel launches {served}; "
+        f"first action {acts[0].tolist()}; {card}")
+    first = OctoInference(model, policy_setup="google_robot", horizon=2,
+                          pred_action_horizon=4, image_size=224,
+                          init_rng=SEED, action_ensemble=True)
+    first.reset(OCTO_TASK)
+    first.step(frames[1])
+    obs = {"image_primary": np.stack(first.image_history)[None],
+           "timestep_pad_mask": np.ones((1, len(first.image_history)))}
+    rec = Draws(torch.Generator(device=device).manual_seed(SEED),
+                record=True)
+    on_card = model.sample_actions(obs, first.task, stats["action"],
+                                   rng=rec)
+    cpu = torch.device("cpu")
+    on_cpu = model.replace(params=_to(model.params, cpu), device=cpu
+                           ).sample_actions(
+        obs, first.task, stats["action"], rng=Draws(replay={
+            k: v.cpu().numpy() for k, v in rec.drawn.items()}))
+    err, scale = max_err(on_card.cpu(), on_cpu)
+    log(f"encoders octo first sample card vs CPU (fp32, TF32 off, the same "
+        f"observations and draws): max_abs_err {err:.6g} (bound "
+        f"{OCTO_ACTION_TOL * max(scale, 1.0):.6g})")
+    if not err <= OCTO_ACTION_TOL * max(scale, 1.0):
+        raise AssertionError("octo resnet: the card's actions disagree with "
+                             "the CPU's")
+    out["octo"] = {"serve": served}
+    del model
+    torch.cuda.empty_cache()
+    log(f"encoders octo s {time.perf_counter() - clock:.1f}")
+    log(f"encoders phase s {time.perf_counter() - t_phase:.3f}")
+    return out
+
+
 def seeded_pretrained_dir(root: str) -> None:
     """Writes the frozen encoders' seeded inits under root as the files
     the port loads from $HYPERVLA_PRETRAINED_DIR (models/encoders/
@@ -5437,6 +6069,7 @@ def main() -> int:
     phase("eval", eval_phase, device, card)
     phase("multi_device", multi_device_phase, device, card, trainer_losses)
     phase("octo", octo_phase, device, card)
+    phase("encoders", encoders_phase, device, card)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")

@@ -7,7 +7,9 @@ training step and the trainer read, of the DINOv2 geometries in
 hypervla_tpu/models/encoders/dinov2.py, and of the command line's built-in
 config, scripts/configs/hypervla_pretrain_config.py::get_config
 (`hypervla_pretrain_config`), of its fine-tuning config,
-scripts/configs/finetune_config.py (`finetune_config`), and of the Octo
+scripts/configs/finetune_config.py (`finetune_config`), of the BaseModel
+ablation's, scripts/configs/base_pretrain_config.py
+(`base_pretrain_config`), and of the Octo
 pretraining config, scripts/configs/octo_pretrain_config.py
 (`octo_pretrain_config`, over the transformer sizes of
 hypervla_tpu/models/transformer.py::common_transformer_sizes). The JAX
@@ -341,6 +343,38 @@ def hypervla_pretrain_config(config_string: str = "vit_t,oxe"
         dk.setdefault("skip_unlabeled", True)
     else:
         dk["oxe_mix"] = None
+        dk.setdefault("data_dir", "")
+        dk.setdefault("dataset_kwargs_list", [])
+    if fast:
+        apply_fast_training_preset(config)
+    return config
+
+
+def base_pretrain_config(config_string: str = "vit_t,oxe"
+                         ) -> Dict[str, Any]:
+    """The BaseModel ablation's config (scripts/configs/
+    base_pretrain_config.py), "<size>,<dataset>[,fast]": the flagship
+    recipe with model_class "base_model", every block shared
+    (share_all_params), no initial-image conditioning and the pretrained
+    trunk fine-tuned. The JAX config reads no part of its string: here
+    "vit_t,oxe" gives its copy exactly, another dataset name leaves the
+    mix off for a dataset_kwargs_list (as `hypervla_pretrain_config`
+    does), and "fast" applies the training fast preset. The trainer trains
+    it as the JAX trainer does, as a HyperVLA whose blocks are all shared;
+    models/base_model.py serves it."""
+    tokens = config_string.split(",")
+    fast = "fast" in tokens
+    tokens = [t for t in tokens if t != "fast"]
+    dataset = (tokens + ["oxe", "oxe"])[1]
+    config = flagship_pretrain_config()
+    config["model_class"] = "base_model"
+    config["hypernet_kwargs"]["share_all_params"] = True
+    config["hypernet_kwargs"]["use_initial_image"] = False
+    config["base_net_kwargs"]["vit_kwargs"][
+        "fine_tune_pretrained_image_encoder"] = True
+    if dataset != "oxe":
+        dk = config["dataset_kwargs"]
+        dk.update(dataset=dataset, oxe_mix=None)
         dk.setdefault("data_dir", "")
         dk.setdefault("dataset_kwargs_list", [])
     if fast:

@@ -253,13 +253,16 @@ class InferenceWrapper:
         return self._tick_generator.manual_seed(seed)
 
     def step(self, image: np.ndarray, task_description: Optional[str] = None,
-             rng=None):
+             image_embeddings=None, rng=None):
         """One control tick: uint8 (H, W, C) frame -> (raw_action, action,
         image, (task_description, task), seconds); the image is the
         resized frame on the host path, the frame itself on the fused
-        one. rng (a torch.Generator or a models/draws.py::Draws) stands in
-        for the tick's own draws; the wrapper's stream splits all the
-        same, so the ticks after it draw what they would have."""
+        one. image_embeddings (1, tokens, dim), the frame's precomputed
+        patch embeddings (a Siglip policy's), reach the host path's
+        sample_actions, as in the JAX wrapper (its fused path reads none).
+        rng (a torch.Generator or a models/draws.py::Draws) stands in for
+        the tick's own draws; the wrapper's stream splits all the same, so
+        the ticks after it draw what they would have."""
         if (task_description is not None
                 and task_description != self.task_description):
             self.reset(task_description, self.instruction_dict)
@@ -283,8 +286,8 @@ class InferenceWrapper:
         maps = {} if self.save_attention_map else None
         raw_actions = self.model.sample_actions(
             images[None], self.instruction_dict, self.task, None,
-            self.base_params, rng=tick_rng, trunk_impl=self.trunk_impl,
-            maps=maps)
+            self.base_params, rng=tick_rng, image_embeddings=image_embeddings,
+            trunk_impl=self.trunk_impl, maps=maps)
         raw_actions = raw_actions[0].cpu().numpy()
         seconds = time.perf_counter() - start
         if maps is not None:

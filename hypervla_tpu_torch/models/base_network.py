@@ -101,6 +101,7 @@ class OctoEncoder:
     (H, W) and the instruction's (L, token_dim))."""
 
     has_trunk = False
+    batched_encoder = False
     fine_tune = False
     use_language_token = False
 

@@ -11,13 +11,27 @@ embeddings. The encoders:
     the trunk runs once over the whole batch (`train_image_embeddings`) and
     the per-sample policy consumes its patch embeddings, detached unless
     fine_tune_pretrained_image_encoder;
+  * "CLIP" (models/encoders/clip.py, clip-vit-base-patch16): normalise
+    with CLIP's pixel statistics, the shared CLIP trunk, drop the class
+    token, project to hidden_dim; in training it runs once over the batch,
+    as the DINOv2 trunk does;
+  * "Siglip": the batch's precomputed patch embeddings (observation
+    patch_embeddings, which the JAX base net reads too) projected to
+    hidden_dim, never detached;
+  * "EfficientNet" (models/efficientnet.py, efficientnet-b3 at 300 px):
+    the [-1, 1] frame through the backbone, then a 1x1 convolution to
+    hidden_dim ("encoder/Conv_0"); stochastic depth in training, and, as in
+    the JAX package, a forward without draws raises InvalidRngError (the
+    JAX serving path gives the backbone no "drop_connect" stream);
   * "SmallStem" and "PatchEncoder" (models/vit_encoders.py): convolutions
     whose kernels the hypernetwork generates like any other block.
 
 Params live under the JAX package's names (encoder/image_encoder,
 encoder/image_embedding_projection, encoder/SmallStem_0,
-encoder/PatchEncoder_0, encoder/language_token_projection,
-encoder/pos_embedding, encoder/Transformer_0).
+encoder/PatchEncoder_0, encoder/EfficientNet_0, encoder/Conv_0,
+encoder/language_token_projection, encoder/pos_embedding,
+encoder/Transformer_0). use_differential_transformer runs the policy
+transformer on differential attention (models/transformer.py).
 
 In training (given a models/draws.py::Draws) the JAX ViT's dropout runs on
 the tokens after the position table ("encoder/Dropout_0") and in the
@@ -36,10 +50,7 @@ scanned stack takes (no fused attention, no fused residual boundaries, no
 remat). return_attention_map surfaces the transformer's attention maps
 (`__call__`'s maps).
 
-The CLIP, EfficientNet and Siglip encoders and differential attention are
-not ported yet and raise (ROADMAP.md A12.2, other encoders and
-topologies), as do the trunk switches with no counterpart
-(`check_trunk_switches`).
+The trunk switches with no counterpart raise (`check_trunk_switches`).
 """
 from typing import Dict, Optional, Tuple
 
@@ -48,6 +59,16 @@ import torch
 from hypervla_tpu_torch.configs import dinov2_config
 from hypervla_tpu_torch.models import layers
 from hypervla_tpu_torch.models.draws import Draws, dropout
+from hypervla_tpu_torch.models.efficientnet import (
+    MODEL_CONFIGS,
+    EfficientNet,
+    conv_same,
+    output_side,
+)
+from hypervla_tpu_torch.models.encoders.clip import (
+    CLIPVisionModel,
+    clip_vision_config,
+)
 from hypervla_tpu_torch.models.encoders.dinov2 import (
     REMAT_SAVED,
     dinov2_forward,
@@ -56,16 +77,34 @@ from hypervla_tpu_torch.models.encoders.dinov2 import (
     layer_norm_fn,
 )
 from hypervla_tpu_torch.models.transformer import transformer, transformer_specs
-from hypervla_tpu_torch.models.vit_encoders import PatchEncoder, SmallStem
+from hypervla_tpu_torch.models.vit_encoders import (
+    PatchEncoder,
+    SmallStem,
+    normalize_images,
+)
 from hypervla_tpu_torch.utils.convert import subtree
 
-DINO_IMAGE_MEAN = (0.485, 0.456, 0.406)
-DINO_IMAGE_STD = (0.229, 0.224, 0.225)
+#: per-encoder pixel statistics (mean, std)
+PIXEL_STATS = {
+    "DINOv2": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+    "CLIP": ((0.48145466, 0.4578275, 0.40821073),
+             (0.26862954, 0.26130258, 0.27577711)),
+}
+DINO_IMAGE_MEAN, DINO_IMAGE_STD = PIXEL_STATS["DINOv2"]
 RESOLUTION = 224
-#: the encoders the port carries, and the param subtree each lives under
+#: the frame size each encoder asserts
+EXPECTED_RESOLUTION = {"EfficientNet": 300, "DINOv2": 224, "CLIP": 224,
+                       "Siglip": 224}
+#: the named configs the JAX ViT builds its CLIP and EfficientNet from
+CLIP_NAME = "clip-vit-base-patch16"
+EFFICIENTNET_NAME = "efficientnet-b3"
+#: the encoders, and the param subtree each lives under
 ENCODER_PREFIX = {"DINOv2": "encoder/image_encoder",
+                  "CLIP": "encoder/image_encoder",
                   "SmallStem": "encoder/SmallStem_0",
-                  "PatchEncoder": "encoder/PatchEncoder_0"}
+                  "PatchEncoder": "encoder/PatchEncoder_0",
+                  "EfficientNet": "encoder/EfficientNet_0",
+                  "Siglip": None}
 
 
 def segment_attention_mask(batch, n_lang, n_patch, n_action, device=None):
@@ -82,19 +121,21 @@ def segment_attention_mask(batch, n_lang, n_patch, n_action, device=None):
     return mask
 
 
-def normalize_pixels(images):
-    """uint8 (B, H, W, 3) -> ImageNet-normalised fp32 pixels."""
-    mean = torch.tensor(DINO_IMAGE_MEAN, device=images.device)
-    std = torch.tensor(DINO_IMAGE_STD, device=images.device)
+def normalize_pixels(images, encoder_type: str = "DINOv2"):
+    """uint8 (B, H, W, 3) -> fp32 pixels normalised with the encoder's
+    statistics (ImageNet's for DINOv2, CLIP's own)."""
+    mean, std = (torch.tensor(s, device=images.device)
+                 for s in PIXEL_STATS[encoder_type])
     return (images.float() / 255.0 - mean) / std
 
 
-def _check_resolution(images):
-    """The JAX ViT's assert on a DINOv2 frame's size, as an
-    AssertionError."""
-    if tuple(images.shape[1:3]) != (RESOLUTION, RESOLUTION):
+def _check_resolution(images, encoder_type: str = "DINOv2"):
+    """The JAX ViT's assert on the frame's size, as an AssertionError."""
+    expected = EXPECTED_RESOLUTION.get(encoder_type)
+    if expected is not None and tuple(images.shape[1:3]) != (expected,
+                                                            expected):
         raise AssertionError(
-            f"DINOv2 input must be {RESOLUTION}x{RESOLUTION}.")
+            f"{encoder_type} input must be {expected}x{expected}.")
 
 
 def trunk_remat(vit_kwargs: dict):
@@ -156,16 +197,11 @@ class ViT:
                  input_shapes: Optional[dict] = None):
         kw = vit_kwargs
         self.encoder_type = kw.get("encoder_type", "SmallStem")
-        unsupported = {
-            "encoder_type": self.encoder_type not in ENCODER_PREFIX,
-            "use_differential_transformer": kw.get(
-                "use_differential_transformer", False),
-        }
-        for name, bad in unsupported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"vit_kwargs {name}={kw.get(name)!r} is not ported yet "
-                    "(ROADMAP.md A12.2, other encoders and topologies)")
+        if self.encoder_type not in ENCODER_PREFIX:
+            raise NotImplementedError(
+                f"Unknown encoder type {self.encoder_type} for ViT")
+        self.differential = bool(kw.get("use_differential_transformer",
+                                        False))
         check_trunk_switches(kw)
         self.prefix = ENCODER_PREFIX[self.encoder_type]
         self.dropout_rate = kw.get("dropout_rate", 0.0) or 0.0
@@ -186,10 +222,15 @@ class ViT:
                                             (RESOLUTION, RESOLUTION)))
         self.instruction_shape = (tuple(shapes["instruction"])
                                   if "instruction" in shapes else None)
+        self.embedding_shape = (tuple(shapes["patch_embeddings"])
+                                if "patch_embeddings" in shapes else None)
         self.encoder_dtype = str(kw.get("encoder_dtype", "float32"))
         self.fine_tune = kw.get("fine_tune_pretrained_image_encoder", False)
         self.stem = None
         self.dino = None
+        self.clip = None
+        self.efficientnet = None
+        self.capture = False
         if self.encoder_type == "SmallStem":
             self.stem = SmallStem(patch_size=kw.get("patch_size", 16),
                                   num_features=self.hidden_dim,
@@ -198,7 +239,11 @@ class ViT:
         elif self.encoder_type == "PatchEncoder":
             self.stem = PatchEncoder(patch_size=kw.get("patch_size", 16),
                                      num_features=self.hidden_dim)
-        else:
+        elif self.encoder_type == "CLIP":
+            self.clip = CLIPVisionModel(clip_vision_config(CLIP_NAME))
+        elif self.encoder_type == "EfficientNet":
+            self.efficientnet = EfficientNet(MODEL_CONFIGS[EFFICIENTNET_NAME])
+        elif self.encoder_type == "DINOv2":
             self._init_trunk(kw)
         self.n_patch = self._num_patches()
 
@@ -233,13 +278,48 @@ class ViT:
     def _num_patches(self) -> int:
         if self.stem is not None:
             return self.stem.num_tokens(*self.image_shape)
+        if self.clip is not None:
+            return (RESOLUTION // self.clip.config.patch_size) ** 2
+        if self.efficientnet is not None:
+            height, width = self.image_shape
+            return (output_side(height, self.efficientnet.config)
+                    * output_side(width, self.efficientnet.config))
+        if self.encoder_type == "Siglip":
+            return self._siglip_shape()[0]
         return ((RESOLUTION // self.dino.patch_size) ** 2
                 + int(self.include_class_token))
+
+    def _siglip_shape(self):
+        """(tokens, dim) of the precomputed embeddings; the JAX base net
+        indexes them out of the example batch at init (IndexError without
+        them)."""
+        if self.embedding_shape is None:
+            raise IndexError("a Siglip ViT reads its patch embeddings from "
+                             "the batch: pass input_shapes["
+                             "'patch_embeddings'] (the example batch's "
+                             "observation patch_embeddings)")
+        return self.embedding_shape
 
     @property
     def has_trunk(self) -> bool:
         """Whether the image encoder is the shared DINOv2 trunk."""
         return self.dino is not None
+
+    @property
+    def batched_encoder(self) -> bool:
+        """Whether the image encoder is a shared pretrained trunk (DINOv2
+        or CLIP) that the train step runs once over the whole batch (the
+        JAX package's hoisted trunk)."""
+        return self.dino is not None or self.clip is not None
+
+    @property
+    def embedding_dim(self) -> int:
+        """The width of the patch embeddings the projection reads."""
+        if self.clip is not None:
+            return self.clip.config.hidden_size
+        if self.encoder_type == "Siglip":
+            return self._siglip_shape()[1]
+        return self.dino.hidden_size
 
     @property
     def bf16_trunk(self) -> bool:
@@ -275,8 +355,11 @@ class ViT:
         always runs the layer loop. attentions (a list; the layer loop,
         with sow_dino_attention) receives each layer's attention
         probabilities."""
-        pixels = normalize_pixels(images)
         enc = subtree(params, "encoder/image_encoder/")
+        if self.clip is not None:
+            return self.clip(enc, normalize_pixels(images, "CLIP")
+                             ).last_hidden_state[:, 1:]
+        pixels = normalize_pixels(images)
         if attentions is not None and not self.capture:
             raise ValueError("the trunk captures attention maps only with "
                              "vit_kwargs sow_dino_attention")
@@ -299,8 +382,12 @@ class ViT:
         the trunk switches of the config (the fused training attention, the
         layer kernel, the LayerNorm choice, the fused residual boundaries,
         layer remat). With draws (a training forward), image_embedding_noise
-        adds noise * N(0, 1) to each sample's embeddings."""
-        _check_resolution(images)
+        adds noise * N(0, 1) to each sample's embeddings. A CLIP trunk runs
+        its plain fp32 forward (the JAX CLIP path adds no noise)."""
+        _check_resolution(images, self.encoder_type)
+        if self.clip is not None:
+            return self.clip(trunk_params, normalize_pixels(images, "CLIP")
+                             ).last_hidden_state[:, 1:]
         dtype = torch.bfloat16 if self.bf16_trunk else torch.float32
         emb = dinov2_forward(self.dino, trunk_params, normalize_pixels(images),
                              dtype, remat=self.remat,
@@ -311,15 +398,29 @@ class ViT:
                 "embedding_noise", emb.shape, emb.device)
         return emb
 
-    def _patches(self, params, images, trunk_impl, image_embeddings):
+    def _patches(self, params, images, trunk_impl, image_embeddings,
+                 draws=None, train=False):
         """(B, n_patch, hidden_dim) patch tokens."""
+        if images is not None:
+            _check_resolution(images, self.encoder_type)
         if self.stem is not None:
             return self.stem(params, self.prefix, images)
+        if self.efficientnet is not None:
+            features = self.efficientnet(
+                params, self.prefix, normalize_images(images), train=train,
+                draws=draws)
+            patches = conv_same(features, params["encoder/Conv_0/kernel"],
+                                params["encoder/Conv_0/bias"])
+            return patches.reshape(patches.shape[0], -1, self.hidden_dim)
         emb = image_embeddings
-        if emb is None:
-            _check_resolution(images)
+        if self.encoder_type == "Siglip":
+            if emb is None:
+                raise ValueError("a Siglip ViT reads precomputed patch "
+                                 "embeddings: pass image_embeddings")
+            emb = emb.float()
+        elif emb is None:
             emb = self.image_embeddings(params, images, trunk_impl)
-        if not self.fine_tune:
+        if not self.fine_tune and self.encoder_type != "Siglip":
             emb = emb.detach()
         return layers.dense(
             emb, params["encoder/image_embedding_projection/kernel"],
@@ -338,7 +439,7 @@ class ViT:
         forward's dropout. maps (a dict) receives "policy", every
         transformer block's attention probabilities (B, heads, L, L), and,
         where the trunk runs here and captures, "dino", its layers'."""
-        if (maps is not None and self.stem is None and self.capture
+        if (maps is not None and self.has_trunk and self.capture
                 and image_embeddings is None):
             _check_resolution(images)
             maps["dino"] = []
@@ -347,7 +448,8 @@ class ViT:
             patches = self._patches(params, images, trunk_impl, emb)
         else:
             patches = self._patches(params, images, trunk_impl,
-                                    image_embeddings)
+                                    image_embeddings, draws,
+                                    train=draws is not None)
         batch = patches.shape[0]
         n_lang = 0
         if self.use_language_token:
@@ -379,7 +481,8 @@ class ViT:
         x = transformer(params, "encoder/Transformer_0", x, mask,
                         self.num_layers, self.num_heads, self.dropout_rate,
                         0.0, draws=draws,
-                        maps=None if maps is None else maps["policy"])
+                        maps=None if maps is None else maps["policy"],
+                        use_differential_transformer=self.differential)
         return x[:, -self.action_token_num:]
 
     def specs(self) -> Dict[str, Tuple[tuple, layers.Init]]:
@@ -391,15 +494,26 @@ class ViT:
             (1, n_pos, self.hidden_dim), layers.normal(0.02))}
         if self.stem is not None:
             specs.update(self.stem.specs(self.prefix))
+        elif self.efficientnet is not None:
+            specs.update(self.efficientnet.specs(self.prefix))
+            specs.update({
+                "encoder/Conv_0/bias": ((self.hidden_dim,), layers.zeros),
+                "encoder/Conv_0/kernel": (
+                    (1, 1, self.efficientnet.features, self.hidden_dim),
+                    layers.lecun_normal),
+            })
         else:
             specs.update({
                 "encoder/image_embedding_projection/bias": (
                     (self.hidden_dim,), layers.zeros),
                 "encoder/image_embedding_projection/kernel": (
-                    (self.dino.hidden_size, self.hidden_dim),
+                    (self.embedding_dim, self.hidden_dim),
                     layers.lecun_normal),
             })
-            specs.update(dinov2_specs(self.dino, "encoder/image_encoder"))
+            if self.clip is not None:
+                specs.update(self.clip.specs(self.prefix))
+            elif self.dino is not None:
+                specs.update(dinov2_specs(self.dino, "encoder/image_encoder"))
         if self.use_language_token:
             specs.update({
                 "encoder/language_token_projection/bias": (
@@ -410,5 +524,6 @@ class ViT:
             })
         specs.update(transformer_specs(
             "encoder/Transformer_0", self.hidden_dim, self.num_layers,
-            self.mlp_dim, self.num_heads))
+            self.mlp_dim, self.num_heads,
+            use_differential_transformer=self.differential))
         return specs

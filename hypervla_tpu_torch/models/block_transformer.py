@@ -102,12 +102,7 @@ class BlockTransformer:
 
     def __init__(self, transformer_kwargs: Dict, enforce_causal: bool = True,
                  use_correct_attention: bool = False):
-        kw = dict(transformer_kwargs)
-        if kw.get("use_differential_transformer", False):
-            raise NotImplementedError(
-                "use_differential_transformer: differential attention is "
-                "not ported yet (ROADMAP.md A12.2, second half)")
-        self.transformer_kwargs = kw
+        self.transformer_kwargs = dict(transformer_kwargs)
         self.enforce_causal = enforce_causal
         self.use_correct_attention = use_correct_attention
         # rule masks on their devices, by the groups' layout
@@ -133,7 +128,9 @@ class BlockTransformer:
             kw["num_layers"], kw["num_attention_heads"],
             kw.get("dropout_rate", 0.1), kw.get("attention_dropout_rate", 0.1),
             kw.get("add_position_embedding", False), draws,
-            learnable_norm=kw.get("learnable_norm", True))
+            learnable_norm=kw.get("learnable_norm", True),
+            use_differential_transformer=kw.get(
+                "use_differential_transformer", False))
         return self.split_output_tokens(output, prefix_groups,
                                         timestep_groups)
 
@@ -145,7 +142,9 @@ class BlockTransformer:
             f"{prefix}/Transformer_0", token_dim, kw["num_layers"],
             kw["mlp_dim"], kw["num_attention_heads"],
             sequence_length if kw.get("add_position_embedding") else 0,
-            learnable_norm=kw.get("learnable_norm", True))
+            learnable_norm=kw.get("learnable_norm", True),
+            use_differential_transformer=kw.get(
+                "use_differential_transformer", False))
 
     def assemble_input_tokens(self, prefix_groups, timestep_groups):
         """The timestep groups concatenated a step, the window folded into

@@ -121,6 +121,11 @@ class Draws:
         ).long()
 
 
+class InvalidRngError(Exception):
+    """A module asked for draws of a stream its caller did not give (flax's
+    InvalidRngError of the same name, which the JAX package raises)."""
+
+
 def as_draws(rng) -> Optional[Draws]:
     """A serving call's rng as a Draws: None stays None, a Draws is itself,
     a torch.Generator is drawn from in order."""

@@ -1,12 +1,13 @@
 """Pretrained encoder weights (counterpart of
-hypervla_tpu/models/encoders/pretrained.py): the T5 that the text encoder
-and the trainer read, and the frozen DINOv2 of the trainer.
+hypervla_tpu/models/encoders/pretrained.py): the T5 that the text encoder,
+the trainer and the Octo LanguageTokenizer read, the frozen DINOv2 of the
+trainer, and the CLIP trunk of a CLIP policy.
 
 The JAX package searches $HYPERVLA_PRETRAINED_DIR for flax msgpack dumps
 and the HuggingFace cache for Flax checkpoints; both need flax or
 transformers, which the GPU host lacks. The port reads only its own
 format: `<name>.pt` under $HYPERVLA_PRETRAINED_DIR, a flat {name: tensor}
-dict in the keys of models/encoders/t5.py or dinov2.py (the JAX trainer's
+dict in the keys of models/encoders/t5.py, dinov2.py or clip.py (the JAX trainer's
 _find_msgpack looks in the same directory). Where there is none (no such
 file is in the repository) the loader returns None and the caller keeps a
 random init, as the JAX package does.
@@ -41,3 +42,10 @@ def load_dinov2_weights(name: str = "dinov2-base", device=None
     """The DINOv2 encoder's flat params (models/encoders/dinov2.py's keys
     without a prefix) from `<name>.pt`, or None."""
     return _load(name, device, "frozen image encoder")
+
+
+def load_clip_weights(name: str = "clip-vit-base-patch16", device=None
+                      ) -> Optional[Dict[str, torch.Tensor]]:
+    """The CLIP vision trunk's flat params (models/encoders/clip.py's keys,
+    "vision_model/..."), from `<name>.pt`, or None."""
+    return _load(name, device, "CLIP image encoder")

@@ -124,16 +124,17 @@ def _per_channel(v, channels: int):
     return v.reshape(-1, channels)[:, :, None, None]
 
 
-def conv2d(x, kernel, bias=None, stride: int = 1, padding: int = 0):
+def conv2d(x, kernel, bias=None, stride: int = 1, padding: int = 0,
+           groups: int = 1):
     """flax's NHWC convolution on NCHW activations: x (B, C, H, W); kernel
-    in the JAX HWIO layout, (kh, kw, in, out) shared by the batch or
-    (B, kh, kw, in, out) per sample, as the hypernetwork generates it (the
-    counterpart of the JAX train step's vmap over generated params: one
-    grouped convolution with a group per sample). padding p is
-    [(p, p), (p, p)]; 0 is "VALID"."""
+    in the JAX HWIO layout, (kh, kw, in / groups, out) shared by the batch
+    or (B, kh, kw, in / groups, out) per sample, as the hypernetwork
+    generates it (the counterpart of the JAX train step's vmap over
+    generated params: one grouped convolution with `groups` groups a
+    sample). padding p is [(p, p), (p, p)]; 0 is "VALID"."""
     if kernel.dim() == 4:
         y = F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=stride,
-                     padding=padding)
+                     padding=padding, groups=groups)
     else:
         batch, _, _, c_in, c_out = kernel.shape
         if x.shape[0] != batch:
@@ -141,12 +142,27 @@ def conv2d(x, kernel, bias=None, stride: int = 1, padding: int = 0):
                              f"{x.shape[0]}")
         w = kernel.permute(0, 4, 3, 1, 2).reshape(batch * c_out, c_in,
                                                   *kernel.shape[1:3])
-        y = F.conv2d(x.reshape(1, batch * c_in, *x.shape[2:]), w,
-                     stride=stride, padding=padding, groups=batch)
+        y = F.conv2d(x.reshape(1, batch * x.shape[1], *x.shape[2:]), w,
+                     stride=stride, padding=padding, groups=batch * groups)
         y = y.reshape(batch, c_out, *y.shape[2:])
     if bias is not None:
         y = y + _per_channel(bias, y.shape[1])
     return y
+
+
+def same_padding(size: int, kernel: int, stride: int):
+    """XLA's "SAME" padding of one spatial axis: (low, high), the low side
+    total // 2 (so at stride 2 the odd pixel goes on the high side)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x, kh: int, kw: int, stride: int, value: float = 0.0):
+    """NCHW x padded as XLA's "SAME" pads for a (kh, kw) window."""
+    ph = same_padding(x.shape[2], kh, stride)
+    pw = same_padding(x.shape[3], kw, stride)
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
 
 
 def standardize_kernel(kernel, eps: float = 1e-5):

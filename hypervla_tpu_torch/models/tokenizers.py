@@ -12,8 +12,8 @@ shapes follow the data): `ImageTokenizer` (matching image keys stacked on
 the channel axis, goal images from the task too, through a patch encoder
 of models/vit_encoders.py, FiLM-conditioned on task keys, optionally
 compressed by a `TokenLearner`), `LanguageTokenizer` (precomputed token
-embeddings, as the JAX one takes them; its in-model T5 is not ported) and
-`LowdimObsTokenizer` (non-spatial observations, optionally discretized).
+embeddings, or input ids through its in-model T5 under `<prefix>/hf_model`)
+and `LowdimObsTokenizer` (non-spatial observations, optionally discretized).
 
 The edges are the JAX package's fp32 ones: jnp.linspace's formula
 (start * (1 - step) + stop * step, step = iota / div, the last edge the
@@ -29,8 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from hypervla_tpu_torch.models import layers
+from hypervla_tpu_torch.models.encoders.pretrained import load_t5_weights
+from hypervla_tpu_torch.models.encoders.t5 import t5_config, t5_encode, t5_specs
 from hypervla_tpu_torch.models.token_group import TokenGroup
 from hypervla_tpu_torch.models.transformer import map_head, map_head_specs
+from hypervla_tpu_torch.utils.convert import subtree
 from hypervla_tpu_torch.utils.spec import ModuleSpec
 
 EPS = 1e-6
@@ -280,9 +283,13 @@ class ImageTokenizer:
 
 class LanguageTokenizer:
     """The task's language tokens: tasks["language_instruction"] holds
-    precomputed token embeddings (B, L, D), or (B, D) given a token axis.
-    `encoder` names the JAX module's in-model T5, which is not ported: a
-    task that carries input ids instead of embeddings raises."""
+    precomputed token embeddings (B, L, D), or (B, D) given a token axis,
+    or, with `encoder` (a T5 name of models/encoders/t5.py, e.g.
+    "t5-base"), a dict of input_ids and attention_mask that the in-model
+    T5 embeds. The T5's params live under `<prefix>/hf_model/` in the keys
+    of models/encoders/t5.py (the JAX module's submodule name);
+    `load_weights` puts the pretrained ones there. Without
+    finetune_encoder the tokens are detached."""
 
     def __init__(self, encoder: Optional[str] = None,
                  proper_pad_mask: bool = True,
@@ -300,14 +307,16 @@ class LanguageTokenizer:
                 "Cannot skip unless using proper pad mask.")
             return None
         instruction = tasks["language_instruction"]
-        if not isinstance(instruction, torch.Tensor):
+        if isinstance(instruction, torch.Tensor):
+            tokens = instruction[:, None, :] if instruction.dim() == 2 \
+                else instruction
+        else:
             assert self.encoder is not None, (
                 "Received language tokens but no encoder specified.")
-            raise NotImplementedError(
-                "LanguageTokenizer with an in-model T5 encoder: the port "
-                "takes precomputed token embeddings")
-        tokens = instruction[:, None, :] if instruction.dim() == 2 \
-            else instruction
+            tokens = t5_encode(t5_config(self.encoder),
+                               subtree(params, f"{prefix}/hf_model/"),
+                               instruction["input_ids"],
+                               instruction["attention_mask"])
         if not self.finetune_encoder:
             tokens = tokens.detach()
         if self.proper_pad_mask:
@@ -318,8 +327,29 @@ class LanguageTokenizer:
                               device=tokens.device)
         return TokenGroup(tokens, mask)
 
-    def specs(self, prefix: str, observations, tasks=None):
-        return {}
+    def specs(self, prefix: str, observations=None, tasks=None):
+        if self.encoder is None:
+            return {}
+        return {f"{prefix}/hf_model/{k}": v
+                for k, v in t5_specs(t5_config(self.encoder)).items()}
+
+    def load_weights(self, params, prefix: str, device=None):
+        """params with the in-model T5's leaves replaced by the pretrained
+        ones of models/encoders/pretrained.py::load_t5_weights where there
+        are any (the JAX package's hf_weights_loader), else as they are."""
+        if self.encoder is None:
+            return params
+        weights = load_t5_weights(self.encoder, device=device)
+        if weights is None:
+            return params
+        out = dict(params)
+        for key, value in weights.items():
+            name = f"{prefix}/hf_model/{key}"
+            if name not in out or out[name].shape != value.shape:
+                raise ValueError(f"pretrained {self.encoder} leaf {key} does "
+                                 "not fit the tokenizer's T5")
+            out[name] = value.to(out[name].device, out[name].dtype)
+        return out
 
 
 class LowdimObsTokenizer(BinTokenizer):

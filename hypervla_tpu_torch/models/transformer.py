@@ -10,6 +10,9 @@ paths under `prefix` (models/draws.py): after the position table
 the MLP's GELU and after its output (MlpBlock_0/Dropout_0, Dropout_1);
 without draws it is the identity. learnable_norm=False strips the
 LayerNorms' scale and bias, as the JAX stack's switch does.
+use_differential_transformer swaps each block's attention for the
+differential attention (models/attention.py, "DifferentialAttention_0",
+lambda_init from the block's depth), which takes no attention dropout.
 
 `map_head` is the JAX MAPHead: learned probe tokens cross-attend into a
 sequence, then a residual MLP (the pooling of the Octo heads and of the
@@ -19,6 +22,8 @@ from typing import Dict, List, Optional, Tuple
 
 from hypervla_tpu_torch.models import layers
 from hypervla_tpu_torch.models.attention import (
+    differential_attention,
+    differential_attention_specs,
     multi_head_attention,
     multi_head_attention_specs,
 )
@@ -49,13 +54,20 @@ def encoder_block(params, prefix: str, x, mask, num_heads: int,
                   dropout_rate: float = 0.0,
                   attention_dropout_rate: float = 0.0,
                   draws: Optional[Draws] = None,
-                  maps: Optional[List] = None, learnable_norm: bool = True):
+                  maps: Optional[List] = None, learnable_norm: bool = True,
+                  differential: bool = False, depth: int = 0):
     """One block; its attention probabilities (after the attention
-    dropout, as the JAX block returns them) are appended to `maps`."""
+    dropout, as the JAX block returns them; with `differential`, the
+    differential map) are appended to `maps`."""
     y = _ln(params, f"{prefix}/LayerNorm_0", x, learnable_norm)
-    attended, probs = multi_head_attention(
-        params, f"{prefix}/MultiHeadAttention_0", y, y, mask, num_heads,
-        attention_dropout_rate, draws, return_weights=True)
+    if differential:
+        attended, probs = differential_attention(
+            params, f"{prefix}/DifferentialAttention_0", y, mask,
+            y.shape[-1], num_heads, depth=depth)
+    else:
+        attended, probs = multi_head_attention(
+            params, f"{prefix}/MultiHeadAttention_0", y, y, mask, num_heads,
+            attention_dropout_rate, draws, return_weights=True)
     if maps is not None:
         maps.append(probs)
     x = x + dropout(attended, dropout_rate, draws, f"{prefix}/Dropout_0")
@@ -69,7 +81,8 @@ def transformer(params, prefix: str, x, mask, num_layers: int,
                 attention_dropout_rate: float = 0.0,
                 add_position_embedding: bool = False,
                 draws: Optional[Draws] = None,
-                maps: Optional[List] = None, learnable_norm: bool = True):
+                maps: Optional[List] = None, learnable_norm: bool = True,
+                use_differential_transformer: bool = False):
     """(batch, len, emb) -> encoded (batch, len, emb). maps, if given,
     collects every block's attention probabilities (batch, heads, len,
     len)."""
@@ -80,14 +93,16 @@ def transformer(params, prefix: str, x, mask, num_layers: int,
         x = encoder_block(params, f"{prefix}/encoderblock_{depth}", x, mask,
                           num_attention_heads, dropout_rate,
                           attention_dropout_rate, draws, maps,
-                          learnable_norm)
+                          learnable_norm, use_differential_transformer,
+                          depth)
     return _ln(params, f"{prefix}/encoder_norm", x, learnable_norm)
 
 
 def transformer_specs(prefix: str, embedding_dim: int, num_layers: int,
                       mlp_dim: int, num_attention_heads: int,
                       position_embedding_len: int = 0,
-                      learnable_norm: bool = True
+                      learnable_norm: bool = True,
+                      use_differential_transformer: bool = False
                       ) -> Dict[str, Tuple[tuple, layers.Init]]:
     """Param shapes and initializers of `transformer`; with
     position_embedding_len, the (1, len, emb) table of
@@ -113,9 +128,14 @@ def transformer_specs(prefix: str, embedding_dim: int, num_layers: int,
                 (fin, fout), layers.xavier_uniform())
             specs[f"{block}/MlpBlock_0/{name}/bias"] = (
                 (fout,), layers.normal(1e-6))
-        specs.update(multi_head_attention_specs(
-            f"{block}/MultiHeadAttention_0", embedding_dim,
-            num_attention_heads))
+        if use_differential_transformer:
+            specs.update(differential_attention_specs(
+                f"{block}/DifferentialAttention_0", embedding_dim,
+                num_attention_heads))
+        else:
+            specs.update(multi_head_attention_specs(
+                f"{block}/MultiHeadAttention_0", embedding_dim,
+                num_attention_heads))
     norm(f"{prefix}/encoder_norm")
     return specs
 

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from hypervla_tpu_torch.models.base_network import BaseNetwork
+from hypervla_tpu_torch.models.encoders.pretrained import load_clip_weights
 
 BIAS_INIT = 0  # InitOptions.BIAS_INIT
 VARIANCE_INIT = 1  # InitOptions.VARIANCE_INIT
@@ -112,7 +113,9 @@ def _head_info(name, shape, generated, hk):
 def _token_indices(names, hk, encoder_type):
     """Context-token index per block and the layer-token mask, in the JAX
     plan's order: each SmallStem module (its own token, generated unless
-    the stem is shared) or the shared DINOv2 image encoder, each
+    the stem is shared), or the shared EfficientNet, or the shared DINOv2
+    or CLIP image encoder (one token each, AssertionError where the
+    config does not share them, as the JAX plan asserts), each
     Transformer_0 child, the other encoder children, the action head."""
     if hk.get("share_layer_index", False):
         return {n: 0 for n in names}, (True,)
@@ -130,9 +133,15 @@ def _token_indices(names, hk, encoder_type):
                        if n.startswith("encoder/SmallStem_0/")})
         groups += [f"encoder/SmallStem_0/{m}" for m in stem]
         mask += [("SmallStem_0" not in shared_modules)] * len(stem)
-    elif encoder_type == "DINOv2":
+    elif encoder_type == "EfficientNet":
+        if "EfficientNet" not in shared_modules:
+            raise AssertionError("Only shared EfficientNet is supported")
+        subtree("EfficientNet_0")
+        groups.append("encoder/EfficientNet_0")
+        mask.append(False)
+    elif encoder_type in ("DINOv2", "CLIP"):
         if "image_encoder" not in shared_modules:
-            raise ValueError("Pretrained image encoders must be shared")
+            raise AssertionError("Pretrained image encoders must be shared")
         subtree("image_encoder")
         groups.append("encoder/image_encoder")
         mask.append(False)
@@ -143,7 +152,8 @@ def _token_indices(names, hk, encoder_type):
     enc_children = sorted({n.split("/")[1] for n in names
                            if n.startswith("encoder/")})
     groups += [f"encoder/{m}" for m in enc_children
-               if m not in ("Transformer_0", "image_encoder", "SmallStem_0")]
+               if m not in ("Transformer_0", "image_encoder", "SmallStem_0",
+                            "EfficientNet_0")]
     groups.append("action_head")
     mask += [True] * (len(groups) - n_fixed)
     index = {}
@@ -156,13 +166,18 @@ def _token_indices(names, hk, encoder_type):
 
 def input_shapes(example_batch: Optional[dict]) -> dict:
     """The shapes the base net's params depend on, read off an example
-    batch: "image" (H, W) of its primary camera, where it has one, and
+    batch: "image" (H, W) of its primary camera, where it has one,
+    "patch_embeddings" (tokens, dim) of its observation's precomputed
+    patch embeddings (a Siglip policy's), where it has them, and
     "instruction" (L, token_dim) of its instruction's token embedding."""
     shapes = {}
     batch = example_batch or {}
     image = (batch.get("observation") or {}).get("image_primary")
     if image is not None:
         shapes["image"] = tuple(image.shape[-3:-1])
+    patches = (batch.get("observation") or {}).get("patch_embeddings")
+    if patches is not None:
+        shapes["patch_embeddings"] = tuple(patches.shape[-2:])
     tokens = ((batch.get("task") or {}).get("language_instruction")
               or {}).get("token_embedding")
     if tokens is not None:
@@ -205,7 +220,10 @@ def init_base_net(config: dict, generator: torch.Generator,
 
     Returns (base_net, init_params, plan); init_params is a flat dict of
     fp32 CPU tensors keyed by block path. Pretrained DINOv2 weights are not
-    in the repository, so the shared trunk keeps its random init."""
+    in the repository, so the shared trunk keeps its random init; a CLIP
+    trunk takes models/encoders/pretrained.py::load_clip_weights where
+    there are any (the JAX plan's load_clip_weights), else its random
+    init too."""
     base_net = BaseNetwork(**config["base_net_kwargs"],
                            octo_kwargs=config.get("model"),
                            input_shapes=input_shapes(example_batch))
@@ -214,4 +232,12 @@ def init_base_net(config: dict, generator: torch.Generator,
     # draw in the plan's order so a seed fixes every value
     params = {n: specs[n][1](specs[n][0], generator).float()
               for n in plan.names}
+    if base_net.encoder.encoder_type == "CLIP":
+        weights = load_clip_weights()
+        for key, value in (weights or {}).items():
+            name = f"encoder/image_encoder/{key}"
+            if name not in params or params[name].shape != value.shape:
+                raise ValueError(f"pretrained CLIP leaf {key} does not fit "
+                                 "the base net's CLIP")
+            params[name] = value.float().cpu()
     return base_net, params, plan

@@ -5,7 +5,9 @@
 
 `--config` is `<file.py>:<string>`, whose `get_config(string)` returns a
 dict or anything with `.to_dict()`, or a built-in config:
-`<size>,<dataset>[,fast]` alone or after `hypervla_pretrain_config:`, or
+`<size>,<dataset>[,fast]` alone or after `hypervla_pretrain_config:` or
+`base_pretrain_config:` (the BaseModel ablation, trained as a HyperVLA
+whose blocks are all shared, as the JAX trainer trains it), or
 `<size>,<dataset>[,full|head_only|head_mlp_only]` after
 `finetune_config:` (or the JAX command line's path to either file, whose
 copies they are: configs.py::hypervla_pretrain_config, finetune_config;
@@ -36,6 +38,7 @@ import os
 from typing import Any, Dict, List, Optional
 
 from hypervla_tpu_torch.configs import (
+    base_pretrain_config,
     finetune_config,
     hypervla_pretrain_config,
     octo_pretrain_config,
@@ -45,6 +48,7 @@ from hypervla_tpu_torch.parallel.mesh import init_distributed, process_index
 #: the built-in configs by name: the JAX command line's config files,
 #: whose copies the port holds
 BUILTIN_CONFIGS = {"hypervla_pretrain_config": hypervla_pretrain_config,
+                   "base_pretrain_config": base_pretrain_config,
                    "finetune_config": finetune_config,
                    "octo_pretrain_config": octo_pretrain_config}
 DEFAULT_CONFIG = "vit_t,oxe"

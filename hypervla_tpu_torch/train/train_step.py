@@ -3,9 +3,12 @@ in-step frozen T5 embed of the instruction (with the "replace" rephrase
 strategy) and frozen DINOv2 encode of the initial image, the hypernetwork
 and the per-sample base-net loss with the sample axis written out (the JAX
 step vmaps it over the per-sample generated params), its batch mean,
-backward, the optimizer, and the EMA of the params. A shared DINOv2 trunk
-runs once over the whole batch (the JAX package's `hoist_shared_trunk`
-layout, which tests/test_hoist_trunk.py pins equal to its per-sample vmap);
+backward, the optimizer, and the EMA of the params. A shared DINOv2 or CLIP
+trunk runs once over the whole batch (the JAX package's
+`hoist_shared_trunk` layout, which tests/test_hoist_trunk.py pins equal to
+its per-sample vmap); a Siglip policy reads the batch's observation
+patch_embeddings; a shared EfficientNet runs over the whole batch inside
+the loss, its stochastic depth drawn per sample;
 a generated image encoder (SmallStem, PatchEncoder) runs per sample inside
 the loss, its convolutions grouped by sample (models/layers.py::conv2d),
 as the JAX step does without the hoist.
@@ -78,7 +81,7 @@ def _check_layer_kernel_hoist(config: Dict[str, Any]) -> None:
     hoist = bool(
         config.get("hoist_shared_trunk", False)
         and config["base_net_kwargs"].get("model_type") == "vit"
-        and vk.get("encoder_type") == "DINOv2"
+        and vk.get("encoder_type") in ("DINOv2", "CLIP")
         and float(vk.get("image_embedding_noise", 0.0)) == 0.0
         and not vk.get("sow_dino_attention", False)
         and "image_encoder" in shared)
@@ -134,13 +137,14 @@ def aux_losses(config: Dict[str, Any], losses, maps: dict, batch,
 
 def _check_aux(config: Dict[str, Any]) -> None:
     """The aux losses read the policy ViT's attention map, which the JAX
-    ViT returns only with return_attention_map (else 0.0, which the JAX
-    step fails to index with a TypeError)."""
+    ViT returns only with return_attention_map or differential attention
+    (else 0.0, which the JAX step fails to index with a TypeError)."""
     aux = config["auxiliary_loss"]
     vk = config["base_net_kwargs"]["vit_kwargs"]
     wanted = (aux.get("attention_entropy", 0.0) > 0.0
               or aux.get("attention_map_alignment", 0.0) > 0.0)
-    if wanted and not vk.get("return_attention_map", False):
+    if wanted and not (vk.get("return_attention_map", False)
+                       or vk.get("use_differential_transformer", False)):
         raise TypeError(
             "auxiliary_loss attention_entropy / attention_map_alignment "
             "read the policy ViT's attention map: set vit_kwargs "
@@ -314,12 +318,14 @@ def make_train_step(model, config: Dict[str, Any], tx,
         for p in params.values():
             p.grad = None
         emb = None
-        if encoder.has_trunk:
+        if encoder.batched_encoder:
             # the shared trunk, batched over the whole batch (hoisted)
             with torch.set_grad_enabled(encoder.fine_tune):
                 emb = encoder.train_image_embeddings(
                     model.shared_params(params=params),
                     batch["observation"]["image_primary"].squeeze(1), draws)
+        elif encoder.encoder_type == "Siglip":
+            emb = batch["observation"]["patch_embeddings"]
         # the hypernetwork and the per-sample loss, sample axis written out
         ctx = model.hypernet.task_context(
             params, dict(batch["task"], language_instruction=instr),

@@ -26,7 +26,10 @@ from hypervla_tpu.eval import model_loading as jloading
 from hypervla_tpu.eval import octo_inference as joctoinf
 from hypervla_tpu.eval import simpler as jsimpler
 from hypervla_tpu.eval import visualization as jviz
+from hypervla_tpu.models import base_model as jbase_model
+from hypervla_tpu.models import efficientnet as jefficientnet
 from hypervla_tpu.models import hypervla as jhypervla
+from hypervla_tpu.models.encoders import clip as jclip
 from hypervla_tpu.models import octo_model as joctomodel
 from hypervla_tpu.ops import serving as jserving
 from hypervla_tpu.train import callbacks as jcallbacks
@@ -40,7 +43,10 @@ from hypervla_tpu_torch.eval import model_loading
 from hypervla_tpu_torch.eval import octo_inference
 from hypervla_tpu_torch.eval import simpler
 from hypervla_tpu_torch.eval import visualization
+from hypervla_tpu_torch.models import base_model
+from hypervla_tpu_torch.models import efficientnet
 from hypervla_tpu_torch.models import hypervla
+from hypervla_tpu_torch.models.encoders import clip
 from hypervla_tpu_torch.models import octo_model
 from hypervla_tpu_torch.ops import serving
 from hypervla_tpu_torch.train import callbacks
@@ -93,12 +99,29 @@ ENTRY_POINTS = {
     "OctoInference.step": (joctoinf.OctoInference.step,
                            octo_inference.OctoInference.step),
     "octo_train.run": (None, octo_train.run),
+    "BaseModel.from_config": (jbase_model.BaseModel.from_config,
+                              base_model.BaseModel.from_config),
+    "BaseModel.create_tasks": (jbase_model.BaseModel.create_tasks,
+                               base_model.BaseModel.create_tasks),
+    "BaseModel.sample_actions": (jbase_model.BaseModel.sample_actions,
+                                 base_model.BaseModel.sample_actions),
+    "BaseModel.save_pretrained": (jbase_model.BaseModel.save_pretrained,
+                                  base_model.BaseModel.save_pretrained),
+    "BaseModel.load_pretrained": (jbase_model.BaseModel.load_pretrained,
+                                  base_model.BaseModel.load_pretrained),
+    # the flax modules' calls: the port's take their params (and a prefix,
+    # and the backbone its draws) besides the JAX arguments
+    "CLIPVisionModel": (jclip.CLIPVisionModel.__call__,
+                        clip.CLIPVisionModel.__call__),
+    "EfficientNet": (jefficientnet.EfficientNet.__call__,
+                     efficientnet.EfficientNet.__call__),
 }
 #: the entry points where the port adds `device` (the CUDA card unless the
 #: caller asks for another), and no other parameter
 WITH_DEVICE = {"load_hypervla_policy", "train", "HFTokenizer",
                "OctoModel.from_config", "OctoModel.load_pretrained",
-               "octo_train.run"}
+               "octo_train.run", "BaseModel.from_config",
+               "BaseModel.load_pretrained"}
 #: the entry points of the eval stack and the text processors, which take
 #: the JAX parameters and, where WITH_DEVICE names them, `device`
 NEW_ENTRY_POINTS = ("simpler.evaluate", "libero.evaluate", "HFTokenizer",
@@ -109,7 +132,9 @@ NEW_ENTRY_POINTS = ("simpler.evaluate", "libero.evaluate", "HFTokenizer",
                     "OctoModel.from_config", "OctoModel.save_pretrained",
                     "OctoModel.load_pretrained", "OctoInference",
                     "OctoInference.reset", "OctoInference.step",
-                    "octo_train.run")
+                    "octo_train.run", "BaseModel.from_config",
+                    "BaseModel.create_tasks", "BaseModel.save_pretrained",
+                    "BaseModel.load_pretrained")
 #: the TPU-only parameters the port leaves out (the module docstring)
 TPU_ONLY = ("pack_args", "keep_bytes", "coerce")
 

@@ -213,8 +213,7 @@ def test_named_stems_match_jax(name):
     out = got(params, "s", torch.tensor(images), **got_film)
     np.testing.assert_allclose(out.numpy(), np.asarray(want).reshape(
         out.shape), **TOL)
-    assert sorted(vit.vit_encoder_configs) == sorted(
-        k for k in jvit.vit_encoder_configs if not k.startswith("resnet"))
+    assert sorted(vit.vit_encoder_configs) == sorted(jvit.vit_encoder_configs)
 
 
 def test_small_stem_16_and_the_film_contract():
@@ -222,9 +221,16 @@ def test_small_stem_16_and_the_film_contract():
     stem = vit.SmallStem16(use_film=True)
     with pytest.raises(AssertionError, match="cond_var iff use_film"):
         stem({}, "s", torch.zeros((1, 32, 32, 3), dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="imagenet"):
-        vit.PatchEncoder(img_norm_type="imagenet")(
-            {}, "s", torch.zeros((1, 32, 32, 3), dtype=torch.uint8))
+    # the "imagenet" normalization (tests/test_torch_resnet_stems.py holds
+    # it to the JAX one) reaches the stem's convolution
+    img = np.random.default_rng(0).integers(0, 256, (1, 32, 32, 3),
+                                            dtype=np.uint8)
+    ref = jvit.PatchEncoder(img_norm_type="imagenet", patch_size=16)
+    variables = _perturbed(ref.init(jax.random.PRNGKey(0), img))
+    got = vit.PatchEncoder(img_norm_type="imagenet", patch_size=16)(
+        _ported(variables["params"], "s"), "s", torch.tensor(img))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref.apply(
+        variables, img)).reshape(got.shape), **TOL)
 
 
 # ------------------------------ tokenizers ------------------------------
@@ -313,9 +319,14 @@ def test_language_tokenizer_matches_jax(pad):
     np.testing.assert_array_equal(out.mask.numpy(),
                                   np.asarray(want.mask).astype(bool))
     assert tok.LanguageTokenizer()({}, "l", {}, {}) is None
-    with pytest.raises(NotImplementedError, match="precomputed"):
-        tok.LanguageTokenizer(encoder="t5-base")(
-            {}, "l", {}, {"language_instruction": {"input_ids": None}})
+    # token ids without an encoder (the in-model T5 is held to the JAX one
+    # in tests/test_torch_resnet_stems.py)
+    ids = {"language_instruction": {"input_ids": np.zeros((1, 2), np.int32),
+                                    "attention_mask": np.ones((1, 2))}}
+    with pytest.raises(AssertionError, match="no encoder specified"):
+        jtok.LanguageTokenizer().apply({}, {}, ids)
+    with pytest.raises(AssertionError, match="no encoder specified"):
+        tok.LanguageTokenizer()({}, "l", {}, ids)
 
 
 @pytest.mark.parametrize("discretize", [False, True])

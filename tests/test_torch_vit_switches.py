@@ -54,12 +54,12 @@ HONOURED = {
     "scan_dino_layers": (True, {"sow_dino_attention": False}),
     "remat_dino": (True, {}),
     "dino_remat_policy": ("dots", {}),
+    "encoder_type": ("CLIP", {}),
+    "use_differential_transformer": (True, {}),
 }
 
 # field -> a non-default value that the constructor refuses
 REFUSED = {
-    "encoder_type": "CLIP",
-    "use_differential_transformer": True,
     "flash_attention_trainable": True,
 }
 
@@ -181,6 +181,7 @@ LIFTED = {
                          {"sow_dino_attention": False}),
     "remat_dino": ("DINOv2", True, 224),
     "dino_remat_policy": ("DINOv2", "dots", 224),
+    "use_differential_transformer": ("SmallStem", True, 64),
 }
 
 

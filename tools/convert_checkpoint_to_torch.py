@@ -22,6 +22,14 @@ is "octo", or without hypernet_kwargs) converts into the layout of
 hypervla_tpu_torch/models/octo_model.py, its config's ModuleSpecs pointed
 at the port's modules; the port loads it with
 `OctoModel.load_pretrained(<torch_dir>)`.
+
+A checkpoint of the JAX BaseModel (the no-hypernetwork ablation's
+save_pretrained: a config whose model_class is "base_model" and params
+that are the base net's tree, "encoder" and "action_head") converts its
+base-net params as they are; the port loads it with
+`BaseModel.load_pretrained(<torch_dir>)`. The JAX trainer trains that
+config as a HyperVLA whose blocks are all shared, and its checkpoints
+convert as any HyperVLA's.
 """
 import argparse
 import json
@@ -35,6 +43,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from hypervla_tpu.models.base_model import BaseModel  # noqa: E402
 from hypervla_tpu.models.hypervla import HyperVLA  # noqa: E402
 from hypervla_tpu.models.octo_model import OctoModel  # noqa: E402
 from hypervla_tpu_torch.models.hypervla import EMA_FILE, PARAMS_FILE  # noqa: E402
@@ -66,6 +75,30 @@ def _convert_octo(src: str, dst: str, steps: list) -> None:
                    os.path.join(out, PARAMS_FILE))
 
 
+#: the top-level keys of a base net's param tree
+BASE_NET_KEYS = {"encoder", "action_head"}
+
+
+def is_base_model(src: str, config: dict, step: int) -> bool:
+    """Whether the checkpoint at src holds a JAX BaseModel's params (the
+    base net's tree) at `step`, rather than a HyperVLA's."""
+    if config.get("model_class") != "base_model":
+        return False
+    import orbax.checkpoint as ocp
+
+    tree = ocp.CheckpointManager(os.path.abspath(src)).restore(step)
+    return set(tree) <= BASE_NET_KEYS
+
+
+def _convert_base_model(src: str, dst: str, steps: list) -> None:
+    for s in steps:
+        out = os.path.join(dst, str(s))
+        os.makedirs(out, exist_ok=True)
+        model = BaseModel.load_pretrained(src, step=s)
+        torch.save(from_jax_params(model.params),
+                   os.path.join(out, PARAMS_FILE))
+
+
 def convert(src: str, dst: str, step=None) -> list:
     """Converts the step `step` (None: every step directory) of the JAX
     checkpoint at src into the port's layout at dst; returns the steps."""
@@ -84,9 +117,13 @@ def convert(src: str, dst: str, step=None) -> list:
     steps = ([step] if step is not None else
              sorted(int(d) for d in os.listdir(src) if d.isdigit()))
     with open(os.path.join(src, "config.json")) as f:
-        if is_octo(json.load(f)):
-            _convert_octo(src, dst, steps)
-            return steps
+        config = json.load(f)
+    if is_octo(config):
+        _convert_octo(src, dst, steps)
+        return steps
+    if steps and is_base_model(src, config, steps[0]):
+        _convert_base_model(src, dst, steps)
+        return steps
     for s in steps:
         out = os.path.join(dst, str(s))
         os.makedirs(out, exist_ok=True)
