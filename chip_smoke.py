@@ -58,7 +58,11 @@
    rows that keep the first kernels, in bf16 and fp32, timed beside them),
    and the fused exact GELU at the training shapes, each against its plain
    version, timed with its bound and the one PyTorch call for the same
-   function.
+   function. The differentiable flash attention (csrc/
+   flash_attention_train.cu), forward and backward, bf16 and fp32, at the
+   flagship's training shape (64, 257, 12, 64) and at S = 1, 17, 300 with
+   head dims 32 and 128: against its plain versions, twice bit for bit,
+   timed beside scaled_dot_product_attention's forward and backward.
    The add + LayerNorm without LayerScale lies on no model path: its
    differentiable function is driven once, counted, forward and backward.
    Training kernel phase, at B=64, S=257, H=12, D=64, width 768, each
@@ -76,7 +80,7 @@
 5. Train phase: the full-width flagship at batch 64 through the entry
    points of scripts/bench_train.py (build_frozen_encoders,
    make_train_step), the frozen T5 and DINOv2 drawn from seeds, the LR at
-   its peak, on one fixed batch, under three configurations: the fast
+   its peak, on one fixed batch, under four configurations: the fast
    training preset (fused attention in a cuBLAS trunk, the frozen encoder
    through the layer forward), and the fast preset with the layer-kernel
    trunk (hoist_shared_trunk, dino_layers_impl="pallas_train",
@@ -86,10 +90,14 @@
    preset with dino_fused_add_ln=True and HYPERVLA_FUSED_GELU=1 (set for
    that configuration's steps only): every residual boundary of the trunk
    through fused_add_scale_ln forward and backward, the trunk's GELU
-   forward through the fused kernel. For each:
+   forward through the fused kernel, and the fast preset with
+   dino_fused_attention=False, use_flash_attention=True and
+   flash_attention_trainable=True (scripts/bench_train.py --flash): every
+   trunk attention through the differentiable flash attention, forward and
+   backward. For each:
    every step's launches, a finite and falling loss, and the first step
    against the plain path (the same step with the kernel switches off);
-   all four timed in turns. Then, from the fast preset's starting state:
+   all five timed in turns. Then, from the fast preset's starting state:
    the step with optimizer.packed=True (AdamW over one flat buffer per
    label and decay flag) beside the per-leaf step, the new params bit for
    bit, both traced for their kernels a step and timed in turns; and the
@@ -308,7 +316,7 @@ SCAN_FRAMES = 48      # frames through the K-tick step
 TASKS = 4             # tasks a tick of the multi-task step
 MULTI_TICKS = 5
 SOURCES = ("dino_layer.cu", "fused_attention.cu", "layer_backward.cu",
-           "row_kernels.cu", "flash_attention.cu")
+           "row_kernels.cu", "flash_attention.cu", "flash_attention_train.cu")
 TRUNK_SOURCE = "hypervla_tpu_torch/csrc/dino_layer.cu"
 TPU_KERNEL = "hypervla_tpu/ops/dino_layer.py:87"  # `_kernel`, the Pallas body
 # the training kernels: (source, the Pallas body each replaces)
@@ -356,6 +364,14 @@ ROW_FLASH_KERNELS = {
     "fused_add_scale_ln_bwd": (ROW_SOURCE,
                                "hypervla_tpu/ops/add_layer_norm.py:221"),
     "gelu_exact_fused": (ROW_SOURCE, "hypervla_tpu/ops/gelu.py:63"),
+    # no Pallas kernel: the JAX function calls jax's library flash attention
+    # on a TPU and runs the einsum attention elsewhere
+    "mha_flash_trainable_fwd": (
+        "hypervla_tpu_torch/csrc/flash_attention_train.cu",
+        "hypervla_tpu/ops/flash_attention.py:124"),
+    "mha_flash_trainable_bwd": (
+        "hypervla_tpu_torch/csrc/flash_attention_train.cu",
+        "hypervla_tpu/ops/flash_attention.py:124"),
 }
 # the card's published peaks (H100 SXM): device memory, dense bf16 on the
 # tensor cores, fp32 outside them
@@ -1108,8 +1124,9 @@ def redesign_phase(device):
 
 def row_flash_kernel_phase(device):
     """Checks and times the forward-only serving kernels at the serving
-    shapes (the flash attention at B=64 too) and the fused residual
-    boundaries and the fused GELU at the training shapes."""
+    shapes (the flash attention at B=64 too), the fused residual
+    boundaries and the fused GELU at the training shapes, and the
+    differentiable flash attention."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1419,7 +1436,97 @@ def row_flash_kernel_phase(device):
                              "forward and one backward")
     del leaves, params, xn, y, ref
 
+    trainable_flash_checks(table, t, check)
     return table.log_rows(", per launch"), driven
+
+
+def trainable_flash_checks(table, t, check):
+    """The differentiable flash attention (ops/flash_attention_train.py),
+    forward and backward: against its plain versions and twice bit for
+    bit, bf16 and fp32, at the flagship's training shape and at ragged
+    sequences (1, 17, 300 keys) and head dims (32, 128: fp32(q) * scale as
+    three bf16 terms). The bf16 training shape goes through `table` (its
+    bound, device time and scaled_dot_product_attention's forward, and
+    backward alone over a kept graph); the others are timed by CUDA
+    events."""
+    import torch
+    import torch.nn.functional as F
+
+    from hypervla_tpu_torch.ops import flash_attention_train as ft
+
+    def case(b, s, h, d, dtype, iters):
+        bf16 = dtype == torch.bfloat16
+        q, k, v, g = (t((b, s, h, d), dtype) for _ in range(4))
+        label = f"({b}, {s}, {h}, {d}) {str(dtype)[6:]}"
+        bound = ULP_BOUND if bf16 else 1e-5
+        o, m, n = ft.mha_flash_trainable_fwd(q, k, v)
+        grads = ft.mha_flash_trainable_bwd(q, k, v, g, m, n)
+        torch.cuda.synchronize()
+        ref_o, ref_m, ref_n = ft.mha_flash_trainable_fwd_reference(q, k, v)
+        err_f = check("mha_flash_trainable_fwd", f"{label} o", o, ref_o,
+                      bound)
+        check("mha_flash_trainable_fwd", f"{label} row max", m, ref_m, 1e-5)
+        check("mha_flash_trainable_fwd", f"{label} row sum", n, ref_n, 1e-5)
+        refs = ft.mha_flash_trainable_bwd_reference(q, k, v, g, m, n)
+        err_b = max(check("mha_flash_trainable_bwd", f"{label} {name}", got,
+                          ref, bound)
+                    for name, got, ref in zip(("dq", "dk", "dv"), grads,
+                                              refs))
+        again = (*ft.mha_flash_trainable_fwd(q, k, v),
+                 *ft.mha_flash_trainable_bwd(q, k, v, g, m, n))
+        if not all(torch.equal(a, c) for a, c in zip((o, m, n, *grads),
+                                                     again)):
+            raise AssertionError(f"mha_flash_trainable {label}: two runs "
+                                 "differ")
+        del ref_o, ref_m, ref_n, refs, again
+        # the library call on the same (B, heads, S, d) views: its forward,
+        # and its backward alone, replayed over one kept graph
+        qt, kt, vt, gt = (a.transpose(1, 2) for a in (q, k, v, g))
+        leaves = [a.detach().requires_grad_(True) for a in (qt, kt, vt)]
+        out = F.scaled_dot_product_attention(*leaves)
+        fwd = (lambda: ft.mha_flash_trainable_fwd(q, k, v),
+               lambda: ft.mha_flash_trainable_fwd_reference(q, k, v),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bwd = (lambda: ft.mha_flash_trainable_bwd(q, k, v, g, m, n),
+               lambda: ft.mha_flash_trainable_bwd_reference(q, k, v, g, m,
+                                                            n),
+               lambda: torch.autograd.grad(out, leaves, gt,
+                                           retain_graph=True))
+        # scores and P.V forward; the backward's four products and the
+        # scores again
+        flops = 4 * b * h * s * s * d
+        if s != 257 or not bf16:
+            times = [(*interleaved(kernel, plain, iters),
+                      cuda_ms(library, iters))
+                     for kernel, plain, library in (fwd, bwd)]
+            peak = PEAK_BF16 if bf16 else PEAK_FP32
+            least = [bound_ms(nbytes(q, k, v, o, m, n), flops, peak),
+                     bound_ms(nbytes(q, k, v, g, m, n, *grads), 2.5 * flops,
+                              peak)]
+            log(f"kernel mha_flash_trainable {label}: within the bounds, two "
+                "runs bit-equal; ms fwd / bwd (CUDA events): kernel "
+                f"{times[0][0]:.6g} / {times[1][0]:.6g}, plain "
+                f"{times[0][1]:.6g} / {times[1][1]:.6g}, "
+                "scaled_dot_product_attention "
+                f"{times[0][2]:.6g} / {times[1][2]:.6g}; bound_ms "
+                f"{least[0][0]:.6g} ({least[0][1]}) / {least[1][0]:.6g} "
+                f"({least[1][1]})")
+            return
+        with torch.no_grad():
+            table.add("mha_flash_trainable_fwd", label, err_f, *fwd[:2],
+                      iters, (nbytes(q, k, v, o, m, n), flops, PEAK_BF16),
+                      fwd[2])
+        table.add("mha_flash_trainable_bwd", label, err_b, *bwd[:2], iters,
+                  (nbytes(q, k, v, g, m, n, *grads), 2.5 * flops, PEAK_BF16),
+                  bwd[2])
+        log(f"kernel mha_flash_trainable {label}: within the bounds, two runs "
+            "bit-equal")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        case(TRAIN_BATCH, 257, 12, 64, dtype, 10)
+        for s in (1, 17, 300):
+            for d in (32, 128):
+                case(2, s, 3, d, dtype, 10)
 
 
 def make_wrapper(model, trunk_impl):
@@ -2448,10 +2555,11 @@ def fused_gelu_env(on):
 
 def train_phase(device):
     """Drives the full-width flagship's training step through the entry
-    points of scripts/bench_train.py under three kernel configurations (the
+    points of scripts/bench_train.py under four kernel configurations (the
     fast preset; the fast preset with the layer-kernel trunk; the fast
-    preset with the fused residual boundaries and the fused GELU) and on
-    the plain path. Returns each kernel configuration's launches."""
+    preset with the fused residual boundaries and the fused GELU; the fast
+    preset with the differentiable flash attention) and on the plain path.
+    Returns each kernel configuration's launches."""
     import copy
 
     import torch
@@ -2463,6 +2571,7 @@ def train_phase(device):
     from hypervla_tpu_torch.ops import add_layer_norm as aln
     from hypervla_tpu_torch.ops import dino_layer as dl
     from hypervla_tpu_torch.ops import dino_layer_train as dlt
+    from hypervla_tpu_torch.ops import flash_attention_train as ft
     from hypervla_tpu_torch.ops import fused_attention as fa
     from hypervla_tpu_torch.ops import gelu as tg
     from hypervla_tpu_torch.ops import layer_norm as tln
@@ -2492,13 +2601,21 @@ def train_phase(device):
     # HYPERVLA_FUSED_GELU=1 during its steps, the trunk's GELU forward too
     fused = copy.deepcopy(fast)
     fused["base_net_kwargs"]["vit_kwargs"]["dino_fused_add_ln"] = True
+    # the differentiable flash attention (scripts/bench_train.py --flash):
+    # every trunk attention through it, forward and backward; the fused
+    # training attention, which the JAX trunk takes first, off
+    flash = copy.deepcopy(fast)
+    flash["base_net_kwargs"]["vit_kwargs"].update(
+        dino_fused_attention=False, use_flash_attention=True,
+        flash_attention_trainable=True)
     # the plain path: the fast preset's step with the kernel switches off
     plain = copy.deepcopy(fast)
     plain["base_net_kwargs"]["vit_kwargs"]["dino_fused_attention"] = False
     plain["frozen_encoder_layer_kernel"] = False
     configs = {"plain": plain, "fast_preset": fast, "layer_kernel": layer,
-               "fused_add_ln": fused}
-    kernel_configs = ("fast_preset", "layer_kernel", "fused_add_ln")
+               "fused_add_ln": fused, "flash_trainable": flash}
+    kernel_configs = ("fast_preset", "layer_kernel", "fused_add_ln",
+                      "flash_trainable")
 
     tx, lr_fn, base_lr_fn, pnorm_fn = create_optimizer(
         model.params, hn_param_type_tree(model.params), **fast["optimizer"])
@@ -2556,13 +2673,18 @@ def train_phase(device):
                          "fused_add_scale_ln_fwd": 2 * layers - 1,
                          "fused_add_scale_ln_bwd": 2 * layers - 1,
                          "gelu_exact_fused": layers},
+        # the trunk's attention, forward and backward, and no fused
+        # training attention
+        "flash_trainable": {"mha_flash_trainable_fwd": layers,
+                            "mha_flash_trainable_bwd": layers,
+                            "dino_layer_train_fwd": layers},
     }
     counted = sorted(set().union(*per_step.values()))
-    counting = (fa, dlt, tln, dl, aln, tg)
+    counting = (fa, dlt, tln, dl, aln, tg, ft)
 
     def counts():
         return {**fa.LAUNCHES, **dlt.LAUNCHES, **tln.LAUNCHES,
-                **aln.LAUNCHES, **tg.LAUNCHES,
+                **aln.LAUNCHES, **tg.LAUNCHES, **ft.LAUNCHES,
                 "dino_gemm_train": dl.LAUNCHES["dino_gemm"]}
 
     totals = {name: dict.fromkeys(counts(), 0) for name in configs}
@@ -6094,6 +6216,9 @@ def main() -> int:
     # kernel at another shape (logged)
     row_launches = {**train_launches["fused_add_ln"], **add_ln_launches,
                     **launches}
+    row_launches.update(
+        (name, train_launches["flash_trainable"][name])
+        for name in ("mha_flash_trainable_fwd", "mha_flash_trainable_bwd"))
     for name, (source, replaces) in ROW_FLASH_KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": row_launches[name],
@@ -6119,7 +6244,10 @@ def main() -> int:
         "and gelu_exact_fused per launch at B=64, launches over the "
         "fused-add-LN train steps; fused_add_ln_* per launch at B=64, "
         "launches of one counted call of the differentiable function, "
-        "forward and backward (it lies on no model path)")
+        "forward and backward (it lies on no model path); "
+        "mha_flash_trainable_* per launch at B=64 in bf16, launches over "
+        "the flash-trainable train steps, library_ms "
+        "scaled_dot_product_attention's forward, or its backward alone")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,7 @@ import torch
 
 from hypervla_tpu_torch.models.hypervla import (
     DEFAULT_TOKEN_DIM,
+    NO_RNG_MESSAGE,
     PARAMS_FILE,
     _as_tensor,
     _host_tensors,
@@ -36,6 +37,7 @@ from hypervla_tpu_torch.models.hypervla import (
     _map_tree,
     _unflatten,
     check_params,
+    fails_on_explicit_train,
     latest_step,
 )
 from hypervla_tpu_torch.models.base_network import BaseNetwork
@@ -75,6 +77,7 @@ class BaseModel:
         tasks), and so does this)."""
         return self.params, None
 
+    @fails_on_explicit_train
     @torch.no_grad()
     def sample_actions(self, images, instruction_dict, task,
                        timestep_pad_mask, base_params, train: bool = False,
@@ -83,15 +86,10 @@ class BaseModel:
         """The base net's action chunks (B, horizon, action_dim), as
         HyperVLA.sample_actions computes them from base_params; rng (a
         torch.Generator or a models/draws.py::Draws) is required, as in
-        the JAX BaseModel."""
+        the JAX BaseModel. An explicit train raises as in JAX
+        (models/hypervla.py::fails_on_explicit_train)."""
         if rng is None:
-            raise ValueError("The ``rngs`` argument passed to an apply "
-                             "function should be a ``jax.PRNGKey`` or a "
-                             "dictionary mapping strings to ``jax.PRNGKey``.")
-        if train:
-            raise NotImplementedError(
-                "sample_actions(train=True): sampling with dropout on is not "
-                "ported (serving samples with train=False)")
+            raise ValueError(NO_RNG_MESSAGE)
         if images is not None:
             images = _as_tensor(images, self.device)
         if image_embeddings is not None:

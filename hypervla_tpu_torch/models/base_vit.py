@@ -157,12 +157,6 @@ def check_trunk_switches(vit_kwargs: dict) -> None:
     residual boundaries under remat and for the scanned trunk with
     attention capture, KeyError for an unknown remat policy."""
     kw = vit_kwargs
-    if kw.get("flash_attention_trainable", False):
-        raise NotImplementedError(
-            "vit_kwargs flash_attention_trainable=True is not ported: the "
-            "differentiable flash attention is a library kernel in the JAX "
-            "package, and its hand-written twin is still to write "
-            "(ROADMAP.md A13, the differentiable flash attention)")
     layer_norm_fn(kw.get("fused_layer_norm", False))
     impl = kw.get("dino_layers_impl")
     if impl not in (None, "pallas_train", "pallas_serving"):
@@ -263,6 +257,9 @@ class ViT:
         self.fused_attention = (kw.get("dino_fused_attention", False)
                                 and not capture and not self.scan)
         self.use_flash = kw.get("use_flash_attention", False) and not capture
+        # with use_flash, the differentiable flash attention in place of
+        # the forward-only one (ops/flash_attention_train.py)
+        self.flash_trainable = kw.get("flash_attention_trainable", False)
         self.fused_add_ln = (kw.get("dino_fused_add_ln", False)
                              and not capture and not self.scan)
         self.remat = False if self.scan else trunk_remat(kw)
@@ -337,7 +334,9 @@ class ViT:
     def _trunk_switches(self) -> dict:
         return dict(fused_attention=self.fused_attention,
                     layer_kernel=self.layer_kernel, fused_ln=self.fused_ln,
-                    use_flash=self.use_flash, fused_add_ln=self.fused_add_ln)
+                    use_flash=self.use_flash,
+                    flash_trainable=self.flash_trainable,
+                    fused_add_ln=self.fused_add_ln)
 
     def _drop_class_token(self, emb):
         return emb if self.include_class_token else emb[:, 1:]

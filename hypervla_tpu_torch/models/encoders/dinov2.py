@@ -17,14 +17,16 @@ Two layer paths, as in the JAX package:
     LayerNorms follow `fused_ln`, the training LayerNorm and the one-pass
     serving LayerNorm of ops/layer_norm.py among the choices; `use_flash`
     runs attention through the forward-only kernel of
-    ops/flash_attention.py; `fused_add_ln` runs every residual boundary
-    (LayerScale multiply, add, the next LayerNorm) through
-    ops/add_layer_norm.py; with HYPERVLA_FUSED_GELU=1 in the environment a
-    large bf16 GELU goes through ops/gelu.py. `attentions` returns every
-    layer's attention probabilities (the JAX trunk's output_attentions,
-    on the einsum route only); `remat` recomputes each layer's activations
-    in the backward (torch.utils.checkpoint, as the JAX package's nn.remat
-    with its `_remat_policy`);
+    ops/flash_attention.py, or with `flash_trainable` through the
+    differentiable one of ops/flash_attention_train.py; `fused_add_ln`
+    runs every residual boundary (LayerScale multiply, add, the next
+    LayerNorm) through ops/add_layer_norm.py; with HYPERVLA_FUSED_GELU=1
+    in the environment a large bf16 GELU goes through ops/gelu.py.
+    `attentions` returns every layer's attention probabilities (the JAX
+    trunk's output_attentions, on the einsum route only); `remat`
+    recomputes each layer's activations in the backward
+    (torch.utils.checkpoint, as the JAX package's nn.remat with its
+    `_remat_policy`);
   * `dinov2_serving_forward` runs the bf16 embeddings, the stacked serving
     trunk (ops/dino_layer.py: the CUDA kernels on the card) and the final
     LayerNorm, over params prepared by ops/serving.py.
@@ -45,6 +47,10 @@ from hypervla_tpu_torch.ops.add_layer_norm import fused_add_scale_ln
 from hypervla_tpu_torch.ops.flash_attention import (
     mha_flash,
     mha_flash_reference,
+)
+from hypervla_tpu_torch.ops.flash_attention_train import (
+    mha_flash_trainable,
+    mha_flash_trainable_reference,
 )
 from hypervla_tpu_torch.ops.gelu import gelu_exact_fused
 from hypervla_tpu_torch.ops.layer_norm import layer_norm as layer_norm_one_pass
@@ -327,6 +333,7 @@ def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
                    pixel_values, dtype: torch.dtype = torch.float32,
                    fused_attention: bool = False, layer_kernel: bool = False,
                    fused_ln=False, use_flash: bool = False,
+                   flash_trainable: bool = False,
                    fused_add_ln: bool = False, plain: bool = False,
                    remat=False, attentions: Optional[list] = None):
     """DINOv2 -> last_hidden_state (B, 1 + patches, hidden), fp32.
@@ -340,14 +347,18 @@ def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
     `_KernelLayerCollection`: the operands are stacked and cast per call, so
     autograd carries their gradients back to the leaves). fused_ln chooses
     the LayerNorms left outside the layer kernel (`layer_norm_fn`).
-    use_flash runs attention through ops/flash_attention.py (forward only;
-    the fused training attention wins where both are set). fused_add_ln
+    use_flash runs attention through ops/flash_attention.py (forward only),
+    or with flash_trainable through the differentiable
+    ops/flash_attention_train.py (which runs under torch.no_grad() too); the
+    fused training attention wins where both are set, and flash_trainable
+    without use_flash changes nothing, as in the JAX trunk. fused_add_ln
     runs the layers in the delayed-residual form of `_layer` (the layer
     kernel wins where both are set); the last layer's residual is added
     here, plainly, with the per-op roundings of LayerScale and add. plain
     puts the plain versions of the two forward-only serving kernels (flash
-    attention, the one-pass LayerNorm) in their place whatever the device,
-    for a caller that holds the kernels against them.
+    attention, the one-pass LayerNorm) and of the differentiable flash
+    attention in their place whatever the device, for a caller that holds
+    the kernels against them.
 
     remat (True, or a name of REMAT_SAVED) checkpoints each layer of the
     layer loop: True and "nothing" keep only the layer inputs, "dots" and
@@ -358,7 +369,9 @@ def dinov2_forward(config: DINOv2Config, params: Dict[str, torch.Tensor],
     compute dtype; the layers then run the einsum attention."""
     layer_norm = layer_norm_fn(fused_ln, plain)
     flash = None
-    if use_flash:
+    if use_flash and flash_trainable:
+        flash = mha_flash_trainable_reference if plain else mha_flash_trainable
+    elif use_flash:
         flash = mha_flash_reference if plain else mha_flash
     if layer_kernel and dtype != torch.bfloat16:
         raise ValueError("the layer kernel is bf16: set encoder_dtype="

@@ -5,7 +5,8 @@ the hypernetwork, the base network, their params and the weight plan.
     kernels start at zero and their biases hold a fresh base-net init, so
     at step 0 the hypernetwork emits exactly that base net for any task;
   * `create_tasks`: one hypernetwork forward per episode -> base params;
-  * `sample_actions`: the base net alone, the per-step path;
+  * `sample_actions`: the base net alone, the per-step path (an explicit
+    `train` fails as in the JAX package, `fails_on_explicit_train`);
   * `save_pretrained` / `load_pretrained`: the port's checkpoint, in the
     JAX package's layout with torch-native files:
 
@@ -21,6 +22,8 @@ the hypernetwork, the base network, their params and the weight plan.
     layout from a JAX checkpoint.
 """
 import copy
+import functools
+import inspect
 import json
 import os
 from typing import Dict, Optional
@@ -59,6 +62,44 @@ def _as_tensor(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.as_tensor(np.asarray(x), device=device)
+
+
+class TracerBoolConversionError(TypeError):
+    """jax.errors.TracerBoolConversionError (a TypeError), which the JAX
+    package's sample_actions raises for any explicit `train`."""
+
+
+#: flax's message for an apply without a PRNG key
+NO_RNG_MESSAGE = ("The ``rngs`` argument passed to an apply function should "
+                  "be a ``jax.PRNGKey`` or a dictionary mapping strings to "
+                  "``jax.PRNGKey``.")
+
+
+def fails_on_explicit_train(sample_actions):
+    """sample_actions failing as the JAX package's does: it is a bare
+    jax.jit, so an explicit `train` (True or False) is traced, and the
+    base net's first boolean use of it raises TracerBoolConversionError;
+    flax's check of the rng comes first, so without an rng the call raises
+    its ValueError instead. Left out, train is False, as in JAX."""
+    position = list(inspect.signature(sample_actions).parameters).index(
+        "train")
+
+    @functools.wraps(sample_actions)
+    def wrapper(*args, **kwargs):
+        if "train" in kwargs or len(args) > position:
+            rng = (args[position + 1] if len(args) > position + 1
+                   else kwargs.get("rng"))
+            if rng is None:
+                raise ValueError(NO_RNG_MESSAGE)
+            raise TracerBoolConversionError(
+                "Attempted boolean conversion of traced array with shape "
+                "bool[].\nThe error occurred while tracing the function "
+                "sample_actions for jit. This concrete value was not "
+                "available in Python because it depends on the value of the "
+                "argument train.")
+        return sample_actions(*args, **kwargs)
+
+    return wrapper
 
 
 def _map_tree(fn, tree):
@@ -339,6 +380,7 @@ class HyperVLA:
             if n.startswith(prefix) and not self.plan.generation_flag[n]
         }
 
+    @fails_on_explicit_train
     @torch.no_grad()
     def sample_actions(self, images, instruction_dict, task,
                        timestep_pad_mask, base_params: Params,
@@ -353,15 +395,11 @@ class HyperVLA:
         neither, in both packages). rng is the diffusion head's: a
         torch.Generator, or a models/draws.py::Draws to replay; it raises
         without one, and the other heads do not read it. image_embeddings
-        (B, patches, dim) stand in for the DINOv2 trunk's. train=True
-        (sampling with dropout) raises NotImplementedError. trunk_impl
+        (B, patches, dim) stand in for the DINOv2 trunk's. An explicit
+        train raises as in JAX (`fails_on_explicit_train`). trunk_impl
         picks the trunk (ops/serving.py::TRUNK_IMPLS); maps (a dict)
         receives the attention maps (models/base_vit.py::ViT.__call__; the
         trunk's on its layer loop: a per-layer trunk_impl)."""
-        if train:
-            raise NotImplementedError(
-                "sample_actions(train=True): sampling with dropout on is not "
-                "ported (serving samples with train=False)")
         if images is not None:
             images = _as_tensor(images, self.device)
         if image_embeddings is not None:

@@ -15,8 +15,9 @@ in place through strides, where the TPU wrapper transposes to
 
 Forward only, like the TPU kernel (it has no VJP): an input that requires a
 gradient raises. `mha_flash_trainable` of the JAX package is not a kernel
-of that package (on a TPU it calls jax's library kernel) and is not ported
-(ROADMAP.md A13, the differentiable flash attention).
+of that package (on a TPU it calls jax's library kernel); its
+differentiable counterpart is ops/flash_attention_train.py, whose
+probabilities round at another point than this kernel's.
 
 Beside the kernel is its plain PyTorch version. A wrapper takes it only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises. Each
@@ -83,8 +84,9 @@ def _forward_only(*tensors):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             "flash_attention is forward only (the TPU kernel has no VJP): "
-            "run it under torch.no_grad(); the differentiable twin is not "
-            "ported (ROADMAP.md A13, the differentiable flash attention)")
+            "run it under torch.no_grad(), or set vit_kwargs "
+            "flash_attention_trainable for the differentiable twin "
+            "(ops/flash_attention_train.py)")
 
 
 #: multiprocessors of the card the block size is chosen for (H100)

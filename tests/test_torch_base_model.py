@@ -132,6 +132,26 @@ def test_sample_actions_match_jax(models):
                              None, None, params)
 
 
+@pytest.mark.parametrize("train", [True, False])
+def test_an_explicit_train_fails_as_in_jax(models, train):
+    """The JAX BaseModel.sample_actions is a bare jax.jit, so any explicit
+    train raises jax.errors.TracerBoolConversionError (a TypeError), as
+    HyperVLA's does (tests/test_torch_host_path.py); so does the port's."""
+    jmodel, model, jbatch, batch = models
+    instr = {"language_instruction": jbatch["task"]["language_instruction"]}
+    with pytest.raises(TypeError, match="boolean conversion") as jerr:
+        jmodel.sample_actions(
+            jbatch["observation"]["image_primary"], instr, None,
+            jbatch["observation"]["timestep_pad_mask"], jmodel.params,
+            train=train, rng=jax.random.PRNGKey(0))
+    assert type(jerr.value).__name__ == "TracerBoolConversionError"
+    with pytest.raises(TypeError, match="boolean conversion") as err:
+        model.sample_actions(batch["observation"]["image_primary"], instr,
+                             None, None, model.params, train=train,
+                             rng=torch.Generator())
+    assert type(err.value).__name__ == "TracerBoolConversionError"
+
+
 def test_save_and_load_round_trip(models, tmp_path):
     _, model, _, batch = models
     model.save_pretrained(3, checkpoint_path=str(tmp_path))

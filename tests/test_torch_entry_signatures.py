@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from hypervla_tpu.data import text_processing as jtext
+from hypervla_tpu.data.converters import metaworld as jmetaworld
 from hypervla_tpu.eval import gym_wrappers as jwrappers
 from hypervla_tpu.eval import inference as jinference
 from hypervla_tpu.eval import libero as jlibero
@@ -31,11 +32,13 @@ from hypervla_tpu.models import efficientnet as jefficientnet
 from hypervla_tpu.models import hypervla as jhypervla
 from hypervla_tpu.models.encoders import clip as jclip
 from hypervla_tpu.models import octo_model as joctomodel
+from hypervla_tpu.ops import flash_attention as jflash
 from hypervla_tpu.ops import serving as jserving
 from hypervla_tpu.train import callbacks as jcallbacks
 from hypervla_tpu.train import trainer as jtrainer
 from hypervla_tpu.utils.static import static_dict
 from hypervla_tpu_torch.data import text_processing
+from hypervla_tpu_torch.data.converters import metaworld
 from hypervla_tpu_torch.eval import gym_wrappers
 from hypervla_tpu_torch.eval import inference
 from hypervla_tpu_torch.eval import libero
@@ -48,11 +51,14 @@ from hypervla_tpu_torch.models import efficientnet
 from hypervla_tpu_torch.models import hypervla
 from hypervla_tpu_torch.models.encoders import clip
 from hypervla_tpu_torch.models import octo_model
+from hypervla_tpu_torch.ops import flash_attention_train
 from hypervla_tpu_torch.ops import serving
 from hypervla_tpu_torch.train import callbacks
 from hypervla_tpu_torch.train import octo_train
 from hypervla_tpu_torch.train import trainer
+from scripts import convert_rlds as jconvert_rlds
 from test_torch_harness import torch_threads  # noqa: F401
+from tools import convert_rlds
 
 #: entry point -> (the JAX function, the port's)
 ENTRY_POINTS = {
@@ -115,6 +121,13 @@ ENTRY_POINTS = {
                         clip.CLIPVisionModel.__call__),
     "EfficientNet": (jefficientnet.EfficientNet.__call__,
                      efficientnet.EfficientNet.__call__),
+    "mha_flash_trainable": (jflash.mha_flash_trainable,
+                            flash_attention_train.mha_flash_trainable),
+    "metaworld.convert_episode": (jmetaworld.convert_episode,
+                                  metaworld.convert_episode),
+    "metaworld.convert_directory": (jmetaworld.convert_directory,
+                                    metaworld.convert_directory),
+    "convert_rlds.convert": (jconvert_rlds.convert, convert_rlds.convert),
 }
 #: the entry points where the port adds `device` (the CUDA card unless the
 #: caller asks for another), and no other parameter
@@ -134,7 +147,9 @@ NEW_ENTRY_POINTS = ("simpler.evaluate", "libero.evaluate", "HFTokenizer",
                     "OctoInference.reset", "OctoInference.step",
                     "octo_train.run", "BaseModel.from_config",
                     "BaseModel.create_tasks", "BaseModel.save_pretrained",
-                    "BaseModel.load_pretrained")
+                    "BaseModel.load_pretrained", "mha_flash_trainable",
+                    "metaworld.convert_episode",
+                    "metaworld.convert_directory", "convert_rlds.convert")
 #: the TPU-only parameters the port leaves out (the module docstring)
 TPU_ONLY = ("pack_args", "keep_bytes", "coerce")
 

@@ -12,6 +12,7 @@ pixels), then feeds both wrappers the JAX package's pixels and holds the
 actions to 1e-5."""
 import logging
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -21,7 +22,10 @@ from hypervla_tpu.utils.static import static_dict
 from hypervla_tpu_torch.configs import tiny_test_config
 from hypervla_tpu_torch.eval.inference import InferenceWrapper
 from hypervla_tpu_torch.flagship import make_flagship_batch
-from hypervla_tpu_torch.models.hypervla import HyperVLA
+from hypervla_tpu_torch.models.hypervla import (
+    HyperVLA,
+    TracerBoolConversionError,
+)
 from test_torch_preprocess import _assert_close_u8
 from test_torch_serving import STATS, _build
 from test_torch_harness import torch_threads  # noqa: F401
@@ -205,6 +209,39 @@ def test_history_window_fails_as_in_jax(fp32, fused):
     for w in (jwrapper, wrapper):
         with pytest.raises(ValueError):
             w.step(frames[1])
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_an_explicit_train_fails_as_in_jax(fp32, train):
+    """The JAX sample_actions is a bare jax.jit: an explicit train, True
+    or False, is traced, and its first boolean use raises
+    jax.errors.TracerBoolConversionError (a TypeError); the port raises a
+    TypeError of that name and message. Without an rng, flax's ValueError
+    comes first in both."""
+    jmodel, model, instruction, init, _ = fp32
+    example = model.example_batch["observation"]
+    args = (example["image_primary"], instruction, None,
+            example["timestep_pad_mask"])
+    jparams, jtasks, _ = jmodel.create_tasks(instruction_dict=instruction,
+                                             initial_state=init)
+    params, tasks = model.create_tasks(instruction_dict=instruction,
+                                       initial_state=init)
+    with pytest.raises(TypeError, match="boolean conversion") as jerr:
+        jmodel.sample_actions(*args, jparams, train=train,
+                              rng=jax.random.PRNGKey(0))
+    assert type(jerr.value).__name__ == "TracerBoolConversionError"
+    with pytest.raises(TracerBoolConversionError,
+                       match="boolean conversion") as err:
+        model.sample_actions(*args, params, train=train,
+                             rng=torch.Generator())
+    assert isinstance(err.value, TypeError)
+    assert str(err.value).split("\n")[0] == str(jerr.value).split("\n")[0]
+    with pytest.raises(TracerBoolConversionError):
+        model.sample_actions(*args, params, train, torch.Generator())
+    for call in (lambda: jmodel.sample_actions(*args, jparams, train=train),
+                 lambda: model.sample_actions(*args, params, train=train)):
+        with pytest.raises(ValueError, match="rngs"):
+            call()
 
 
 def test_statistics_fall_back_to_the_first_dataset(fp32, caplog):

@@ -12,6 +12,7 @@ widowx gripper, the JAX default image_size failing a 64-px model in both
 packages, and the port's copy of the Octo pretraining config.
 """
 import copy
+import zlib
 
 import flax
 import jax
@@ -24,7 +25,6 @@ from hypervla_tpu.models.octo_model import OctoModel as JaxOcto
 from hypervla_tpu.utils.spec import ModuleSpec as JaxSpec
 from hypervla_tpu.utils.static import static_dict
 from hypervla_tpu_torch.data.data_utils import NormalizationType
-from hypervla_tpu_torch.data.text_processing import FallbackTokenizer
 from hypervla_tpu_torch.eval.octo_inference import OctoInference
 from hypervla_tpu_torch.models.draws import Draws
 from hypervla_tpu_torch.models.octo_model import OctoModel
@@ -51,11 +51,23 @@ EMBED = np.random.default_rng(9).standard_normal((32000, 12)).astype(
 
 
 class TextProcessor:
-    def __init__(self):
-        self.tok = FallbackTokenizer()
+    """FallbackTokenizer's layout (ids 2.. a word, then eos 1, padded to 6)
+    with a word's id from crc32 instead of the salted `hash`: the same ids
+    in every process. Under `hash` the instruction's ids, and so every
+    input of the serving test, changed with PYTHONHASHSEED, and some of
+    them put a sampling step where a one-ulp change of the params moves an
+    action by 5x the test's bound (ROADMAP.md C.1)."""
 
-    def encode(self, strings):
-        return self.tok(strings, max_length=6)
+    def encode(self, strings, max_length=6):
+        ids = np.zeros((len(strings), max_length), np.int32)
+        mask = np.zeros((len(strings), max_length), np.int32)
+        for row, s in enumerate(strings):
+            words = [2 + zlib.crc32(w.encode()) % 31998
+                     for w in s.lower().split()]
+            tokens = words[: max_length - 1] + [1]
+            ids[row, : len(tokens)] = tokens
+            mask[row, : len(tokens)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
 
 
 def text_embed(ids, mask):

@@ -212,10 +212,9 @@ def test_layer_kernel_needs_the_hoisted_trunk(change):
 
 
 @pytest.mark.parametrize("switch", [
-    {"flash_attention_trainable": True},
-    {"use_flash_attention": True, "flash_attention_trainable": True},
-    {"dino_layers_impl": "unroll_serving"},
-    {"dino_layers_impl": "scan_serving"},
+    # the ids of the cases before the flash switches were lifted
+    pytest.param({"dino_layers_impl": "unroll_serving"}, id="switch2"),
+    pytest.param({"dino_layers_impl": "scan_serving"}, id="switch3"),
 ])
 def test_unported_trunk_switches_raise(switch):
     """A trunk switch with no counterpart in the port raises at model build
@@ -235,14 +234,20 @@ def test_unported_trunk_switches_raise(switch):
     ({"use_flash_attention": True}, "mha_flash", 2),
     ({"fused_layer_norm": True}, "layer_norm_one_pass", 5),
     ({"dino_fused_add_ln": True}, "fused_add_scale_ln", 3),
+    ({"use_flash_attention": True, "flash_attention_trainable": True},
+     "mha_flash_trainable", 2),
+    # without use_flash_attention the JAX trunk ignores it: the einsum route
+    ({"flash_attention_trainable": True}, "mha_flash_trainable", 0),
 ])
 def test_trunk_switch_selects_its_kernel(monkeypatch, switch, function,
                                          calls):
     """Each switch sends the two-layer trunk through its kernel's function:
-    one attention per layer; norm1, norm2 per layer and the final
-    LayerNorm; every residual boundary but the last. With attention
-    capture on (the default) the flash attention and the fused boundaries
-    stay off, as in the JAX package."""
+    one attention per layer (the differentiable flash attention where
+    flash_attention_trainable joins use_flash_attention, none without it);
+    norm1, norm2 per layer and the final LayerNorm; every residual boundary
+    but the last. With attention capture on (the default) the flash
+    attentions and the fused boundaries stay off, as in the JAX
+    package."""
     from hypervla_tpu_torch.models.encoders import dinov2 as td
 
     seen = []

@@ -11,8 +11,9 @@ flagship twin on the CPU:
 
 Both optimizers start from update count 1000 with state step 1000 (optax
 schedules read the optimizer's own count, not the state's step). Also
-here, without JAX: the frozen encoders from seeds, the unported option
-raising, and the written-out sample axis against a per-sample loop.
+here: the differentiable flash attention's step against the JAX step's
+gradients; without JAX, the frozen encoders from seeds and the
+written-out sample axis against a per-sample loop.
 """
 import copy
 
@@ -162,22 +163,47 @@ def test_build_frozen_encoders_shapes():
 
 
 @pytest.mark.parametrize("change", [
-    # the attention aux losses, embedding noise and dropout now run
+    # the attention aux losses, embedding noise and dropout run
     # (tests/test_torch_attention_capture.py, test_torch_dropout.py), as
-    # does device_augment (tests/test_torch_trainer.py)
+    # does device_augment (tests/test_torch_trainer.py); the differentiable
+    # flash attention, the last option the port refused, runs here
     lambda c: c["base_net_kwargs"]["vit_kwargs"].update(
-        flash_attention_trainable=True),
+        use_flash_attention=True, flash_attention_trainable=True,
+        fine_tune_pretrained_image_encoder=True),
 ])
-def test_unported_train_options_raise(change):
-    model, _ = build_flagship(tiny=True, training=True, encoder_dtype=None,
-                              device="cpu")
-    config = copy.deepcopy(model.config)
-    change(config)
-    tx, lr_fn, base_lr_fn, pnorm_fn = topt.create_optimizer(
-        model.params, topt.hn_param_type_tree(model.params),
-        **dict(config["optimizer"], weight_decay_strategy="v1"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, config, tx, lr_fn, base_lr_fn, pnorm_fn)
+def test_unported_train_options_raise(change, monkeypatch):
+    """Once refused, now ported: the option's step on the tiny twin, with
+    the trunk fine-tuned so that every trunk attention's backward runs,
+    held to the JAX step's (tests/test_torch_jax_draws.py::jax_reference):
+    the loss to 1e-5 and every gradient within 1e-5 of the largest. The
+    trunk's attention goes through the differentiable flash attention, a
+    forward and a backward a layer."""
+    from hypervla_tpu_torch.models.draws import Draws
+    from hypervla_tpu_torch.models.encoders import dinov2 as td
+    from hypervla_tpu_torch.ops import flash_attention_train as ft
+    from test_torch_jax_draws import (
+        assert_grads_close,
+        build_pair,
+        dropout_keys,
+        jax_reference,
+        port_step_grads,
+    )
+
+    jmodel, jconfig, model, config, jbatch, batch = build_pair(change,
+                                                               batch_size=2)
+    ref = jax_reference(jmodel, jconfig, jbatch,
+                        dropout_keys(jax.random.PRNGKey(0), 2))
+    calls = []
+    monkeypatch.setattr(
+        td, "mha_flash_trainable",
+        lambda *a: calls.append(1) or ft.mha_flash_trainable(*a))
+    info, grads = port_step_grads(model, config, batch,
+                                  Draws(replay=ref["sites"]))
+    assert len(calls) == model.base_net.encoder.dino.num_hidden_layers
+    np.testing.assert_allclose(info["training_loss"], ref["loss"], rtol=1e-5)
+    trunk = [k for k in grads if k.startswith("encoder_image_encoder_encoder")]
+    assert trunk and all(np.abs(grads[k]).max() > 0 for k in trunk)
+    assert_grads_close(grads, ref["grads"])
 
 
 def test_per_sample_view_matches_a_sample_loop():

@@ -56,12 +56,12 @@ HONOURED = {
     "dino_remat_policy": ("dots", {}),
     "encoder_type": ("CLIP", {}),
     "use_differential_transformer": (True, {}),
+    "flash_attention_trainable": (True, {"use_flash_attention": True,
+                                         "sow_dino_attention": False}),
 }
 
 # field -> a non-default value that the constructor refuses
-REFUSED = {
-    "flash_attention_trainable": True,
-}
+REFUSED = {}
 
 # field -> a non-default value that is accepted and changes nothing:
 # dino_dot_softmax re-lays the softmax sums out for the TPU's matrix unit
@@ -182,6 +182,9 @@ LIFTED = {
     "remat_dino": ("DINOv2", True, 224),
     "dino_remat_policy": ("DINOv2", "dots", 224),
     "use_differential_transformer": ("SmallStem", True, 64),
+    "flash_attention_trainable": ("DINOv2", True, 224,
+                                  {"use_flash_attention": True,
+                                   "sow_dino_attention": False}),
 }
 
 
