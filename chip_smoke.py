@@ -62,7 +62,9 @@
    flash_attention_train.cu), forward and backward, bf16 and fp32, at the
    flagship's training shape (64, 257, 12, 64) and at S = 1, 17, 300 with
    head dims 32 and 128: against its plain versions, twice bit for bit,
-   timed beside scaled_dot_product_attention's forward and backward.
+   timed beside scaled_dot_product_attention's forward and backward; and
+   its bf16 forward at the serving shape (1, 257, 12, 64) under
+   torch.no_grad().
    The add + LayerNorm without LayerScale lies on no model path: its
    differentiable function is driven once, counted, forward and backward.
    Training kernel phase, at B=64, S=257, H=12, D=64, width 768, each
@@ -179,12 +181,13 @@
    conditioning (the JAX default, which the pixel environment's resets
    need): its checkpoint served by `python -m
    hypervla_tpu_torch.eval.policy_server` (host path, 224 px, libero
-   setup, ensembling) in a child process on the card, 3 episodes of
-   PixelReachEnv (40 steps at most) driven through a PolicyClient by
-   tools/eval_pixel_env.py::run_episodes, its JSON fields printed; then
-   the same episodes in this process through load_hypervla_policy: the
-   same steps and successes per episode, bit-equal actions, one kernel 1
-   launch a tick. (b) The SIMPLER and LIBERO evaluators over the
+   setup, ensembling) in a child process on the card, which loads while
+   (a)'s in-process episodes, (b) and (c) run here: 3 episodes of
+   PixelReachEnv (40 steps at most) in this process through
+   load_hypervla_policy, one kernel 1 launch a tick; after (c), the same
+   episodes through the server, driven by a PolicyClient in
+   tools/eval_pixel_env.py::run_episodes, its JSON fields printed: the
+   same steps and successes per episode, bit-equal actions. (b) The SIMPLER and LIBERO evaluators over the
    simulator stand-ins of tests/test_torch_sim_stubs.py: SIMPLER on the
    flagship as it is (conditioned on the initial image, through the
    evaluator's own fp32 DINOv2, drawn from a seed), one task of 2 episodes
@@ -231,7 +234,8 @@
    config's batch of 256 (ms/step, samples/s, peak GiB, device busy), its
    loss and grad_norm against the same step on the CPU from the same
    state, T5 embedding and draws (1e-4 and 1e-3 relative; the CPU step
-   is most of the phase's time); then
+   runs in a thread beside the rest of this phase and the encoders phase,
+   and is compared after them, as phase octo_cpu_step); then
    `octo_train.main` for 3 steps at batch 64 on the trainer phase's
    fixture mix, saving at step 3. None of the nine TPU kernels' wrappers
    is launched (their counters stay 0).
@@ -1445,10 +1449,11 @@ def trainable_flash_checks(table, t, check):
     forward and backward: against its plain versions and twice bit for
     bit, bf16 and fp32, at the flagship's training shape and at ragged
     sequences (1, 17, 300 keys) and head dims (32, 128: fp32(q) * scale as
-    three bf16 terms). The bf16 training shape goes through `table` (its
-    bound, device time and scaled_dot_product_attention's forward, and
-    backward alone over a kept graph); the others are timed by CUDA
-    events."""
+    three bf16 terms), and the bf16 forward at the serving shape. The bf16
+    training shape goes through `table` (its bound, device time and
+    scaled_dot_product_attention's forward, and backward alone over a kept
+    graph); the others are timed by CUDA events, the serving forward by
+    the profiler too."""
     import torch
     import torch.nn.functional as F
 
@@ -1522,11 +1527,53 @@ def trainable_flash_checks(table, t, check):
         log(f"kernel mha_flash_trainable {label}: within the bounds, two runs "
             "bit-equal")
 
+    def serving(b, s, h, d, iters):
+        """The forward alone at one image's 12 heads, as a serving model
+        with the switch on calls it under torch.no_grad() (the plan's own
+        grid: 16-row blocks), against its plain version, twice bit for
+        bit, timed beside scaled_dot_product_attention."""
+        q, k, v = (t((b, s, h, d)) for _ in range(3))
+        label = f"({b}, {s}, {h}, {d}) bfloat16 forward"
+        with torch.no_grad():
+            o, m, n = ft.mha_flash_trainable_fwd(q, k, v)
+            torch.cuda.synchronize()
+            ref = ft.mha_flash_trainable_fwd_reference(q, k, v)
+            check("mha_flash_trainable_fwd", f"{label} o", o, ref[0])
+            check("mha_flash_trainable_fwd", f"{label} row max", m, ref[1],
+                  1e-5)
+            check("mha_flash_trainable_fwd", f"{label} row sum", n, ref[2],
+                  1e-5)
+            if not all(torch.equal(a, c) for a, c in zip(
+                    (o, m, n), ft.mha_flash_trainable_fwd(q, k, v))):
+                raise AssertionError(f"mha_flash_trainable {label}: two "
+                                     "runs differ")
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+            def kernel():
+                return ft.mha_flash_trainable_fwd(q, k, v)
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt)
+
+            k_ms, p_ms = interleaved(
+                kernel, lambda: ft.mha_flash_trainable_fwd_reference(q, k, v),
+                iters)
+            lib_ms = cuda_ms(library, iters)
+            calls = min(iters, PROFILED_CALLS)
+            dev_ms = confirmed_device_ms(kernel, calls)
+            lib_dev = confirmed_device_ms(library, calls)
+        least, by = bound_ms(nbytes(q, k, v, o, m, n), 4 * b * h * s * s * d)
+        log(f"kernel mha_flash_trainable {label}: within the bounds, two runs "
+            f"bit-equal; ms {k_ms:.6g} device_ms {dev_ms:.6g} plain_ms "
+            f"{p_ms:.6g} library_ms {lib_ms:.6g} library_device_ms "
+            f"{lib_dev:.6g} bound_ms {least:.6g} ({by})")
+
     for dtype in (torch.bfloat16, torch.float32):
         case(TRAIN_BATCH, 257, 12, 64, dtype, 10)
         for s in (1, 17, 300):
             for d in (32, 128):
                 case(2, s, 3, d, dtype, 10)
+    serving(1, 257, 12, 64, 20)
 
 
 def make_wrapper(model, trunk_impl):
@@ -4541,6 +4588,7 @@ def eval_phase(device, card):
     }}
     launches = {}
     root = tempfile.mkdtemp(prefix="hypervla_eval_")
+    proc = None
     try:
         # ---- a. the pixel environment through the served checkpoint ----
         t0 = time.perf_counter()
@@ -4551,37 +4599,12 @@ def eval_phase(device, card):
         torch.cuda.empty_cache()
         log(f"eval flagship (use_initial_image=False) built and saved in "
             f"{time.perf_counter() - t0:.3f} s; {card}")
+        # the server starts here and is driven after parts a-c, which run
+        # in this process while it loads
         port = eval_pixel_env.free_port()
-        t0 = time.perf_counter()
+        t_server = time.perf_counter()
         proc = eval_pixel_env.start_server(eval_pixel_env.server_command(
             ckpt, port, image_size=224))
-        try:
-            client = eval_pixel_env.wait_for_server(
-                PolicyClient, "127.0.0.1", port, proc, timeout_s=300)
-            up_s = time.perf_counter() - t0
-            replies = []
-
-            class Recorded:
-                """The client, its replies kept."""
-
-                def reset(self, task):
-                    client.reset(task)
-
-                def step(self, frame):
-                    replies.append(client.step(frame))
-                    return replies[-1]
-
-            served = eval_pixel_env.run_episodes(
-                Recorded(), PixelReachEnv(seed=0, max_steps=EVAL_MAX_STEPS),
-                EVAL_EPISODES, log=lambda m: log(f"eval served {m}"))
-            client.close()
-        finally:
-            proc.terminate()
-            proc.wait(timeout=60)
-        summary = eval_pixel_env.summary(served)
-        log(f"eval pixel_env served (server up in {up_s:.3f} s; {card}): "
-            + json.dumps(dict(summary, per_episode_steps=served["steps"],
-                              card=card)))
 
         policy = load_hypervla_policy(ckpt, policy_setup="libero",
                                       image_size=224, action_ensemble=True,
@@ -4604,24 +4627,6 @@ def eval_phase(device, card):
         ticks = sum(local["steps"])
         launches["pixel_env"] = dl.LAUNCHES["dino_layers_serving"]
         got = np.stack(counted.actions)
-        want = np.stack([r["action"] for r in replies])
-        # one checkpoint, one kernel, no atomics: the served actions are
-        # the in-process ones, bit for bit
-        err = float(np.abs(got - want).max()) \
-            if got.shape == want.shape else float("inf")
-        log(f"eval pixel_env in-process: steps {local['steps']} "
-            f"(served {served['steps']}), successes {local['successes']} "
-            f"(served {served['successes']}), {launches['pixel_env']} "
-            f"kernel 1 launches over {ticks} ticks, actions against the "
-            f"served ones max_abs_err {err:.6g} (must be 0); model_ms_p50 "
-            f"{np.median(local['model_ms']):.4f} in-process against "
-            f"{summary['model_ms_p50']} through the server; {card}")
-        if (local["steps"] != served["steps"]
-                or local["successes"] != served["successes"]
-                or launches["pixel_env"] != ticks
-                or not np.isfinite(got).all() or err != 0):
-            raise AssertionError("the in-process episodes differ from the "
-                                 "served ones")
         libero_model = policy.model
         del policy, counted
 
@@ -4798,9 +4803,59 @@ def eval_phase(device, card):
             raise AssertionError("the viz policy through kernel 1 disagrees "
                                  "with its plain version")
         del seen, cb, visualizer
+
+        # ---- a, served: the same episodes through the server ----
+        client = eval_pixel_env.wait_for_server(
+            PolicyClient, "127.0.0.1", port, proc, timeout_s=300)
+        up_s = time.perf_counter() - t_server
+        replies = []
+
+        class Recorded:
+            """The client, its replies kept."""
+
+            def reset(self, task):
+                client.reset(task)
+
+            def step(self, frame):
+                replies.append(client.step(frame))
+                return replies[-1]
+
+        served = eval_pixel_env.run_episodes(
+            Recorded(), PixelReachEnv(seed=0, max_steps=EVAL_MAX_STEPS),
+            EVAL_EPISODES, log=lambda m: log(f"eval served {m}"))
+        client.close()
+        proc.terminate()
+        proc.wait(timeout=60)
+        proc = None
+        summary = eval_pixel_env.summary(served)
+        log(f"eval pixel_env served (server answering {up_s:.3f} s after its "
+            f"start, parts a-c run meanwhile; {card}): "
+            + json.dumps(dict(summary, per_episode_steps=served["steps"],
+                              card=card)))
+        want = np.stack([r["action"] for r in replies])
+        # one checkpoint, one kernel, no atomics: the served actions are
+        # the in-process ones, bit for bit
+        err = float(np.abs(got - want).max()) \
+            if got.shape == want.shape else float("inf")
+        log(f"eval pixel_env in-process: steps {local['steps']} "
+            f"(served {served['steps']}), successes {local['successes']} "
+            f"(served {served['successes']}), {launches['pixel_env']} "
+            f"kernel 1 launches over {ticks} ticks, actions against the "
+            f"served ones max_abs_err {err:.6g} (must be 0); model_ms_p50 "
+            f"{np.median(local['model_ms']):.4f} in-process against "
+            f"{summary['model_ms_p50']} through the server; {card}")
+        if (local["steps"] != served["steps"]
+                or local["successes"] != served["successes"]
+                or launches["pixel_env"] != ticks
+                or not np.isfinite(got).all() or err != 0):
+            raise AssertionError("the in-process episodes differ from the "
+                                 "served ones")
     finally:
         import shutil
 
+        if proc is not None:
+            proc.terminate()
+            proc.wait(timeout=60)
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"eval phase kernel 1 launches: {launches}; eval phase s "
@@ -5377,8 +5432,9 @@ def octo_phase(device, card):
         cpu_emb = emb.cpu()
         del params, opt_state, on, emb
         torch.cuda.empty_cache()
-        # the same first step on the CPU, in a thread beside the checkpoint
-        # and the driver's run (their seconds are then not a clean number)
+        # the same first step on the CPU, in a thread beside the checkpoint,
+        # the driver's run and the encoders phase (their seconds are then
+        # not a clean number); the callable this phase returns reads it
         threads = torch.get_num_threads()
         pool = ThreadPoolExecutor(max_workers=1)
         reference = pool.submit(octo_reference, model, config, state0, batch,
@@ -5453,6 +5509,18 @@ def octo_phase(device, card):
             f"start, losses {losses}, the step-{OCTO_TRAINER_STEPS} "
             "checkpoint the final params")
         at("trainer")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launched = {k: v for k, v in counts().items() if v}
+    log(f"octo phase launches of the nine TPU kernels' wrappers: "
+        f"{launched or 'none'}")
+    if launched:
+        raise AssertionError(f"octo: a TPU kernel's wrapper launched on "
+                             f"the Octo path: {launched}")
+
+    def compare_to_cpu():
+        """Waits for the CPU's step, which runs on beside the phases after
+        this one, and holds the card's first step to it."""
         try:
             cpu_loss, cpu_norm, cpu_s, cores = reference.result(timeout=900)
         finally:
@@ -5462,22 +5530,15 @@ def octo_phase(device, card):
         norm_rel = abs(grad_norm - cpu_norm) / abs(cpu_norm)
         log(f"octo train step card vs CPU (same state, T5 embedding and "
             f"draws; the CPU step {cpu_s:.1f} s on {cores} cores, beside the "
-            f"checkpoint and the driver): loss {loss:.8g} vs {cpu_loss:.8g} "
-            f"(rel {loss_rel:.3g}, bound {OCTO_LOSS_TOL}), grad_norm "
-            f"{grad_norm:.8g} vs {cpu_norm:.8g} (rel {norm_rel:.3g}, bound "
-            f"{OCTO_GRAD_TOL})")
+            f"checkpoint, the driver and the encoders phase): loss "
+            f"{loss:.8g} vs {cpu_loss:.8g} (rel {loss_rel:.3g}, bound "
+            f"{OCTO_LOSS_TOL}), grad_norm {grad_norm:.8g} vs {cpu_norm:.8g} "
+            f"(rel {norm_rel:.3g}, bound {OCTO_GRAD_TOL})")
         if not (loss_rel <= OCTO_LOSS_TOL and norm_rel <= OCTO_GRAD_TOL):
             raise AssertionError("octo: the card's train step disagrees "
                                  "with the CPU's")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    at("CPU reference")
-    launched = {k: v for k, v in counts().items() if v}
-    log(f"octo phase launches of the nine TPU kernels' wrappers: "
-        f"{launched or 'none'}")
-    if launched:
-        raise AssertionError(f"octo: a TPU kernel's wrapper launched on "
-                             f"the Octo path: {launched}")
+
+    return compare_to_cpu
 
 
 #: the encoders phase: serving ticks and train steps of each model, the
@@ -6190,8 +6251,9 @@ def main() -> int:
     phase("heads", heads_phase, device, card)
     phase("eval", eval_phase, device, card)
     phase("multi_device", multi_device_phase, device, card, trainer_losses)
-    phase("octo", octo_phase, device, card)
+    octo_cpu_step = phase("octo", octo_phase, device, card)
     phase("encoders", encoders_phase, device, card)
+    phase("octo_cpu_step", octo_cpu_step)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")

@@ -207,6 +207,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// The same for a 3-D map: the box's corner at (inner, outer, slab).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int inner,
+                                            int outer, int slab) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(inner), "r"(outer), "r"(slab)
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled, looked up in libcuda at run time: the CUDA runtime
 // has loaded it into the process, and this library links the runtime only.
 typedef CUresult (*EncodeTiledFn)(
@@ -224,19 +236,41 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A bf16 map of `rank` dims (dims[0] the contiguous one, strides in bytes
+// for the rest) cut into boxes of 64 values x box_rows rows x 1, 128-byte
+// swizzled in shared memory; what a box reaches past any dim is filled
+// with zeros.
+static bool encode_bf16_map(CUtensorMap* map, const bf16* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, (void*)base,
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The map of a row-major bf16 matrix (rows x cols, row stride ld values)
 // cut into boxes of box_rows x 64 columns, 128-byte swizzled in shared
 // memory; what a box reaches past the matrix is filled with zeros.
 static bool make_tensor_map(CUtensorMap* map, const bf16* base, int rows,
                             int cols, int ld, int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)base, dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16_map(map, base, 2, dims, strides, box_rows);
+}
+
+// The map of `slabs` such matrices, slab_ld values apart (tma_load_3d): a
+// box never reaches into the next slab; its rows past `rows` are zeros.
+static bool make_tensor_map_3d(CUtensorMap* map, const bf16* base, int rows,
+                               int cols, int ld, int box_rows, int slabs,
+                               long long slab_ld) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(bf16),
+                                 (cuuint64_t)slab_ld * sizeof(bf16)};
+  return encode_bf16_map(map, base, 3, dims, strides, box_rows);
 }

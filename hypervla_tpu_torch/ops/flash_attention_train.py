@@ -23,15 +23,20 @@ points. A wrapper takes it only for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises. Each launch adds one to
 `LAUNCHES[<name>]`. The function runs under torch.no_grad() as well (the
 JAX serving path with `flash_attention_trainable` calls it there).
+
+How the kernels launch is decided here, from the shape alone, and handed
+to the C entry points: `flash_train_plan` (rows of a block, each kernel's
+shared memory, the grids), which the CPU tests hold.
 """
 import ctypes
 import functools
 import math
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from hypervla_tpu_torch.ops.dino_layer import (
+    SMS,
     _check,
     _raise_on_error,
     _route,
@@ -54,13 +59,18 @@ def _lib():
     loaded at the first launch, never at import)."""
     from hypervla_tpu_torch.utils.cuda_build import load_library
 
-    lib = load_library("flash_attention_train.cu")
+    return declare(load_library("flash_attention_train.cu"))
+
+
+def declare(lib):
+    """Declares the C signatures of a library built from
+    csrc/flash_attention_train.cu; returns it."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_trainable_max_head_dim.argtypes = []
-    lib.mha_flash_trainable_fwd.argtypes = [p] * 6 + [i] * 3 + [i, f, i, i,
-                                                                i, p]
-    lib.mha_flash_trainable_bwd.argtypes = [p] * 10 + [i] * 4 + [f, i, i, i,
-                                                                 p]
+    lib.mha_flash_trainable_fwd.argtypes = [p] * 6 + [i] * 4 + [f] + \
+        [i] * 5 + [p]
+    lib.mha_flash_trainable_bwd.argtypes = [p] * 11 + [i] * 4 + [f] + \
+        [i] * 6 + [p]
     for fn in (lib.flash_trainable_max_head_dim,
                lib.mha_flash_trainable_fwd, lib.mha_flash_trainable_bwd):
         fn.restype = ctypes.c_int
@@ -79,6 +89,102 @@ def q_terms(scale: float) -> int:
     one where the scale is a power of two (then it is a bf16 value), else
     three, whose sum is it exactly."""
     return 1 if math.frexp(scale)[0] == 0.5 else 3
+
+
+#: rows of a full block (one warpgroup's `wgmma` tile, four warps of 16)
+#: and keys (the dk/dv kernel: queries) of a ring stage
+TILE = 64
+#: the fp32 kernels' rows (or keys) of a block
+F32_ROWS = 32
+#: the bf16 kernels' load ring: stages of K/V (dk/dv: q terms, g and row
+#: terms) tiles, the source's STAGES
+RING_STAGES = 2
+
+
+class FlashTrainPlan(NamedTuple):
+    """How the kernels of one (batch * heads, seq, head_dim, dtype) launch:
+    `flash_train_plan`."""
+    rows: int  # rows of a block: queries (forward, dq), keys (dk/dv)
+    key_tile: int  # keys (dk/dv: queries) of a ring stage
+    smem_fwd: int  # dynamic shared memory of each kernel, bytes
+    smem_dq: int
+    smem_dkdv: int
+    grid: Tuple[int, int]  # (blocks a head, batch * heads), every kernel's
+    q_terms: int  # bf16 terms of fp32(q) * scale in the products
+    padded_dim: int  # the head dim's columns in a shared-memory tile
+    live_work: int  # seq * seq, the scores of one head
+    score_work: int  # scores a head's forward sweep forms (exponentials)
+    product_work: int  # (row, key) pairs its products multiply
+
+
+def _up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def _rows_for(seq: int, batch_heads: int, sms: int) -> int:
+    """Rows a block takes: 64 (a `wgmma` warpgroup) where those blocks give
+    every multiprocessor one, else 32, else 16 (one warp's rows on
+    `mma.sync`), so that a small batch, such as serving's one image of 12
+    heads, still spreads over the card."""
+    for rows in (TILE, 32):
+        if -(-seq // rows) * batch_heads >= sms:
+            return rows
+    return 16
+
+
+@functools.cache
+def flash_train_plan(batch_heads: int, seq: int, head_dim: int,
+                     dtype: torch.dtype, sms: int = SMS) -> FlashTrainPlan:
+    """The launch plan of the forward and backward kernels
+    (csrc/flash_attention_train.cu), from the shape alone.
+
+    bf16: the head dim is padded to 64 or 128 (`padded_dim` columns of a
+    shared-memory tile, 128-byte swizzled rows of 64 values), and the
+    ring holds RING_STAGES stages of tiles. A block holds 64 rows, or 32
+    or 16 where the grid would leave multiprocessors idle; a block whose
+    live rows fill all four warps multiplies on `wgmma`, else each warp
+    with live rows on `mma.sync`. Rows are taken in 16s and keys in 8s (a
+    key tile's last `wgmma` is 16, 32, 48 or 64 keys wide; its
+    exponentials skip the 8-key groups past the sequence): `score_work`
+    counts a head's scores so formed per sweep, `product_work` the (row,
+    key) pairs of its products, both against `live_work`. fp32: the FMA
+    kernels' 32-row blocks and 64-key tiles."""
+    _check(dtype in (torch.bfloat16, torch.float32),
+           f"the kernels take bf16 or fp32, not {dtype}")
+    _check(seq >= 1 and 1 <= head_dim <= 128 and batch_heads >= 1,
+           f"no plan for {batch_heads} x {seq} x {head_dim}")
+    nt = q_terms(softmax_scale(head_dim))
+    if dtype == torch.float32:
+        d, rows = head_dim, F32_ROWS
+        work = _up(seq, rows) * seq
+        return FlashTrainPlan(
+            rows, TILE, 4 * (2 * TILE * (d + 1) + rows * (d + TILE)),
+            4 * (2 * TILE * (d + 1) + rows * (2 * d + TILE)),
+            4 * (2 * rows * d + 2 * TILE * (d + 1) + 3 * TILE
+                 + 2 * rows * TILE),
+            (-(-seq // rows), batch_heads), 1, d, seq * seq, work, work)
+    dn = 64 if head_dim <= 64 else 128
+    rows = _rows_for(seq, batch_heads, sms)
+    live_rows = sum(_up(min(rows, seq - r0), 16)
+                    for r0 in range(0, seq, rows))
+    tails = [min(TILE, seq - k0) for k0 in range(0, seq, TILE)]
+    return FlashTrainPlan(
+        rows, TILE, *bf16_smem(nt, dn),
+        (-(-seq // rows), batch_heads), nt, dn, seq * seq,
+        live_rows * sum(_up(k, 8) for k in tails),
+        live_rows * sum(_up(k, 16) for k in tails))
+
+
+def bf16_smem(q_terms: int, padded_dim: int):
+    """Dynamic shared memory of the bf16 forward, dq and dk/dv kernels,
+    bytes: 1 KB to align the tiles to the swizzle's period, then tiles of
+    64 x padded_dim bf16: the forward's q terms and (K, V) stages; the dq
+    kernel's q terms, g and (K, V) stages; the dk/dv kernel's K, V and
+    stages of q terms, g and 64 row terms (1 KB)."""
+    tile = TILE * padded_dim * 2
+    return (1024 + (q_terms + 2 * RING_STAGES) * tile,
+            1024 + (q_terms + 1 + 2 * RING_STAGES) * tile,
+            1024 + 2 * tile + RING_STAGES * ((q_terms + 1) * tile + 1024))
 
 
 def _heads(t):
@@ -138,6 +244,7 @@ def _launch_fwd(query, key, value):
     """Launches the forward kernel (no launch counted)."""
     query, key, value = (t.contiguous() for t in (query, key, value))
     batch, heads, seq, d, scale, is_f32, nt = _launch_args(query)
+    plan = flash_train_plan(batch * heads, seq, d, query.dtype, SMS)
     o = torch.empty_like(query)
     m = torch.empty((batch, heads, seq), dtype=torch.float32,
                     device=query.device)
@@ -145,7 +252,7 @@ def _launch_fwd(query, key, value):
     code = _lib().mha_flash_trainable_fwd(
         query.data_ptr(), key.data_ptr(), value.data_ptr(), o.data_ptr(),
         m.data_ptr(), n.data_ptr(), batch, heads, seq, d, scale, is_f32, nt,
-        _vec(d, query, key, value, o), _stream())
+        _vec(d, query, key, value, o), plan.rows, plan.smem_fwd, _stream())
     _raise_on_error("mha_flash_trainable_fwd", code)
     return o, m, n
 
@@ -195,13 +302,24 @@ def _launch_bwd(query, key, value, g, m, n):
         _check(t.shape == (batch, heads, seq) and t.dtype == torch.float32
                and t.is_contiguous(), "m, n must be contiguous (batch, "
                "heads, seq) fp32")
+    plan = flash_train_plan(batch * heads, seq, d, query.dtype, SMS)
     dq, dk, dv = (torch.empty_like(query) for _ in range(3))
-    r = torch.empty_like(m)
+    # the dq kernel's row terms for the dk/dv kernel: r (fp32), or
+    # (-m log2(e), 1 / n, r, 0) (bf16); and, in bf16 with three q terms,
+    # those terms
+    rows = torch.empty(m.shape if is_f32 else (*m.shape, 4),
+                       dtype=torch.float32, device=m.device)
+    terms = None
+    if not is_f32 and nt == 3:
+        terms = torch.empty((batch * heads, 3, seq, plan.padded_dim),
+                            dtype=torch.bfloat16, device=query.device)
     code = _lib().mha_flash_trainable_bwd(
         query.data_ptr(), key.data_ptr(), value.data_ptr(), g.data_ptr(),
-        m.data_ptr(), n.data_ptr(), r.data_ptr(), dq.data_ptr(),
+        m.data_ptr(), n.data_ptr(), rows.data_ptr(),
+        None if terms is None else terms.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), batch, heads, seq, d, scale, is_f32,
-        nt, _vec(d, query, key, value, g, dq, dk, dv), _stream())
+        nt, _vec(d, query, key, value, g, dq, dk, dv), plan.rows,
+        plan.smem_dq, plan.smem_dkdv, _stream())
     _raise_on_error("mha_flash_trainable_bwd", code)
     return dq, dk, dv
 

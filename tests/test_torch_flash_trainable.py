@@ -109,6 +109,67 @@ def test_forward_saves_row_stats_and_runs_without_grad():
     assert torch.equal(plain, o)
 
 
+#: CUDA's grid limits (x, y) and a block's shared memory on an H100
+GRID_LIMITS = (2 ** 31 - 1, 65535)
+SMEM_LIMIT = 232448
+
+
+def _groups(seq, tile, width):
+    """The `width`-wide groups of the `tile`-long tiles that cut [0, seq)
+    which hold a live index."""
+    return len({(i // tile, i % tile // width) for i in range(seq)})
+
+
+@pytest.mark.parametrize("seq", [1, 16, 17, 64, 65, 257, 300, 2048])
+@pytest.mark.parametrize("d", [16, 20, 32, 64, 128])
+@pytest.mark.parametrize("batch_heads", [12, 768])
+def test_plan_fits_the_card_and_covers_the_rows(batch_heads, d, seq):
+    """flash_train_plan: every kernel's shared memory fits a block, the
+    grids are within CUDA's limits, the row blocks cover every row and
+    the last holds a live one, and the work counts are the kernels' cuts:
+    each 16-row warp with a live row multiplies, over each key tile's
+    8-key groups with a live key (exponentials) and 16-key groups
+    (products), counted here row by row and key by key."""
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = ft.flash_train_plan(batch_heads, seq, d, dtype)
+        assert max(plan.smem_fwd, plan.smem_dq, plan.smem_dkdv) \
+            <= SMEM_LIMIT, plan
+        grid, rows = plan.grid, plan.rows
+        assert all(1 <= g <= lim for g, lim in zip(grid, GRID_LIMITS))
+        assert grid[1] == batch_heads
+        assert (grid[0] - 1) * rows < seq <= grid[0] * rows
+        assert plan.live_work == seq * seq
+        if dtype == torch.float32:
+            assert plan.score_work == plan.product_work == \
+                grid[0] * rows * seq
+            continue
+        assert plan.rows in (16, 32, 64)
+        live_rows = 16 * _groups(seq, rows, 16)
+        assert plan.score_work == \
+            live_rows * 8 * _groups(seq, plan.key_tile, 8)
+        assert plan.product_work == \
+            live_rows * 16 * _groups(seq, plan.key_tile, 16)
+        assert plan.padded_dim in (64, 128) and plan.padded_dim >= d
+        assert plan.q_terms == ft.q_terms(ft.softmax_scale(d))
+
+
+def test_plan_cuts_the_padding_at_the_flagship_shape():
+    """At the training shape (64 x 12 heads, 257 tokens, head dim 64) the
+    blocks take 64 rows (a `wgmma` warpgroup) and the scores each sweep
+    forms are within 1.1x of the live ones (rows in 16s, keys in 8s; the
+    first version's 64 x 64 tiles formed 320^2 / 257^2 = 1.55x); the
+    serving shape (12 heads of one image) takes 16-row blocks, 204 of
+    them, rather than 60 of 64 rows for 132 multiprocessors."""
+    train = ft.flash_train_plan(768, 257, 64, torch.bfloat16)
+    assert train.rows == 64 and train.grid == (5, 768)
+    assert train.score_work <= 1.1 * train.live_work
+    assert train.score_work == 272 * 264
+    assert train.product_work == 272 * 272
+    serve = ft.flash_train_plan(12, 257, 64, torch.bfloat16)
+    assert serve.rows == 16 and serve.grid == (17, 12)
+    assert ft.flash_train_plan(12, 257, 64, torch.bfloat16, sms=1).rows == 64
+
+
 def test_inputs_of_two_types_raise():
     _, (tq, tk, tv, _) = _inputs(5, 16, jnp.float32, 4)
     with pytest.raises(ValueError, match="bf16 or all fp32"):

@@ -2,9 +2,13 @@
 `mha_flash_trainable_fwd`, `mha_flash_trainable_bwd`) against its plain
 PyTorch versions on the card, forward and backward, bf16 and fp32, at
 ragged sequences and head dims (the scalar loads at a head dim that is no
-multiple of 8), and at the flagship's training shape; two runs bit for
-bit; the launches the autograd.Function makes with and without grad and
-under remat.
+multiple of 8, or at inputs that are not 16-byte aligned), and at the
+flagship's training and serving shapes; each bf16 shape again with every
+block at 64 rows (the plan for a card of one multiprocessor), so that the
+blocks whose rows fill the warpgroup take `wgmma` at every ragged edge
+too; two runs bit for bit; a batch's outputs untouched by the next
+batch's non-finite rows; the launches the autograd.Function makes with
+and without grad and under remat.
 
 Skips where there is no CUDA device. On a GPU host without JAX, skip the
 JAX-only conftest: `python -m pytest --noconftest -q
@@ -31,7 +35,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: (batch, seq, heads, head_dim)
 SHAPES = [(2, 1, 3, 64), (2, 17, 3, 16), (2, 33, 2, 32), (1, 64, 2, 64),
           (2, 65, 3, 128), (1, 300, 2, 64), (2, 257, 12, 64),
-          (1, 40, 2, 20)]
+          (1, 40, 2, 20), (2, 16, 3, 64), (1, 63, 2, 64), (1, 264, 2, 64),
+          (1, 272, 2, 32), (1, 513, 2, 128), (1, 257, 12, 64)]
 
 
 @pytest.fixture(scope="module")
@@ -58,11 +63,9 @@ def close(got, ref, dtype, what=""):
     assert err <= tol, (what, err, tol)
 
 
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
-def test_forward_and_backward_match_plain(device, shape, dtype):
-    dtype = DTYPES[dtype]
-    q, k, v, g = _inputs(shape, dtype, device)
+def _match_plain(q, k, v, g, dtype):
+    """Forward and backward against the plain versions, and again bit for
+    bit."""
     o, m, n = ft.mha_flash_trainable_fwd(q, k, v)
     ro, rm, rn = ft.mha_flash_trainable_fwd_reference(q, k, v)
     torch.cuda.synchronize()
@@ -75,11 +78,50 @@ def test_forward_and_backward_match_plain(device, shape, dtype):
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         assert got.dtype == dtype
         close(got, ref, dtype, name)
+    again = (*ft.mha_flash_trainable_fwd(q, k, v),
+             *ft.mha_flash_trainable_bwd(q, k, v, g, m, n))
+    assert all(torch.equal(a, b) for a, b in zip((o, m, n, *grads), again))
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_two_runs_repeat_bit_for_bit(device, dtype):
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_forward_and_backward_match_plain(device, shape, dtype):
     dtype = DTYPES[dtype]
+    _match_plain(*_inputs(shape, dtype, device), dtype)
+
+
+@pytest.fixture
+def full_blocks(monkeypatch):
+    """Plans for a card of one multiprocessor: every block takes 64 rows."""
+    monkeypatch.setattr(ft, "SMS", 1)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_full_blocks_match_plain(device, full_blocks, shape):
+    _match_plain(*_inputs(shape, torch.bfloat16, device), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_unaligned_inputs_match_plain(device, dtype):
+    """Inputs one value past a 16-byte boundary: the plain loads."""
+    dtype = DTYPES[dtype]
+    shape = (2, 70, 3, 64)
+    views = []
+    for t in _inputs(shape, dtype, device, seed=3):
+        flat = torch.empty(t.numel() + 8, dtype=dtype, device=device)
+        view = flat[1:1 + t.numel()].view(shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        views.append(view)
+    _match_plain(*views, dtype)
+
+
+@pytest.mark.parametrize("blocks", ["plan", "full"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_two_runs_repeat_bit_for_bit(device, monkeypatch, dtype, blocks):
+    dtype = DTYPES[dtype]
+    if blocks == "full":
+        monkeypatch.setattr(ft, "SMS", 1)
     q, k, v, g = _inputs((2, 257, 12, 64), dtype, device, seed=1)
     first = ft.mha_flash_trainable_fwd(q, k, v)
     again = ft.mha_flash_trainable_fwd(q, k, v)
@@ -90,6 +132,30 @@ def test_two_runs_repeat_bit_for_bit(device, dtype):
     grads_again = ft.mha_flash_trainable_bwd(q, k, v, g, m, n)
     for a, b in zip(grads, grads_again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("blocks", ["plan", "full"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_a_batch_never_reads_the_next(device, monkeypatch, head_dim,
+                                      blocks):
+    """A batch's outputs do not depend on the next batch's rows, not even
+    where they are not finite: the ring's copies (TMA at these head dims)
+    stop at S. Batch 0's o, m, n, dq, dk, dv with batch 1 all Inf and NaN
+    are those with batch 1 finite, bit for bit."""
+    if blocks == "full":
+        monkeypatch.setattr(ft, "SMS", 1)
+    clean = _inputs((2, 257, 4, head_dim), torch.bfloat16, device, seed=4)
+    poisoned = [t.clone() for t in clean]
+    for i, t in enumerate(poisoned):
+        t[1] = float("nan") if i % 2 else float("inf")
+
+    def outs(q, k, v, g):
+        o, m, n = ft.mha_flash_trainable_fwd(q, k, v)
+        return (o, m, n, *ft.mha_flash_trainable_bwd(q, k, v, g, m, n))
+
+    for name, a, b in zip(("o", "m", "n", "dq", "dk", "dv"), outs(*clean),
+                          outs(*poisoned)):
+        assert torch.isfinite(a[0]).all() and torch.equal(a[0], b[0]), name
 
 
 def test_launches_with_and_without_grad_and_under_remat(device):
