@@ -321,6 +321,9 @@ TASKS = 4             # tasks a tick of the multi-task step
 MULTI_TICKS = 5
 SOURCES = ("dino_layer.cu", "fused_attention.cu", "layer_backward.cu",
            "row_kernels.cu", "flash_attention.cu", "flash_attention_train.cu")
+# the slowest source to build by far, which no phase before the row and
+# flash kernel phase launches
+LATE_SOURCE = "flash_attention_train.cu"
 TRUNK_SOURCE = "hypervla_tpu_torch/csrc/dino_layer.cu"
 TPU_KERNEL = "hypervla_tpu/ops/dino_layer.py:87"  # `_kernel`, the Pallas body
 # the training kernels: (source, the Pallas body each replaces)
@@ -376,10 +379,20 @@ ROW_FLASH_KERNELS = {
     "mha_flash_trainable_bwd": (
         "hypervla_tpu_torch/csrc/flash_attention_train.cu",
         "hypervla_tpu/ops/flash_attention.py:124"),
+    # the same entry points on fp32 tensors: the fp32 kernels
+    "mha_flash_trainable_fwd_fp32": (
+        "hypervla_tpu_torch/csrc/flash_attention_train.cu",
+        "hypervla_tpu/ops/flash_attention.py:124"),
+    "mha_flash_trainable_bwd_fp32": (
+        "hypervla_tpu_torch/csrc/flash_attention_train.cu",
+        "hypervla_tpu/ops/flash_attention.py:124"),
 }
 # the card's published peaks (H100 SXM): device memory, dense bf16 on the
 # tensor cores, fp32 outside them
 PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
+# the differentiable flash attention's fp32 route: each fp32 product is six
+# bf16 term products on the tensor cores
+PEAK_FP32_SPLIT = PEAK_BF16 / 6
 # kernel-vs-plain bounds: one bf16 ulp of the output scale for one kernel
 # launch; the bounds the JAX package holds between its own trunks for the
 # 12-layer trunk and for the actions
@@ -1449,11 +1462,12 @@ def trainable_flash_checks(table, t, check):
     forward and backward: against its plain versions and twice bit for
     bit, bf16 and fp32, at the flagship's training shape and at ragged
     sequences (1, 17, 300 keys) and head dims (32, 128: fp32(q) * scale as
-    three bf16 terms), and the bf16 forward at the serving shape. The bf16
-    training shape goes through `table` (its bound, device time and
+    three bf16 terms), and the forward at the serving shape in both types.
+    The training shape goes through `table` (its bound, device time and
     scaled_dot_product_attention's forward, and backward alone over a kept
-    graph); the others are timed by CUDA events, the serving forward by
-    the profiler too."""
+    graph), fp32 under the names `*_fp32` (its bound at PEAK_FP32_SPLIT or
+    the bytes); the others are timed by CUDA events, the serving forward
+    by the profiler too."""
     import torch
     import torch.nn.functional as F
 
@@ -1500,11 +1514,11 @@ def trainable_flash_checks(table, t, check):
         # scores and P.V forward; the backward's four products and the
         # scores again
         flops = 4 * b * h * s * s * d
-        if s != 257 or not bf16:
+        peak = PEAK_BF16 if bf16 else PEAK_FP32_SPLIT
+        if s != 257:
             times = [(*interleaved(kernel, plain, iters),
                       cuda_ms(library, iters))
                      for kernel, plain, library in (fwd, bwd)]
-            peak = PEAK_BF16 if bf16 else PEAK_FP32
             least = [bound_ms(nbytes(q, k, v, o, m, n), flops, peak),
                      bound_ms(nbytes(q, k, v, g, m, n, *grads), 2.5 * flops,
                               peak)]
@@ -1517,28 +1531,31 @@ def trainable_flash_checks(table, t, check):
                 f"{least[0][0]:.6g} ({least[0][1]}) / {least[1][0]:.6g} "
                 f"({least[1][1]})")
             return
+        suffix = "" if bf16 else "_fp32"
         with torch.no_grad():
-            table.add("mha_flash_trainable_fwd", label, err_f, *fwd[:2],
-                      iters, (nbytes(q, k, v, o, m, n), flops, PEAK_BF16),
+            table.add("mha_flash_trainable_fwd" + suffix, label, err_f,
+                      *fwd[:2], iters, (nbytes(q, k, v, o, m, n), flops, peak),
                       fwd[2])
-        table.add("mha_flash_trainable_bwd", label, err_b, *bwd[:2], iters,
-                  (nbytes(q, k, v, g, m, n, *grads), 2.5 * flops, PEAK_BF16),
-                  bwd[2])
+        table.add("mha_flash_trainable_bwd" + suffix, label, err_b, *bwd[:2],
+                  iters, (nbytes(q, k, v, g, m, n, *grads), 2.5 * flops,
+                          peak), bwd[2])
         log(f"kernel mha_flash_trainable {label}: within the bounds, two runs "
             "bit-equal")
 
-    def serving(b, s, h, d, iters):
+    def serving(b, s, h, d, dtype, iters):
         """The forward alone at one image's 12 heads, as a serving model
         with the switch on calls it under torch.no_grad() (the plan's own
         grid: 16-row blocks), against its plain version, twice bit for
         bit, timed beside scaled_dot_product_attention."""
-        q, k, v = (t((b, s, h, d)) for _ in range(3))
-        label = f"({b}, {s}, {h}, {d}) bfloat16 forward"
+        q, k, v = (t((b, s, h, d), dtype) for _ in range(3))
+        label = f"({b}, {s}, {h}, {d}) {str(dtype)[6:]} forward"
+        bf16 = dtype == torch.bfloat16
         with torch.no_grad():
             o, m, n = ft.mha_flash_trainable_fwd(q, k, v)
             torch.cuda.synchronize()
             ref = ft.mha_flash_trainable_fwd_reference(q, k, v)
-            check("mha_flash_trainable_fwd", f"{label} o", o, ref[0])
+            check("mha_flash_trainable_fwd", f"{label} o", o, ref[0],
+                  ULP_BOUND if bf16 else 1e-5)
             check("mha_flash_trainable_fwd", f"{label} row max", m, ref[1],
                   1e-5)
             check("mha_flash_trainable_fwd", f"{label} row sum", n, ref[2],
@@ -1562,7 +1579,8 @@ def trainable_flash_checks(table, t, check):
             calls = min(iters, PROFILED_CALLS)
             dev_ms = confirmed_device_ms(kernel, calls)
             lib_dev = confirmed_device_ms(library, calls)
-        least, by = bound_ms(nbytes(q, k, v, o, m, n), 4 * b * h * s * s * d)
+        least, by = bound_ms(nbytes(q, k, v, o, m, n), 4 * b * h * s * s * d,
+                             PEAK_BF16 if bf16 else PEAK_FP32_SPLIT)
         log(f"kernel mha_flash_trainable {label}: within the bounds, two runs "
             f"bit-equal; ms {k_ms:.6g} device_ms {dev_ms:.6g} plain_ms "
             f"{p_ms:.6g} library_ms {lib_ms:.6g} library_device_ms "
@@ -1573,7 +1591,8 @@ def trainable_flash_checks(table, t, check):
         for s in (1, 17, 300):
             for d in (32, 128):
                 case(2, s, 3, d, dtype, 10)
-    serving(1, 257, 12, 64, 20)
+    for dtype in (torch.bfloat16, torch.float32):
+        serving(1, 257, 12, 64, dtype, 20)
 
 
 def make_wrapper(model, trunk_impl):
@@ -1608,8 +1627,8 @@ def slice_phase(device):
         "mask": np.array([True] * 6 + [False]),
     }}
     t0 = time.perf_counter()
-    model, batch = build_flagship(seed=SEED, device=device,
-                                  dataset_statistics=stats)
+    model, batch = build_flagship(seed=SEED, encoder_dtype="bfloat16",
+                                  device=device, dataset_statistics=stats)
     # random fan-out kernels make the generated weights depend on the task
     gen = torch.Generator().manual_seed(SEED + 1)
     for name, value in model.params.items():
@@ -2631,7 +2650,8 @@ def train_phase(device):
     from hypervla_tpu_torch.train.trainer import build_frozen_encoders
 
     t0 = time.perf_counter()
-    model, _ = build_flagship(seed=SEED, device=device, training=True)
+    model, _ = build_flagship(seed=SEED, encoder_dtype="bfloat16",
+                              training=True, device=device)
     fast = apply_fast_training_preset(copy.deepcopy(model.config))
     model = HyperVLA.from_config(fast, make_flagship_batch(seed=SEED),
                                  seed=SEED, device=device)
@@ -2898,6 +2918,140 @@ def train_phase(device):
     delta_decay_check(*fast_args)
     return ({name: totals[name] for name in kernel_configs},
             hand_fed["fast_preset"])
+
+
+#: the fp32 `--flash` configuration: timed steps after its first
+FP32_FLASH_STEPS = 2
+
+
+def flash_fp32_phase(device):
+    """The JAX scripts/bench_train.py --flash without --fast: the
+    full-width flagship from build_flagship(training=True), its trunk at
+    the builder's fp32, every trunk attention through the differentiable
+    flash attention (fp32 kernels, forward and backward), at batch
+    TRAIN_BATCH. Its first step from the peak LR against the same
+    configuration with the flash switches off (fp32 einsum attention):
+    loss, grad_norm and each leaf's update under the train phase's bounds
+    (and the einsum step traced once); then FP32_FLASH_STEPS timed steps,
+    one traced, the peak memory, and the launches of each entry point,
+    every one on fp32 tensors: returns them (FP32_LAUNCHES over its
+    counted steps)."""
+    import torch
+
+    from hypervla_tpu_torch.flagship import build_flagship, make_flagship_batch
+    from hypervla_tpu_torch.ops import flash_attention_train as ft
+    from hypervla_tpu_torch.train.train_state import TrainState
+    from hypervla_tpu_torch.train.train_step import to_tensors
+    from hypervla_tpu_torch.train.trainer import build_frozen_encoders
+
+    t0 = time.perf_counter()
+    flash = dict(use_flash_attention=True, flash_attention_trainable=True,
+                 sow_dino_attention=False)
+    batch = make_flagship_batch(batch_size=TRAIN_BATCH, seed=SEED)
+    del batch["task"]["language_instruction"]["token_embedding"]
+    del batch["initial_state"]["patch_embeddings"]
+    batch = to_tensors(batch, device)
+    first, updates, counted = {}, {}, {}
+    for name, overrides in (("einsum", None), ("flash", flash)):
+        model, _ = build_flagship(seed=SEED, training=True,
+                                  vit_overrides=overrides, device=device)
+        config = model.config
+        vk = config["base_net_kwargs"]["vit_kwargs"]
+        if vk.get("encoder_dtype", "float32") != "float32":
+            raise AssertionError(f"the {name} trunk is {vk['encoder_dtype']}")
+        applies = build_frozen_encoders(config, device=device, seed=SEED + 1)
+        step, tx = _fast_step(model, config, applies[:2])
+        encoders = {"t5": applies[2], "dino": applies[3]}
+        state = TrainState.create(model.params, tx,
+                                  track_ema=config.get("save_param_EMA",
+                                                       True))
+        warmup = config["optimizer"]["learning_rate"]["warmup_steps"]
+        state.step = warmup
+        _opt_counts(state.opt_state, warmup)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        ft.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state, info = step(state, batch, encoder_params=encoders,
+                           with_metrics=True)
+        torch.cuda.synchronize()
+        first[name] = info
+        updates[name] = {k: state.params[k].detach() - v
+                         for k, v in before.items()}
+        del before
+        if name == "einsum":
+            if any(ft.LAUNCHES.values()):
+                raise AssertionError(f"the einsum step launched {ft.LAUNCHES}")
+            busy, kernels = device_busy(
+                lambda: step(state, batch, encoder_params=encoders,
+                             with_metrics=False), host=False)
+            log(f"train fp32 einsum (flash off) step profiled: device busy ms "
+                f"{busy:.3f}, {kernels:.0f} device kernels; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+            del model, state, step, tx, encoders, applies
+            torch.cuda.empty_cache()
+            continue
+        times = []
+        for _ in range(FP32_FLASH_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, batch, encoder_params=encoders,
+                            with_metrics=False)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        steps = 1 + FP32_FLASH_STEPS
+        counted = {"all": dict(ft.LAUNCHES), "fp32": dict(ft.FP32_LAUNCHES)}
+        want = dict.fromkeys(ft.LAUNCHES,
+                             steps * model.base_net.encoder.dino
+                             .num_hidden_layers)
+        if counted["all"] != want or counted["fp32"] != want:
+            raise AssertionError(f"fp32 flash launches over {steps} steps "
+                                 f"{counted}, want {want} on fp32 tensors")
+        peak = torch.cuda.max_memory_allocated()
+
+        def one_step():
+            step(state, batch, encoder_params=encoders, with_metrics=False)
+
+        busy, kernels = device_busy(one_step, host=False)
+        med = statistics.median(times)
+        log(f"train fp32 flash ms/step (median of CUDA events, "
+            f"{FP32_FLASH_STEPS} steps): {med:.4f}; samples/s "
+            f"{TRAIN_BATCH * 1e3 / med:.1f}; peak memory "
+            f"(max_memory_allocated) {peak / 2 ** 30:.3f} GiB; profiled "
+            f"step: device busy ms {busy:.3f}, {kernels:.0f} device kernels, "
+            f"idle share {1 - busy / med:.3f}; launches over {steps} steps "
+            f"{counted['fp32']} (all on fp32 tensors)")
+        del model, state, step, tx, encoders, applies
+    for key in ("training_loss", "grad_norm"):
+        a, b = float(first["flash"][key]), float(first["einsum"][key])
+        log(f"train fp32 flash first step {key}: flash {a!r} einsum {b!r} "
+            f"(rel {abs(a - b) / abs(b):.3g}, bound {STEP_REL_BOUND})")
+        if not abs(a - b) <= STEP_REL_BOUND * abs(b):
+            raise AssertionError(f"fp32 flash: first-step {key} against the "
+                                 "einsum step")
+    ref, got = updates["einsum"], updates["flash"]
+    typical = statistics.median(float(p.norm()) for p in ref.values())
+    degenerate = [k for k, p in ref.items()
+                  if float(p.norm()) < 1e-3 * typical]
+    worst = min((_cosine(got[k], ref[k]), k) for k in ref
+                if k not in degenerate)
+    log(f"train fp32 flash first step updates against einsum: lowest "
+        f"per-leaf cosine {worst[0]:.6f} (1 - cosine {1 - worst[0]:.3g}; "
+        f"{worst[1]}), bound {COSINE_BOUND}; {len(degenerate)} leaves "
+        f"barely move; the largest update difference "
+        f"{max(float((got[k] - ref[k]).abs().max()) for k in ref):.3g}")
+    if not worst[0] > COSINE_BOUND:
+        raise AssertionError("fp32 flash: the updates disagree with the "
+                             "einsum step")
+    for k in degenerate:
+        if not float(got[k].norm()) < 1e-2 * typical:
+            raise AssertionError(f"fp32 flash {k}: the einsum step leaves it "
+                                 "at noise")
+    del updates, ref, got
+    torch.cuda.empty_cache()
+    log(f"train fp32 flash phase s {time.perf_counter() - t0:.1f}")
+    return counted["fp32"]
 
 
 def _opt_counts(opt_state, count):
@@ -3650,7 +3804,8 @@ def regularised_phase(device, card):
         "std": (1 + rng.random(7)).astype(np.float32),
         "mask": np.array([True] * 6 + [False]),
     }}
-    base, _ = build_flagship(seed=SEED, device=device, training=True)
+    base, _ = build_flagship(seed=SEED, encoder_dtype="bfloat16",
+                             training=True, device=device)
     fast = apply_fast_training_preset(copy.deepcopy(base.config))
     del base
     reg = copy.deepcopy(fast)
@@ -6214,17 +6369,24 @@ def main() -> int:
         atexit.register(shutil.rmtree, pretrained, True)
     # one nvcc per source, all started together, so the build time stays
     # that of the slowest source as sources are added; the seeded encoders
-    # are written beside them
+    # are written beside them. LATE_SOURCE, the slowest, is waited for only
+    # before the first phase that launches its kernels: its build overlaps
+    # the phases before (cuda_build.build makes a phase that loads it
+    # earlier wait for the same build)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(SOURCES) + 1) as pool:
-        seeded = (pool.submit(seeded_pretrained_dir, pretrained)
-                  if pretrained else None)
-        list(pool.map(cuda_build.build, SOURCES))
-        if seeded is not None:
-            seeded.result()
-            os.environ["HYPERVLA_PRETRAINED_DIR"] = pretrained
-    log(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s "
-        "(one nvcc each, in parallel; beside them the seeded T5-base and "
+    pool = ThreadPoolExecutor(max_workers=len(SOURCES) + 1)
+    seeded = (pool.submit(seeded_pretrained_dir, pretrained)
+              if pretrained else None)
+    builds = {src: pool.submit(cuda_build.build, src) for src in SOURCES}
+    for src in SOURCES:
+        if src != LATE_SOURCE:
+            builds[src].result()
+    if seeded is not None:
+        seeded.result()
+        os.environ["HYPERVLA_PRETRAINED_DIR"] = pretrained
+    log(f"build: {', '.join(s for s in SOURCES if s != LATE_SOURCE)} in "
+        f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel, "
+        f"{LATE_SOURCE} too; beside them the seeded T5-base and "
         "DINOv2-base of every phase's frozen encoders, written to "
         "HYPERVLA_PRETRAINED_DIR)")
 
@@ -6239,11 +6401,18 @@ def main() -> int:
     launches, flagship = phase("slice", slice_phase, device)
     phase("server", server_phase, device, flagship)
     del flagship
+    t_late = time.perf_counter()
+    builds[LATE_SOURCE].result()
+    pool.shutdown()
+    log(f"build: {LATE_SOURCE} waited for {time.perf_counter() - t_late:.2f} "
+        f"s after the server phase ({time.perf_counter() - t0:.1f} s after "
+        "the builds started)")
     row_results, add_ln_launches = phase(
         "row_flash_kernel", row_flash_kernel_phase, device)
     train_results = phase("train_kernel", train_kernel_phase, device)
     phase("column_pass", column_pass_phase, device)
     train_launches, hand_fed = phase("train", train_phase, device)
+    fp32_launches = phase("flash_fp32", flash_fp32_phase, device)
     trainer_launches, trainer_losses = phase(
         "trainer", trainer_phase, device, card, hand_fed)
     phase("smallstem", smallstem_phase, device, card)
@@ -6281,6 +6450,8 @@ def main() -> int:
     row_launches.update(
         (name, train_launches["flash_trainable"][name])
         for name in ("mha_flash_trainable_fwd", "mha_flash_trainable_bwd"))
+    row_launches.update((name + "_fp32", fp32_launches[name])
+                        for name in fp32_launches)
     for name, (source, replaces) in ROW_FLASH_KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": row_launches[name],
@@ -6308,7 +6479,8 @@ def main() -> int:
         "launches of one counted call of the differentiable function, "
         "forward and backward (it lies on no model path); "
         "mha_flash_trainable_* per launch at B=64 in bf16, launches over "
-        "the flash-trainable train steps, library_ms "
+        "the flash-trainable train steps, *_fp32 the same in fp32 (bound at "
+        "989/6 TFLOP/s), launches over the fp32 --flash steps, library_ms "
         "scaled_dot_product_attention's forward, or its backward alone")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

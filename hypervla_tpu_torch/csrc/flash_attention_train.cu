@@ -103,12 +103,47 @@
 // `cp.async` and TMA cut it; what is left is each block's product, wait,
 // exponentials and next product in turn.
 //
-// fp32 inputs run on fp32 FMAs (no TF32): the same three kernels with a
-// warp owning 4 rows (forward, dq) or 4 keys (dk/dv) and a lane two keys
-// or two queries of a 64-wide tile, every dot an FMA chain over the head
-// dim in one order, so the recomputed scores are the forward's bit for
-// bit there. They are the first version's, unchanged, and slower than the
-// plain cuBLAS version (ROADMAP.md).
+// fp32 inputs run on the same bf16 tensor cores (no TF32, no FMA chains):
+// every fp32 operand of a product (qs, k, v, g, p, ds) is split into its
+// three bf16 terms, and a product a . b is the fp32 sum of the six term
+// products a_i . b_j with i + j <= 2 (the three left out are each below
+// 2^-23 |a||b|), the small ones first and hi . hi last, into the one
+// accumulator (tests/test_torch_flash_trainable.py emulates it: within
+// 0.17 of the 1e-5 bound). The three kernels keep the bf16 kernels'
+// sweeps, ring, swizzled tiles, orientation and e, each operand tile a
+// group of its three term tiles:
+//   * the tiles a block keeps (the forward's qs; the dq kernel's qs and g;
+//     the dk/dv kernel's k and v) are split as they load, 8 values a
+//     thread in two 16-byte loads, all of a thread's loads issued first
+//     (one value a load where d is no multiple of 8 or a row unaligned;
+//     every tile so measured 1.3x slower in the backward). The ring's operands (k, v; in the dk/dv kernel g, qs)
+//     come from a bf16 scratch of their terms: a split kernel writes k's
+//     and v's before each entry point's kernels, the dq kernel qs's and
+//     g's as it forms them;
+//   * a ring item is one operand's three term tiles (24 KB at head dims up
+//     to 64): the forward's k for the row stats, then k and v of each tile
+//     (p kept in registers between); the dq kernel's v (dp, kept) then k of
+//     each tile, in each of its two sweeps; the dk/dv kernel's g (dp^T,
+//     kept) then qs with its row terms, at which dv += P^T . g reads g's
+//     stage before the ring refills it, and dk += ds^T . qs follows;
+//   * every block holds 64 rows (keys) on `wgmma`, whole 64-key products,
+//     rows past S multiplied as zeros: no `mma.sync` path beside it, no
+//     cut last tile, because ptxas serializes every `wgmma` of a kernel
+//     where one lies on a path it cannot prove uniform (C7520), which
+//     measured 1.8x (forward) and 1.9x (backward) slower. The exponentials
+//     skip the 8-key groups past S.
+//   * Registers (`-Xptxas -v`): forward 167 (three blocks a multiprocessor
+//     at head dims up to 64), dq 189 and dk/dv 216 (two, as their shared
+//     memory allows); at 128 one block, 215, 223 and 254 (dk/dv spills 20
+//     bytes).
+// Measured (tools/flash_train_ab.py --dtype float32, NVIDIA H100 80GB
+// HBM3, 700.00 W): at (64, 257, 12, 64) the forward takes 0.095 ms of
+// device time to split k and v and 0.292 in its kernel, the backward 0.094
+// + 0.571 (dq) + 0.439 (dk/dv), against 3.149 and 5.241 + 3.704 for the
+// FMA kernels they replace and 0.630 and 1.547 for
+// scaled_dot_product_attention. Splitting k's and v's fp32 tiles in
+// shared memory inside the forward's ring, each block its own (two blocks
+// a multiprocessor), took 0.528 against these 0.387.
 //
 // Plain C interface (loaded with ctypes). Each entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -551,13 +586,17 @@ __device__ __forceinline__ void ring_next(uint64_t* full, int it, int tma) {
   __syncthreads();
 }
 
-// The three bf16 terms of qs = fp32(q) * scale for rows [r0, r0 + TILE)
-// into three tiles BYTES apart at dst; rows at or past lim and columns at
-// or past d are zero. With out, each live row's terms also go there, term
-// t of row r at out[(t * S + r) * DN ..], for the dk/dv kernel.
-template <int DN>
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+// The three bf16 terms of qs = fp32(q) * scale (q bf16 or fp32; the fp32
+// kernels form k's, v's and g's the same way, scale 1) for rows [r0, r0 +
+// TILE) into three tiles BYTES apart at dst; rows at or past lim and
+// columns at or past d are zero. With out, each live row's terms also go
+// there, term t of row r at out[(t * S + r) * DN ..], for the dk/dv kernel.
+template <int DN, typename T>
 __device__ __forceinline__ void form_q_terms(unsigned char* sm, uint32_t dst,
-                                             const bf16* src, long long ld,
+                                             const T* src, long long ld,
                                              int r0, int lim, int d,
                                              float scale, bf16* out, int S) {
   constexpr int TB = TILE * DN * 2;
@@ -566,8 +605,7 @@ __device__ __forceinline__ void form_q_terms(unsigned char* sm, uint32_t dst,
     const bool in = r0 + r < lim;
     const float x =
         in && c < d
-            ? __fmul_rn(__bfloat162float(src[(long long)(r0 + r) * ld + c]),
-                        scale)
+            ? __fmul_rn(to_f32(src[(long long)(r0 + r) * ld + c]), scale)
             : 0.f;
     const bf16 hi = __float2bfloat16_rn(x);
     const float r1 = __fsub_rn(x, __bfloat162float(hi));
@@ -1104,317 +1142,562 @@ __global__ void __launch_bounds__(TC_THREADS, Occupancy<DK>::DKDV)
   }
 }
 
-// ------------------------------ fp32 FMAs -------------------------------
+// --------------------------- fp32 on bf16 terms ---------------------------
 
-constexpr int F_WARPS = 8;
-constexpr int F_THREADS = F_WARPS * 32;
-constexpr int F_R = 4;                   // rows (or keys) of a warp
-constexpr int F_ROWS = F_WARPS * F_R;    // of a block
-constexpr int F_KT = 64;                 // keys (or queries) of a tile
-constexpr int F_MAXJ = 4;                // head dims of a lane: d <= 128
+// The fp32 kernels multiply on the same tensor cores: every fp32 operand of
+// a product (qs, k, v, g, p, ds) is split into its three bf16 terms, and a
+// product a . b is the fp32 sum of the six term products a_i . b_j with i +
+// j <= 2 (the three left out are each below 2^-23 |a||b|), the small ones
+// first, hi . hi last, into one accumulator. A pair p of the six takes
+// term pair_a(p) of a and pair_b(p) of b.
+__device__ __forceinline__ int pair_a(int p) {
+  return p == 0 ? 2 : p == 2 || p == 3 ? 1 : 0;
+}
+__device__ __forceinline__ int pair_b(int p) {
+  return p == 1 ? 2 : p == 2 || p == 4 ? 1 : 0;
+}
 
-__device__ __forceinline__ float warp_sum(float v) {
+// s = sum over the six pairs of A_i . B_j^T, A_i the 64 x DK tile at a + i
+// TB, B_j the 64-row tile at b + j TB, both K-major: the scores and dp, on
+// the warpgroup's `wgmma`, waited on.
+template <int DK>
+__device__ __forceinline__ void nt_pairs(float (&s)[32], uint32_t a,
+                                         uint32_t b) {
+  constexpr uint32_t TB = Tiles<DK>::BYTES;
+  wgmma_fence();
+#pragma unroll 1
+  for (int p = 0; p < 6; ++p) {
+    const uint32_t ap = a + pair_a(p) * TB, bp = b + pair_b(p) * TB;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+    for (int ks = 0; ks < DK / 16; ++ks)
+      wg_ss<64>(s, desc_k(ap, ks), desc_k(bp, ks), p | ks);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
 }
-__device__ __forceinline__ float warp_max(float v) {
+
+// acc += x . B over the six pairs, x a warp's 16 x 64 fp32 tile (split
+// here into its terms, the A operands in registers), B's 64 rows of terms
+// MN-major at b + j TB: P.V, ds.K, P^T.g, ds^T.qs; waited on.
+template <int DK>
+__device__ __forceinline__ void rs_pairs(float (&acc)[DK / 2],
+                                         const float (&x)[32], uint32_t b) {
+  constexpr uint32_t TB = Tiles<DK>::BYTES;
+  uint32_t hi[4][4], mid[4][4], lo[4][4];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int kk = 0; kk < 4; ++kk) frag3(hi[kk], mid[kk], lo[kk], x, kk);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t d0 = desc_mn(b, 16 * kk), d1 = desc_mn(b + TB, 16 * kk),
+                   d2 = desc_mn(b + 2 * TB, 16 * kk);
+    wg_rs<DK>(acc, lo[kk], d0, 1);
+    wg_rs<DK>(acc, hi[kk], d2, 1);
+    wg_rs<DK>(acc, mid[kk], d1, 1);
+    wg_rs<DK>(acc, mid[kk], d0, 1);
+    wg_rs<DK>(acc, hi[kk], d1, 1);
+    wg_rs<DK>(acc, hi[kk], d0, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
 }
 
-// The dot of a (d values) and b, an FMA chain in column order: the one
-// order every fp32 kernel takes for scores and dp.
-__device__ __forceinline__ float dot_chain(const float* a, const float* b,
-                                           int d) {
-  float s = 0.f;
-  for (int c = 0; c < d; ++c) s = __fmaf_rn(a[c], b[c], s);
-  return s;
-}
-
-// Rows [r0, r0 + rows) of one head into a (rows, lds) fp32 tile, times
-// `mul`; rows at or past S are zero.
-__device__ __forceinline__ void load_f32(float* dst, int lds,
-                                         const float* src, long long ld,
-                                         int r0, int rows, int S, int d,
-                                         float mul) {
-  for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
-    const int r = i / d, c = i % d;
-    dst[r * lds + c] =
-        r0 + r < S ? __fmul_rn(src[(long long)(r0 + r) * ld + c], mul) : 0.f;
+// Row `r` of a warp's fp32 accumulator (rows g, g + 8: r = 0, 1), columns
+// below d, times mul.
+template <int DN>
+__device__ __forceinline__ void store_row_f32(float* dst,
+                                              const float (&acc)[DN / 2],
+                                              int r, int d, float mul) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < DN / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float a = __fmul_rn(acc[4 * j + 2 * r], mul);
+    const float b = __fmul_rn(acc[4 * j + 2 * r + 1], mul);
+    if (col + 1 < d && !(d & 1)) {
+      *reinterpret_cast<float2*>(dst + col) = make_float2(a, b);
+    } else {
+      if (col < d) dst[col] = a;
+      if (col + 1 < d) dst[col + 1] = b;
+    }
   }
 }
 
-// grid (ceil(S / 32), batch * heads), 256 threads: a warp's 4 rows, a
-// lane's keys lane and lane + 32 of each tile.
-__global__ void __launch_bounds__(F_THREADS) fwd_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ mo,
-    float* __restrict__ no, int heads, int S, int d, float scale) {
-  extern __shared__ float fsm[];
-  const int kp = d + 1;
-  float* Ks = fsm;                    // [F_KT][kp]
-  float* Vs = Ks + F_KT * kp;         // [F_KT][kp]
-  float* Qs = Vs + F_KT * kp;         // [F_ROWS][d], scaled
-  float* Ps = Qs + F_ROWS * d;        // [F_ROWS][F_KT]
+// form_q_terms for an fp32 source whose rows are 16-byte aligned and d a
+// multiple of 8 (vec), else form_q_terms itself: a thread's chunks of 8
+// values are loaded together (two 16-byte loads each), then split, and
+// each term's chunk stored whole, here and to out.
+template <int DN>
+__device__ __forceinline__ void form_terms_f32(unsigned char* sm,
+                                               uint32_t dst, const float* src,
+                                               long long ld, int r0, int lim,
+                                               int d, float scale, bf16* out,
+                                               int S, int vec) {
+  if (!vec) {
+    form_q_terms<DN>(sm, dst, src, ld, r0, lim, d, scale, out, S);
+    return;
+  }
+  constexpr int TB = TILE * DN * 2, CH = DN / 8;
+  constexpr int PER = TILE * CH / TC_THREADS;
+  float y[PER][8];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int idx = threadIdx.x + i * TC_THREADS, r = idx / CH, c = idx % CH;
+    if (r0 + r < lim && 8 * c < d) {
+      load8(y[i], src + (long long)(r0 + r) * ld + 8 * c);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[i][j] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int idx = threadIdx.x + i * TC_THREADS, r = idx / CH, c = idx % CH;
+    uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split3(__fmul_rn(y[i][2 * j], scale), __fmul_rn(y[i][2 * j + 1], scale),
+             hi[j], mid[j], lo[j]);
+    const uint4 h = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    const uint4 m = make_uint4(mid[0], mid[1], mid[2], mid[3]);
+    const uint4 l = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    unsigned char* at = sm + dst + sw(r, c);
+    *reinterpret_cast<uint4*>(at) = h;
+    *reinterpret_cast<uint4*>(at + TB) = m;
+    *reinterpret_cast<uint4*>(at + 2 * TB) = l;
+    if (out && r0 + r < lim) {
+      bf16* o = out + (long long)(r0 + r) * DN + 8 * c;
+      *reinterpret_cast<uint4*>(o) = h;
+      *reinterpret_cast<uint4*>(o + (long long)S * DN) = m;
+      *reinterpret_cast<uint4*>(o + 2LL * S * DN) = l;
+    }
+  }
+}
+
+// The scratch of the fp32 route: slot i of (4, batch * heads, 3, S, DN)
+// bf16 holds the terms of k (0), v (1), qs (2) and g (3), term t of row r
+// of head bh at ((i * BH + bh) * 3 + t) * S + r rows of DN.
+__device__ __forceinline__ long long term_slab(int slot, int bh) {
+  return ((long long)slot * gridDim.y + bh) * 3;
+}
+
+// One ring item of the fp32 route: rows [r0, r0 + TILE) of the three term
+// tiles of slab `slab` of the scratch x into the stage at st (an offset of
+// sm), by TMA (the scratch's map, counted on `bar`) or by cp.async.
+template <int DN>
+__device__ __forceinline__ void fetch_terms(unsigned char* sm, uint32_t st,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int tma,
+                                            const bf16* x, long long slab,
+                                            int r0, int S) {
+  constexpr int TB = Tiles<DN>::BYTES;
+  if (!tma) {
+    for (int term = 0; term < 3; ++term)
+      load_tile<DN>(sm, st + term * TB, x + (slab + term) * S * DN, DN, r0,
+                    S, DN, true);
+  } else if (threadIdx.x == 0) {
+    const uint32_t b = smem_u32(bar);
+    mbar_expect_tx(b, 3 * TB);
+    for (int term = 0; term < 3; ++term)
+      tma_tile<DN>(smem_u32(sm) + st + term * TB, map, b, 0, r0,
+                   (int)(slab + term));
+  }
+}
+
+// Blocks a multiprocessor holds on the fp32 route (the shared memory of
+// fp32_smem allows no more): at head dims up to 64, three forward blocks
+// and two of each backward kernel; at 128 one.
+template <int DK>
+struct F32Occupancy {
+  static constexpr int FWD = DK == 128 ? 1 : 3;
+  static constexpr int BWD = DK == 128 ? 1 : 2;
+};
+
+// Dynamic shared memory of the fp32 kernels: the 1 KB margin, then (in
+// groups of three term tiles) the forward's qs and STAGES ring stages; the
+// dq kernel's qs, g and stages; the dk/dv kernel's k, v and stages with 64
+// row terms (1 KB) each.
+template <int DK>
+__host__ __device__ constexpr int smem_fwd_f32() {
+  return 1024 + 3 * (1 + STAGES) * Tiles<DK>::BYTES;
+}
+template <int DK>
+__host__ __device__ constexpr int smem_dq_f32() {
+  return 1024 + 3 * (2 + STAGES) * Tiles<DK>::BYTES;
+}
+template <int DK>
+__host__ __device__ constexpr int smem_dkdv_f32() {
+  return 1024 + 6 * Tiles<DK>::BYTES + STAGES * (3 * Tiles<DK>::BYTES + 1024);
+}
+
+// The terms of k and v (batch, S, heads, d) fp32 into the scratch's slots
+// 0 and 1 (blockIdx.z). A thread splits 8 columns of a row (vec: two
+// 16-byte loads); columns at or past d are zero.
+template <int DN>
+__global__ void split_terms_kernel(const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   bf16* __restrict__ xs, int heads, int S,
+                                   int d, int vec) {
+  constexpr int CH = DN / 8;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * CH) return;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int r = i / CH, c0 = (i % CH) * 8;
+  const float* src = (blockIdx.z ? v : k) +
+                     ((long long)b * S + r) * heads * d + (long long)h * d;
+  float y[8];
+  if (vec && c0 < d) {
+    load8(y, src + c0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y[j] = c0 + j < d ? src[c0 + j] : 0.f;
+  }
+  uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    split3(y[2 * j], y[2 * j + 1], hi[j], mid[j], lo[j]);
+  bf16* out = xs + (term_slab(blockIdx.z, bh) * S + r) * DN + c0;
+  const long long term = (long long)S * DN;
+  *reinterpret_cast<uint4*>(out) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(out + term) =
+      make_uint4(mid[0], mid[1], mid[2], mid[3]);
+  *reinterpret_cast<uint4*>(out + 2 * term) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// ---------------------------- fp32 forward ------------------------------
+
+// grid (ceil(S / 64), batch * heads), 128 threads, 64 rows a block. k's
+// and v's terms come from the scratch's slots 0 and 1, qs's are formed
+// here. Items [0, tiles): k for the row stats; then k, v of each tile.
+template <int DK>
+__global__ void __launch_bounds__(TC_THREADS, F32Occupancy<DK>::FWD)
+    fwd_f32_kernel(
+    const float* __restrict__ q, const bf16* __restrict__ xs,
+    float* __restrict__ o, float* __restrict__ mo, float* __restrict__ no,
+    const __grid_constant__ CUtensorMap map_x, int heads, int S, int d,
+    float scale, int vec, int tma) {
+  constexpr int DN = DK, GB = 3 * Tiles<DK>::BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  const uint32_t su = smem_u32(sm), ring = GB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const long long ld = (long long)heads * d;
   const long long base = (long long)b * S * ld + (long long)h * d;
-  const int row0 = blockIdx.x * F_ROWS + warp * F_R;
-  load_f32(Qs, d, q + base, ld, blockIdx.x * F_ROWS, F_ROWS, S, d, scale);
-  const float* qw = Qs + warp * F_R * d;
-  float* pw = Ps + warp * F_R * F_KT;
-  float m[F_R], n[F_R], acc[F_R][F_MAXJ];
+  const int q0 = blockIdx.x * TILE, live = min(TILE, S - q0);
+  const float cl = LOG2E;
+  __shared__ uint64_t full[STAGES];
+  init_ring(full, tma);
+  form_terms_f32<DN>(sm, 0, q + base, ld, q0, q0 + live, d, scale, nullptr,
+                     S, vec);
+
+  const int tiles = (S + TILE - 1) / TILE, items = 3 * tiles;
+  auto fetch = [&](int it) {
+    if (it < items) {
+      const int stage = it % STAGES;
+      const bool is_v = it >= tiles && ((it - tiles) & 1);
+      const int k0 = (it < tiles ? it : (it - tiles) >> 1) * TILE;
+      fetch_terms<DN>(sm, ring + stage * GB, &map_x, &full[stage], tma, xs,
+                      term_slab(is_v, bh), k0, S);
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < STAGES - 1; ++i) fetch(i);
+
+  float m[2] = {NEG, NEG}, n[2] = {0.f, 0.f}, nml[2], rn[2];
+  float acc[DN / 2], p[32];
 #pragma unroll
-  for (int rr = 0; rr < F_R; ++rr) {
-    m[rr] = NEG;
-    n[rr] = 0.f;
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < items; ++it) {
+    ring_next(full, it, tma);
+    fetch(it + STAGES - 1);
+    const uint32_t xt = su + ring + (it % STAGES) * GB;
+    const int k0 = (it < tiles ? it : (it - tiles) >> 1) * TILE;
+    const int klive = min(TILE, S - k0);
+    if (it >= tiles && ((it - tiles) & 1)) {
+      rs_pairs<DK>(acc, p, xt);  // o += p . v
+      continue;
+    }
+    float s[32];
+    nt_pairs<DK>(s, su, xt);
+    if (klive < TILE) mask_cols(s, klive, NEG);
+    if (it < tiles) {
+      // sweep 1: the row max and the row sum, rescaled as the max grows
+      float tmax[2] = {NEG, NEG};
 #pragma unroll
-    for (int j = 0; j < F_MAXJ; ++j) acc[rr][j] = 0.f;
-  }
-#pragma unroll 1
-  for (int sweep = 0; sweep < 2; ++sweep)
-    for (int k0 = 0; k0 < S; k0 += F_KT) {
-      __syncthreads();
-      load_f32(Ks, kp, k + base, ld, k0, F_KT, S, d, 1.f);
-      if (sweep == 1) load_f32(Vs, kp, v + base, ld, k0, F_KT, S, d, 1.f);
-      __syncthreads();
-      const bool la = k0 + lane < S, lb = k0 + lane + 32 < S;
+      for (int j = 0; j < 8; ++j)
+        if (8 * j < klive)
 #pragma unroll
-      for (int rr = 0; rr < F_R; ++rr) {
-        const float sa = la ? dot_chain(qw + rr * d, Ks + lane * kp, d) : NEG;
-        const float sb =
-            lb ? dot_chain(qw + rr * d, Ks + (lane + 32) * kp, d) : NEG;
-        if (sweep == 0) {
-          const float mx = fmaxf(m[rr], warp_max(fmaxf(sa, sb)));
-          const float part = warp_sum(__fadd_rn(expf(__fsub_rn(sa, mx)),
-                                                expf(__fsub_rn(sb, mx))));
-          n[rr] = __fadd_rn(__fmul_rn(n[rr], expf(__fsub_rn(m[rr], mx))),
-                            part);
-          m[rr] = mx;
-        } else {
-          pw[rr * F_KT + lane] =
-              la ? __fdiv_rn(expf(__fsub_rn(sa, m[rr])), n[rr]) : 0.f;
-          pw[rr * F_KT + lane + 32] =
-              lb ? __fdiv_rn(expf(__fsub_rn(sb, m[rr])), n[rr]) : 0.f;
-        }
+          for (int i = 0; i < 4; ++i)
+            tmax[i >> 1] = fmaxf(tmax[i >> 1], s[4 * j + i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mx = fmaxf(m[r], quad_max(tmax[r]));
+        const float nmx = -(mx * cl);
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (8 * j < klive)
+            part += expo(s[4 * j + 2 * r], cl, nmx) +
+                    expo(s[4 * j + 2 * r + 1], cl, nmx);
+        n[r] = __fmaf_rn(n[r], expo(m[r], cl, nmx), part);
+        m[r] = mx;
       }
-      if (sweep == 0) continue;
-      __syncwarp();
-      for (int kk = 0; kk < F_KT; ++kk)
-#pragma unroll
-        for (int j = 0; j < F_MAXJ; ++j) {
-          const int c = lane + 32 * j;
-          if (c >= d) continue;
-          const float vv = Vs[kk * kp + c];
-#pragma unroll
-          for (int rr = 0; rr < F_R; ++rr)
-            acc[rr][j] = __fmaf_rn(pw[rr * F_KT + kk], vv, acc[rr][j]);
-        }
-      __syncwarp();
+      continue;
     }
+    if (it == tiles)
 #pragma unroll
-  for (int rr = 0; rr < F_R; ++rr) {
-    const int row = row0 + rr;
-    if (row >= S) continue;
+      for (int r = 0; r < 2; ++r) {
+        n[r] = quad_sum(n[r]);
+        rn[r] = __frcp_rn(n[r]);
+        nml[r] = -(m[r] * cl);
+      }
+    // sweep 2: p = e / n, kept for the v item
 #pragma unroll
-    for (int j = 0; j < F_MAXJ; ++j) {
-      const int c = lane + 32 * j;
-      if (c < d) o[base + (long long)row * ld + c] = acc[rr][j];
-    }
-    if (lane == 0) {
-      mo[(long long)bh * S + row] = m[rr];
-      no[(long long)bh * S + row] = n[rr];
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[4 * j + i] = 8 * j < klive
+                           ? __fmul_rn(expo(s[4 * j + i], cl, nml[i >> 1]),
+                                       rn[i >> 1])
+                           : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = 16 * warp + g + 8 * r;
+    if (rr >= live) continue;
+    const int row = q0 + rr;
+    store_row_f32<DN>(o + base + (long long)row * ld, acc, r, d, 1.f);
+    if (t == 0) {
+      mo[(long long)bh * S + row] = m[r];
+      no[(long long)bh * S + row] = n[r];
     }
   }
 }
 
-// grid (ceil(S / 32), batch * heads), 256 threads: dq and r.
-__global__ void __launch_bounds__(F_THREADS) bwd_dq_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ gr,
+// ---------------------------- fp32 backward -----------------------------
+
+// grid (ceil(S / 64), batch * heads), 128 threads: dq, the row terms
+// (-m log2(e), 1 / n, r) and the terms of qs and g (scratch slots 2, 3),
+// which it forms; k's and v's come from slots 0 and 1. Two sweeps over the
+// keys (r, then dq), each tile an item of v (dp, kept) then one of k.
+template <int DK>
+__global__ void __launch_bounds__(TC_THREADS, F32Occupancy<DK>::BWD)
+    bwd_dq_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ gr,
     const float* __restrict__ mo, const float* __restrict__ no,
-    float* __restrict__ ro, float* __restrict__ dq, int heads, int S, int d,
-    float scale) {
-  extern __shared__ float fsm[];
-  const int kp = d + 1;
-  float* Ks = fsm;                 // [F_KT][kp]
-  float* Vs = Ks + F_KT * kp;      // [F_KT][kp]
-  float* Qs = Vs + F_KT * kp;      // [F_ROWS][d], scaled
-  float* Gs = Qs + F_ROWS * d;     // [F_ROWS][d]
-  float* Ds = Gs + F_ROWS * d;     // [F_ROWS][F_KT]
+    float4* __restrict__ rs, bf16* __restrict__ xs, float* __restrict__ dq,
+    const __grid_constant__ CUtensorMap map_x, int heads, int S, int d,
+    float scale, int vec, int tma) {
+  constexpr int DN = DK, GB = 3 * Tiles<DK>::BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  const uint32_t su = smem_u32(sm), gt = GB, ring = 2 * GB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const long long ld = (long long)heads * d;
   const long long base = (long long)b * S * ld + (long long)h * d;
-  const int row0 = blockIdx.x * F_ROWS + warp * F_R;
-  load_f32(Qs, d, q + base, ld, blockIdx.x * F_ROWS, F_ROWS, S, d, scale);
-  load_f32(Gs, d, gr + base, ld, blockIdx.x * F_ROWS, F_ROWS, S, d, 1.f);
-  const float* qw = Qs + warp * F_R * d;
-  const float* gw = Gs + warp * F_R * d;
-  float* dw = Ds + warp * F_R * F_KT;
-  float m[F_R], n[F_R], nis[F_R], r[F_R], acc[F_R][F_MAXJ];
+  const int q0 = blockIdx.x * TILE, live = min(TILE, S - q0);
+  const float cl = LOG2E;
+  __shared__ uint64_t full[STAGES];
+  init_ring(full, tma);
+  form_terms_f32<DN>(sm, 0, q + base, ld, q0, q0 + live, d, scale,
+                     xs + term_slab(2, bh) * S * DN, S, vec);
+  form_terms_f32<DN>(sm, gt, gr + base, ld, q0, q0 + live, d, 1.f,
+                     xs + term_slab(3, bh) * S * DN, S, vec);
+
+  float nml[2], rn[2], nis[2], rr[2];
 #pragma unroll
-  for (int rr = 0; rr < F_R; ++rr) {
-    const int row = row0 + rr;
-    m[rr] = row < S ? mo[(long long)bh * S + row] : 0.f;
-    n[rr] = row < S ? no[(long long)bh * S + row] : 1.f;
-    nis[rr] = __fdiv_rn(1.f, __fmul_rn(n[rr], n[rr]));
-    r[rr] = 0.f;
-#pragma unroll
-    for (int j = 0; j < F_MAXJ; ++j) acc[rr][j] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    const bool in = row < live;
+    const float m = in ? mo[(long long)bh * S + q0 + row] : 0.f;
+    const float n = in ? no[(long long)bh * S + q0 + row] : 1.f;
+    nml[r] = -(m * cl);
+    rn[r] = __frcp_rn(n);
+    nis[r] = __fdiv_rn(1.f, __fmul_rn(n, n));
+    rr[r] = 0.f;
   }
-#pragma unroll 1
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    for (int k0 = 0; k0 < S; k0 += F_KT) {
-      __syncthreads();
-      load_f32(Ks, kp, k + base, ld, k0, F_KT, S, d, 1.f);
-      load_f32(Vs, kp, v + base, ld, k0, F_KT, S, d, 1.f);
-      __syncthreads();
-#pragma unroll
-      for (int rr = 0; rr < F_R; ++rr)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int key = lane + 32 * hh;
-          float val = 0.f;
-          if (k0 + key < S) {
-            const float s = dot_chain(qw + rr * d, Ks + key * kp, d);
-            const float dp = dot_chain(gw + rr * d, Vs + key * kp, d);
-            const float e = expf(__fsub_rn(s, m[rr]));
-            if (sweep == 0)
-              r[rr] = __fadd_rn(r[rr],
-                                __fmul_rn(__fmul_rn(dp, nis[rr]), e));
-            else
-              val = __fmul_rn(__fsub_rn(__fdiv_rn(dp, n[rr]), r[rr]), e);
-          }
-          if (sweep == 1) dw[rr * F_KT + key] = val;
-        }
-      if (sweep == 0) continue;
-      __syncwarp();
-      for (int kk = 0; kk < F_KT; ++kk)
-#pragma unroll
-        for (int j = 0; j < F_MAXJ; ++j) {
-          const int c = lane + 32 * j;
-          if (c >= d) continue;
-          const float kv = Ks[kk * kp + c];
-#pragma unroll
-          for (int rr = 0; rr < F_R; ++rr)
-            acc[rr][j] = __fmaf_rn(dw[rr * F_KT + kk], kv, acc[rr][j]);
-        }
-      __syncwarp();
+
+  const int tiles = (S + TILE - 1) / TILE, items = 4 * tiles;
+  auto fetch = [&](int it) {
+    if (it < items) {
+      const int stage = it % STAGES, k0 = ((it >> 1) % tiles) * TILE;
+      fetch_terms<DN>(sm, ring + stage * GB, &map_x, &full[stage], tma, xs,
+                      term_slab(!(it & 1), bh), k0, S);
     }
-    if (sweep == 0)
+    cp_async_commit();
+  };
+  for (int i = 0; i < STAGES - 1; ++i) fetch(i);
+
+  float acc[DN / 2], dp[32];
 #pragma unroll
-      for (int rr = 0; rr < F_R; ++rr) r[rr] = warp_sum(r[rr]);
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < items; ++it) {
+    ring_next(full, it, tma);
+    fetch(it + STAGES - 1);
+    const uint32_t xt = su + ring + (it % STAGES) * GB;
+    const int tile = (it >> 1) % tiles, k0 = tile * TILE;
+    const int klive = min(TILE, S - k0);
+    const bool sweep0 = it < 2 * tiles;
+    if (!(it & 1)) {
+      nt_pairs<DK>(dp, su + gt, xt);  // dp = g . v^T
+      continue;
+    }
+    float s[32];
+    nt_pairs<DK>(s, su, xt);
+    if (klive < TILE) mask_cols(s, klive, NEG);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (8 * j >= klive) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[4 * j + i] = 0.f;
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const float e = expo(s[4 * j + i], cl, nml[r]);
+        if (sweep0)
+          rr[r] = __fadd_rn(rr[r],
+                            __fmul_rn(__fmul_rn(dp[4 * j + i], nis[r]), e));
+        else
+          s[4 * j + i] =
+              __fmul_rn(__fsub_rn(__fmul_rn(dp[4 * j + i], rn[r]), rr[r]),
+                        e);
+      }
+    }
+    if (sweep0) {
+      if (tile == tiles - 1)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rr[r] = quad_sum(rr[r]);
+          const int row = 16 * warp + g + 8 * r;
+          if (t == 0 && row < live)
+            rs[(long long)bh * S + q0 + row] =
+                make_float4(nml[r], rn[r], rr[r], 0.f);
+        }
+      continue;
+    }
+    rs_pairs<DK>(acc, s, xt);  // sweep 2: dq += ds . k
   }
 #pragma unroll
-  for (int rr = 0; rr < F_R; ++rr) {
-    const int row = row0 + rr;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < F_MAXJ; ++j) {
-      const int c = lane + 32 * j;
-      if (c < d)
-        dq[base + (long long)row * ld + c] = __fmul_rn(acc[rr][j], scale);
-    }
-    if (lane == 0) ro[(long long)bh * S + row] = r[rr];
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    if (row < live)
+      store_row_f32<DN>(dq + base + (long long)(q0 + row) * ld, acc, r, d,
+                        scale);
   }
 }
 
-// grid (ceil(S / 32), batch * heads), 256 threads: a warp's 4 keys, a
-// lane's queries lane and lane + 32 of each tile.
-__global__ void __launch_bounds__(F_THREADS) bwd_dkdv_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ gr,
-    const float* __restrict__ mo, const float* __restrict__ no,
-    const float* __restrict__ ro, float* __restrict__ dk,
-    float* __restrict__ dv, int heads, int S, int d, float scale) {
-  extern __shared__ float fsm[];
-  const int kp = d + 1;
-  float* Kb = fsm;                  // [F_ROWS][d], the block's keys
-  float* Vb = Kb + F_ROWS * d;      // [F_ROWS][d]
-  float* Qs = Vb + F_ROWS * d;      // [F_KT][kp], scaled
-  float* Gs = Qs + F_KT * kp;       // [F_KT][kp]
-  float* St = Gs + F_KT * kp;       // [3][F_KT]: m, n, r
-  float* Ps = St + 3 * F_KT;        // [F_ROWS][F_KT]
-  float* Ds = Ps + F_ROWS * F_KT;   // [F_ROWS][F_KT]
+// grid (ceil(S / 64), batch * heads), 128 threads: a block owns 64 keys,
+// forms their k and v terms, and works in the keys' orientation (as the
+// bf16 kernel does). Each query tile is an item of g's terms (dp^T =
+// V . g^T, kept) and then one of qs's terms with the row terms, at which
+// dv += P^T . g reads g's stage before the ring refills it and dk += ds^T
+// . qs follows.
+template <int DK>
+__global__ void __launch_bounds__(TC_THREADS, F32Occupancy<DK>::BWD)
+    bwd_dkdv_f32_kernel(
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float4* __restrict__ rs, const bf16* __restrict__ xs,
+    float* __restrict__ dk, float* __restrict__ dv,
+    const __grid_constant__ CUtensorMap map_x, int heads, int S, int d,
+    int vec, int tma) {
+  constexpr int DN = DK, GB = 3 * Tiles<DK>::BYTES, SB = GB + 1024;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  const uint32_t su = smem_u32(sm), vt = GB, ring = 2 * GB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const long long ld = (long long)heads * d;
   const long long base = (long long)b * S * ld + (long long)h * d;
-  const int key0 = blockIdx.x * F_ROWS + warp * F_R;
-  load_f32(Kb, d, k + base, ld, blockIdx.x * F_ROWS, F_ROWS, S, d, 1.f);
-  load_f32(Vb, d, v + base, ld, blockIdx.x * F_ROWS, F_ROWS, S, d, 1.f);
-  const float* kw = Kb + warp * F_R * d;
-  const float* vw = Vb + warp * F_R * d;
-  float* pw = Ps + warp * F_R * F_KT;
-  float* dw = Ds + warp * F_R * F_KT;
-  float dka[F_R][F_MAXJ], dva[F_R][F_MAXJ];
-#pragma unroll
-  for (int rr = 0; rr < F_R; ++rr)
-#pragma unroll
-    for (int j = 0; j < F_MAXJ; ++j) dka[rr][j] = dva[rr][j] = 0.f;
-  for (int q0 = 0; q0 < S; q0 += F_KT) {
-    __syncthreads();
-    load_f32(Qs, kp, q + base, ld, q0, F_KT, S, d, scale);
-    load_f32(Gs, kp, gr + base, ld, q0, F_KT, S, d, 1.f);
-    for (int i = threadIdx.x; i < F_KT; i += blockDim.x) {
-      const bool in = q0 + i < S;
-      St[i] = in ? mo[(long long)bh * S + q0 + i] : 0.f;
-      St[F_KT + i] = in ? no[(long long)bh * S + q0 + i] : 1.f;
-      St[2 * F_KT + i] = in ? ro[(long long)bh * S + q0 + i] : 0.f;
+  const int k0 = blockIdx.x * TILE, live = min(TILE, S - k0);
+  const float cl = LOG2E;
+  __shared__ uint64_t full[STAGES];
+  init_ring(full, tma);
+  form_terms_f32<DN>(sm, 0, k + base, ld, k0, k0 + live, d, 1.f, nullptr, S,
+                     vec);
+  form_terms_f32<DN>(sm, vt, v + base, ld, k0, k0 + live, d, 1.f, nullptr,
+                     S, vec);
+
+  const int tiles = (S + TILE - 1) / TILE, items = 2 * tiles;
+  const float4* rsh = rs + (long long)bh * S;
+  auto fetch = [&](int it) {
+    if (it < items) {
+      const int stage = it % STAGES, j0 = (it >> 1) * TILE;
+      const uint32_t st = ring + stage * SB;
+      fetch_terms<DN>(sm, st, &map_x, &full[stage], tma, xs,
+                      term_slab(it & 1 ? 2 : 3, bh), j0, S);
+      if (it & 1)
+        for (int i = threadIdx.x; i < TILE; i += TC_THREADS) {
+          const bool in = j0 + i < S;
+          cp_async16(su + st + GB + 16 * i, in ? rsh + j0 + i : rsh, in);
+        }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  fetch(0);
+
+  float dka[DN / 2], dva[DN / 2], dp[32];
 #pragma unroll
-    for (int rr = 0; rr < F_R; ++rr)
+  for (int i = 0; i < DN / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int it = 0; it < items; ++it) {
+    ring_next(full, it, tma);
+    const uint32_t xt = su + ring + (it % STAGES) * SB;
+    const int qlive = min(TILE, S - (it >> 1) * TILE);
+    if (!(it & 1)) {
+      fetch(it + 1);
+      nt_pairs<DK>(dp, su + vt, xt);  // dp^T = V . g^T
+      continue;
+    }
+    float s[32];
+    nt_pairs<DK>(s, su, xt);
+    // P^T and ds^T: a thread's keys g, g + 8 of its warp, queries 8j +
+    // 2t..; a query past S has p and ds 0
+    const float4* stats =
+        reinterpret_cast<const float4*>(sm + ring + (it % STAGES) * SB + GB);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (8 * j >= qlive) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[4 * j + i] = dp[4 * j + i] = 0.f;
+        continue;
+      }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int qi = lane + 32 * hh;
-        float p = 0.f, ds = 0.f;
-        if (q0 + qi < S && key0 + rr < S) {
-          const float s = dot_chain(Qs + qi * kp, kw + rr * d, d);
-          const float dp = dot_chain(Gs + qi * kp, vw + rr * d, d);
-          const float m = St[qi], n = St[F_KT + qi], r = St[2 * F_KT + qi];
-          const float e = expf(__fsub_rn(s, m));
-          p = __fdiv_rn(e, n);
-          ds = __fmul_rn(__fsub_rn(__fdiv_rn(dp, n), r), e);
+        const int qc = 8 * j + 2 * t + hh;
+        const float4 st = stats[qc];  // -m log2(e), 1 / n, r
+        const bool in = qc < qlive;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + hh;
+          const float e = expo(s[i], cl, st.x);
+          s[i] = in ? __fmul_rn(e, st.y) : 0.f;
+          dp[i] = in ? __fmul_rn(__fsub_rn(__fmul_rn(dp[i], st.y), st.z), e)
+                     : 0.f;
         }
-        pw[rr * F_KT + qi] = p;
-        dw[rr * F_KT + qi] = ds;
-      }
-    __syncwarp();
-    for (int qq = 0; qq < F_KT; ++qq)
-#pragma unroll
-      for (int j = 0; j < F_MAXJ; ++j) {
-        const int c = lane + 32 * j;
-        if (c >= d) continue;
-        const float gv = Gs[qq * kp + c], qv = Qs[qq * kp + c];
-#pragma unroll
-        for (int rr = 0; rr < F_R; ++rr) {
-          dva[rr][j] = __fmaf_rn(pw[rr * F_KT + qq], gv, dva[rr][j]);
-          dka[rr][j] = __fmaf_rn(dw[rr * F_KT + qq], qv, dka[rr][j]);
-        }
-      }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int rr = 0; rr < F_R; ++rr) {
-    const int row = key0 + rr;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < F_MAXJ; ++j) {
-      const int c = lane + 32 * j;
-      if (c < d) {
-        dk[base + (long long)row * ld + c] = dka[rr][j];
-        dv[base + (long long)row * ld + c] = dva[rr][j];
       }
     }
+    // dv += P^T . g from the previous item's stage
+    rs_pairs<DK>(dva, s, su + ring + ((it + 1) % STAGES) * SB);
+    __syncthreads();  // every warp is done with g's stage: refill it
+    fetch(it + 1);
+    rs_pairs<DK>(dka, dp, xt);  // dk += ds^T . qs
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    if (row >= live) continue;
+    const long long at = base + (long long)(k0 + row) * ld;
+    store_row_f32<DN>(dv + at, dva, r, d, 1.f);
+    store_row_f32<DN>(dk + at, dka, r, d, 1.f);
   }
 }
-
 
 // ------------------------------- launches -------------------------------
 
@@ -1500,42 +1783,102 @@ static int bwd_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
   return (int)cudaGetLastError();
 }
 
-static int smem_fwd_f32(int d) {
-  return (int)sizeof(float) * (2 * F_KT * (d + 1) + F_ROWS * (d + F_KT));
+// The scratch's tensor map: `slots` operands' terms, batch * heads * 3
+// slabs of (S, DN) each (false where the encoder refuses it: cp.async).
+template <int DN>
+static bool scratch_map(CUtensorMap* map, const bf16* xs, int S, int slots,
+                        long long bh) {
+  const long long slabs = slots * bh * 3;
+  return slabs <= INT32_MAX &&
+         make_tensor_map_3d(map, xs, S, DN, DN, TILE, (int)slabs,
+                            (long long)S * DN);
 }
-static int smem_dq_f32(int d) {
-  return (int)sizeof(float) * (2 * F_KT * (d + 1) + F_ROWS * (2 * d + F_KT));
+
+// k's and v's terms into the scratch's slots 0 and 1.
+template <int DN>
+static cudaError_t split_kv(const float* k, const float* v, bf16* xs,
+                            int batch, int heads, int S, int d, int vec,
+                            cudaStream_t stream) {
+  constexpr int THREADS = 256;
+  const dim3 grid((S * (DN / 8) + THREADS - 1) / THREADS, batch * heads, 2);
+  split_terms_kernel<DN><<<grid, THREADS, 0, stream>>>(k, v, xs, heads, S, d,
+                                                       vec);
+  return cudaGetLastError();
 }
-static int smem_dkdv_f32(int d) {
-  return (int)sizeof(float) * (2 * F_ROWS * d + 2 * F_KT * (d + 1) +
-                               3 * F_KT + 2 * F_ROWS * F_KT);
+
+// The fp32 kernels take 64-row blocks only, all on `wgmma` (a block past
+// S multiplies its zero rows too): a `mma.sync` path beside it would put
+// the `wgmma`s on paths ptxas cannot prove uniform, and it serializes them.
+template <int DK>
+static int fwd_f32(const float* q, const float* k, const float* v, float* o,
+                   float* m, float* n, bf16* xs, int batch, int heads, int S,
+                   int d, float scale, int vec, int rows, int smem,
+                   cudaStream_t stream) {
+  if (rows != TILE || smem != smem_fwd_f32<DK>() || !xs)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_with(fwd_f32_kernel<DK>, smem);
+  if (err == cudaSuccess)
+    err = split_kv<DK>(k, v, xs, batch, heads, S, d, vec, stream);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map{};
+  const int tma = scratch_map<DK>(&map, xs, S, 2, (long long)batch * heads);
+  const dim3 grid((S + TILE - 1) / TILE, batch * heads);
+  fwd_f32_kernel<DK><<<grid, TC_THREADS, smem, stream>>>(
+      q, xs, o, m, n, map, heads, S, d, scale, vec, tma);
+  return (int)cudaGetLastError();
+}
+
+template <int DK>
+static int bwd_f32(const float* q, const float* k, const float* v,
+                   const float* g, const float* m, const float* n, float4* rs,
+                   bf16* xs, float* dq, float* dk, float* dv, int batch,
+                   int heads, int S, int d, float scale, int vec, int rows,
+                   int smem_q, int smem_k, cudaStream_t stream) {
+  if (rows != TILE || smem_q != smem_dq_f32<DK>() ||
+      smem_k != smem_dkdv_f32<DK>() || !xs)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_with(bwd_dq_f32_kernel<DK>, smem_q);
+  if (err == cudaSuccess) err = launch_with(bwd_dkdv_f32_kernel<DK>, smem_k);
+  if (err == cudaSuccess)
+    err = split_kv<DK>(k, v, xs, batch, heads, S, d, vec, stream);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map{};
+  const int tma = scratch_map<DK>(&map, xs, S, 4, (long long)batch * heads);
+  const dim3 grid((S + TILE - 1) / TILE, batch * heads);
+  bwd_dq_f32_kernel<DK><<<grid, TC_THREADS, smem_q, stream>>>(
+      q, g, m, n, rs, xs, dq, map, heads, S, d, scale, vec, tma);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkdv_f32_kernel<DK><<<grid, TC_THREADS, smem_k, stream>>>(
+      k, v, rs, xs, dk, dv, map, heads, S, d, vec, tma);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 // The widest head the kernels take.
-int flash_trainable_max_head_dim() { return 32 * F_MAXJ; }
+int flash_trainable_max_head_dim() { return 128; }
 
 // q, k, v, o: contiguous (batch, S, heads, d), all bf16 (is_f32 0) or all
 // fp32; m, n: (batch, heads, S) fp32, the row max and row sum. nt: the
-// bf16 terms of fp32(q) * scale (1 where scale is a power of two, else
-// 3); vec: 16-byte loads (d % 8 == 0, every operand 16-byte aligned);
-// rows, smem: the plan (fp32: 32 rows).
+// bf16 terms of fp32(q) * scale in the bf16 kernels (1 where scale is a
+// power of two, else 3); vec: 16-byte loads (d % 8 == 0, every operand
+// 16-byte aligned); xs: for fp32, a (2, batch * heads, 3, S, the head dim
+// padded to 64 or 128) bf16 scratch for k's and v's terms, else null;
+// rows, smem: the plan.
 int mha_flash_trainable_fwd(const void* q, const void* k, const void* v,
-                            void* o, float* m, float* n, int batch,
+                            void* o, float* m, float* n, void* xs, int batch,
                             int heads, int S, int d, float scale, int is_f32,
                             int nt, int vec, int rows, int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f32) {
-    if (rows != F_ROWS || smem != smem_fwd_f32(d))
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid((S + F_ROWS - 1) / F_ROWS, batch * heads);
-    cudaError_t err = launch_with(fwd_f32_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    fwd_f32_kernel<<<grid, F_THREADS, smem, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, m, n,
-        heads, S, d, scale);
-    return (int)cudaGetLastError();
+#define FWD_F32(DK)                                                          \
+  return fwd_f32<DK>((const float*)q, (const float*)k, (const float*)v,      \
+                     (float*)o, m, n, (bf16*)xs, batch, heads, S, d, scale,  \
+                     vec, rows, smem, s)
+    if (d <= 64) FWD_F32(64);
+    FWD_F32(128);
+#undef FWD_F32
   }
 #define FWD_TC(DK)                                                          \
   return fwd_tc<DK>((const bf16*)q, (const bf16*)k, (const bf16*)v,         \
@@ -1547,11 +1890,13 @@ int mha_flash_trainable_fwd(const void* q, const void* k, const void* v,
 }
 
 // g, dq, dk, dv: contiguous (batch, S, heads, d) in the inputs' type; m, n
-// from the forward; rs: a scratch the dq kernel writes and the dk/dv kernel
-// reads, (batch, heads, S) x 4 fp32 for bf16 (the row terms), (batch,
-// heads, S) fp32 for fp32 (r); qx: with three q terms in bf16, a (batch *
-// heads, 3, S, the head dim padded to 64 or 128) bf16 scratch for them,
-// else null. rows, smem_q, smem_k: the plan. Two launches, in that order.
+// from the forward; rs: a (batch, heads, S) x 4 fp32 scratch of row terms
+// that the dq kernel writes and the dk/dv kernel reads; qx: for bf16 with
+// three q terms a (batch * heads, 3, S, the head dim padded to 64 or 128)
+// bf16 scratch for them, for fp32 a (4, batch * heads, 3, S, padded) one
+// for the terms of k, v, qs and g, else null. rows, smem_q, smem_k: the
+// plan. bf16: two launches, dq's then dk/dv's; fp32: the split of k and v
+// before them.
 int mha_flash_trainable_bwd(const void* q, const void* k, const void* v,
                             const void* g, const float* m, const float* n,
                             void* rs, void* qx, void* dq, void* dk, void* dv,
@@ -1560,23 +1905,14 @@ int mha_flash_trainable_bwd(const void* q, const void* k, const void* v,
                             int smem_q, int smem_k, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f32) {
-    if (rows != F_ROWS || smem_q != smem_dq_f32(d) ||
-        smem_k != smem_dkdv_f32(d))
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid((S + F_ROWS - 1) / F_ROWS, batch * heads);
-    cudaError_t err = launch_with(bwd_dq_f32_kernel, smem_q);
-    if (err != cudaSuccess) return (int)err;
-    bwd_dq_f32_kernel<<<grid, F_THREADS, smem_q, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-        m, n, (float*)rs, (float*)dq, heads, S, d, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = launch_with(bwd_dkdv_f32_kernel, smem_k);
-    if (err != cudaSuccess) return (int)err;
-    bwd_dkdv_f32_kernel<<<grid, F_THREADS, smem_k, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-        m, n, (const float*)rs, (float*)dk, (float*)dv, heads, S, d, scale);
-    return (int)cudaGetLastError();
+#define BWD_F32(DK)                                                          \
+  return bwd_f32<DK>((const float*)q, (const float*)k, (const float*)v,      \
+                     (const float*)g, m, n, (float4*)rs, (bf16*)qx,          \
+                     (float*)dq, (float*)dk, (float*)dv, batch, heads, S, d, \
+                     scale, vec, rows, smem_q, smem_k, s)
+    if (d <= 64) BWD_F32(64);
+    BWD_F32(128);
+#undef BWD_F32
   }
 #define BWD_TC(DK)                                                          \
   return bwd_tc<DK>((const bf16*)q, (const bf16*)k, (const bf16*)v,         \

@@ -64,13 +64,17 @@ def make_flagship_batch(
     }
 
 
-def build_flagship(tiny: bool = False, seed: int = 0, device=None,
-                   encoder_dtype: Optional[str] = "bfloat16",
-                   training: bool = False,
+def build_flagship(tiny: bool = False, seed: int = 0,
+                   encoder_dtype: Optional[str] = None,
+                   serving: bool = False, training: bool = False,
+                   vit_overrides: Optional[dict] = None, device=None,
                    dataset_statistics: Optional[dict] = None):
     """Returns (model, example_batch) on `device` (None: the CUDA card, see
-    utils/device.py::resolve_device). encoder_dtype None keeps
-    the config's own (float32); the default is the bf16 serving trunk."""
+    utils/device.py::resolve_device), with the JAX builder's parameters and
+    defaults: encoder_dtype None keeps the config's own trunk type
+    (float32); `serving` turns the trunk's flash attention and attention
+    capture off (the JAX builder's per-step serving path); `vit_overrides`
+    updates the config's vit_kwargs last."""
     if tiny:
         config = tiny_test_config()
         batch = make_flagship_batch(instr_len=8, action_horizon=2,
@@ -83,6 +87,10 @@ def build_flagship(tiny: bool = False, seed: int = 0, device=None,
         vk["encoder_dtype"] = encoder_dtype
     if training:
         disable_unused_attention_capture(config)
+    if serving:
+        vk.update(use_flash_attention=False, sow_dino_attention=False)
+    if vit_overrides:
+        vk.update(vit_overrides)
     model = HyperVLA.from_config(config, batch, seed=seed,
                                  dataset_statistics=dataset_statistics,
                                  device=device)

@@ -26,7 +26,12 @@ JAX serving path with `flash_attention_trainable` calls it there).
 
 How the kernels launch is decided here, from the shape alone, and handed
 to the C entry points: `flash_train_plan` (rows of a block, each kernel's
-shared memory, the grids), which the CPU tests hold.
+shared memory, the grids, the route), which the CPU tests hold. bf16
+inputs multiply on the bf16 tensor cores; fp32 inputs too, each fp32
+operand split into three bf16 terms hi = bf16(x), mid = bf16(x - hi), lo
+= bf16(x - hi - mid) and each product the fp32 sum of the six term
+products a_i . b_j with i + j <= 2: the "fp32_split" route, which every
+fp32 shape takes.
 """
 import ctypes
 import functools
@@ -46,11 +51,14 @@ from hypervla_tpu_torch.ops.dino_layer import (
 #: launches of each CUDA entry point since the last reset
 LAUNCHES: Dict[str, int] = {"mha_flash_trainable_fwd": 0,
                             "mha_flash_trainable_bwd": 0}
+#: of those, the launches on fp32 tensors (the plan's "fp32_split" route)
+FP32_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FP32_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.cache
@@ -67,7 +75,7 @@ def declare(lib):
     csrc/flash_attention_train.cu; returns it."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_trainable_max_head_dim.argtypes = []
-    lib.mha_flash_trainable_fwd.argtypes = [p] * 6 + [i] * 4 + [f] + \
+    lib.mha_flash_trainable_fwd.argtypes = [p] * 7 + [i] * 4 + [f] + \
         [i] * 5 + [p]
     lib.mha_flash_trainable_bwd.argtypes = [p] * 11 + [i] * 4 + [f] + \
         [i] * 6 + [p]
@@ -85,19 +93,17 @@ def softmax_scale(head_dim: int) -> float:
 
 
 def q_terms(scale: float) -> int:
-    """The bf16 terms the tensor-core kernels split fp32(q) * scale into:
-    one where the scale is a power of two (then it is a bf16 value), else
-    three, whose sum is it exactly."""
+    """The bf16 terms the bf16 kernels split fp32(q) * scale into: one
+    where the scale is a power of two (then it is a bf16 value), else
+    three, whose sum is it exactly. The fp32 kernels always take three."""
     return 1 if math.frexp(scale)[0] == 0.5 else 3
 
 
 #: rows of a full block (one warpgroup's `wgmma` tile, four warps of 16)
 #: and keys (the dk/dv kernel: queries) of a ring stage
 TILE = 64
-#: the fp32 kernels' rows (or keys) of a block
-F32_ROWS = 32
-#: the bf16 kernels' load ring: stages of K/V (dk/dv: q terms, g and row
-#: terms) tiles, the source's STAGES
+#: the load ring: stages of K/V (dk/dv: q terms, g and row terms) tiles,
+#: the source's STAGES
 RING_STAGES = 2
 
 
@@ -111,6 +117,7 @@ class FlashTrainPlan(NamedTuple):
     smem_dkdv: int
     grid: Tuple[int, int]  # (blocks a head, batch * heads), every kernel's
     q_terms: int  # bf16 terms of fp32(q) * scale in the products
+    route: str  # "bf16", or "fp32_split": every operand as three terms
     padded_dim: int  # the head dim's columns in a shared-memory tile
     live_work: int  # seq * seq, the scores of one head
     score_work: int  # scores a head's forward sweep forms (exponentials)
@@ -147,32 +154,28 @@ def flash_train_plan(batch_heads: int, seq: int, head_dim: int,
     key tile's last `wgmma` is 16, 32, 48 or 64 keys wide; its
     exponentials skip the 8-key groups past the sequence): `score_work`
     counts a head's scores so formed per sweep, `product_work` the (row,
-    key) pairs of its products, both against `live_work`. fp32: the FMA
-    kernels' 32-row blocks and 64-key tiles."""
+    key) pairs of its products, both against `live_work`. fp32, route
+    "fp32_split" at every head dim: the same tiles, every operand's tile
+    as its three bf16 terms (`fp32_smem`), in 64-row blocks that all take
+    `wgmma` on whole 64-row, 64-key tiles (its exponentials skip the 8-key
+    groups past the sequence)."""
     _check(dtype in (torch.bfloat16, torch.float32),
            f"the kernels take bf16 or fp32, not {dtype}")
     _check(seq >= 1 and 1 <= head_dim <= 128 and batch_heads >= 1,
            f"no plan for {batch_heads} x {seq} x {head_dim}")
-    nt = q_terms(softmax_scale(head_dim))
-    if dtype == torch.float32:
-        d, rows = head_dim, F32_ROWS
-        work = _up(seq, rows) * seq
-        return FlashTrainPlan(
-            rows, TILE, 4 * (2 * TILE * (d + 1) + rows * (d + TILE)),
-            4 * (2 * TILE * (d + 1) + rows * (2 * d + TILE)),
-            4 * (2 * rows * d + 2 * TILE * (d + 1) + 3 * TILE
-                 + 2 * rows * TILE),
-            (-(-seq // rows), batch_heads), 1, d, seq * seq, work, work)
+    f32 = dtype == torch.float32
+    nt = 3 if f32 else q_terms(softmax_scale(head_dim))
     dn = 64 if head_dim <= 64 else 128
-    rows = _rows_for(seq, batch_heads, sms)
-    live_rows = sum(_up(min(rows, seq - r0), 16)
-                    for r0 in range(0, seq, rows))
+    rows = TILE if f32 else _rows_for(seq, batch_heads, sms)
+    live_rows = _up(seq, TILE) if f32 else sum(
+        _up(min(rows, seq - r0), 16) for r0 in range(0, seq, rows))
     tails = [min(TILE, seq - k0) for k0 in range(0, seq, TILE)]
     return FlashTrainPlan(
-        rows, TILE, *bf16_smem(nt, dn),
-        (-(-seq // rows), batch_heads), nt, dn, seq * seq,
+        rows, TILE, *(fp32_smem(dn) if f32 else bf16_smem(nt, dn)),
+        (-(-seq // rows), batch_heads), nt,
+        "fp32_split" if f32 else "bf16", dn, seq * seq,
         live_rows * sum(_up(k, 8) for k in tails),
-        live_rows * sum(_up(k, 16) for k in tails))
+        live_rows * sum(_up(k, 64 if f32 else 16) for k in tails))
 
 
 def bf16_smem(q_terms: int, padded_dim: int):
@@ -185,6 +188,18 @@ def bf16_smem(q_terms: int, padded_dim: int):
     return (1024 + (q_terms + 2 * RING_STAGES) * tile,
             1024 + (q_terms + 1 + 2 * RING_STAGES) * tile,
             1024 + 2 * tile + RING_STAGES * ((q_terms + 1) * tile + 1024))
+
+
+def fp32_smem(padded_dim: int):
+    """Dynamic shared memory of the fp32 forward, dq and dk/dv kernels,
+    bytes: 1 KB to align, then groups of three term tiles (64 x padded_dim
+    bf16 each): the forward's qs and RING_STAGES stages (of k or v); the
+    dq kernel's qs, g and stages; the dk/dv kernel's k, v and stages (of g
+    or qs) each with 64 row terms (1 KB)."""
+    group = 3 * TILE * padded_dim * 2
+    return (1024 + (1 + RING_STAGES) * group,
+            1024 + (2 + RING_STAGES) * group,
+            1024 + 2 * group + RING_STAGES * (group + 1024))
 
 
 def _heads(t):
@@ -240,6 +255,13 @@ def _vec(d, *tensors) -> int:
     return int(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def _terms_scratch(slots, batch_heads, seq, plan, device):
+    """The bf16 scratch of `slots` operands' terms, (slots, batch * heads,
+    3, seq, padded_dim)."""
+    return torch.empty((slots, batch_heads, 3, seq, plan.padded_dim),
+                       dtype=torch.bfloat16, device=device)
+
+
 def _launch_fwd(query, key, value):
     """Launches the forward kernel (no launch counted)."""
     query, key, value = (t.contiguous() for t in (query, key, value))
@@ -249,12 +271,23 @@ def _launch_fwd(query, key, value):
     m = torch.empty((batch, heads, seq), dtype=torch.float32,
                     device=query.device)
     n = torch.empty_like(m)
+    # fp32: the terms of k and v
+    terms = _terms_scratch(2, batch * heads, seq, plan, query.device) \
+        if is_f32 else None
     code = _lib().mha_flash_trainable_fwd(
         query.data_ptr(), key.data_ptr(), value.data_ptr(), o.data_ptr(),
-        m.data_ptr(), n.data_ptr(), batch, heads, seq, d, scale, is_f32, nt,
-        _vec(d, query, key, value, o), plan.rows, plan.smem_fwd, _stream())
+        m.data_ptr(), n.data_ptr(),
+        None if terms is None else terms.data_ptr(), batch, heads, seq, d,
+        scale, is_f32, nt, _vec(d, query, key, value, o), plan.rows,
+        plan.smem_fwd, _stream())
     _raise_on_error("mha_flash_trainable_fwd", code)
     return o, m, n
+
+
+def _count(name, query):
+    LAUNCHES[name] += 1
+    if query.dtype == torch.float32:
+        FP32_LAUNCHES[name] += 1
 
 
 def mha_flash_trainable_fwd(query, key, value):
@@ -265,7 +298,7 @@ def mha_flash_trainable_fwd(query, key, value):
     if _route(query, key, value) == "cpu":
         return mha_flash_trainable_fwd_reference(query, key, value)
     out = _launch_fwd(query, key, value)
-    LAUNCHES["mha_flash_trainable_fwd"] += 1
+    _count("mha_flash_trainable_fwd", query)
     return out
 
 
@@ -304,15 +337,16 @@ def _launch_bwd(query, key, value, g, m, n):
                "heads, seq) fp32")
     plan = flash_train_plan(batch * heads, seq, d, query.dtype, SMS)
     dq, dk, dv = (torch.empty_like(query) for _ in range(3))
-    # the dq kernel's row terms for the dk/dv kernel: r (fp32), or
-    # (-m log2(e), 1 / n, r, 0) (bf16); and, in bf16 with three q terms,
-    # those terms
-    rows = torch.empty(m.shape if is_f32 else (*m.shape, 4),
-                       dtype=torch.float32, device=m.device)
+    # the dq kernel's row terms for the dk/dv kernel, (-m log2(e), 1 / n,
+    # r, 0); in bf16 with three q terms, those terms; in fp32 the terms of
+    # k, v, qs and g
+    rows = torch.empty((*m.shape, 4), dtype=torch.float32, device=m.device)
     terms = None
-    if not is_f32 and nt == 3:
-        terms = torch.empty((batch * heads, 3, seq, plan.padded_dim),
-                            dtype=torch.bfloat16, device=query.device)
+    if is_f32:
+        terms = _terms_scratch(4, batch * heads, seq, plan, query.device)
+    elif nt == 3:
+        terms = _terms_scratch(1, batch * heads, seq, plan,
+                               query.device)[0]
     code = _lib().mha_flash_trainable_bwd(
         query.data_ptr(), key.data_ptr(), value.data_ptr(), g.data_ptr(),
         m.data_ptr(), n.data_ptr(), rows.data_ptr(),
@@ -331,7 +365,7 @@ def mha_flash_trainable_bwd(query, key, value, g, m, n):
     if _route(query, key, value, g, m, n) == "cpu":
         return mha_flash_trainable_bwd_reference(query, key, value, g, m, n)
     out = _launch_bwd(query, key, value, g, m, n)
-    LAUNCHES["mha_flash_trainable_bwd"] += 1
+    _count("mha_flash_trainable_bwd", query)
     return out
 
 

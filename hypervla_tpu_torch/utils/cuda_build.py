@@ -24,6 +24,11 @@ BUILD_DIR = _PACKAGE_DIR.parent / "build" / "kernels"
 
 _lock = threading.Lock()
 _loaded = {}
+# one lock a source (made under _guard; load_library builds under _lock):
+# threads that build the same source at once build it once (the temporary
+# file is named by process)
+_guard = threading.Lock()
+_source_locks = {}
 
 
 def _find_nvcc() -> str:
@@ -45,7 +50,15 @@ def build(source: str) -> Path:
     """Builds `csrc/<source>` unless a library for this source and these
     flags exists; returns the library's path. The library appears under its
     final name only once complete, so processes building one source at once
-    are safe, and threads may build different sources at once."""
+    are safe; threads building one source wait for each other, and may
+    build different sources at once."""
+    with _guard:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
+        return _build(source)
+
+
+def _build(source: str) -> Path:
     src = _PACKAGE_DIR / "csrc" / source
     # the headers beside the sources are part of every source's key
     headers = sorted(src.parent.glob("*.cuh"))

@@ -27,6 +27,7 @@ from hypervla_tpu.eval import model_loading as jloading
 from hypervla_tpu.eval import octo_inference as joctoinf
 from hypervla_tpu.eval import simpler as jsimpler
 from hypervla_tpu.eval import visualization as jviz
+from hypervla_tpu import flagship as jflagship
 from hypervla_tpu.models import base_model as jbase_model
 from hypervla_tpu.models import efficientnet as jefficientnet
 from hypervla_tpu.models import hypervla as jhypervla
@@ -46,6 +47,7 @@ from hypervla_tpu_torch.eval import model_loading
 from hypervla_tpu_torch.eval import octo_inference
 from hypervla_tpu_torch.eval import simpler
 from hypervla_tpu_torch.eval import visualization
+from hypervla_tpu_torch import flagship
 from hypervla_tpu_torch.models import base_model
 from hypervla_tpu_torch.models import efficientnet
 from hypervla_tpu_torch.models import hypervla
@@ -128,6 +130,8 @@ ENTRY_POINTS = {
     "metaworld.convert_directory": (jmetaworld.convert_directory,
                                     metaworld.convert_directory),
     "convert_rlds.convert": (jconvert_rlds.convert, convert_rlds.convert),
+    # the port's also take `device` and `dataset_statistics`, after them
+    "build_flagship": (jflagship.build_flagship, flagship.build_flagship),
 }
 #: the entry points where the port adds `device` (the CUDA card unless the
 #: caller asks for another), and no other parameter

@@ -13,7 +13,11 @@ DINOv2 trunk with the switch on against the JAX DINOv2Model with it on:
     the largest; bf16 within the bounds tests/test_torch_dinov2_train.py
     holds the bf16 trunk to;
   * the wrapper's own arithmetic: the scale and its bf16 terms, the
-    residuals it saves, the forward under torch.no_grad().
+    residuals it saves, the forward under torch.no_grad();
+  * the fp32 kernels' arithmetic: every fp32 operand as three bf16 terms
+    whose sum is it exactly, and an emulation of the kernels' products
+    (the six term products of SPLIT_PAIRS in their order, summed in fp32)
+    and exponentials against the plain versions, within 1e-5 of scale.
 
 The kernels themselves run only on the card
 (tests/test_torch_flash_trainable_cuda.py, `cuda`).
@@ -127,9 +131,11 @@ def test_plan_fits_the_card_and_covers_the_rows(batch_heads, d, seq):
     """flash_train_plan: every kernel's shared memory fits a block, the
     grids are within CUDA's limits, the row blocks cover every row and
     the last holds a live one, and the work counts are the kernels' cuts:
-    each 16-row warp with a live row multiplies, over each key tile's
-    8-key groups with a live key (exponentials) and 16-key groups
-    (products), counted here row by row and key by key."""
+    bf16, each 16-row warp with a live row multiplies, over each key
+    tile's 8-key groups with a live key (exponentials) and 16-key groups
+    (products); fp32, every row of its 64-row blocks, over the 8-key
+    groups and whole 64-key tiles; counted here row by row and key by
+    key. Every fp32 shape takes the fp32 route."""
     for dtype in (torch.bfloat16, torch.float32):
         plan = ft.flash_train_plan(batch_heads, seq, d, dtype)
         assert max(plan.smem_fwd, plan.smem_dq, plan.smem_dkdv) \
@@ -139,18 +145,23 @@ def test_plan_fits_the_card_and_covers_the_rows(batch_heads, d, seq):
         assert grid[1] == batch_heads
         assert (grid[0] - 1) * rows < seq <= grid[0] * rows
         assert plan.live_work == seq * seq
-        if dtype == torch.float32:
-            assert plan.score_work == plan.product_work == \
-                grid[0] * rows * seq
-            continue
-        assert plan.rows in (16, 32, 64)
-        live_rows = 16 * _groups(seq, rows, 16)
+        # every fp32 shape takes the fp32 route: all its operands as three
+        # bf16 terms, whatever the head dim
+        f32 = dtype == torch.float32
+        assert plan.route == ("fp32_split" if f32 else "bf16")
+        dn = plan.padded_dim
+        assert (plan.smem_fwd, plan.smem_dq, plan.smem_dkdv) == (
+            ft.fp32_smem(dn) if f32 else ft.bf16_smem(plan.q_terms, dn))
+        assert plan.rows == 64 if f32 else plan.rows in (16, 32, 64)
+        # fp32: whole 64-row blocks and 64-key products on `wgmma`
+        live_rows = rows * grid[0] if f32 else 16 * _groups(seq, rows, 16)
+        width = 64 if f32 else 16
         assert plan.score_work == \
             live_rows * 8 * _groups(seq, plan.key_tile, 8)
         assert plan.product_work == \
-            live_rows * 16 * _groups(seq, plan.key_tile, 16)
+            live_rows * width * _groups(seq, plan.key_tile, width)
         assert plan.padded_dim in (64, 128) and plan.padded_dim >= d
-        assert plan.q_terms == ft.q_terms(ft.softmax_scale(d))
+        assert plan.q_terms == (3 if f32 else ft.q_terms(ft.softmax_scale(d)))
 
 
 def test_plan_cuts_the_padding_at_the_flagship_shape():
@@ -233,3 +244,111 @@ def test_tiny_trunk_with_the_switch_matches_jax(pixels, dtype, monkeypatch):
         b = np.concatenate([ref[k].ravel() for k in sorted(ref)])
         a, b = a.astype(np.float64), b.astype(np.float64)
         assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.99
+
+
+# ------------------------- the fp32 kernels' arithmetic -------------------------
+
+#: the term products (i, j) whose fp32 sum is an fp32 product a . b in the
+#: fp32 kernels (a_i . b_j, i + j <= 2; the three left out are each below
+#: 2^-23 |a||b|), in the order they add them (csrc/flash_attention_train.cu
+#: `pair_a`, `pair_b`, `rs_pairs`): the small ones first, hi . hi last
+SPLIT_PAIRS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def split_terms(x):
+    """The three bf16 terms (hi, mid, lo) of an fp32 tensor, as the kernels
+    form them (`split3`): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x -
+    hi - mid), each difference in fp32."""
+    hi = x.bfloat16()
+    rest = x - hi.float()
+    mid = rest.bfloat16()
+    return hi, mid, (rest - mid.float()).bfloat16()
+
+
+@pytest.mark.parametrize("what", ["unit", "wide", "qs32", "qs128"])
+def test_the_three_terms_sum_to_the_fp32_value(what):
+    """hi + mid + lo == x bit for bit over seeded fp32 values: unit
+    normals, values over 2^-60 .. 2^60, and qs = fp32(q) * scale at head
+    dims 32 and 128 (the scales that are no power of two)."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(1 << 16).astype(np.float32)
+    if what == "wide":
+        x *= np.exp2(rng.uniform(-60, 60, x.shape)).astype(np.float32)
+    elif what.startswith("qs"):
+        x *= np.float32(ft.softmax_scale(int(what[2:])))
+    x = torch.tensor(x)
+    terms = split_terms(x)
+    assert all(t.dtype == torch.bfloat16 for t in terms)
+    total = sum(t.double() for t in terms)
+    assert torch.equal(total, x.double())
+    hi, mid, lo = (t.float() for t in terms)
+    assert torch.equal(hi + mid + lo, x)
+    # each term below the last's rounding: |mid| <= 2^-8 |hi|, the same on
+    assert bool((mid.abs() <= hi.abs() * 2 ** -8).all())
+    assert bool((lo.abs() <= mid.abs() * 2 ** -8).all())
+
+
+def _split_product(a, b):
+    """a . b as the fp32 kernels form it: the six term products of
+    SPLIT_PAIRS, each exact bf16 products summed in fp32, added in the
+    kernels' order, the small ones first."""
+    ta, tb = split_terms(a), split_terms(b)
+    out = None
+    for i, j in SPLIT_PAIRS:
+        term = ta[i].float() @ tb[j].float()
+        out = term if out is None else out + term
+    return out
+
+
+def _expo(x, m):
+    """exp(x - m) as the kernels form it: 2^(x log2(e) - m log2(e)), the
+    argument one fp32 FMA from m's product (here in fp64, rounded)."""
+    cl = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    nml = -(m * cl)
+    return torch.exp2((x.double() * cl.double() + nml.double()).float())
+
+
+def _emulate(q, k, v, g):
+    """The fp32 kernels' forward and backward on (B, S, H, D) inputs:
+    (o, m, n), (dq, dk, dv)."""
+    scale = ft.softmax_scale(q.shape[-1])
+    qs, kf, vf, gf = (t.transpose(1, 2) for t in (q * scale, k, v, g))
+    s = _split_product(qs, kf.transpose(-1, -2))
+    m = s.amax(-1)
+    e = _expo(s, m[..., None])
+    n = e.sum(-1)
+    rn = 1 / n[..., None]
+    p = e * rn
+    o = _split_product(p, vf)
+    dp = _split_product(gf, vf.transpose(-1, -2))
+    r = (dp * (1 / (n * n))[..., None] * e).sum(-1, keepdim=True)
+    ds = (dp * rn - r) * e
+    dq = _split_product(ds, kf) * scale
+    dk = _split_product(ds.transpose(-1, -2), qs)
+    dv = _split_product(p.transpose(-1, -2), gf)
+    return (o.transpose(1, 2), m, n), tuple(
+        t.transpose(1, 2) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("shape", [(2, 257, 3, 64), (2, 17, 3, 128)],
+                         ids=str)
+def test_the_split_arithmetic_matches_the_plain_versions(shape):
+    """The emulated fp32 kernels against mha_flash_trainable_fwd_reference
+    and _bwd_reference (the latter from the reference's own m, n), each
+    output within 1e-5 of its scale (max(|ref|, 1)), the bound the card's
+    kernels are held to; the margin reached is printed."""
+    rng = np.random.default_rng(shape[1])
+    q, k, v, g = (torch.tensor(rng.standard_normal(shape).astype(np.float32))
+                  for _ in range(4))
+    fwd, bwd = _emulate(q, k, v, g)
+    ref_fwd = ft.mha_flash_trainable_fwd_reference(q, k, v)
+    ref_bwd = ft.mha_flash_trainable_bwd_reference(q, k, v, g, *ref_fwd[1:])
+    margins = {}
+    for name, got, ref in zip(("o", "m", "n", "dq", "dk", "dv"),
+                              (*fwd, *bwd), (*ref_fwd, *ref_bwd)):
+        tol = 1e-5 * max(float(ref.abs().max()), 1.0)
+        err = float((got.float() - ref).abs().max())
+        margins[name] = err / tol
+        assert err <= tol, (name, err, tol)
+    print(f"{shape}: error / bound " + ", ".join(
+        f"{k} {v:.3f}" for k, v in margins.items()))

@@ -3,12 +3,13 @@
 PyTorch versions on the card, forward and backward, bf16 and fp32, at
 ragged sequences and head dims (the scalar loads at a head dim that is no
 multiple of 8, or at inputs that are not 16-byte aligned), and at the
-flagship's training and serving shapes; each bf16 shape again with every
+flagship's training and serving shapes; each shape again with every
 block at 64 rows (the plan for a card of one multiprocessor), so that the
 blocks whose rows fill the warpgroup take `wgmma` at every ragged edge
 too; two runs bit for bit; a batch's outputs untouched by the next
 batch's non-finite rows; the launches the autograd.Function makes with
-and without grad and under remat.
+and without grad and under remat, and the fp32 route's (every fp32
+operand as three bf16 terms on the tensor cores) in each fp32 case.
 
 Skips where there is no CUDA device. On a GPU host without JAX, skip the
 JAX-only conftest: `python -m pytest --noconftest -q
@@ -65,7 +66,11 @@ def close(got, ref, dtype, what=""):
 
 def _match_plain(q, k, v, g, dtype):
     """Forward and backward against the plain versions, and again bit for
-    bit."""
+    bit; fp32 inputs take the plan's fp32 route."""
+    batch, seq, heads, d = q.shape
+    plan = ft.flash_train_plan(batch * heads, seq, d, dtype, ft.SMS)
+    assert plan.route == ("fp32_split" if dtype == torch.float32 else "bf16")
+    ft.reset_launch_counts()
     o, m, n = ft.mha_flash_trainable_fwd(q, k, v)
     ro, rm, rn = ft.mha_flash_trainable_fwd_reference(q, k, v)
     torch.cuda.synchronize()
@@ -81,6 +86,9 @@ def _match_plain(q, k, v, g, dtype):
     again = (*ft.mha_flash_trainable_fwd(q, k, v),
              *ft.mha_flash_trainable_bwd(q, k, v, g, m, n))
     assert all(torch.equal(a, b) for a, b in zip((o, m, n, *grads), again))
+    f32 = int(dtype == torch.float32)
+    assert ft.LAUNCHES == dict.fromkeys(ft.LAUNCHES, 2)
+    assert ft.FP32_LAUNCHES == dict.fromkeys(ft.LAUNCHES, 2 * f32)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -96,9 +104,11 @@ def full_blocks(monkeypatch):
     monkeypatch.setattr(ft, "SMS", 1)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
-def test_full_blocks_match_plain(device, full_blocks, shape):
-    _match_plain(*_inputs(shape, torch.bfloat16, device), torch.bfloat16)
+def test_full_blocks_match_plain(device, full_blocks, shape, dtype):
+    dtype = DTYPES[dtype]
+    _match_plain(*_inputs(shape, dtype, device), dtype)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -134,17 +144,19 @@ def test_two_runs_repeat_bit_for_bit(device, monkeypatch, dtype, blocks):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("blocks", ["plan", "full"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_a_batch_never_reads_the_next(device, monkeypatch, head_dim,
-                                      blocks):
+                                      blocks, dtype):
     """A batch's outputs do not depend on the next batch's rows, not even
-    where they are not finite: the ring's copies (TMA at these head dims)
-    stop at S. Batch 0's o, m, n, dq, dk, dv with batch 1 all Inf and NaN
-    are those with batch 1 finite, bit for bit."""
+    where they are not finite: the ring's copies (TMA at these head dims;
+    in fp32 from the terms' scratch, a slab per head and term) stop at S.
+    Batch 0's o, m, n, dq, dk, dv with batch 1 all Inf and NaN are those
+    with batch 1 finite, bit for bit."""
     if blocks == "full":
         monkeypatch.setattr(ft, "SMS", 1)
-    clean = _inputs((2, 257, 4, head_dim), torch.bfloat16, device, seed=4)
+    clean = _inputs((2, 257, 4, head_dim), DTYPES[dtype], device, seed=4)
     poisoned = [t.clone() for t in clean]
     for i, t in enumerate(poisoned):
         t[1] = float("nan") if i % 2 else float("inf")
@@ -180,3 +192,8 @@ def test_launches_with_and_without_grad_and_under_remat(device):
     ft.reset_launch_counts()
     ft.mha_flash_trainable_reference(*leaves).backward(g)
     assert set(ft.LAUNCHES.values()) == {0}
+    # fp32 leaves: the same launches, on the fp32 route
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ft.mha_flash_trainable(*leaves).backward(g.float())
+    assert ft.LAUNCHES == ft.FP32_LAUNCHES == {
+        "mha_flash_trainable_fwd": 1, "mha_flash_trainable_bwd": 1}

@@ -33,7 +33,8 @@ def _tiny_batch():
 
 
 ENTRY_POINTS = {
-    "build_flagship": lambda **kw: build_flagship(tiny=True, **kw)[0],
+    "build_flagship": lambda **kw: build_flagship(
+        tiny=True, encoder_dtype="bfloat16", **kw)[0],
     "from_config": lambda **kw: HyperVLA.from_config(
         tiny_test_config(), _tiny_batch(), **kw),
     "build_frozen_encoders": lambda **kw: build_frozen_encoders(

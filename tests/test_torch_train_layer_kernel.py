@@ -188,7 +188,8 @@ def test_layer_kernel_trunk_reaches_the_fp32_leaves():
 
 
 def _make_step(config):
-    model, _ = build_flagship(tiny=True, training=True, device="cpu")
+    model, _ = build_flagship(tiny=True, encoder_dtype="bfloat16",
+                              training=True, device="cpu")
     tx, lr_fn, base_lr_fn, pnorm_fn = topt.create_optimizer(
         model.params, topt.hn_param_type_tree(model.params),
         **config["optimizer"])

@@ -71,7 +71,8 @@ def main() -> int:
         print("no CUDA card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    model, _ = build_flagship(seed=SEED, device=device, training=True)
+    model, _ = build_flagship(seed=SEED, encoder_dtype="bfloat16",
+                              training=True, device=device)
     config = apply_fast_training_preset(copy.deepcopy(model.config))
     params = {k: v.detach() for k, v in model.params.items()}
     tx, _, _, _ = optimizer.create_optimizer(
