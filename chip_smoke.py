@@ -261,6 +261,15 @@
    model's steps are timed (CUDA events) and traced once (device busy,
    kernels, idle share, peak GiB; the CLIP, EfficientNet and SigLIP steps
    untraced).
+13. Entry phase: hypervla_tpu_torch/entry.py::entry(), the counterpart of
+   __graft_entry__.py::entry(), at full width on the card (the flagship
+   of build_flagship() with no arguments: fp32 trunk, the config's own
+   switches), then its fn on its example args: a finite (1, 4, 7) action
+   chunk, no launch of any of the ten kernel rows' wrappers (the path
+   runs none), and the same fn on the CPU, params and inputs copied over,
+   within 1e-4 (fp32, TF32 off). fn, its hypernetwork half and its
+   base-net half are each timed (the median of 10 calls, CUDA events) and
+   traced once (device busy, kernels, idle share).
 Every phase prints its seconds as `phase <name> s <seconds>`.
 
 The kernels redesigned for Hopper, the training attention (forward and
@@ -6307,6 +6316,104 @@ def encoders_phase(device, card):
     return out
 
 
+#: calls of entry()'s fn timed on the card (the median is printed)
+ENTRY_CALLS = 10
+#: the entry phase's actions, card against CPU, fp32 with TF32 off
+ENTRY_ACTION_TOL = 1e-4
+#: the flagship's action chunk of one frame
+ENTRY_ACTION_SHAPE = (1, 4, 7)
+
+
+def _ten_kernel_counts():
+    """The launch counters of the ten TPU kernel rows' wrappers (the nine
+    TPU kernels' and the differentiable flash attention's)."""
+    from hypervla_tpu_torch.ops import flash_attention_train as ft
+
+    modules, counts = _nine_kernel_counts()
+    modules = (*modules, ft)
+    return modules, lambda: {**counts(), **ft.LAUNCHES,
+                             **{f"{k}_fp32": v
+                                for k, v in ft.FP32_LAUNCHES.items()}}
+
+
+def entry_phase(device, card):
+    """hypervla_tpu_torch/entry.py::entry() at full width on the card
+    (module docstring, phase 13)."""
+    import torch
+
+    from hypervla_tpu_torch.entry import entry
+
+    t_phase = time.perf_counter()
+    fn, args = entry()
+    params = args[0]
+    if params[next(iter(params))].device.type != device.type:
+        raise AssertionError("entry(): the params are not on the card")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+
+    modules, counts = _ten_kernel_counts()
+    for module in modules:
+        module.reset_launch_counts()
+    actions = fn(*args)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"entry: kernels launched on a path that runs "
+                             f"none (the fp32 trunk): {launched}")
+    if tuple(actions.shape) != ENTRY_ACTION_SHAPE or not torch.isfinite(
+            actions).all():
+        raise AssertionError(f"entry: actions {tuple(actions.shape)} "
+                             f"{actions}")
+
+    # the same fn on the CPU, the params and inputs copied over
+    cpu_args = (*(_to(a, "cpu") for a in args[:5]),
+                torch.Generator().manual_seed(0))
+    cpu_actions = fn(*cpu_args)
+    err = float((actions.cpu() - cpu_actions).abs().max())
+    if not err <= ENTRY_ACTION_TOL:
+        raise AssertionError(f"entry: the card's actions {err} off the "
+                             f"CPU's (bound {ENTRY_ACTION_TOL})")
+    del cpu_args, cpu_actions
+
+    def timed(call):
+        """ms of each of ENTRY_CALLS calls (CUDA events), after one."""
+        call()
+        out = []
+        for _ in range(ENTRY_CALLS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+    tasks, initial_state, images, rng = args[1], args[2], args[3], args[5]
+    base_params = fn.generate(params, tasks, initial_state)
+    calls = {
+        "fn": lambda: fn(*args),
+        "hypernet half": lambda: fn.generate(params, tasks, initial_state),
+        "base-net half": lambda: fn.act(base_params, tasks, images, rng),
+    }
+    report = []
+    for name, call in calls.items():
+        ms = statistics.median(timed(call))
+        busy, kernels = device_busy(call)
+        report.append(f"{name} {ms:.4f} ms (median of {ENTRY_CALLS}, CUDA "
+                      f"events), device busy {busy:.4f} ms in {kernels:.0f} "
+                      f"kernels, idle share {1 - busy / ms:.3f}")
+    log(f"entry: entry() built the flagship (fp32 trunk, "
+        f"{sum(v.numel() for v in params.values())} params, the shared "
+        f"DINOv2 among them) on the card in {build_s:.2f} s; fn's "
+        f"{ENTRY_ACTION_SHAPE} actions within {err:.3g} of the CPU's (bound "
+        f"{ENTRY_ACTION_TOL}, fp32, TF32 off), no kernel of the port "
+        "launched; " + "; ".join(report) + f"; card {card}")
+    del fn, args, params, base_params, calls
+    torch.cuda.empty_cache()
+    log(f"entry phase s {time.perf_counter() - t_phase:.3f}")
+
+
 def seeded_pretrained_dir(root: str) -> None:
     """Writes the frozen encoders' seeded inits under root as the files
     the port loads from $HYPERVLA_PRETRAINED_DIR (models/encoders/
@@ -6339,6 +6446,7 @@ def main() -> int:
     # without asking the network
     os.environ.setdefault("HF_HUB_OFFLINE", "1")
     os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -6423,6 +6531,7 @@ def main() -> int:
     octo_cpu_step = phase("octo", octo_phase, device, card)
     phase("encoders", encoders_phase, device, card)
     phase("octo_cpu_step", octo_cpu_step)
+    phase("entry", entry_phase, device, card)
 
     # the configuration whose steps launch each training kernel
     path_of = dict.fromkeys(TRAIN_KERNELS, "layer_kernel")
@@ -6482,6 +6591,7 @@ def main() -> int:
         "the flash-trainable train steps, *_fp32 the same in fp32 (bound at "
         "989/6 TFLOP/s), launches over the fp32 --flash steps, library_ms "
         "scaled_dot_product_attention's forward, or its backward alone")
+    log(f"chip_smoke total s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,12 @@ Also here, InferenceWrapper's JAX defaults at work: image_size 256, at
 which a DINOv2 model's step fails with the JAX package's AssertionError,
 and trunk_kernel's JAX values mapped to the port's trunk_impl."""
 import inspect
+import types
 
 import numpy as np
 import pytest
 
+import __graft_entry__ as jentry
 from hypervla_tpu.data import text_processing as jtext
 from hypervla_tpu.data.converters import metaworld as jmetaworld
 from hypervla_tpu.eval import gym_wrappers as jwrappers
@@ -38,6 +40,7 @@ from hypervla_tpu.ops import serving as jserving
 from hypervla_tpu.train import callbacks as jcallbacks
 from hypervla_tpu.train import trainer as jtrainer
 from hypervla_tpu.utils.static import static_dict
+from hypervla_tpu_torch import entry
 from hypervla_tpu_torch.data import text_processing
 from hypervla_tpu_torch.data.converters import metaworld
 from hypervla_tpu_torch.eval import gym_wrappers
@@ -132,13 +135,16 @@ ENTRY_POINTS = {
     "convert_rlds.convert": (jconvert_rlds.convert, convert_rlds.convert),
     # the port's also take `device` and `dataset_statistics`, after them
     "build_flagship": (jflagship.build_flagship, flagship.build_flagship),
+    "entry": (jentry.entry, entry.entry),
+    # the step that entry() returns (`_entry_fns`)
+    "entry.fn": (None, None),
 }
 #: the entry points where the port adds `device` (the CUDA card unless the
 #: caller asks for another), and no other parameter
 WITH_DEVICE = {"load_hypervla_policy", "train", "HFTokenizer",
                "OctoModel.from_config", "OctoModel.load_pretrained",
                "octo_train.run", "BaseModel.from_config",
-               "BaseModel.load_pretrained"}
+               "BaseModel.load_pretrained", "entry"}
 #: the entry points of the eval stack and the text processors, which take
 #: the JAX parameters and, where WITH_DEVICE names them, `device`
 NEW_ENTRY_POINTS = ("simpler.evaluate", "libero.evaluate", "HFTokenizer",
@@ -153,7 +159,8 @@ NEW_ENTRY_POINTS = ("simpler.evaluate", "libero.evaluate", "HFTokenizer",
                     "BaseModel.create_tasks", "BaseModel.save_pretrained",
                     "BaseModel.load_pretrained", "mha_flash_trainable",
                     "metaworld.convert_episode",
-                    "metaworld.convert_directory", "convert_rlds.convert")
+                    "metaworld.convert_directory", "convert_rlds.convert",
+                    "entry", "entry.fn")
 #: the TPU-only parameters the port leaves out (the module docstring)
 TPU_ONLY = ("pack_args", "keep_bytes", "coerce")
 
@@ -162,7 +169,9 @@ def test_the_tpu_only_list_names_the_packer_and_its_arguments():
     packer = inspect.signature(jserving.make_arg_packer).parameters
     assert set(TPU_ONLY) == {"pack_args"} | (set(packer) - {"example_tree"})
     for _, port in ENTRY_POINTS.values():
-        assert not set(TPU_ONLY) & set(inspect.signature(port).parameters)
+        if port is not None:  # entry.fn: only the JAX parameters, below
+            assert not set(TPU_ONLY) & set(
+                inspect.signature(port).parameters)
 
 
 def _jax_octo_run():
@@ -172,9 +181,24 @@ def _jax_octo_run():
     return run
 
 
+def _entry_fns(monkeypatch):
+    """The fn of each package's entry(), over a stand-in model (fn's
+    signature does not depend on it)."""
+    stub = types.SimpleNamespace(params={}, plan=None, hypernet=None,
+                                 base_net=None)
+    kw = dict(instr_len=8, action_horizon=2, initial_patch_dim=32)
+    monkeypatch.setattr(jflagship, "build_flagship", lambda: (
+        stub, jflagship.make_flagship_batch(**kw)))
+    monkeypatch.setattr(flagship, "build_flagship", lambda device=None: (
+        stub, flagship.make_flagship_batch(**kw)))
+    return jentry.entry()[0], entry.entry(device="cpu")[0]
+
+
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
-def test_every_jax_parameter_is_the_ports(name):
+def test_every_jax_parameter_is_the_ports(name, monkeypatch):
     jax_fn, port_fn = ENTRY_POINTS[name]
+    if name == "entry.fn":
+        jax_fn, port_fn = _entry_fns(monkeypatch)
     jax_fn = jax_fn or _jax_octo_run()
     ref = inspect.signature(jax_fn).parameters
     got = inspect.signature(port_fn).parameters

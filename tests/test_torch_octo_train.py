@@ -14,10 +14,21 @@ against the JAX package's on the CPU, fp32.
     under share_layer_index the same params and the same train-step loss
     and gradients as the JAX step's per-sample loss; KeyError without
     share_layer_index and TypeError at serving, in both packages.
+
+Both runs tokenize the instructions with FallbackTokenizer (no
+tokenizer files are in the repository), whose word ids come from Python's
+`hash`, salted per process. The runs take them from crc32 instead
+(`salt_free_word_ids`): under the salted `hash` the runs' inputs changed
+with the test worker's PYTHONHASHSEED, and at some salts (13, one of the
+24 salts 0-23) a final param missed its 1e-5 bound by up to 1.12x
+(ROADMAP.md C.2).
 """
 import copy
 import json
 import os
+import subprocess
+import sys
+import zlib
 
 import flax
 import jax
@@ -27,11 +38,13 @@ import torch
 
 from helpers import make_example_batch
 from hypervla_tpu.configs import tiny_test_config as jax_tiny_config
+from hypervla_tpu.data import text_processing as jtext
 from hypervla_tpu.models import action_heads as jah
 from hypervla_tpu.models.hypervla import HyperVLA as JaxHyperVLA
 from hypervla_tpu.train import trainer as jtrainer
 from hypervla_tpu.utils.spec import ModuleSpec as JaxSpec
 from hypervla_tpu_torch.configs import tiny_test_config
+from hypervla_tpu_torch.data import text_processing as ttext
 from hypervla_tpu_torch.models import action_heads as ah
 from hypervla_tpu_torch.models.draws import Draws
 from hypervla_tpu_torch.models.hypervla import HyperVLA
@@ -168,13 +181,31 @@ def _recorded(module, losses):
     return record
 
 
+def crc32_hash(word: str) -> int:
+    """A word's FallbackTokenizer id source, the same in every process."""
+    return zlib.crc32(word.encode())
+
+
+def salt_free_word_ids(monkeypatch):
+    """Both packages' FallbackTokenizer take word ids from crc32 instead of
+    the salted builtin `hash` (each reads `hash` from its module)."""
+    for module in (jtext, ttext):
+        monkeypatch.setattr(module, "hash", crc32_hash, raising=False)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both drivers' 2-step runs: (JAX model, JAX params, JAX losses, port
-    params, port losses, port save dir, draws)."""
+    params, port losses, port save dir, draws). The patches are undone
+    whether the runs end or raise."""
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        return _runs(monkeypatch, tmp_path_factory)
+
+
+def _runs(monkeypatch, tmp_path_factory):
     from scripts.octo_train import run as jax_run
 
-    monkeypatch = pytest.MonkeyPatch()
+    salt_free_word_ids(monkeypatch)
     config = octo_train_config()
     jlosses, losses = [], []
     monkeypatch.setattr(jah, "continuous_loss",
@@ -211,7 +242,6 @@ def runs(tmp_path_factory):
     _, params = octo_train.run(port_config, save_dir=save_dir,
                                num_steps=STEPS, dataset=FixedDataset(),
                                device="cpu")
-    monkeypatch.undo()
     return (jmodel, flatten_tree(jparams), jlosses, params, losses,
             save_dir, draws)
 
@@ -238,6 +268,27 @@ def test_run_matches_jax(runs):
         np.testing.assert_allclose(params[name].numpy(), np.asarray(value),
                                    rtol=1e-5, atol=1e-5 * scale,
                                    err_msg=name)
+
+
+#: a salt at which test_run_matches_jax failed while the word ids came from
+#: the salted `hash`
+FAILING_SALT = "13"
+
+
+def test_run_matches_jax_at_a_salt_that_failed():
+    """test_run_matches_jax in a child process under PYTHONHASHSEED 13, at
+    which it failed while the runs' word ids came from `hash`."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PYTEST_")}
+    env["PYTHONHASHSEED"] = FAILING_SALT
+    tests = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:randomly", os.path.join(
+             "tests", os.path.basename(__file__)) + "::test_run_matches_jax"],
+        cwd=os.path.dirname(tests), env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
 
 
 def test_run_saves_a_checkpoint_the_port_loads(runs):
